@@ -1,9 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
     python chip_smoke.py                      # every phase, all 4 episodes
-    python chip_smoke.py --profile            # also a torch.profiler pass
+    python chip_smoke.py --profile            # also torch.profiler passes
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. device — the card, and ``nvidia-smi``'s name and power limit;
 2. build  — compiles ``src/repro_torch/csrc/*.cu`` with nvcc;
@@ -12,13 +12,20 @@ Phases, each printing one JSON line:
    CUDA-event device times (L2 emptied first) of the kernel, the plain
    version and the one PyTorch library call that computes the same
    function, the kernel's time with its inputs in L2, the wrapper's cost
-   per call on the host clock, and the byte bound on this run's data;
+   per call on the host clock, and the bound on this run's data (bytes,
+   or tensor-core operations for prefill attention);
 4. episodes — the golden autoscaling episodes (q8/q11 x justin/ds2, seed
    3, max_level 2, the reference's full sizes) through the port on the
    card, compared decision for decision with
    ``tests/data/golden_autoscale.json``; kernel launch counts are reset
    just before each episode and read just after, and an episode that
-   launched a kernel of its path no time fails.
+   launched a kernel of its path no time fails;
+5. serve — ``repro_torch.launch.serve.serve("llama3.2-3b", reduced=False)``
+   on the card at full width: 8 requests of 2,048 prompt tokens, 128
+   greedy decode steps; the attention kernels' launch counts are reset
+   just before and must be 28 per prefill and 28 per decode step.  Then
+   the decode step at position 2,048 is held against a prefill over the
+   prompt plus that token (2 requests, max|diff|/max|ref| < 0.03).
 
 Any mismatch or exception exits non-zero; only after every phase passed
 are the kernel table, the ``nvidia-smi`` line and the final
@@ -39,7 +46,19 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "golden_autoscale.json"
 OUT = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores (data sheet)
 F32_TOL = dict(rtol=1e-5, atol=1e-4)   # atomic f32 sums, order varies
+# attention, checked per output vector (one (b, head, query) row over D):
+# max|got - want| <= rel * max|want| + atol.  f32 sums differ from the
+# plain version's only in order.  bf16: both round the output to bf16 and
+# the flash kernel rounds the probabilities to bf16 for the tensor-core
+# product, so a vector may land up to two bf16 steps of its largest
+# element (2^-6 of it) away; a vector that has lost or gained a few keys
+# moves further (most vectors of the serve shapes even for one key)
+ATTN_TOL = {"float32": dict(rel=0.0, atol=1e-5),
+            "bfloat16": dict(rel=2.0 ** -6, atol=1e-6)}
+ARCH = "llama3.2-3b"
+SERVE = dict(requests=8, prompt_len=2048, decode=128)
 
 
 def emit(obj: dict) -> None:
@@ -347,6 +366,255 @@ def check_agg(torch, dev) -> dict:
     return res
 
 
+# --------------------------------------------------------- flash_attention
+def _randn(torch, g, shape, dev, dtype):
+    return torch.randn(shape, generator=g).to(dev, dtype)
+
+
+def attn_err(torch, got, want, dtype: str, label: str) -> tuple[float, float]:
+    """(max|got - want|, the largest share of its vector's max|want| that
+    a vector's max|got - want| takes); raises unless every output vector
+    is within ATTN_TOL[dtype] (NaN is not)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: got {got.dtype} {tuple(got.shape)}, "
+                             f"want {want.dtype} {tuple(want.shape)}")
+    tol = ATTN_TOL[dtype]
+    diff = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    bad = ~(diff <= tol["rel"] * scale + tol["atol"])
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{label}: {int(bad.sum())} of {bad.numel()} output vectors "
+            f"off, worst max|diff| {float(diff.max())}")
+    return float(diff.max()), float((diff / scale.clamp_min(1e-30)).max())
+
+
+def flash_cases(torch, dev):
+    """(label, dtype name, q, k, v, causal, window) over Sq/Skv 1, 7, 300,
+    513, 2048 (and Sq < Skv, and Sq > Skv, where causal leaves the first
+    rows no key), D 64/80/128, GQA 1/3/4, causal on and off, window None
+    and 64, bf16 and f32."""
+    g = torch.Generator(device="cpu").manual_seed(31)
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        for sq, skv in ((1, 1), (7, 7), (300, 300), (513, 513),
+                        (2048, 2048), (7, 300), (1, 513), (513, 300)):
+            for d in (64, 80, 128):
+                for hq, hk in ((4, 4), (3, 1), (8, 2)):
+                    b = 1 if sq == 2048 else 2
+                    q = _randn(torch, g, (b, hq, sq, d), dev, dt)
+                    k = _randn(torch, g, (b, hk, skv, d), dev, dt)
+                    v = _randn(torch, g, (b, hk, skv, d), dev, dt)
+                    for causal in (True, False):
+                        for window in (None, 64):
+                            yield (f"{name} Sq={sq} Skv={skv} D={d} "
+                                   f"{hq}:{hk} causal={causal} "
+                                   f"window={window}",
+                                   name, q, k, v, causal, window)
+
+
+def flash_main_shape(torch, dev):
+    """Prefill attention as the serve path calls it: q a [B, S, Hq, D]
+    projection seen as [B, Hq, S, D], k/v the [B, Hk, S, D] cache."""
+    g = torch.Generator(device="cpu").manual_seed(32)
+    b, s, hq, hk, d = SERVE["requests"], SERVE["prompt_len"], 24, 8, 128
+    q = _randn(torch, g, (b, s, hq, d), dev, torch.bfloat16).transpose(1, 2)
+    k = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
+    v = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
+    return q, k, v
+
+
+def flash_sweep(torch, dev) -> tuple[dict, int]:
+    """Every ``flash_cases`` case through the kernel and its plain version:
+    (worst max|diff| per dtype, cases run); raises on a mismatch."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_cases = 0
+    for label, name, q, k, v, causal, window in flash_cases(torch, dev):
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        worst[name] = max(worst[name],
+                          attn_err(torch, got, want, name, label)[0])
+        n_cases += 1
+    torch.cuda.synchronize()
+    return worst, n_cases
+
+
+def check_flash(torch, dev) -> dict:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn.kernel import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    worst, n_cases = flash_sweep(torch, dev)
+    q, k, v = flash_main_shape(torch, dev)
+    out = flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    err, rel = attn_err(torch, out, want, "bfloat16", "flash main-path shape")
+    typical = float(want.float().abs().median())
+    del want
+    b, hq, s, d = q.shape
+    hk = k.shape[1]
+    # the bare launch into a preallocated output, as the library call
+    import ctypes
+    fn = _build.library().flash_attn_bf16
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *out.stride()[:3])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            hk, s, s, d, strides, 1, 0,
+            torch.cuda.current_stream().cuda_stream)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = 4 * b * hq * d * s * (s + 1) // 2      # causal pairs only
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+    flop_ms = flops / BF16_FLOP_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    res = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn/kernel.py:102",
+        "max_abs_err": err, "max_rel_err": rel, "median_abs_ref": typical,
+        "sweep_cases": n_cases, "sweep_max_abs_err": worst,
+        "shape": f"q [{b}, {hq}, {s}, {d}] bf16 (a [B, S, H, D] buffer), "
+                 f"k/v [{b}, {hk}, {s}, {d}], causal",
+        "ms": device_ms(lambda: fn(*args), cold=True),
+        "warm_ms": device_ms(lambda: fn(*args), cold=False, reps=10),
+        "wrapper_ms": call_ms(lambda: flash_attention(q, k, v, causal=True),
+                              reps=10),
+        "plain_ms": device_ms(
+            lambda: flash_attention_ref(q, k, v, causal=True), cold=True,
+            reps=5),
+        "library_ms": device_ms(
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+            cold=True),
+        "bound_flop": flops, "bound_bytes": nbytes,
+        "bound_ms": max(flop_ms, byte_ms),
+        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+    }
+    emit({"phase": "kernel", **res})
+    return res
+
+
+# -------------------------------------------------------- decode_attention
+def decode_cases(torch, dev):
+    """(label, dtype name, q, k, v, valid_len) over S 1, 7, 300, 513, 2048,
+    D 64/80/128, GQA 1/3/4, valid_len 0, 1, S and ragged, bf16 and f32."""
+    g = torch.Generator(device="cpu").manual_seed(41)
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        for s in (1, 7, 300, 513, 2048):
+            for d in (64, 80, 128):
+                for hq, hk in ((4, 4), (3, 1), (8, 2)):
+                    q = _randn(torch, g, (4, hq, d), dev, dt)
+                    k = _randn(torch, g, (4, hk, s, d), dev, dt)
+                    v = _randn(torch, g, (4, hk, s, d), dev, dt)
+                    for lens in ([0, 1, s, s],
+                                 [s, max(1, s // 3), 0, min(s, 5)]):
+                        vl = torch.tensor(lens, dtype=torch.int32,
+                                          device=dev)
+                        yield (f"{name} S={s} D={d} {hq}:{hk} "
+                               f"valid_len={lens}", name, q, k, v, vl)
+
+
+def decode_main_shape(torch, dev):
+    """Decode attention as the serve path calls it: q [8, 24, 128] bf16
+    against one layer's [8, 8, 2176, 128] cache, valid_len 2049..2176 (the
+    range the 128 decode steps run through, one per request here)."""
+    g = torch.Generator(device="cpu").manual_seed(42)
+    b, hq, hk, d = SERVE["requests"], 24, 8, 128
+    s = SERVE["prompt_len"] + SERVE["decode"]
+    q = _randn(torch, g, (b, 1, hq, d), dev, torch.bfloat16)[:, 0]
+    k = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
+    v = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
+    vl = torch.linspace(SERVE["prompt_len"] + 1, s, b).round().to(
+        dev, torch.int32)
+    return q, k, v, vl
+
+
+def decode_sweep(torch, dev) -> tuple[dict, int]:
+    """Every ``decode_cases`` case through the kernel and its plain
+    version, and again with garbage past valid_len: (worst max|diff| per
+    dtype, cases run); raises on a mismatch."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attention
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_cases = 0
+    for label, name, q, k, v, vl in decode_cases(torch, dev):
+        got = decode_attention(q, k, v, vl)
+        want = decode_attention_ref(q, k, v, vl)
+        worst[name] = max(worst[name],
+                          attn_err(torch, got, want, name, label)[0])
+        # garbage past valid_len (NaN values included) changes nothing
+        past = (torch.arange(k.shape[2], device=dev)[None, :]
+                >= vl[:, None].long())[:, None, :, None]
+        again = decode_attention(q, k.masked_fill(past, 999.0),
+                                 v.masked_fill(past, float("nan")), vl)
+        if not torch.equal(again, got):
+            raise AssertionError(f"decode_attention read past valid_len: "
+                                 f"{label}")
+        n_cases += 1
+    torch.cuda.synchronize()
+    return worst, n_cases
+
+
+def check_decode(torch, dev) -> dict:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attn.kernel import (_sm_count,
+                                                        decode_attention,
+                                                        split_plan)
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    worst, n_cases = decode_sweep(torch, dev)
+    q, k, v, vl = decode_main_shape(torch, dev)
+    out = decode_attention(q, k, v, vl)
+    want = decode_attention_ref(q, k, v, vl)
+    err, rel = attn_err(torch, out, want, "bfloat16",
+                        "decode main-path shape")
+    typical = float(want.float().abs().median())
+    b, hq, d = q.shape
+    _, hk, s, _ = k.shape
+    import ctypes
+    fn = _build.library().decode_attn_bf16
+    chunk, n_splits = split_plan(b, hk, s, _sm_count(out.device.index))
+    part_ml = torch.empty((2, b, hq, n_splits), device=dev)
+    part_acc = torch.empty((b, hq, n_splits, d), device=dev)
+    strides = (ctypes.c_int64 * 10)(*q.stride()[:2], *k.stride()[:3],
+                                    *v.stride()[:3], *out.stride()[:2])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(),
+            out.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
+            part_acc.data_ptr(), b, hq, hk, s, d, strides, chunk, n_splits,
+            torch.cuda.current_stream().cuda_stream)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (torch.arange(s, device=dev)[None, :] < vl[:, None].long()
+            )[:, None, None, :]
+    q4 = q[:, :, None]
+    total = int(vl.long().sum())
+    nbytes = 2 * total * hk * d * 2 + 2 * 2 * q.numel() + 4 * b
+    flops = 4 * hq * d * total
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / BF16_FLOP_PER_S * 1e3
+    res = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attn.cu",
+        "replaces": "src/repro/kernels/decode_attn/kernel.py:81",
+        "max_abs_err": err, "max_rel_err": rel, "median_abs_ref": typical,
+        "sweep_cases": n_cases, "sweep_max_abs_err": worst,
+        "shape": f"q [{b}, {hq}, {d}] bf16, caches [{b}, {hk}, {s}, {d}], "
+                 f"valid_len {vl.tolist()}",
+        "splits": n_splits, "chunk": chunk,
+        "ms": device_ms(lambda: fn(*args), cold=True),
+        "warm_ms": device_ms(lambda: fn(*args), cold=False),
+        "wrapper_ms": call_ms(lambda: decode_attention(q, k, v, vl)),
+        "plain_ms": device_ms(lambda: decode_attention_ref(q, k, v, vl),
+                              cold=True),
+        "library_ms": device_ms(
+            lambda: sdpa(q4, k, v, attn_mask=mask, enable_gqa=True),
+            cold=True),
+        "bound_bytes": nbytes, "bound_flop": flops,
+        "bound_ms": max(byte_ms, flop_ms),
+        "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+    }
+    emit({"phase": "kernel", **res})
+    return res
+
+
 # ---------------------------------------------------------------- episodes
 def run_episode(key: str, golden: dict, dev: str) -> dict:
     """One golden episode through the port, compared as the reference's
@@ -425,10 +693,103 @@ def profile_episode(key: str, golden: dict, dev: str,
                   for e in on_dev[:15]]})
 
 
+# ------------------------------------------------------------------- serve
+def run_serve(torch, dev: str) -> dict:
+    """The serving path at full width through the user's entry point; the
+    attention kernels' launch counts are reset just before and read just
+    after."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops as decode_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch.serve import serve
+    cfg = get_config(ARCH)
+    flash_ops.launches = 0
+    decode_ops.launches = 0
+    res = serve(ARCH, reduced=False, verbose=False, device=dev, **SERVE)
+    launches = {"flash_attention": flash_ops.launches,
+                "decode_attention": decode_ops.launches}
+    want = {"flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * SERVE["decode"]}
+    if launches != want or res["launches"] != want:
+        raise AssertionError(f"serve launched {launches} "
+                             f"(reported {res['launches']}), want {want}")
+    if res["generated"] != SERVE["decode"] + 1 or not all(
+            0 <= t < cfg.vocab_size for t in res["sample"]):
+        raise AssertionError(f"serve output malformed: {res}")
+    emit({"phase": "serve", "reduced": False, **SERVE, **res})
+    return launches
+
+
+def check_decode_matches_prefill(torch, dev: str) -> dict:
+    """Full width: the decode step at position S == the last logits of a
+    prefill over S + 1 tokens (the reference's
+    tests/test_models.py::test_decode_matches_prefill, 2 requests)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import cast_params
+    cfg = get_config(ARCH)
+    model = get_model(cfg)
+    params = cast_params(model.init(cfg, torch.Generator(dev).manual_seed(1)),
+                         cfg)
+    b, s = 2, SERVE["prompt_len"]
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, s + 1)), device=dev)
+    _, caches = model.prefill(params, {"tokens": toks[:, :s]}, cfg)
+    caches = {n: {kv: F.pad(c, (0, 0, 0, 1)) for kv, c in g.items()}
+              for n, g in caches.items()}
+    got, _ = model.decode(params, caches, toks[:, s:], s, cfg)
+    ref, _ = model.prefill(params, {"tokens": toks}, cfg)
+    if got.shape != (b, cfg.padded_vocab) or not bool(
+            torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise AssertionError("decode/prefill logits malformed")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    res = {"phase": "decode_vs_prefill", "arch": ARCH, "requests": b,
+           "position": s, "max_abs_ref": float(ref.abs().max()),
+           "rel_err": rel, "limit": 0.03,
+           "argmax_equal": bool(torch.equal(got.argmax(-1),
+                                            ref.argmax(-1)))}
+    emit(res)
+    if not rel < 0.03:
+        raise AssertionError(f"decode differs from prefill: {rel}")
+    return res
+
+
+def profile_serve(torch) -> None:
+    """Prefill and 8 decode steps at full width under torch.profiler:
+    device time by kernel and CUDA kernels launched per decode step,
+    written to chiprun_out/."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import serve
+    OUT.mkdir(exist_ok=True)
+    steps = 8
+    kw = dict(SERVE, decode=steps)
+    serve(ARCH, reduced=False, verbose=False, **kw)       # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = serve(ARCH, reduced=False, verbose=False, **kw)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    (OUT / "profile_serve.txt").write_text(
+        avgs.table(sort_by="self_device_time_total", row_limit=60))
+    on_dev = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    emit({"phase": "profile_serve", "decode_steps": steps,
+          "wall_s_profiled": res["wall_s"],
+          "device_ms": sum(e.self_device_time_total for e in on_dev) / 1e3,
+          "device_events": sum(e.count for e in on_dev),
+          "top": [{"name": e.key[:70], "count": e.count,
+                   "device_ms": e.self_device_time_total / 1e3}
+                  for e in on_dev[:20]]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile q8_justin into chiprun_out/")
+                    help="also profile q8_justin and the serve path into "
+                         "chiprun_out/")
     args = ap.parse_args(argv)
 
     import torch
@@ -437,6 +798,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # float32 products in full f32 (the plain versions and the logits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     golden = json.loads(GOLDEN.read_text())
     t_start = time.perf_counter()
 
@@ -458,8 +822,10 @@ def main(argv=None) -> int:
           **_build.build_info})
 
     # 3. kernels against their plain versions
-    rows = [check_probe(torch, dev), check_agg(torch, dev)]
-    emit({"kernels": ["sorted_probe", "window_agg"]})
+    rows = [check_probe(torch, dev), check_agg(torch, dev),
+            check_flash(torch, dev), check_decode(torch, dev)]
+    torch.cuda.empty_cache()
+    emit({"kernels": [r["name"] for r in rows]})
 
     # 4. golden episodes on the card
     from repro_torch.kernels.sorted_probe import ops as probe_ops
@@ -485,6 +851,14 @@ def main(argv=None) -> int:
             totals[k] += n
     if args.profile:
         profile_episode("q8_justin", golden, dev, walls.get("q8_justin"))
+
+    # 5. serve at full width
+    totals.update(run_serve(torch, dev))
+    torch.cuda.empty_cache()
+    check_decode_matches_prefill(torch, dev)
+    torch.cuda.empty_cache()
+    if args.profile:
+        profile_serve(torch)
 
     for row in rows:
         row["launches"] = totals[row["name"]]

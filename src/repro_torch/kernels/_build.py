@@ -26,6 +26,7 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_S = ctypes.POINTER(ctypes.c_int64)     # a host array of element strides
 # every exported symbol: (argtypes, restype)
 _SIGNATURES = {
     # table, t, queries, n, pos, found, stream
@@ -34,6 +35,18 @@ _SIGNATURES = {
     # seg, values, n, v, s, sums, counts, stream
     "window_agg_f32": ([_P, _P, _L, _L, _L, _P, _P, _P], _I),
     "window_agg_i64": ([_P, _P, _L, _L, _L, _P, _P, _P], _I),
+    # q, k, v, out, b, hq, hk, sq, skv, d, strides[12], causal, window,
+    # stream
+    "flash_attn_bf16": ([_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L, _L,
+                         _P], _I),
+    "flash_attn_f32": ([_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L, _L,
+                        _P], _I),
+    # q, k, v, valid_len, out, part_m, part_l, part_acc, b, hq, hk, s, d,
+    # strides[10], chunk, n_splits, stream
+    "decode_attn_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
+                          _S, _L, _L, _P], _I),
+    "decode_attn_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
+                         _S, _L, _L, _P], _I),
 }
 
 _lib: ctypes.CDLL | None = None

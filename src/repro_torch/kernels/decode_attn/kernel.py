@@ -1,0 +1,96 @@
+"""ctypes binding of the CUDA decode-attention kernel (csrc/decode_attn.cu)."""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+_FN = {torch.bfloat16: "decode_attn_bf16", torch.float32: "decode_attn_f32"}
+MAX_D = 128
+MAX_GROUP = 8          # q-heads per KV head one block serves
+TILE = 64              # cache slots per tile (a split is a multiple)
+BLOCKS_PER_SM = 4      # splits aim at this many blocks per SM
+
+
+def split_plan(batch: int, kv_heads: int, slots: int, sms: int
+               ) -> tuple[int, int]:
+    """(chunk, n_splits): the cache is cut along S into n_splits chunks of
+    ``chunk`` slots so that batch * kv_heads * n_splits blocks give every
+    SM about BLOCKS_PER_SM blocks."""
+    want = min(max(1, _cdiv(BLOCKS_PER_SM * sms, batch * kv_heads)),
+               _cdiv(slots, TILE))
+    chunk = _cdiv(_cdiv(slots, want), TILE) * TILE
+    return chunk, _cdiv(slots, chunk)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid_len: torch.Tensor
+                     ) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors q [B, Hq, D], caches [B, Hk, S, D]
+    (Hq % Hk == 0, Hq / Hk <= 8: KV heads are indexed, never repeated) and
+    valid_len [B] int32.  Any strides with a contiguous last dimension.
+    Returns [B, Hq, D].  Raises on anything the kernel does not take."""
+    ts = (q, k_cache, v_cache, valid_len)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError("decode_attention kernel needs CUDA tensors")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("decode_attention inputs on different devices")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype) or q.dtype not in _FN:
+        raise ValueError(f"decode_attention takes bfloat16 or float32 q and "
+                         f"caches of one dtype, got {q.dtype}/"
+                         f"{k_cache.dtype}/{v_cache.dtype}")
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"decode_attention takes q [B, Hq, D] and caches "
+                         f"[B, Hk, S, D], got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    b, hq, d = q.shape
+    _, hk, s, _ = k_cache.shape
+    if k_cache.shape[0] != b or k_cache.shape[3] != d or hk == 0 \
+            or hq % hk or hq // hk > MAX_GROUP:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not fit q "
+                         f"{tuple(q.shape)} (at most {MAX_GROUP} q-heads "
+                         f"per KV head)")
+    if d % 16 or d > MAX_D:
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 16 "
+                         f"up to {MAX_D}")
+    if s >= 2**31:
+        raise ValueError("cache too long for int32 slots")
+    if valid_len.dtype != torch.int32 or tuple(valid_len.shape) != (b,):
+        raise ValueError(f"valid_len must be int32 [{b}], got "
+                         f"{valid_len.dtype} {tuple(valid_len.shape)}")
+    if any(t.stride(-1) != 1 for t in (q, k_cache, v_cache)):
+        raise ValueError("decode_attention needs a contiguous last dimension")
+    valid_len = valid_len.contiguous()
+    dev = q.device
+    chunk, n_splits = split_plan(b, hk, s, _sm_count(dev.index))
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
+    part_ml = torch.empty((2, b, hq, n_splits), dtype=torch.float32,
+                          device=dev)
+    part_acc = torch.empty((b, hq, n_splits, d), dtype=torch.float32,
+                           device=dev)
+    strides = (ctypes.c_int64 * 10)(*q.stride()[:2], *k_cache.stride()[:3],
+                                    *v_cache.stride()[:3], *out.stride()[:2])
+    name = _FN[q.dtype]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_build.library(), name)(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            valid_len.data_ptr(), out.data_ptr(), part_ml[0].data_ptr(),
+            part_ml[1].data_ptr(), part_acc.data_ptr(), b, hq, hk, s, d,
+            strides, chunk, n_splits, stream)
+    _build.check(err, name)
+    return out
+
+
+@functools.cache
+def _sm_count(index: int | None) -> int:
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch.cuda.get_device_properties(index).multi_processor_count

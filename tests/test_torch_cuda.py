@@ -90,3 +90,84 @@ def test_cuda_golden_episode(hopper):
     probe_ops.launches = agg_ops.launches = 0
     assert_matches_golden("q11_justin", "cuda")
     assert probe_ops.launches > 0 and agg_ops.launches > 0
+
+
+def _smoke():
+    """``chip_smoke.py`` at the repo root: its attention sweeps and their
+    tolerance are the ones these tests run."""
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_matches_plain_version(hopper):
+    _, n_cases = _smoke().flash_sweep(torch, hopper)
+    assert n_cases > 0
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_takes_strided_views(hopper):
+    """A [B, S, H, D] buffer viewed as [B, H, S, D] is read through its
+    strides, and the output keeps that layout."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q = torch.randn((2, 130, 6, 64), generator=g).to(hopper, torch.bfloat16)
+    kv = torch.randn((2, 130, 2, 2, 64), generator=g).to(hopper,
+                                                         torch.bfloat16)
+    qt, kt, vt = (q.transpose(1, 2), kv[:, :, 0].transpose(1, 2),
+                  kv[:, :, 1].transpose(1, 2))
+    got = flash_attention(qt, kt, vt, causal=True)
+    assert got.stride() == qt.stride()
+    want = flash_attention_ref(qt.contiguous(), kt.contiguous(),
+                               vt.contiguous(), causal=True)
+    _smoke().attn_err(torch, got, want, "bfloat16", "strided views")
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_matches_plain_version(hopper):
+    _, n_cases = _smoke().decode_sweep(torch, hopper)
+    assert n_cases > 0
+
+
+@pytest.mark.gpu
+def test_cuda_decoder_matches_cpu_and_launches_the_kernels(hopper):
+    """The reduced llama3.2-3b in float32 on the card (attention kernels)
+    against the same weights and tokens on the CPU (plain versions)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops as decode_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.models import get_model
+    cfg = get_config("llama3.2-3b").reduced().replace(
+        compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 69),
+                         generator=torch.Generator().manual_seed(1))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = {"embed": params["embed"].to(dev), "ln_f": params["ln_f"].to(dev),
+             "layers": {"dense0": {k: v.to(dev) for k, v in
+                                   params["layers"]["dense0"].items()}}}
+        flash_ops.launches = decode_ops.launches = 0
+        out, caches = model.prefill(p, {"tokens": toks[:, :64].to(dev)}, cfg)
+        caches = {g: {kv: F.pad(c, (0, 0, 0, 5)) for kv, c in d.items()}
+                  for g, d in caches.items()}
+        steps = [out]
+        for i in range(5):
+            out, caches = model.decode(p, caches,
+                                       toks[:, 64 + i:65 + i].to(dev),
+                                       64 + i, cfg)
+            steps.append(out)
+        logits[dev] = torch.stack(steps).cpu()
+        if dev == "cuda":
+            assert flash_ops.launches == cfg.num_layers
+            assert decode_ops.launches == cfg.num_layers * 5
+    ref = logits["cpu"]
+    assert float((logits["cuda"] - ref).abs().max() / ref.abs().max()) < 1e-4

@@ -29,6 +29,8 @@ def test_port_files_exist():
     assert len(PORT_FILES) > 20
     assert (ROOT / "src" / "repro_torch" / "csrc" / "sorted_probe.cu").exists()
     assert (ROOT / "src" / "repro_torch" / "csrc" / "window_agg.cu").exists()
+    assert (ROOT / "src" / "repro_torch" / "csrc" / "flash_attn.cu").exists()
+    assert (ROOT / "src" / "repro_torch" / "csrc" / "decode_attn.cu").exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
