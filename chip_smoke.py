@@ -6,14 +6,16 @@
 Phases, each printing JSON lines:
 
 1. device — the card, and ``nvidia-smi``'s name and power limit;
-2. build  — compiles ``src/repro_torch/csrc/*.cu`` with nvcc;
+2. build  — compiles ``src/repro_torch/csrc/*.cu`` with nvcc and prints
+   what ``ptxas -v`` reports per kernel (registers, shared memory, spills);
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card over an edge-case sweep and at the main path's shapes, with
    CUDA-event device times (L2 emptied first) of the kernel, the plain
    version and the one PyTorch library call that computes the same
    function, the kernel's time with its inputs in L2, the wrapper's cost
-   per call on the host clock, and the bound on this run's data (bytes,
-   or tensor-core operations for prefill attention);
+   per call on the host clock, the bound on this run's data (bytes, or
+   tensor-core operations for prefill attention), the share of it the
+   kernel reaches and its achieved TB/s or TFLOP/s;
 4. episodes — the golden autoscaling episodes (q8/q11 x justin/ds2, seed
    3, max_level 2, the reference's full sizes) through the port on the
    card, compared decision for decision with
@@ -35,6 +37,7 @@ JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import pathlib
 import statistics
@@ -155,6 +158,15 @@ def probe_bytes(torch, table, q, pos) -> tuple[int, int]:
     return must, bisect
 
 
+def add_rates(res: dict, amount: float, unit: str) -> dict:
+    """Add the share of the bound that ``ms`` reaches and the rate it
+    achieves: ``amount`` bytes (unit TB/s) or FLOP (TFLOP/s) per call."""
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["achieved"] = amount / res["ms"] * 1e3 / 1e12
+    res["achieved_unit"] = unit
+    return res
+
+
 # ------------------------------------------------------------ sorted_probe
 def probe_cases(torch, dev):
     """(label, table, queries) covering the edge cases and the main path."""
@@ -270,6 +282,7 @@ def check_probe(torch, dev) -> dict:
         "bound_ms": must / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
     }
+    add_rates(res, must, "TB/s")
     emit({"phase": "kernel", **res})
     return res
 
@@ -362,6 +375,7 @@ def check_agg(torch, dev) -> dict:
         "bound_ms": must / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
     }
+    add_rates(res, must, "TB/s")
     emit({"phase": "kernel", **res})
     return res
 
@@ -413,6 +427,29 @@ def flash_cases(torch, dev):
                                    name, q, k, v, causal, window)
 
 
+def flash_layout_cases(torch, dev):
+    """bf16 operands in the layouts the tensor maps must take: q as a
+    [B, S, H, D] buffer seen as [B, H, S, D] (the serve path's view, read
+    in place) at Sq 300 and 2048, D 80 and 128; and q, k, v whose seq
+    stride is 68 elements (136 bytes, not a multiple of 16), which the
+    wrapper copies first."""
+    g = torch.Generator(device="cpu").manual_seed(33)
+    dt = torch.bfloat16
+    for s in (300, 2048):
+        for d in (80, 128):
+            b, hq, hk = 2, 6, 2
+            q = _randn(torch, g, (b, s, hq, d), dev, dt).transpose(1, 2)
+            k = _randn(torch, g, (b, hk, s, d), dev, dt)
+            v = _randn(torch, g, (b, hk, s, d), dev, dt)
+            for causal in (True, False):
+                yield (f"bfloat16 [B,S,H,D] view Sq=Skv={s} D={d} 6:2 "
+                       f"causal={causal}", "bfloat16", q, k, v, causal, None)
+    q, k, v = (_randn(torch, g, (2, h, 300, 68), dev, dt)[..., :64]
+               for h in (4, 2, 2))
+    yield ("bfloat16 seq stride 136 B (copied) Sq=Skv=300 D=64 4:2 causal",
+           "bfloat16", q, k, v, True, None)
+
+
 def flash_main_shape(torch, dev):
     """Prefill attention as the serve path calls it: q a [B, S, Hq, D]
     projection seen as [B, Hq, S, D], k/v the [B, Hk, S, D] cache."""
@@ -431,7 +468,8 @@ def flash_sweep(torch, dev) -> tuple[dict, int]:
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n_cases = 0
-    for label, name, q, k, v, causal, window in flash_cases(torch, dev):
+    for label, name, q, k, v, causal, window in itertools.chain(
+            flash_cases(torch, dev), flash_layout_cases(torch, dev)):
         got = flash_attention(q, k, v, causal=causal, window=window)
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
         worst[name] = max(worst[name],
@@ -489,6 +527,7 @@ def check_flash(torch, dev) -> dict:
         "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
     }
+    add_rates(res, flops, "TFLOP/s")
     emit({"phase": "kernel", **res})
     return res
 
@@ -514,6 +553,30 @@ def decode_cases(torch, dev):
                                f"valid_len={lens}", name, q, k, v, vl)
 
 
+def decode_layout_cases(torch, dev):
+    """Caches in the layouts the kernel's copies must take: slots that are
+    not contiguous (a [B, S, Hk, D] buffer seen as [B, Hk, S, D]: one
+    16-byte copy per row chunk), and a slot stride of 68 elements (in bf16
+    136 bytes, not a multiple of 16, which the wrapper copies first; in
+    f32 272 bytes, read row by row)."""
+    g = torch.Generator(device="cpu").manual_seed(43)
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        s, d = 513, 128
+        q = _randn(torch, g, (4, 6, d), dev, dt)
+        k = _randn(torch, g, (4, s, 2, d), dev, dt).transpose(1, 2)
+        v = _randn(torch, g, (4, s, 2, d), dev, dt).transpose(1, 2)
+        vl = torch.tensor([s, 300, 0, 65], dtype=torch.int32, device=dev)
+        yield (f"{name} [B,S,Hk,D] view S={s} D={d} 6:2", name, q, k, v, vl)
+        q = _randn(torch, g, (4, 4, 64), dev, dt)
+        k, v = (_randn(torch, g, (4, 2, 300, 68), dev, dt)[..., :64]
+                for _ in range(2))
+        vl = torch.tensor([300, 1, 129, 0], dtype=torch.int32, device=dev)
+        copied = " (copied)" if dt == torch.bfloat16 else ""
+        yield (f"{name} slot stride 68{copied} S=300 D=64 4:2", name, q, k,
+               v, vl)
+
+
 def decode_main_shape(torch, dev):
     """Decode attention as the serve path calls it: q [8, 24, 128] bf16
     against one layer's [8, 8, 2176, 128] cache, valid_len 2049..2176 (the
@@ -531,17 +594,21 @@ def decode_main_shape(torch, dev):
 
 def decode_sweep(torch, dev) -> tuple[dict, int]:
     """Every ``decode_cases`` case through the kernel and its plain
-    version, and again with garbage past valid_len: (worst max|diff| per
-    dtype, cases run); raises on a mismatch."""
+    version, again on the same inputs (bit-identical: the splits' ticket
+    counter was left zeroed) and again with garbage past valid_len:
+    (worst max|diff| per dtype, cases run); raises on a mismatch."""
     from repro_torch.kernels.decode_attn.kernel import decode_attention
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n_cases = 0
-    for label, name, q, k, v, vl in decode_cases(torch, dev):
+    for label, name, q, k, v, vl in itertools.chain(
+            decode_cases(torch, dev), decode_layout_cases(torch, dev)):
         got = decode_attention(q, k, v, vl)
         want = decode_attention_ref(q, k, v, vl)
         worst[name] = max(worst[name],
                           attn_err(torch, got, want, name, label)[0])
+        if not torch.equal(decode_attention(q, k, v, vl), got):
+            raise AssertionError(f"decode_attention not repeatable: {label}")
         # garbage past valid_len (NaN values included) changes nothing
         past = (torch.arange(k.shape[2], device=dev)[None, :]
                 >= vl[:, None].long())[:, None, :, None]
@@ -559,7 +626,7 @@ def check_decode(torch, dev) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attn.kernel import (_sm_count,
                                                         decode_attention,
-                                                        split_plan)
+                                                        split_plan, tickets)
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     worst, n_cases = decode_sweep(torch, dev)
     q, k, v, vl = decode_main_shape(torch, dev)
@@ -579,7 +646,8 @@ def check_decode(torch, dev) -> dict:
                                     *v.stride()[:3], *out.stride()[:2])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(),
             out.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-            part_acc.data_ptr(), b, hq, hk, s, d, strides, chunk, n_splits,
+            part_acc.data_ptr(), tickets(out.device, b * hk).data_ptr(), b,
+            hq, hk, s, d, strides, chunk, n_splits,
             torch.cuda.current_stream().cuda_stream)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = (torch.arange(s, device=dev)[None, :] < vl[:, None].long()
@@ -611,6 +679,7 @@ def check_decode(torch, dev) -> dict:
         "bound_ms": max(byte_ms, flop_ms),
         "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
     }
+    add_rates(res, nbytes, "TB/s")
     emit({"phase": "kernel", **res})
     return res
 
@@ -866,7 +935,7 @@ def main(argv=None) -> int:
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "warm_ms", "wrapper_ms")}
+        "bound_share", "achieved", "achieved_unit", "warm_ms", "wrapper_ms")}
         for r in rows]})
     print(name_power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,12 @@ At first use every ``repro_torch/csrc/*.cu`` is compiled for Hopper
 (``sm_90a``) with ``nvcc``, one process per source started together, and
 the objects are linked into one shared library with a plain C interface,
 loaded through ``ctypes``.  The library's name carries a hash of the
-sources, so an edited source is rebuilt and a built one is reused.  The
-build goes to ``build/repro_torch/`` at the checkout root, or to
+sources, the shared headers (``csrc/*.cuh``) and the compile and link
+commands, so an edited source or header is rebuilt and a built one is
+reused.  ``ptxas -v`` reports each kernel's registers, shared memory and
+spills; ``build_info["ptxas"]`` keeps those lines per source (also for a
+reused library: they are stored beside it).  The build goes to
+``build/repro_torch/`` at the checkout root, or to
 ``$REPRO_TORCH_BUILD_DIR`` when that is set.
 
 Nothing here runs at import time, and a failed build or load raises: no
@@ -15,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import pathlib
 import shutil
@@ -23,7 +28,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-shared"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _S = ctypes.POINTER(ctypes.c_int64)     # a host array of element strides
@@ -41,16 +47,16 @@ _SIGNATURES = {
                          _P], _I),
     "flash_attn_f32": ([_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L, _L,
                         _P], _I),
-    # q, k, v, valid_len, out, part_m, part_l, part_acc, b, hq, hk, s, d,
-    # strides[10], chunk, n_splits, stream
-    "decode_attn_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
-                          _S, _L, _L, _P], _I),
-    "decode_attn_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
-                         _S, _L, _L, _P], _I),
+    # q, k, v, valid_len, out, part_m, part_l, part_acc, tickets, b, hq,
+    # hk, s, d, strides[10], chunk, n_splits, stream
+    "decode_attn_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
+                          _L, _S, _L, _L, _P], _I),
+    "decode_attn_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
+                         _L, _S, _L, _L, _P], _I),
 }
 
 _lib: ctypes.CDLL | None = None
-build_info: dict = {}          # seconds and path of the build
+build_info: dict = {}          # seconds, path and ptxas report of the build
 
 
 def build_dir() -> pathlib.Path:
@@ -80,11 +86,21 @@ def _sources() -> list[pathlib.Path]:
 
 
 def _digest(srcs: list[pathlib.Path]) -> str:
-    h = hashlib.sha256(" ".join(ARCH + NVCC_FLAGS).encode())
-    for s in srcs:
+    """Hash of the compile and link commands, the sources and every shared
+    header under CSRC (a header edit must rebuild its includers)."""
+    h = hashlib.sha256(" ".join(ARCH + NVCC_FLAGS + LINK_FLAGS).encode())
+    for s in [*srcs, *sorted(CSRC.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _ptxas_lines(text: str) -> list[str]:
+    """The ``ptxas -v`` lines of an nvcc log: per kernel, its registers,
+    shared memory, stack frame and spill stores/loads."""
+    return [line.strip() for line in text.splitlines()
+            if line.lstrip().startswith("ptxas info")
+            or "bytes spill stores" in line]
 
 
 def build() -> pathlib.Path:
@@ -93,8 +109,11 @@ def build() -> pathlib.Path:
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     lib = out / f"librepro_torch_{_digest(srcs)}.so"
+    report = lib.with_suffix(".ptxas.json")
     if lib.exists():
-        build_info.update(path=str(lib), seconds=0.0, cached=True)
+        build_info.update(path=str(lib), seconds=0.0, cached=True,
+                          ptxas=json.loads(report.read_text())
+                          if report.exists() else {})
         return lib
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -105,21 +124,24 @@ def build() -> pathlib.Path:
         procs.append((s, obj, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+    ptxas = {}
     for s, _obj, cmd, p in procs:
         text, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed on {s.name} ({' '.join(cmd)}):\n{text}")
+        ptxas[s.name] = _ptxas_lines(text)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *ARCH, "-shared", *(str(o) for _, o, _, _ in procs),
+    cmd = [nvcc, *ARCH, *LINK_FLAGS, *(str(o) for _, o, _, _ in procs),
            "-o", str(tmp)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n"
                            f"{res.stdout}{res.stderr}")
+    report.write_text(json.dumps(ptxas))
     os.replace(tmp, lib)
     build_info.update(path=str(lib), seconds=time.perf_counter() - t0,
-                      cached=False)
+                      cached=False, ptxas=ptxas)
     return lib
 
 
@@ -137,6 +159,9 @@ def library() -> ctypes.CDLL:
 
 
 def check(err: int, name: str) -> None:
-    """Raise on a CUDA error code returned by a launch."""
+    """Raise on a CUDA error code returned by a launch (negative: no TMA
+    tensor map could be encoded)."""
+    if err < 0:
+        raise RuntimeError(f"{name}: tensor map encoding failed ({err})")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")

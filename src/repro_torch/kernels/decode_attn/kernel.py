@@ -12,15 +12,20 @@ _FN = {torch.bfloat16: "decode_attn_bf16", torch.float32: "decode_attn_f32"}
 MAX_D = 128
 MAX_GROUP = 8          # q-heads per KV head one block serves
 TILE = 64              # cache slots per tile (a split is a multiple)
-BLOCKS_PER_SM = 4      # splits aim at this many blocks per SM
+# resident blocks per SM: a block holds a 3-stage ring of 32 KB K/V tiles
+# (96 KB of the SM's 227 KB of shared memory) and 288 threads (up to 4
+# q-heads per KV head; a larger group needs the registers of two blocks)
+BLOCKS_PER_SM = 2
 
 
 def split_plan(batch: int, kv_heads: int, slots: int, sms: int
                ) -> tuple[int, int]:
     """(chunk, n_splits): the cache is cut along S into n_splits chunks of
-    ``chunk`` slots so that batch * kv_heads * n_splits blocks give every
-    SM about BLOCKS_PER_SM blocks."""
-    want = min(max(1, _cdiv(BLOCKS_PER_SM * sms, batch * kv_heads)),
+    ``chunk`` slots (a multiple of TILE) so that the batch * kv_heads *
+    n_splits blocks fit on the card at once, BLOCKS_PER_SM on each SM: a
+    second wave of blocks would stream its bytes after the first one's
+    tail, and the last block of each (b, KV head) merges the splits."""
+    want = min(max(1, BLOCKS_PER_SM * sms // (batch * kv_heads)),
                _cdiv(slots, TILE))
     chunk = _cdiv(_cdiv(slots, want), TILE) * TILE
     return chunk, _cdiv(slots, chunk)
@@ -35,8 +40,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      ) -> torch.Tensor:
     """Launch the kernel on CUDA tensors q [B, Hq, D], caches [B, Hk, S, D]
     (Hq % Hk == 0, Hq / Hk <= 8: KV heads are indexed, never repeated) and
-    valid_len [B] int32.  Any strides with a contiguous last dimension.
-    Returns [B, Hq, D].  Raises on anything the kernel does not take."""
+    valid_len [B] int32.  Any strides with a contiguous last dimension; the
+    kernel copies cache rows 16 bytes at a time, so a cache whose base or
+    strides are not 16-byte aligned is first copied to a contiguous tensor
+    (the serve path's caches never are).  Returns [B, Hq, D].
+
+    One launch: the splits' last block merges them, found by an atomic
+    ticket in a per-device int32 buffer that the kernel leaves zeroed.
+    Calls on two streams at once must not share that buffer: run them on
+    one stream.  Raises on anything the kernel does not take."""
     ts = (q, k_cache, v_cache, valid_len)
     if not all(t.is_cuda for t in ts):
         raise ValueError("decode_attention kernel needs CUDA tensors")
@@ -68,6 +80,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k_cache, v_cache)):
         raise ValueError("decode_attention needs a contiguous last dimension")
     valid_len = valid_len.contiguous()
+    k_cache, v_cache = (c if rows_aligned(c) else c.clone(
+        memory_format=torch.contiguous_format) for c in (k_cache, v_cache))
     dev = q.device
     chunk, n_splits = split_plan(b, hk, s, _sm_count(dev.index))
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
@@ -83,10 +97,33 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         err = getattr(_build.library(), name)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             valid_len.data_ptr(), out.data_ptr(), part_ml[0].data_ptr(),
-            part_ml[1].data_ptr(), part_acc.data_ptr(), b, hq, hk, s, d,
-            strides, chunk, n_splits, stream)
+            part_ml[1].data_ptr(), part_acc.data_ptr(),
+            tickets(dev, b * hk).data_ptr(), b, hq, hk, s, d, strides, chunk,
+            n_splits, stream)
     _build.check(err, name)
     return out
+
+
+def rows_aligned(cache: torch.Tensor) -> bool:
+    """Whether the kernel's 16-byte copies can read ``cache`` [B, Hk, S, D]
+    in place: a 16-byte aligned base and (batch, head, slot) strides that
+    are multiples of 16 bytes."""
+    size = cache.element_size()
+    return cache.data_ptr() % 16 == 0 and all(
+        st * size % 16 == 0 for st in cache.stride()[:3])
+
+
+_tickets: dict[torch.device, torch.Tensor] = {}
+
+
+def tickets(dev: torch.device, n: int) -> torch.Tensor:
+    """The device's int32 ticket buffer, at least ``n`` long, allocated
+    zeroed once (and again only to grow); every launch leaves it zeroed."""
+    buf = _tickets.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=dev)
+        _tickets[dev] = buf
+    return buf
 
 
 @functools.cache

@@ -9,6 +9,16 @@ from repro_torch.kernels import _build
 
 _FN = {torch.bfloat16: "flash_attn_bf16", torch.float32: "flash_attn_f32"}
 MAX_D = 128
+TMA_ALIGN = 16         # bytes: TMA's base and stride alignment
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bf16 route's tensor maps can read ``t`` [B, H, S, D] in
+    place: a 16-byte aligned base and (batch, head, seq) strides that are
+    positive multiples of 16 bytes (the last dimension is contiguous)."""
+    size = t.element_size()
+    return t.data_ptr() % TMA_ALIGN == 0 and all(
+        st > 0 and st * size % TMA_ALIGN == 0 for st in t.stride()[:3])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -16,8 +26,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """Launch the kernel on CUDA tensors q [B, Hq, Sq, D], k/v [B, Hk, Skv,
     D] (Hq % Hk == 0: KV heads are indexed, never repeated).  Any strides
-    with a contiguous last dimension; the output has q's layout.  Raises on
-    anything the kernel does not take."""
+    with a contiguous last dimension; the output has q's layout.  The bf16
+    route reads operands through TMA tensor maps, which need 16-byte
+    aligned bases and strides: an operand that breaks that (see
+    ``tma_ready``) is first copied to a contiguous tensor, and the output
+    then has the copy's layout.  The serve path never takes that copy.
+    Raises on anything the kernel does not take."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention kernel needs CUDA tensors")
     if not (q.device == k.device == v.device):
@@ -42,6 +56,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be positive, got {window}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs a contiguous last dimension")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if tma_ready(t) else t.clone(
+            memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty_like(q)
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3])

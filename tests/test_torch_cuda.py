@@ -136,6 +136,31 @@ def test_cuda_decode_attention_matches_plain_version(hopper):
 
 
 @pytest.mark.gpu
+def test_cuda_decode_attention_one_split_and_repeatable(hopper):
+    """Enough (b, KV head) pairs to fill the card give one split, whose
+    block is also the last one; back-to-back calls are bit-identical, so
+    each call left the ticket counter zeroed for the next."""
+    from repro_torch.kernels.decode_attn.kernel import (_sm_count,
+                                                        decode_attention,
+                                                        split_plan)
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    g = torch.Generator(device="cpu").manual_seed(6)
+    b, hk, s, d = 2 * _sm_count(hopper.index), 1, 700, 128
+    assert split_plan(b, hk, s, _sm_count(hopper.index))[1] == 1
+    q = torch.randn((b, 3, d), generator=g).to(hopper, torch.bfloat16)
+    k, v = (torch.randn((b, hk, s, d), generator=g).to(hopper, torch.bfloat16)
+            for _ in range(2))
+    vl = torch.randint(0, s + 1, (b,), generator=g,
+                       dtype=torch.int32).to(hopper)
+    got = decode_attention(q, k, v, vl)
+    _smoke().attn_err(torch, got, decode_attention_ref(q, k, v, vl),
+                      "bfloat16", "one split")
+    for _ in range(3):
+        assert torch.equal(decode_attention(q, k, v, vl), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 def test_cuda_decoder_matches_cpu_and_launches_the_kernels(hopper):
     """The reduced llama3.2-3b in float32 on the card (attention kernels)
     against the same weights and tokens on the CPU (plain versions)."""
