@@ -9,7 +9,9 @@ Phases, each printing JSON lines:
 2. build  — compiles ``src/repro_torch/csrc/*.cu`` with nvcc and prints
    what ``ptxas -v`` reports per kernel (registers, shared memory, spills);
 3. kernels — each hand-written kernel against its plain PyTorch version on
-   the card over an edge-case sweep and at the main path's shapes, with
+   the card over an edge-case sweep and at the main path's shapes (for
+   the store kernels also at the median shapes of their call sites in a
+   q8_justin episode: the ``sites`` list of their lines), with
    CUDA-event device times (L2 emptied first) of the kernel, the plain
    version and the one PyTorch library call that computes the same
    function, the kernel's time with its inputs in L2, the wrapper's cost
@@ -127,35 +129,17 @@ def call_ms(fn, reps: int = 50, rounds: int = 7) -> float:
     return statistics.median(per)
 
 
-def probe_bytes(torch, table, q, pos) -> tuple[int, int]:
-    """(bytes the probe must move, bytes a bisection moves) on this data.
-
-    Must: each query read, each position and flag written, and the table
-    sectors that hold each query's neighbours table[pos-1] and table[pos]
-    (a rank is not known without them).  Bisection: the same, with the
-    distinct sectors of every entry the kernel's lower-bound search reads
-    in place of the neighbours."""
+def probe_bytes(table, q, pos) -> int:
+    """Bytes the probe must move on this data: each query read, each
+    position and flag written, and the table sectors that hold each
+    query's neighbours table[pos-1] and table[pos] (a rank is not known
+    without them)."""
+    import torch
     t, n, w = len(table), len(q), table.element_size()
-    io = n * (q.element_size() + 4 + 1)
     p = pos.long()
     near = torch.cat([p[p > 0] - 1, p[p < t]])
-    must = io + len(torch.unique(near * w // SECTOR)) * SECTOR
-    lo = torch.zeros(n, dtype=torch.long, device=q.device)
-    hi = torch.full_like(lo, t)
-    read = []
-    while True:
-        act = lo < hi
-        if not bool(act.any()):
-            break
-        mid = lo + (hi - lo) // 2
-        read.append(mid[act])
-        less = table[mid.clamp(max=t - 1)] < q
-        lo = torch.where(act & less, mid + 1, lo)
-        hi = torch.where(act & ~less, mid, hi)
-    assert torch.equal(lo, p), "bisection model disagrees with the kernel"
-    read.append(lo[lo < t])                    # the found check's read
-    bisect = io + len(torch.unique(torch.cat(read) * w // SECTOR)) * SECTOR
-    return must, bisect
+    return n * (q.element_size() + 4 + 1) \
+        + len(torch.unique(near * w // SECTOR)) * SECTOR
 
 
 def add_rates(res: dict, amount: float, unit: str) -> dict:
@@ -168,13 +152,22 @@ def add_rates(res: dict, amount: float, unit: str) -> dict:
 
 
 # ------------------------------------------------------------ sorted_probe
+# the parts each step of a route cuts a range into: the cooperative
+# route's 33, the indexed route's 513 (splitters + 1)
+PROBE_PARTS = (33, 513)
+
+
 def probe_cases(torch, dev):
-    """(label, table, queries) covering the edge cases and the main path."""
+    """(label, table, queries) covering the edge cases and the main path,
+    and for the routes: tables of P^m +- 1 entries for the parts P a step
+    of each route cuts its range into, batches smaller than a warp,
+    unsorted queries with repeats against a small and a large table, and
+    the dtype's min and max."""
     g = torch.Generator(device="cpu").manual_seed(11)
     cases = []
     for dt in (torch.int32, torch.int64):
         info = torch.iinfo(dt)
-        hi = info.max
+        lo, hi = info.min, info.max
 
         def t(x):
             return torch.as_tensor(x, dtype=dt).to(dev)
@@ -194,6 +187,10 @@ def probe_cases(torch, dev):
                       t([hi, 0, hi, 17, 100])))
         cases.append((f"{dt}:dtype max present", t([0, 17, hi]),
                       t([0, 1, hi, hi - 1])))
+        cases.append((f"{dt}:dtype min and max present", t([lo, 0, hi]),
+                      t([lo, lo + 1, hi, hi - 1, 0, -1])))
+        cases.append((f"{dt}:dtype min and max absent", t([lo + 1, hi - 1]),
+                      t([hi, lo, lo + 1, hi - 1, lo + 2])))
         cases.append((f"{dt}:empty table", t([]), t([1, 2, hi])))
         cases.append((f"{dt}:one entry", t([42]), t([41, 42, 43, hi])))
         cases.append((f"{dt}:duplicate queries", t(list(range(0, 1000, 7))),
@@ -203,6 +200,40 @@ def probe_cases(torch, dev):
         cases.append((f"{dt}:exact tile multiple",
                       t(list(range(0, 2048 * 3, 3))),
                       t(list(range(1, 512 * 3, 3)))))
+        # T = P^m +- 1: the steps end exactly on a boundary
+        for parts in PROBE_PARTS:
+            for m in (1, 2, 3):
+                if parts ** m > 300_000:
+                    continue
+                for dlt in (-1, 0, 1):
+                    size = parts ** m + dlt
+                    tab = torch.sort(torch.randint(0, 4 * size, (size,),
+                                                   generator=g)).values
+                    qs = torch.cat([tab[torch.randint(0, size, (300,),
+                                                      generator=g)],
+                                    torch.randint(-2, 4 * size + 3, (300,),
+                                                  generator=g)])
+                    cases.append((f"{dt}:T={parts}^{m}{dlt:+d} N=600",
+                                  tab.to(dt).to(dev), qs.to(dt).to(dev)))
+        # fewer queries than a warp's lanes
+        big = torch.unique(torch.randint(0, 1 << 30, (20_001,),
+                                         generator=g)).to(dt)
+        for nq in (1, 3, 7):
+            cases.append((f"{dt}:N={nq} T={len(big)}", big.to(dev),
+                          big[torch.randint(0, len(big), (nq,),
+                                            generator=g)].to(dev)))
+        # unsorted queries with repeats, against the inverse map's table
+        # size (T=465) and a large one
+        for size in (465, 60_000):
+            tab = torch.unique(torch.randint(0, 1 << 29, (size,),
+                                             generator=g)).to(dt)
+            qs = torch.cat([tab[torch.randint(0, len(tab), (700,),
+                                              generator=g)],
+                            torch.randint(0, 1 << 29, (200,),
+                                          generator=g).to(dt)])
+            qs = qs[torch.randperm(len(qs), generator=g)]
+            cases.append((f"{dt}:unsorted N={len(qs)} T={len(tab)}",
+                          tab.to(dev), qs.to(dev)))
     # int64 only: high-bit keys and the packed (i << 45) | key memtable probe
     high = torch.unique(torch.randint(1 << 40, 1 << 62, (50_001,),
                                       generator=g) * 2 + 1)
@@ -221,9 +252,49 @@ def probe_cases(torch, dev):
     return cases
 
 
+def probe_routes(table) -> list:
+    """The routes (lanes per query) a table can take: the cooperative one,
+    and the indexed one for a table of one entry or more."""
+    return [32, 1] if len(table) else [32]
+
+
+def probe_check(torch, table, q, got, label: str) -> None:
+    """Raise unless (pos, found) ``got`` equals the plain version's."""
+    from repro_torch.kernels.sorted_probe.ref import sorted_probe_ref
+    if len(table):
+        rpos, rfound = sorted_probe_ref(table, q)
+    else:
+        rpos = torch.zeros(len(q), dtype=torch.int32, device=q.device)
+        rfound = torch.zeros(len(q), dtype=torch.bool, device=q.device)
+    pos, found = got
+    if pos.dtype != torch.int32 or not (
+            torch.equal(pos, rpos) and torch.equal(found, rfound)):
+        raise AssertionError(f"sorted_probe mismatch on {label}")
+
+
+def probe_sweep(torch, dev) -> int:
+    """Every ``probe_cases`` case through the wrapper (the plan's route)
+    and through the bare launch of each route that can take it, held
+    exactly against the plain version; returns the runs made, raises on a
+    mismatch."""
+    from repro_torch.kernels.sorted_probe.kernel import sorted_probe
+    runs = 0
+    for label, table, q in probe_cases(torch, dev):
+        probe_check(torch, table, q, sorted_probe(table, q), label)
+        runs += 1
+        for lanes in probe_routes(table):
+            launch, got, _ = probe_launch(torch, table, q, lanes)
+            launch()
+            probe_check(torch, table, q, got, f"{label}, lanes {lanes}")
+            runs += 1
+    torch.cuda.synchronize()
+    return runs
+
+
 def probe_main_shape(torch, dev):
-    """A level probe at the main path's size: 65,536 sorted unique int64
-    queries (half present) into a 2.4 M-entry run (q8's warmed state)."""
+    """A level probe at the largest size the store holds: 65,536 sorted
+    unique int64 queries (half present) into a 2.4 M-entry run (q8's warmed
+    state)."""
     g = torch.Generator(device="cpu").manual_seed(12)
     table = torch.unique(torch.randint(0, 1 << 40, (2_450_000,),
                                        generator=g))[:2_400_000]
@@ -233,54 +304,118 @@ def probe_main_shape(torch, dev):
     return table.to(dev), q.to(dev)
 
 
+def _sorted_keys(torch, g, size: int, top: int):
+    """``size`` sorted unique int64 keys below ``top``."""
+    k = torch.unique(torch.randint(0, top, (size + size // 8 + 16,),
+                                   generator=g))
+    return k[torch.randperm(len(k), generator=g)[:size]].sort().values
+
+
+def _some_present(torch, g, table, size: int, top: int):
+    """``size`` sorted unique int64 queries, about half of them in
+    ``table``."""
+    both = torch.unique(torch.cat([
+        table[torch.randint(0, len(table), (size // 2,), generator=g)],
+        _sorted_keys(torch, g, size, top)]))
+    return both[torch.randperm(len(both), generator=g)[:size]].sort().values
+
+
+def probe_sites(torch, dev):
+    """The store's five probe call sites at the median N and T a q8_justin
+    episode gives them (4,313 probes, counted on the CPU, where the episode
+    makes the same calls as on the card): (site, table, queries, sorted)."""
+    g = torch.Generator(device="cpu").manual_seed(13)
+    top = 1 << 45
+    sites = []
+    # get_batch's inverse map: the batch's keys (unsorted, repeated)
+    # against their own sorted unique keys
+    uq = _sorted_keys(torch, g, 465, top)
+    keys = torch.cat([uq, uq[torch.randint(0, 465, (1,), generator=g)]])
+    keys = keys[torch.randperm(len(keys), generator=g)]
+    sites.append(("state/lsm.py:502 inverse map", uq, keys, False))
+    # the packed source-major memtable probe: 3 runs, 943 keys each
+    runs = [_sorted_keys(torch, g, n, top) for n in (13_709, 13_709, 13_708)]
+    packed = torch.cat([(i << 45) + r for i, r in enumerate(runs)])
+    uq = _some_present(torch, g, runs[0], 943, top)
+    qq = ((torch.arange(3)[:, None] << 45) + uq[None, :]).reshape(-1)
+    sites.append(("state/lsm.py:523 packed memtable probe", packed, qq,
+                  True))
+    run = _sorted_keys(torch, g, 266_800, top)
+    sites.append(("state/lsm.py:305 _probe_run", run,
+                  _some_present(torch, g, run, 276, top), True))
+    newer = _sorted_keys(torch, g, 8_081, top)
+    sites.append(("state/lsm.py:108 merge_delta_runs", newer,
+                  _some_present(torch, g, newer, 12_504, top), True))
+    # partition bounds: sorted partition ids of 60,000 rows, 4 edges
+    part = torch.randint(0, 3, (60_000,), generator=g).sort().values
+    sites.append(("streaming/engine.py:67 _partition_bounds", part,
+                  torch.arange(4), True))
+    return [(s, t.to(dev), q.to(dev), srt) for s, t, q, srt in sites]
+
+
+def probe_launch(torch, table, q, lanes=None):
+    """(the bare launch of the probe kernel into preallocated outputs, its
+    outputs, its lanes per query); ``lanes`` None takes the plan's."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sorted_probe.kernel import (probe_blocks,
+                                                         probe_plan)
+    n, t = len(q), len(table)
+    if lanes is None:
+        lanes = probe_plan(n, t)[0]
+    pos = torch.empty(n, dtype=torch.int32, device=q.device)
+    found = torch.empty(n, dtype=torch.bool, device=q.device)
+    fn = getattr(_build.library(), "sorted_probe_i64"
+                 if table.dtype == torch.int64 else "sorted_probe_i32")
+    args = (table.data_ptr(), t, q.data_ptr(), n, pos.data_ptr(),
+            found.data_ptr(), lanes, probe_blocks(n, lanes),
+            torch.cuda.current_stream().cuda_stream)
+    return (lambda: fn(*args)), (pos, found), lanes
+
+
 def check_probe(torch, dev) -> dict:
+    """The sweep, then at each census site and the main shape the
+    wrapper's result held exactly against the plain version, and the bare
+    launch of the plan's route timed."""
     from repro_torch.kernels.sorted_probe.kernel import sorted_probe
     from repro_torch.kernels.sorted_probe.ref import sorted_probe_ref
-    worst = 0
-    for label, table, q in probe_cases(torch, dev):
-        pos, found = sorted_probe(table, q)
-        if len(table):
-            rpos, rfound = sorted_probe_ref(table, q)
-        else:
-            rpos = torch.zeros(len(q), dtype=torch.int32, device=dev)
-            rfound = torch.zeros(len(q), dtype=torch.bool, device=dev)
-        torch.cuda.synchronize()
-        err = int((pos.long() - rpos.long()).abs().max()) if len(q) else 0
-        if err or not torch.equal(found, rfound) or pos.dtype != torch.int32:
-            raise AssertionError(f"sorted_probe mismatch on {label}: "
-                                 f"pos err {err}")
-        worst = max(worst, err)
+    runs = probe_sweep(torch, dev)
+    sites = []
+    for site, table, q, srt in probe_sites(torch, dev):
+        probe_check(torch, table, q, sorted_probe(table, q), site)
+        launch, _, lanes = probe_launch(torch, table, q)
+        lib_out = torch.empty(len(q), dtype=torch.int64, device=dev)
+        sites.append({
+            "site": site, "n": len(q), "t": len(table),
+            "queries_sorted": srt, "lanes": lanes,
+            "ms": device_ms(launch, cold=True),
+            "warm_ms": device_ms(launch, cold=False),
+            "library_ms": device_ms(
+                lambda: torch.searchsorted(table, q, out=lib_out),
+                cold=True)})
     table, q = probe_main_shape(torch, dev)
-    pos, found = sorted_probe(table, q)
-    rpos, rfound = sorted_probe_ref(table, q)
-    torch.cuda.synchronize()
-    if not (torch.equal(pos, rpos) and torch.equal(found, rfound)):
-        raise AssertionError("sorted_probe mismatch at the main-path shape")
+    got = sorted_probe(table, q)
+    probe_check(torch, table, q, got, "the main shape")
+    launch, _, lanes = probe_launch(torch, table, q)
     n, t = len(q), len(table)
-    # the bare launch and the library call write into preallocated
-    # outputs; the wrapper also allocates its outputs and crosses ctypes
-    from repro_torch.kernels import _build
-    fn = _build.library().sorted_probe_i64
-    stream = torch.cuda.current_stream().cuda_stream
-    args = (table.data_ptr(), t, q.data_ptr(), n, pos.data_ptr(),
-            found.data_ptr(), stream)
     lib_out = torch.empty(n, dtype=torch.int64, device=dev)
-    must, bisect = probe_bytes(torch, table, q, pos)
+    must = probe_bytes(table, q, got[0])
     res = {
         "name": "sorted_probe", "route": "cuda",
         "source": "src/repro_torch/csrc/sorted_probe.cu",
         "replaces": "src/repro/kernels/sorted_probe/kernel.py:56",
-        "max_abs_err": worst,
-        "shape": f"T={t} int64, N={n} sorted queries",
-        "ms": device_ms(lambda: fn(*args), cold=True),
-        "warm_ms": device_ms(lambda: fn(*args), cold=False),
+        "max_abs_err": 0, "sweep_runs": runs,
+        "shape": f"T={t} int64, N={n} sorted queries, {lanes} lane(s) a "
+                 f"query",
+        "ms": device_ms(launch, cold=True),
+        "warm_ms": device_ms(launch, cold=False),
         "wrapper_ms": call_ms(lambda: sorted_probe(table, q)),
         "plain_ms": device_ms(lambda: sorted_probe_ref(table, q), cold=True),
         "library_ms": device_ms(
             lambda: torch.searchsorted(table, q, out=lib_out), cold=True),
-        "bound_bytes": must, "bisect_bytes": bisect,
+        "bound_bytes": must,
         "bound_ms": must / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
+        "sites": sites,
     }
     add_rates(res, must, "TB/s")
     emit({"phase": "kernel", **res})
@@ -288,7 +423,17 @@ def check_probe(torch, dev) -> dict:
 
 
 # -------------------------------------------------------------- window_agg
+def _runs_to_ids(torch, lengths):
+    """Sorted segment ids 0, 1, ... repeated by ``lengths``."""
+    return torch.repeat_interleave(torch.arange(len(lengths)), lengths)
+
+
 def agg_cases(torch, dev):
+    """(label, seg_ids, values, S): f32 with V 1 and 4, int64 (the store's
+    exact weights), int32 and int64 ids; runs that straddle the edges of a
+    lane's 4 rows, a warp's 128 and a block's 1,024; one segment over all
+    rows whose int64 sum wraps; unsorted ids in runs; ids of -1 and >= S,
+    among them int64 ids past 2^32 that an int32 cast would alias."""
     g = torch.Generator(device="cpu").manual_seed(21)
     cases = []
     for v in (1, 4):
@@ -305,6 +450,42 @@ def agg_cases(torch, dev):
     vals = torch.randint(-(1 << 40), 1 << 40, (50_001, 1), generator=g)
     cases.append(("int64 N=50001 S=2000 with -1 ids", seg.to(dev),
                   vals.to(dev), 2000))
+    # run lengths around the lane (4 rows), warp (128) and block (1,024)
+    edges = torch.tensor([1, 2, 3, 4, 5, 7, 8, 9, 127, 128, 129, 255, 256,
+                          1023, 1024, 1025, 2047, 2049])
+    lengths = edges[torch.randint(0, len(edges), (400,), generator=g)]
+    for idt in (torch.int32, torch.int64):
+        seg = _runs_to_ids(torch, lengths).to(idt)
+        vals = torch.randint(-(1 << 50), 1 << 50, (len(seg), 1), generator=g)
+        cases.append((f"int64 {idt} ids, runs across lane/warp/block edges "
+                      f"N={len(seg)}", seg.to(dev), vals.to(dev),
+                      len(lengths)))
+        # whole numbers: f32 sums exact in any order, however long the run
+        vals = torch.randint(-8, 9, (len(seg), 4), generator=g).float()
+        cases.append((f"f32 V=4 {idt} ids, runs across edges", seg.to(dev),
+                      vals.to(dev), len(lengths)))
+    for n in (1, 3, 4, 5, 129, 1025, 100_003):
+        vals = torch.full((n, 1), (1 << 62) + 12345, dtype=torch.int64)
+        vals[::3] = -(1 << 61) - 7
+        cases.append((f"int64 one segment over N={n}, sum wraps",
+                      torch.zeros(n, dtype=torch.int64).to(dev),
+                      vals.to(dev), 1))
+    ids = torch.randint(0, 3000, (20_000,), generator=g)
+    seg = torch.repeat_interleave(ids, torch.randint(1, 7, (20_000,),
+                                                     generator=g))
+    vals = torch.randint(-(1 << 40), 1 << 40, (len(seg), 1), generator=g)
+    cases.append((f"int64 unsorted ids in runs N={len(seg)}", seg.to(dev),
+                  vals.to(dev), 3000))
+    seg = torch.randint(-3, 3003, (30_000,), generator=g)
+    seg[::7] = (1 << 32) + torch.randint(0, 3000, (len(seg[::7]),),
+                                         generator=g)
+    seg[::11] = -(1 << 33)
+    vals = torch.randint(-(1 << 40), 1 << 40, (30_000, 1), generator=g)
+    cases.append(("int64 ids: -1, >= S and past 2^32 skipped", seg.to(dev),
+                  vals.to(dev), 3000))
+    cases.append(("int64 S=0, every id skipped",
+                  torch.randint(-1, 5, (300,), generator=g).to(dev),
+                  torch.randint(-9, 9, (300, 1), generator=g).to(dev), 0))
     cases.append(("int64 N=0", torch.zeros(0, dtype=torch.int32).to(dev),
                   torch.zeros((0, 1), dtype=torch.int64).to(dev), 16))
     cases.append(("f32 N=0", torch.zeros(0, dtype=torch.int32).to(dev),
@@ -312,28 +493,19 @@ def agg_cases(torch, dev):
     return cases
 
 
-def agg_main_shape(torch, dev):
-    """The consolidation/compaction segment sum at the main path's size:
-    1 M int64 weights over key-sorted group ids (mostly 1-2 per key)."""
-    g = torch.Generator(device="cpu").manual_seed(22)
-    keys = torch.sort(torch.randint(0, 700_000, (1_000_000,),
-                                    generator=g)).values
-    first = torch.ones(len(keys), dtype=torch.bool)
-    first[1:] = keys[1:] != keys[:-1]
-    gids = torch.cumsum(first, 0) - 1
-    w = torch.randint(1, 1 << 20, (len(keys), 1), generator=g)
-    return gids.to(dev), w.to(dev), int(first.sum())
-
-
-def check_agg(torch, dev) -> dict:
+def agg_sweep(torch, dev) -> tuple[float, int]:
+    """Every ``agg_cases`` case through the kernel and its plain version:
+    int64 exact, f32 within ``F32_TOL`` (sums in another order), counts
+    exact; (worst f32 max|diff|, cases run); raises on a mismatch."""
     from repro_torch.kernels.window_agg.kernel import window_agg
     from repro_torch.kernels.window_agg.ref import window_agg_ref
     worst = 0.0
-    for label, seg, vals, s in agg_cases(torch, dev):
+    cases = agg_cases(torch, dev)
+    for label, seg, vals, s in cases:
         sums, counts = window_agg(seg, vals, s)
         rsums, rcounts = window_agg_ref(seg, vals, s)
-        torch.cuda.synchronize()
-        if not torch.equal(counts.to(rcounts.dtype), rcounts):
+        if sums.shape != rsums.shape or counts.dtype != rcounts.dtype \
+                or not torch.equal(counts, rcounts):
             raise AssertionError(f"window_agg counts mismatch on {label}")
         if vals.dtype == torch.int64:
             if not torch.equal(sums, rsums):
@@ -342,40 +514,101 @@ def check_agg(torch, dev) -> dict:
             torch.testing.assert_close(sums, rsums, **F32_TOL)
             if len(sums):
                 worst = max(worst, float((sums - rsums).abs().max()))
-    gids, w, s = agg_main_shape(torch, dev)
-    sums, counts = window_agg(gids, w, s)
-    rsums, rcounts = window_agg_ref(gids, w, s)
     torch.cuda.synchronize()
-    if not (torch.equal(sums, rsums) and torch.equal(counts, rcounts)):
-        raise AssertionError("window_agg mismatch at the main-path shape")
-    n, v = w.shape
-    acc = torch.zeros((s, v), dtype=w.dtype, device=dev)
-    # the bare launch into preallocated sums/counts (they accumulate
-    # across the timed launches; only the time is read)
+    return worst, len(cases)
+
+
+def _gids(torch, first):
+    """The store's group ids: int64, ``cumsum`` of the first-of-key mask."""
+    return torch.cumsum(first, 0) - 1
+
+
+def agg_main_shape(torch, dev):
+    """The consolidation/compaction segment sum at the size of q8's largest
+    compaction: 1 M int64 weights over key-sorted int64 group ids (mostly
+    1-2 per key)."""
+    g = torch.Generator(device="cpu").manual_seed(22)
+    keys = torch.sort(torch.randint(0, 700_000, (1_000_000,),
+                                    generator=g)).values
+    first = torch.ones(len(keys), dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    w = torch.randint(1, 1 << 20, (len(keys), 1), generator=g)
+    return _gids(torch, first).to(dev), w.to(dev), int(first.sum())
+
+
+def agg_site(torch, dev):
+    """The segment sum a q8_justin episode makes at its median (174 calls,
+    counted on the CPU): 6,667 int64 weights, 1.03 rows per segment."""
+    g = torch.Generator(device="cpu").manual_seed(23)
+    first = torch.rand(6_667, generator=g) >= 0.03
+    first[0] = True
+    w = torch.randint(1, 1 << 20, (6_667, 1), generator=g)
+    return _gids(torch, first).to(dev), w.to(dev), int(first.sum())
+
+
+def agg_launch(torch, gids, w, s):
+    """The bare launch into preallocated sums and counts, which it
+    zeroes, as the wrapper's."""
     from repro_torch.kernels import _build
+    n, v = w.shape
+    sums = torch.empty((s, v), dtype=w.dtype, device=w.device)
+    counts = torch.empty(s, dtype=w.dtype, device=w.device)
     fn = _build.library().window_agg_i64
-    seg32 = gids.to(torch.int32)
-    cnt = torch.zeros(s, dtype=w.dtype, device=dev)
-    args = (seg32.data_ptr(), w.data_ptr(), n, v, s, acc.data_ptr(),
-            cnt.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    must = n * (4 + 8 * v) + s * (8 * v + 8)
+    args = (gids.data_ptr(), gids.element_size(), w.data_ptr(), n, v, s,
+            sums.data_ptr(), counts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    return lambda: fn(*args)
+
+
+def agg_bound_bytes(gids, w, s) -> int:
+    """Ids and values read once, sums and counts written once."""
+    n, v = w.shape
+    return n * (gids.element_size() + w.element_size() * v) \
+        + s * w.element_size() * (v + 1)
+
+
+def check_agg(torch, dev) -> dict:
+    from repro_torch.kernels.window_agg.kernel import window_agg
+    from repro_torch.kernels.window_agg.ref import window_agg_ref
+    worst, n_cases = agg_sweep(torch, dev)
+    sites = []
+    main_shape = agg_main_shape(torch, dev)
+    for name, (gids, w, s) in (("state/lsm.py:382 _collapse (median)",
+                                agg_site(torch, dev)),
+                               ("main shape", main_shape)):
+        sums, counts = window_agg(gids, w, s)
+        rsums, rcounts = window_agg_ref(gids, w, s)
+        if not (torch.equal(sums, rsums) and torch.equal(counts, rcounts)):
+            raise AssertionError(f"window_agg mismatch at the {name}")
+        launch = agg_launch(torch, gids, w, s)
+        acc = torch.zeros_like(rsums)
+        must = agg_bound_bytes(gids, w, s)
+        sites.append({
+            "site": name, "n": len(gids), "segments": s,
+            "ms": device_ms(launch, cold=True),
+            "warm_ms": device_ms(launch, cold=False),
+            "library_ms": device_ms(lambda: acc.index_add_(0, gids, w),
+                                    cold=True),
+            "bound_bytes": must, "bound_ms": must / HBM_BYTES_PER_S * 1e3})
+    main = sites.pop()
+    gids, w, s = main_shape
+    n, v = w.shape
     res = {
         "name": "window_agg", "route": "cuda",
         "source": "src/repro_torch/csrc/window_agg.cu",
         "replaces": "src/repro/kernels/window_agg/kernel.py:55",
-        "max_abs_err": worst,
-        "shape": f"N={n} int64 weights, S={s} sorted segments, V={v}",
-        "ms": device_ms(lambda: fn(*args), cold=True),
-        "warm_ms": device_ms(lambda: fn(*args), cold=False),
+        "max_abs_err": worst, "sweep_cases": n_cases,
+        "shape": f"N={n} int64 weights, int64 ids, S={s} sorted segments, "
+                 f"V={v}",
+        "ms": main["ms"], "warm_ms": main["warm_ms"],
         "wrapper_ms": call_ms(lambda: window_agg(gids, w, s)),
         "plain_ms": device_ms(lambda: window_agg_ref(gids, w, s), cold=True),
-        "library_ms": device_ms(lambda: acc.index_add_(0, gids, w),
-                                cold=True),
-        "bound_bytes": must,
-        "bound_ms": must / HBM_BYTES_PER_S * 1e3,
+        "library_ms": main["library_ms"],
+        "bound_bytes": main["bound_bytes"], "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
+        "sites": sites,
     }
-    add_rates(res, must, "TB/s")
+    add_rates(res, main["bound_bytes"], "TB/s")
     emit({"phase": "kernel", **res})
     return res
 
@@ -730,6 +963,12 @@ def run_episode(key: str, golden: dict, dev: str) -> dict:
             "achieved_rate": hist[-1].achieved_rate}
 
 
+# profiler names of the store kernels' device work, by kernel
+STORE_KERNELS = {"sorted_probe": ("::probe_warps<", "::probe_indexed<"),
+                 "window_agg": ("::window_agg_kernel<",
+                                "::window_agg_zero<")}
+
+
 def profile_episode(key: str, golden: dict, dev: str,
                     wall_unprofiled: float | None) -> None:
     """One episode under torch.profiler: device time by kernel, written to
@@ -753,7 +992,15 @@ def profile_episode(key: str, golden: dict, dev: str,
     on_dev = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
                     key=lambda e: -e.self_device_time_total)
     dev_s = sum(e.self_device_time_total for e in on_dev) / 1e6
+    # the store kernels' device time, every instantiation summed
+    store = {}
+    for name, marks in STORE_KERNELS.items():
+        rows = [e for e in on_dev if any(m in e.key for m in marks)]
+        store[name] = {"calls": sum(e.count for e in rows),
+                       "device_ms": sum(e.self_device_time_total
+                                        for e in rows) / 1e3}
     emit({"phase": "profile", "episode": key, "wall_s_profiled": wall,
+          "store_kernels": store,
           "wall_s_unprofiled": wall_unprofiled, "device_s": dev_s,
           "device_busy_share": dev_s / wall_unprofiled
           if wall_unprofiled else None,

@@ -1,8 +1,8 @@
-// PTX wrappers for Hopper (sm_90a) that the attention kernels share:
-// mbarriers, the async-proxy fence, bulk and tensor (TMA) copies into
-// shared memory, cp.async with mbarrier completion, the wgmma
-// fence/commit/wait instructions, the shared-memory matrix descriptor and
-// setmaxnreg.  Header only: _build.py compiles the .cu files that include
+// PTX wrappers for Hopper (sm_90a) that the kernels share: mbarriers,
+// the async-proxy fence, bulk and tensor (TMA) copies into shared memory,
+// cp.async with mbarrier completion, the wgmma fence/commit/wait
+// instructions, the shared-memory matrix descriptor, setmaxnreg and the
+// programmatic dependent launch controls.  Header only: _build.py compiles the .cu files that include
 // it and hashes it with them.
 #pragma once
 
@@ -148,6 +148,19 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // barrier ``id`` (1..15) over ``threads`` threads, whole warps
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// programmatic dependent launch: a grid launched after this one with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// block of this grid has called this (or exited)
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// wait until the grid this one was launched after has completed and its
+// stores are visible
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 }  // namespace hopper

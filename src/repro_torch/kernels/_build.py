@@ -35,12 +35,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _S = ctypes.POINTER(ctypes.c_int64)     # a host array of element strides
 # every exported symbol: (argtypes, restype)
 _SIGNATURES = {
-    # table, t, queries, n, pos, found, stream
-    "sorted_probe_i32": ([_P, _L, _P, _L, _P, _P, _P], _I),
-    "sorted_probe_i64": ([_P, _L, _P, _L, _P, _P, _P], _I),
-    # seg, values, n, v, s, sums, counts, stream
-    "window_agg_f32": ([_P, _P, _L, _L, _L, _P, _P, _P], _I),
-    "window_agg_i64": ([_P, _P, _L, _L, _L, _P, _P, _P], _I),
+    # table, t, queries, n, pos, found, lanes per query, blocks, stream
+    "sorted_probe_i32": ([_P, _L, _P, _L, _P, _P, _L, _L, _P], _I),
+    "sorted_probe_i64": ([_P, _L, _P, _L, _P, _P, _L, _L, _P], _I),
+    # seg, id bytes, values, n, v, s, sums, counts, stream
+    "window_agg_f32": ([_P, _L, _P, _L, _L, _L, _P, _P, _P], _I),
+    "window_agg_i64": ([_P, _L, _P, _L, _L, _L, _P, _P, _P], _I),
     # q, k, v, out, b, hq, hk, sq, skv, d, strides[12], causal, window,
     # stream
     "flash_attn_bf16": ([_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L, _L,

@@ -76,6 +76,48 @@ def test_cuda_aggregate_matches_plain_version(hopper):
 
 
 @pytest.mark.gpu
+def test_cuda_probe_every_route_matches_plain_version(hopper):
+    """``chip_smoke.probe_cases`` (tables of P^m +- 1 entries for the parts
+    P = 33 and 513 a step of each route cuts its range into, batches
+    smaller than a warp, unsorted queries with repeats against a small and
+    a large table, the dtype's min and max) through the wrapper, on the
+    plan's route, and through the bare launch of each route: exact."""
+    assert _smoke().probe_sweep(torch, hopper) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_aggregate_sweep_matches_plain_version(hopper):
+    """``chip_smoke.agg_cases`` (runs across lane, warp and block edges,
+    one segment over all rows with int64 wrap, unsorted ids, ids of -1,
+    >= S and past 2^32, int32 and int64 ids, f32 with V = 4): int64 and
+    counts exact, f32 within ``F32_TOL``."""
+    assert _smoke().agg_sweep(torch, hopper)[1] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_aggregate_is_two_device_operations(hopper):
+    """One ``aggregate`` call on the store's int64 ids runs the zero fill
+    and the kernel, and nothing else on the card (no id cast, no second
+    fill)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.window_agg.ops import aggregate
+    first = torch.rand(5_000, generator=torch.Generator().manual_seed(4)) > 0.3
+    gids = (torch.cumsum(first, 0) - 1).to(hopper)
+    w = torch.ones((5_000, 1), dtype=torch.int64, device=hopper)
+    s = int(first.sum())
+    aggregate(gids, w, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sums, counts = aggregate(gids, w, s)
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA)
+    assert 1 <= ops <= 2
+    assert int(counts.sum()) == 5_000 and int(sums.sum()) == 5_000
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("seed", range(8))
 def test_cuda_store_matches_reference_in_lockstep(hopper, seed):
     from test_torch_lsm import run_lockstep

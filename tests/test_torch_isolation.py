@@ -1,6 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package ``repro``, and the entry
-points refuse to run on the CPU unless asked to."""
+"""The port stands alone: no module of ``src/repro_torch`` and neither
+``chip_smoke.py`` nor ``kernel_ab.py`` imports JAX or the JAX package
+``repro``, the entry points refuse to run on the CPU unless asked to, and
+``kernel_ab.py`` binds another tree's kernel wrappers to that tree's own
+build."""
 import ast
 import pathlib
 
@@ -10,7 +12,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 FORBIDDEN = ("jax", "repro", "jaxlib")
 
 
@@ -77,3 +79,31 @@ def test_cuda_tensor_without_build_raises_not_falls_back(monkeypatch):
         ops.probe(torch.arange(3), FakeCuda())
     with pytest.raises(RuntimeError, match="no CUDA sources"):
         _build.build()
+
+
+def test_kernel_ab_loads_another_tree_beside_this_one(tmp_path, monkeypatch):
+    """The A/B tool's baseline wrappers are another copy of the package,
+    each bound to the ``_build`` (sources, build directory) of its own
+    tree, and this checkout's modules are left as they were."""
+    import shutil
+    import sys
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    monkeypatch.syspath_prepend(str(ROOT))
+    import kernel_ab
+    from repro_torch.kernels import _build
+    shutil.copytree(ROOT / "src" / "repro_torch",
+                    tmp_path / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cur = kernel_ab.load_wrappers()
+    before = dict(kernel_ab._package_modules())
+    base = kernel_ab.load_wrappers(tmp_path / "src")
+    assert kernel_ab._package_modules() == before
+    assert str(tmp_path / "src") not in sys.path
+    for k in ("sorted_probe", "window_agg"):
+        assert cur[k].__globals__["_build"] is _build
+        other = base[k].__globals__["_build"]
+        assert other is not _build
+        assert other.CSRC == tmp_path / "src" / "repro_torch" / "csrc"
+        assert other.build_dir() == tmp_path / "build" / "repro_torch"
+    assert base["sorted_probe"].__globals__["_build"] \
+        is base["window_agg"].__globals__["_build"]

@@ -1,8 +1,9 @@
-"""Host-side plans of the port's CUDA kernels, on the CPU: the decode
-kernel's split plan, the flash and decode wrappers' decisions to copy an
-operand the copies cannot read in place, and the kernel build's hash and
-compiler report.  No GPU needed: the kernels themselves run only on a card
-(``test_torch_cuda``)."""
+"""Host-side plans of the port's CUDA kernels, on the CPU: the probe's
+route and grid, the decode kernel's split plan, the flash and decode
+wrappers' decisions to copy an operand the copies cannot read in place,
+and the kernel build's hash and compiler report.  No GPU needed: the
+kernels themselves run only on a card (``test_torch_cuda``)."""
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -14,6 +15,47 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn.kernel import (  # noqa: E402
     BLOCKS_PER_SM, TILE, rows_aligned, split_plan)
 from repro_torch.kernels.flash_attn.kernel import tma_ready  # noqa: E402
+from repro_torch.kernels.sorted_probe.kernel import (  # noqa: E402
+    INDEXED_QUERIES, THREADS, probe_blocks, probe_plan)
+
+
+def _served(n: int, lanes: int, blocks: int) -> np.ndarray:
+    """How many times the kernel's index map serves each query: thread x
+    of the grid serves query x // L as lane x % L, and lane 0 writes."""
+    x = np.arange(blocks * THREADS)
+    q = x[(x % lanes == 0) & (x // lanes < n)] // lanes
+    return np.bincount(q, minlength=n)
+
+
+@settings(max_examples=400, deadline=None)
+@given(n=st.integers(1, 20_000), t=st.integers(0, 3_000_000))
+def test_probe_plan_serves_every_query_once(n, t):
+    lanes, blocks = probe_plan(n, t)
+    assert lanes in (1, 32) and blocks == probe_blocks(n, lanes)
+    assert np.array_equal(_served(n, lanes, blocks), np.ones(n, np.int64))
+    # no block is idle: the last one holds a query
+    assert (blocks - 1) * THREADS < n * lanes <= blocks * THREADS
+
+
+@settings(max_examples=400, deadline=None)
+@given(n=st.integers(1, 4_000_000), t=st.integers(0, 2**31 - 1))
+def test_probe_plan_route(n, t):
+    lanes, _ = probe_plan(n, t)
+    # a thread per query for large batches into a table of any entries,
+    # a warp per query otherwise
+    assert (lanes == 1) == (n >= INDEXED_QUERIES and t > 0)
+
+
+def test_probe_plan_at_the_census_shapes():
+    # (N, T) medians of a q8_justin episode's five call sites
+    assert probe_plan(466, 465) == (32, 59)             # lsm.py:502
+    assert probe_plan(2_829, 41_126) == (32, 354)       # lsm.py:523
+    assert probe_plan(276, 266_800) == (32, 35)         # lsm.py:305
+    assert probe_plan(12_504, 8_081) == (1, 49)         # lsm.py:108
+    assert probe_plan(4, 60_000) == (32, 1)             # engine.py:67
+    # the main shape: 65,536 queries into 2.4 M entries
+    assert probe_plan(65_536, 2_400_000) == (1, 256)
+    assert probe_plan(5, 0) == (32, 1)                  # empty table
 
 
 @settings(max_examples=300, deadline=None)

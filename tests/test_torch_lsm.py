@@ -296,3 +296,4 @@ def test_snapshot_to_torch_round_trip_from_reference_store():
     np.testing.assert_array_equal(N(gp), gr)
     np.testing.assert_array_equal(N(fp), fr)
     assert_state_equal(port, again, "after get")
+
