@@ -29,7 +29,19 @@ Phases, each printing JSON lines:
    greedy decode steps; the attention kernels' launch counts are reset
    just before and must be 28 per prefill and 28 per decode step.  Then
    the decode step at position 2,048 is held against a prefill over the
-   prompt plus that token (2 requests, max|diff|/max|ref| < 0.03).
+   prompt plus that token (2 requests, max|diff|/max|ref| < 0.03);
+6. scenarios — the reconfiguration-pricing, dynamic-scenario and
+   shared-cluster layer on the card at the reference's sizes: (a) q8
+   justin vs threshold under a savepoint cost model (3 vs 4 steps,
+   threshold pays more downtime), (b) q11 under a load spike with a
+   straggler and a killed task, traced, the trace passed through
+   ``tools/check_trace.py``, (c) the ds2/justin q11 pair on one shared-TM
+   cluster under preemption, (d) sampled fleets of 32 tenants x 6 windows
+   and 128 x 20.  Each run is held exactly against
+   ``tests/data/torch_scenarios.json`` (the reference's answers), (c) and
+   (d) also scalar driver against vectorized; each prints its wall
+   seconds, store-kernel launches (reset just before; none fails) and
+   peak device memory.
 
 Any mismatch or exception exits non-zero; only after every phase passed
 are the kernel table, the ``nvidia-smi`` line and the final
@@ -39,6 +51,7 @@ JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import pathlib
@@ -969,11 +982,11 @@ STORE_KERNELS = {"sorted_probe": ("::probe_warps<", "::probe_indexed<"),
                                 "::window_agg_zero<")}
 
 
-def profile_episode(key: str, golden: dict, dev: str,
-                    wall_unprofiled: float | None) -> None:
-    """One episode under torch.profiler: device time by kernel, written to
-    chiprun_out/, and the device's busy share of the episode's
-    unprofiled wall time (the profiler slows the host, not the card)."""
+def profile_run(label: str, fn, wall_unprofiled: float | None,
+                **extra) -> None:
+    """``fn`` under torch.profiler: device time by kernel, written to
+    chiprun_out/, and the device's busy share of the run's unprofiled
+    wall time (the profiler slows the host, not the card)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -981,11 +994,11 @@ def profile_episode(key: str, golden: dict, dev: str,
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_episode(key, golden, dev)
+        fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     avgs = prof.key_averages()
-    (OUT / f"profile_{key}.txt").write_text(
+    (OUT / f"profile_{label}.txt").write_text(
         avgs.table(sort_by="self_device_time_total", row_limit=60))
     # device-side entries only (kernels, copies): op rows repeat the time
     # of the kernels they launch
@@ -999,9 +1012,10 @@ def profile_episode(key: str, golden: dict, dev: str,
         store[name] = {"calls": sum(e.count for e in rows),
                        "device_ms": sum(e.self_device_time_total
                                         for e in rows) / 1e3}
-    emit({"phase": "profile", "episode": key, "wall_s_profiled": wall,
+    emit({"phase": "profile", **extra, "wall_s_profiled": wall,
           "store_kernels": store,
           "wall_s_unprofiled": wall_unprofiled, "device_s": dev_s,
+          "device_events": sum(e.count for e in on_dev),
           "device_busy_share": dev_s / wall_unprofiled
           if wall_unprofiled else None,
           "top": [{"name": e.key[:70], "count": e.count,
@@ -1101,11 +1115,313 @@ def profile_serve(torch) -> None:
                   for e in on_dev[:20]]})
 
 
+# --------------------------------------------------------------- scenarios
+# Phase 6 drives the reconfiguration-pricing, dynamic-scenario and
+# shared-cluster layer and holds each run exactly against the reference's
+# answers, pinned in tests/data/torch_scenarios.json (written from the
+# reference package by ``tests/test_torch_pins.py --write``, which runs
+# these same functions over the reference's modules).  Every run function
+# takes ``api``, a namespace of one package's entry points
+# (:func:`port_api` here), and ``dev``, the keyword arguments that place
+# its engines (``{"device": "cuda"}`` for the port, ``{}`` for the
+# reference).
+PINS = ROOT / "tests" / "data" / "torch_scenarios.json"
+ROW_FIELDS = ("t", "step", "achieved_rate", "cpu_cores", "memory_mb",
+              "config", "triggered", "target", "backlog", "denied",
+              "preempted", "amortized_mb", "reconfig_downtime", "moved_mb",
+              "reason")
+SAVEPOINT_MB_PER_S = 6.0
+FLEETS = {"d_fleet_32": dict(tenants=32, windows=6, admission="fair_share",
+                             drivers=("vectorized", "scalar")),
+          "d_fleet_128": dict(tenants=128, windows=20,
+                              admission="preemption",
+                              drivers=("vectorized",))}
+# the reference's own fleet bench runs 1,000 tenants x 100 windows
+FLEET_FULL = dict(tenants=1000, windows=100)
+
+
+def port_api():
+    """The port's entry points that phase 6 drives."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.controller import AutoScaler, ControllerConfig
+    from repro_torch.core.justin import JustinParams
+    from repro_torch.core.policy import make_policy
+    from repro_torch.data.nexmark import QUERIES, TARGET_RATES
+    from repro_torch.migration import CostModel, MigrationRuntime
+    from repro_torch.obs import Tracer, write_jsonl
+    from repro_torch.scenarios import (KillTask, SetStraggler, fleet_stats,
+                                       run_colocation, run_fleet,
+                                       run_scenario)
+    from repro_torch.scenarios import cluster
+    from repro_torch.scenarios.runner import scenario_horizon_s
+    from repro_torch.streaming.engine import StreamEngine
+    return SimpleNamespace(**locals())
+
+
+def _jsonable(obj):
+    """The record as it reads back from JSON (tuples become lists), so a
+    fresh record compares with ``==`` against the pinned one."""
+    return json.loads(json.dumps(obj))
+
+
+def history_rows(history) -> list:
+    """Every field of every ``HistoryRow``, in ``ROW_FIELDS`` order."""
+    return [[sorted([op, list(pc)] for op, pc in h.config.items())
+             if f == "config" else getattr(h, f) for f in ROW_FIELDS]
+            for h in history]
+
+
+def _fault(f) -> list:
+    import dataclasses
+    return [type(f).__name__, *dataclasses.astuple(f)]
+
+
+def colocated_record(res) -> dict:
+    """A co-located run's decisions: the usage series and, per tenant, its
+    admission outcomes and full history."""
+    return _jsonable({
+        "usage": res.usage,
+        "migration": [res.cluster.migration_total().tasks_moved,
+                      res.cluster.migration_total().state_mb],
+        "tenants": {t.name: {
+            "policy": t.spec.policy, "query": t.spec.query,
+            "steps": t.scaler.steps, "denials": t.denials,
+            "deferrals": t.deferrals, "preemptions": t.preemptions,
+            "shrinks": t.scaler.preemptions,
+            "first_pending": t.first_pending,
+            "faults_fired": [_fault(f) for f in t.faults_fired],
+            "history": history_rows(t.history)} for t in res.tenants}})
+
+
+def run_savepoint(api, dev: dict) -> dict:
+    """(a) q8 under a savepoint cost model, justin and threshold, 6 windows
+    (the reference's tests/test_migration.py::
+    test_q8_savepoint_threshold_pays_more_downtime_than_justin)."""
+    cm = api.CostModel(mechanism="savepoint",
+                       savepoint_mb_per_s=SAVEPOINT_MB_PER_S)
+    out = {}
+    for pol in ("justin", "threshold"):
+        cfg = api.ControllerConfig(policy=pol,
+                                   justin=api.JustinParams(max_level=2))
+        ctl = api.AutoScaler(
+            api.StreamEngine(api.QUERIES["q8"](), seed=3, **dev),
+            api.TARGET_RATES["q8"], cfg, policy=api.make_policy(pol, cfg),
+            migration=api.MigrationRuntime(cm))
+        hist = ctl.run(max_windows=6)
+        out[pol] = {"steps": ctl.steps, "history": history_rows(hist),
+                    "totals": ctl.migration.totals()}
+    return _jsonable(out)
+
+
+def check_savepoint(rec: dict) -> dict:
+    """The acceptance pin's own claims: justin converges in 3 steps,
+    threshold in 4, both recover, threshold pays more downtime windows
+    and more downtime seconds."""
+    i_rate, i_target = ROW_FIELDS.index("achieved_rate"), \
+        ROW_FIELDS.index("target")
+    i_down = ROW_FIELDS.index("reconfig_downtime")
+    got = {}
+    for pol, r in rec.items():
+        down = [row[i_down] for row in r["history"]]
+        last = r["history"][-1]
+        got[pol] = {"steps": r["steps"],
+                    "downtime_windows": sum(1 for d in down if d > 0),
+                    "downtime_s": sum(down),
+                    "recovered": last[i_rate] >= 0.97 * last[i_target]}
+    j, t = got["justin"], got["threshold"]
+    if not (j["recovered"] and t["recovered"] and j["steps"] == 3
+            and t["steps"] == 4
+            and t["downtime_windows"] > j["downtime_windows"]
+            and t["downtime_s"] > j["downtime_s"]):
+        raise AssertionError(f"savepoint headline does not hold: {got}")
+    return got
+
+
+def run_faults(api, dev: dict, trace_path=None) -> dict:
+    """(b) q11 under a load spike with a straggler (and its recovery) and a
+    killed task, reconfigurations priced as handoffs, a tracer attached;
+    the fault times lie inside the scenario's horizon."""
+    cfg = api.ControllerConfig(policy="justin",
+                               justin=api.JustinParams(max_level=2))
+    horizon = api.scenario_horizon_s(cfg, 8)
+    faults = [api.SetStraggler(0.2 * horizon, "user_sessions", 0, 8.0,
+                               duration_s=0.2 * horizon),
+              api.KillTask(0.6 * horizon, "user_sessions", 1)]
+    tracer = api.Tracer(enabled=True)
+    res = api.run_scenario("justin", "q11", "spike", windows=8, cfg=cfg,
+                           reconfig_cost="handoff", faults=faults,
+                           tracer=tracer, **dev)
+    if trace_path is not None:
+        api.write_jsonl(tracer.spans, str(trace_path),
+                        meta={"run": "b_faults"})
+    return _jsonable({"steps": res.steps,
+                      "history": history_rows(res.history),
+                      "faults_fired": [_fault(f) for f in res.faults_fired],
+                      "slo": res.slo().to_dict(),
+                      "spans": len(tracer.spans),
+                      "trace_summary": tracer.summary()})
+
+
+def run_colocation_pair(api, dev: dict, driver: str) -> dict:
+    """(c) the ds2/justin pair on one shared-TM cluster under preemption
+    (``run_colocation(["q11"], "preemption", windows=5)``).  The cell
+    reports counts; the decisions behind them are read from the
+    ``run_colocated`` result it makes, caught on its way out."""
+    caught = []
+    inner = api.cluster.run_colocated
+
+    def catching(*a, **kw):
+        caught.append(inner(*a, **kw))
+        return caught[-1]
+
+    api.cluster.run_colocated = catching
+    try:
+        cells = api.run_colocation(["q11"], "preemption", windows=5,
+                                   verbose=False, driver=driver, **dev)
+    finally:
+        api.cluster.run_colocated = inner
+    return _jsonable({"cells": cells, **colocated_record(caught[0])})
+
+
+def run_fleet_case(api, dev: dict, key: str, driver: str) -> tuple:
+    """(d) a sampled fleet on its auto-sized private cluster: (record,
+    ``fleet_stats``)."""
+    f = FLEETS[key]
+    res = api.run_fleet(f["tenants"], f["windows"],
+                        admission=f["admission"], seed=0, driver=driver,
+                        **dev)
+    return colocated_record(res), api.fleet_stats(res)
+
+
+def first_diff(got, want, path: str = "") -> str | None:
+    """Where two JSON values first differ (None when equal)."""
+    if isinstance(got, dict) and isinstance(want, dict):
+        for k in sorted(set(got) | set(want), key=str):
+            if k not in got or k not in want:
+                return f"{path}/{k}: only in {'got' if k in got else 'pin'}"
+            d = first_diff(got[k], want[k], f"{path}/{k}")
+            if d:
+                return d
+        return None
+    if isinstance(got, list) and isinstance(want, list):
+        if len(got) != len(want):
+            return f"{path}: length {len(got)} != {len(want)}"
+        for i, (a, b) in enumerate(zip(got, want)):
+            d = first_diff(a, b, f"{path}[{i}]")
+            if d:
+                return d
+        return None
+    return None if got == want else f"{path}: {got!r} != {want!r}"
+
+
+def hold(label: str, got, want) -> None:
+    d = first_diff(got, want)
+    if d:
+        raise AssertionError(f"{label} differs: {d}")
+
+
+def scenario_phase(torch, dev: str) -> dict:
+    """Phase 6: every scenario run on the card at the reference's sizes,
+    each held exactly against the pin (and (c), (d) against their other
+    driver); per run one line with its wall seconds, store-kernel
+    launches and peak device memory.  Returns the launch totals and the
+    walls by run."""
+    from repro_torch.kernels.sorted_probe import ops as probe_ops
+    from repro_torch.kernels.window_agg import ops as agg_ops
+    api = port_api()
+    pins = json.loads(PINS.read_text())
+    d = {"device": dev}
+    OUT.mkdir(exist_ok=True)
+    trace = OUT / "scenario_b_trace.jsonl"
+    totals = {"sorted_probe": 0, "window_agg": 0}
+    walls = {}
+    t_phase = time.perf_counter()
+
+    def timed(label: str, fn, **extra):
+        gc.collect()         # the last run's engines, before the reset
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        probe_ops.launches = 0
+        agg_ops.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"sorted_probe": probe_ops.launches,
+                    "window_agg": agg_ops.launches}
+        for k, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"scenario run {label} never "
+                                     f"launched {k}")
+            totals[k] += n
+        walls[label] = wall
+        line = {"phase": "scenario", "run": label, "wall_s": wall,
+                "launches": launches,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                **extra}
+        return out, line
+
+    # (a) priced reconfiguration
+    rec, line = timed("a_savepoint", lambda: run_savepoint(api, d))
+    hold("a_savepoint", rec, pins["a_savepoint"])
+    emit({**line, "pin_equal": True, "headline": check_savepoint(rec)})
+
+    # (b) dynamic load with faults, traced
+    rec, line = timed("b_faults", lambda: run_faults(api, d, trace))
+    hold("b_faults", rec, pins["b_faults"])
+    chk = subprocess.run([sys.executable,
+                          str(ROOT / "tools" / "check_trace.py"),
+                          str(trace)], capture_output=True, text=True,
+                         timeout=120)
+    if chk.returncode != 0:
+        raise AssertionError(f"check_trace refused the trace: "
+                             f"{chk.stdout}{chk.stderr}")
+    emit({**line, "pin_equal": True, "spans": rec["spans"],
+          "check_trace": chk.stdout.strip()})
+
+    # (c) shared-cluster co-location, both drivers
+    recs = {}
+    for driver in ("vectorized", "scalar"):
+        recs[driver], line = timed(
+            f"c_colocation_{driver}",
+            lambda: run_colocation_pair(api, d, driver))
+        hold(f"c_colocation ({driver})", recs[driver], pins["c_colocation"])
+        emit({**line, "pin_equal": True, "driver": driver})
+    hold("c_colocation scalar vs vectorized", recs["scalar"],
+         recs["vectorized"])
+
+    # (d) fleets; depth cut from the reference's 1,000 x 100 bench
+    for key, f in FLEETS.items():
+        recs = {}
+        for driver in f["drivers"]:
+            (recs[driver], stats), line = timed(
+                f"{key}_{driver}",
+                lambda: run_fleet_case(api, d, key, driver))
+            hold(f"{key} ({driver})", recs[driver], pins[key])
+            stats.update(seconds=line["wall_s"],
+                         tenant_windows_per_s=stats["tenant_windows"]
+                         / line["wall_s"])
+            emit({**line, "pin_equal": True, "driver": driver,
+                  "fleet_stats": stats,
+                  "reduced": {"tenants": [f["tenants"],
+                                          FLEET_FULL["tenants"]],
+                              "windows": [f["windows"],
+                                          FLEET_FULL["windows"]]}})
+        if len(recs) == 2:
+            hold(f"{key} scalar vs vectorized", recs["scalar"],
+                 recs["vectorized"])
+    emit({"phase": "scenarios_done",
+          "seconds": time.perf_counter() - t_phase, "launches": totals})
+    return totals, walls
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile q8_justin and the serve path into "
-                         "chiprun_out/")
+                    help="also profile q8_justin, the serve path and the "
+                         "128-tenant fleet into chiprun_out/")
     args = ap.parse_args(argv)
 
     import torch
@@ -1166,7 +1482,9 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{key} never launched {k}")
             totals[k] += n
     if args.profile:
-        profile_episode("q8_justin", golden, dev, walls.get("q8_justin"))
+        profile_run("q8_justin", lambda: run_episode("q8_justin", golden,
+                                                     dev),
+                    walls.get("q8_justin"), episode="q8_justin")
 
     # 5. serve at full width
     totals.update(run_serve(torch, dev))
@@ -1175,6 +1493,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if args.profile:
         profile_serve(torch)
+
+    # 6. scenarios: priced reconfiguration, faults, co-location, fleets
+    launches, walls = scenario_phase(torch, dev)
+    for k, n in launches.items():
+        totals[k] += n
+    torch.cuda.empty_cache()
+    if args.profile:
+        profile_run("d_fleet_128", lambda: run_fleet_case(
+            port_api(), {"device": dev}, "d_fleet_128", "vectorized"),
+            walls["d_fleet_128_vectorized"], run="d_fleet_128_vectorized")
 
     for row in rows:
         row["launches"] = totals[row["name"]]

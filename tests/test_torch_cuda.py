@@ -134,6 +134,36 @@ def test_cuda_golden_episode(hopper):
     assert probe_ops.launches > 0 and agg_ops.launches > 0
 
 
+@pytest.mark.gpu
+def test_cuda_faulted_spike_scenario_matches_pin(hopper, tmp_path):
+    """``chip_smoke``'s run (b) on the card: q11 under a spike with a
+    straggler and a killed task, handoff-priced, traced; equal to the
+    reference's pinned answer, launching both store kernels."""
+    import json
+    from repro_torch.kernels.sorted_probe import ops as probe_ops
+    from repro_torch.kernels.window_agg import ops as agg_ops
+    smoke = _smoke()
+    pins = json.loads(smoke.PINS.read_text())
+    probe_ops.launches = agg_ops.launches = 0
+    got = smoke.run_faults(smoke.port_api(), {"device": "cuda"},
+                           tmp_path / "b.jsonl")
+    assert probe_ops.launches > 0 and agg_ops.launches > 0
+    smoke.hold("b_faults", got, pins["b_faults"])
+    assert (tmp_path / "b.jsonl").read_text().count("\n") == got["spans"] + 1
+
+
+@pytest.mark.gpu
+def test_cuda_fleet_32_both_drivers_match_pin(hopper):
+    import json
+    smoke = _smoke()
+    pins = json.loads(smoke.PINS.read_text())
+    api = smoke.port_api()
+    for driver in ("vectorized", "scalar"):
+        got, _ = smoke.run_fleet_case(api, {"device": "cuda"}, "d_fleet_32",
+                                      driver)
+        smoke.hold(f"d_fleet_32 ({driver})", got, pins["d_fleet_32"])
+
+
 def _smoke():
     """``chip_smoke.py`` at the repo root: its attention sweeps and their
     tolerance are the ones these tests run."""

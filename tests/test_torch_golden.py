@@ -11,13 +11,24 @@ import pathlib
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro_torch.core.controller import AutoScaler, ControllerConfig  # noqa
 from repro_torch.core.justin import JustinParams  # noqa: E402
 from repro_torch.core.policy import make_policy  # noqa: E402
 from repro_torch.data.nexmark import QUERIES, TARGET_RATES  # noqa: E402
 from repro_torch.streaming.engine import StreamEngine  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """The episodes are many small tensor ops on the CPU: one intra-op
+    thread runs them faster than a pool, and keeps parallel test workers
+    from oversubscribing the cores with spinning pool threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 GOLDEN = json.loads(
     (pathlib.Path(__file__).parent / "data" / "golden_autoscale.json")

@@ -63,6 +63,33 @@ def test_store_without_device_raises_when_no_cuda(monkeypatch):
     assert LSMStore(4.0, device="cpu").device.type == "cpu"
 
 
+def _scenario_entry_points():
+    from repro_torch import scenarios as S
+    tiny = dict(windows=1, verbose=False)
+    return {
+        "run_scenario": lambda: S.run_scenario("justin", "q1", "constant",
+                                               windows=1),
+        "run_colocated": lambda: S.run_colocated(
+            [("ds2", "q1")], S.Cluster(cpu_slots=8, memory_mb=1e4),
+            windows=0),
+        "run_fleet": lambda: S.run_fleet(2, 1),
+        "run_grid": lambda: S.run_grid(["q1"], ["constant"], ["ds2"],
+                                       **tiny),
+        "run_colocation": lambda: S.run_colocation(["q1"], **tiny),
+    }
+
+
+@pytest.mark.parametrize("name", ["run_scenario", "run_colocated",
+                                  "run_fleet", "run_grid",
+                                  "run_colocation"])
+def test_scenario_entry_points_raise_when_no_cuda(monkeypatch, name):
+    """Every entry point that builds engines resolves its device first:
+    without one given and no CUDA it raises before building anything."""
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _scenario_entry_points()[name]()
+
+
 def test_cuda_tensor_without_build_raises_not_falls_back(monkeypatch):
     """A CUDA tensor goes to the kernel binding or raises; it never takes
     the plain version.  Checked without a card by handing the wrapper a
