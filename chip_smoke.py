@@ -41,7 +41,29 @@ Phases, each printing JSON lines:
    ``tests/data/torch_scenarios.json`` (the reference's answers), (c) and
    (d) also scalar driver against vectorized; each prints its wall
    seconds, store-kernel launches (reset just before; none fails) and
-   peak device memory.
+   peak device memory;
+7. serve, window and MoE — (a) ``repro_torch.serve``'s
+   JustinServeController under ds2, justin and threshold, held exactly
+   against ``tests/data/torch_serve.json``; (b) h2o-danube-1.8b at full
+   width and depth through ``serve()``: 8 requests of 6,144 prompt tokens
+   (past its 4,096-token window) and 128 decode steps, 24 flash launches
+   and 3,072 decode launches; (c) mixtral-8x7b at full width, 16 of its
+   32 layers: 8 x 2,048 prompt tokens, 128 decode steps, 16 and 2,048
+   launches.  (b) and (c) each then hold the decode step at the prompt's
+   end against a prefill over one more token (2 requests, < 0.03), and
+   (c) prints the assignments its capacity bound dropped; (c) then holds
+   one full-width MoE layer, bf16 on the card at the prefill's and a
+   decode step's token counts, against a plain float32 version written
+   apart from the port's routing buffer (< 0.03, equal drop counts).
+   Every line carries its launch counts or peak device memory.
+
+Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
+spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
+and head dim 80 under a binding window in the flash kernel, and holds
+and times each attention kernel at the shape every served model gives
+it, launched as the serve path launches it: llama3.2-3b's (the main
+row), h2o-danube-1.8b's (``window_shape`` in its lines) and
+mixtral-8x7b's (``moe_shape``).
 
 Any mismatch or exception exits non-zero; only after every phase passed
 are the kernel table, the ``nvidia-smi`` line and the final
@@ -696,26 +718,59 @@ def flash_layout_cases(torch, dev):
            "bfloat16", q, k, v, True, None)
 
 
-def flash_main_shape(torch, dev):
-    """Prefill attention as the serve path calls it: q a [B, S, Hq, D]
-    projection seen as [B, Hq, S, D], k/v the [B, Hk, S, D] cache."""
-    g = torch.Generator(device="cpu").manual_seed(32)
-    b, s, hq, hk, d = SERVE["requests"], SERVE["prompt_len"], 24, 8, 128
+def flash_window_cases(torch, dev):
+    """Head dim 80 (a full 64-column TMA panel plus a 16-column one read
+    out of bounds) under a window that binds: Sq = Skv 2,048 and 4,200
+    (window 512 and 4,096), Sq 1,000 against Skv 3,000 (suffix aligned,
+    window 700), window 1 (the diagonal alone), a window without the
+    causal mask, and q as the serve path's [B, S, H, D] view; bf16 and
+    f32, GQA 4:1 and 8:2."""
+    g = torch.Generator(device="cpu").manual_seed(34)
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        for b, sq, skv, hq, hk, causal, window in (
+                (2, 2048, 2048, 4, 1, True, 512),
+                (1, 4200, 4200, 4, 1, True, 4096),
+                (2, 1000, 3000, 8, 2, True, 700),
+                (2, 300, 300, 8, 2, True, 1),
+                (2, 513, 513, 4, 1, False, 128)):
+            q = _randn(torch, g, (b, hq, sq, 80), dev, dt)
+            k = _randn(torch, g, (b, hk, skv, 80), dev, dt)
+            v = _randn(torch, g, (b, hk, skv, 80), dev, dt)
+            yield (f"{name} Sq={sq} Skv={skv} D=80 {hq}:{hk} causal={causal} "
+                   f"window={window}", name, q, k, v, causal, window)
+    dt = torch.bfloat16
+    q = _randn(torch, g, (2, 2048, 8, 80), dev, dt).transpose(1, 2)
+    k = _randn(torch, g, (2, 2, 2048, 80), dev, dt)
+    v = _randn(torch, g, (2, 2, 2048, 80), dev, dt)
+    yield ("bfloat16 [B,S,H,D] view Sq=Skv=2048 D=80 8:2 causal window=1000",
+           "bfloat16", q, k, v, True, 1000)
+
+
+def flash_shape(torch, dev, cfg, sv: dict, seed: int):
+    """Prefill attention as phase 5 or 7 serves ``cfg`` at ``sv``: q a
+    [B, S, Hq, D] projection seen as [B, Hq, S, D], k/v the [B, Hk, S, D]
+    cache, causal under the model's window."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    b, s = sv["requests"], sv["prompt_len"]
+    hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _randn(torch, g, (b, s, hq, d), dev, torch.bfloat16).transpose(1, 2)
     k = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
     v = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
-    return q, k, v
+    return q, k, v, cfg.window
 
 
 def flash_sweep(torch, dev) -> tuple[dict, int]:
-    """Every ``flash_cases`` case through the kernel and its plain version:
-    (worst max|diff| per dtype, cases run); raises on a mismatch."""
+    """Every ``flash_cases``, layout and D 80 window case through the
+    kernel and its plain version: (worst max|diff| per dtype, cases run);
+    raises on a mismatch."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n_cases = 0
     for label, name, q, k, v, causal, window in itertools.chain(
-            flash_cases(torch, dev), flash_layout_cases(torch, dev)):
+            flash_cases(torch, dev), flash_layout_cases(torch, dev),
+            flash_window_cases(torch, dev)):
         got = flash_attention(q, k, v, causal=causal, window=window)
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
         worst[name] = max(worst[name],
@@ -725,63 +780,125 @@ def flash_sweep(torch, dev) -> tuple[dict, int]:
     return worst, n_cases
 
 
-def check_flash(torch, dev) -> dict:
+def attended_keys(sq: int, skv: int, window: int | None) -> int:
+    """Keys the causal (and windowed) mask leaves summed over query rows,
+    row i at position i + skv - sq: what the operations bound counts."""
+    total = 0
+    for i in range(sq):
+        pos = i + skv - sq
+        lo = 0 if window is None else max(0, pos - window + 1)
+        total += max(0, min(skv, pos + 1) - lo)
+    return total
+
+
+def flash_row(torch, q, k, v, window, label: str, plain_whole: bool
+              ) -> dict:
+    """One prefill shape (bf16, causal): the kernel held against the plain
+    version (request by request, whose scores would not fit the card at
+    once at the window shape), then the bare launch, the wrapper, the
+    plain version and the library call timed, and the operations bound of
+    the attended pairs.  ``plain_whole``: the plain version timed in one
+    call; else in one call per request, which is the same work."""
+    import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn.kernel import flash_attention
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
-    worst, n_cases = flash_sweep(torch, dev)
-    q, k, v = flash_main_shape(torch, dev)
-    out = flash_attention(q, k, v, causal=True)
-    want = flash_attention_ref(q, k, v, causal=True)
-    err, rel = attn_err(torch, out, want, "bfloat16", "flash main-path shape")
+    out = flash_attention(q, k, v, causal=True, window=window)
+    want = torch.cat([flash_attention_ref(q[i:i + 1], k[i:i + 1],
+                                          v[i:i + 1], causal=True,
+                                          window=window)
+                      for i in range(q.shape[0])])
+    err, rel = attn_err(torch, out, want, "bfloat16", label)
     typical = float(want.float().abs().median())
     del want
     b, hq, s, d = q.shape
     hk = k.shape[1]
     # the bare launch into a preallocated output, as the library call
-    import ctypes
     fn = _build.library().flash_attn_bf16
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            hk, s, s, d, strides, 1, 0,
+            hk, s, s, d, strides, 1, window or 0,
             torch.cuda.current_stream().cuda_stream)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    flops = 4 * b * hq * d * s * (s + 1) // 2      # causal pairs only
+    if window is None or window >= s:    # the causal mask alone
+        lib = (lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    else:                    # a mask: KV heads repeated first (not timed)
+        pos = torch.arange(s, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
+        kr, vr = (t.repeat_interleave(hq // hk, dim=1) for t in (k, v))
+        lib = (lambda: sdpa(q, kr, vr, attn_mask=mask))
+    if plain_whole:
+        plain = (lambda: flash_attention_ref(q, k, v, causal=True,
+                                             window=window))
+    else:
+        plain = (lambda: [flash_attention_ref(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True, window=window)
+            for i in range(b)])
+    flops = 4 * b * hq * d * attended_keys(s, s, window)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
     flop_ms = flops / BF16_FLOP_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     res = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attn.cu",
-        "replaces": "src/repro/kernels/flash_attn/kernel.py:102",
         "max_abs_err": err, "max_rel_err": rel, "median_abs_ref": typical,
-        "sweep_cases": n_cases, "sweep_max_abs_err": worst,
-        "shape": f"q [{b}, {hq}, {s}, {d}] bf16 (a [B, S, H, D] buffer), "
-                 f"k/v [{b}, {hk}, {s}, {d}], causal",
         "ms": device_ms(lambda: fn(*args), cold=True),
         "warm_ms": device_ms(lambda: fn(*args), cold=False, reps=10),
-        "wrapper_ms": call_ms(lambda: flash_attention(q, k, v, causal=True),
+        "wrapper_ms": call_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                      window=window),
                               reps=10),
-        "plain_ms": device_ms(
-            lambda: flash_attention_ref(q, k, v, causal=True), cold=True,
-            reps=5),
-        "library_ms": device_ms(
-            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-            cold=True),
+        "plain_ms": device_ms(plain, cold=True, reps=5),
+        "plain_calls": 1 if plain_whole else b,
+        "library_ms": device_ms(lib, cold=True),
         "bound_flop": flops, "bound_bytes": nbytes,
         "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
     }
-    add_rates(res, flops, "TFLOP/s")
+    return add_rates(res, flops, "TFLOP/s")
+
+
+def check_flash(torch, dev) -> dict:
+    """The sweep, then one row per served model at its prefill shape:
+    llama3.2-3b (phase 5), h2o-danube-1.8b with its window binding and
+    mixtral-8x7b, whose window is longer than its prompts (phase 7)."""
+    from repro_torch.configs import get_config
+    worst, n_cases = flash_sweep(torch, dev)
+    res = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn/kernel.py:102",
+        "sweep_cases": n_cases, "sweep_max_abs_err": worst,
+    }
+    for key, arch, sv, seed in (
+            (None, ARCH, SERVE, 32),
+            ("window_shape", "h2o-danube-1.8b", SERVE_7["h2o-danube-1.8b"],
+             35),
+            ("moe_shape", "mixtral-8x7b", SERVE_7["mixtral-8x7b"], 36)):
+        q, k, v, window = flash_shape(torch, dev, get_config(arch), sv, seed)
+        b, hq, s, d = q.shape
+        hk = k.shape[1]
+        row = {"shape": f"{arch} prefill: q [{b}, {hq}, {s}, {d}] bf16 (a "
+                        f"[B, S, H, D] buffer), k/v [{b}, {hk}, {s}, {d}], "
+                        f"causal, window {window}",
+               **flash_row(torch, q, k, v, window, f"flash {arch} shape",
+                           plain_whole=key is None)}
+        if key is None:
+            res.update(row)
+        else:
+            res[key] = row
+        del q, k, v
+        torch.cuda.empty_cache()
     emit({"phase": "kernel", **res})
     return res
 
 
 # -------------------------------------------------------- decode_attention
 def decode_cases(torch, dev):
-    """(label, dtype name, q, k, v, valid_len) over S 1, 7, 300, 513, 2048,
-    D 64/80/128, GQA 1/3/4, valid_len 0, 1, S and ragged, bf16 and f32."""
+    """(label, dtype name, q, k, v, valid_len, lo) over S 1, 7, 300, 513,
+    2048, D 64/80/128, GQA 1/3/4, valid_len 0, 1, S and ragged, bf16 and
+    f32, no first slot (lo None); then sliding-window spans at S 300, 513
+    and 2048, D 80 and 128: lo 0, inside the first tile, on a tile edge,
+    equal to valid_len - 1, and ragged per row."""
     g = torch.Generator(device="cpu").manual_seed(41)
     for name, dt in (("float32", torch.float32),
                      ("bfloat16", torch.bfloat16)):
@@ -796,7 +913,27 @@ def decode_cases(torch, dev):
                         vl = torch.tensor(lens, dtype=torch.int32,
                                           device=dev)
                         yield (f"{name} S={s} D={d} {hq}:{hk} "
-                               f"valid_len={lens}", name, q, k, v, vl)
+                               f"valid_len={lens}", name, q, k, v, vl, None)
+        tile = 64 if dt == torch.bfloat16 else 32      # the kernel's rows
+        for s in (300, 513, 2048):
+            for d in (80, 128):
+                for hq, hk in ((4, 4), (8, 2)):
+                    q = _randn(torch, g, (4, hq, d), dev, dt)
+                    k = _randn(torch, g, (4, hk, s, d), dev, dt)
+                    v = _randn(torch, g, (4, hk, s, d), dev, dt)
+                    lens = [s, s - 37, 250, s // 2 + 1]
+                    for what, los in (
+                            ("0", [0, 0, 0, 0]),
+                            ("inside the first tile", [5, 1, 17, tile - 1]),
+                            ("on a tile edge", [tile, 2 * tile, 0, tile]),
+                            ("valid_len - 1", [n - 1 for n in lens]),
+                            ("ragged", [s - 40, 3, 250, s // 4])):
+                        vl = torch.tensor(lens, dtype=torch.int32,
+                                          device=dev)
+                        lo = torch.tensor(los, dtype=torch.int32, device=dev)
+                        yield (f"{name} S={s} D={d} {hq}:{hk} "
+                               f"valid_len={lens} lo={los} ({what})", name,
+                               q, k, v, vl, lo)
 
 
 def decode_layout_cases(torch, dev):
@@ -813,119 +950,178 @@ def decode_layout_cases(torch, dev):
         k = _randn(torch, g, (4, s, 2, d), dev, dt).transpose(1, 2)
         v = _randn(torch, g, (4, s, 2, d), dev, dt).transpose(1, 2)
         vl = torch.tensor([s, 300, 0, 65], dtype=torch.int32, device=dev)
-        yield (f"{name} [B,S,Hk,D] view S={s} D={d} 6:2", name, q, k, v, vl)
+        yield (f"{name} [B,S,Hk,D] view S={s} D={d} 6:2", name, q, k, v, vl,
+               None)
         q = _randn(torch, g, (4, 4, 64), dev, dt)
         k, v = (_randn(torch, g, (4, 2, 300, 68), dev, dt)[..., :64]
                 for _ in range(2))
         vl = torch.tensor([300, 1, 129, 0], dtype=torch.int32, device=dev)
         copied = " (copied)" if dt == torch.bfloat16 else ""
         yield (f"{name} slot stride 68{copied} S=300 D=64 4:2", name, q, k,
-               v, vl)
+               v, vl, torch.tensor([7, 0, 64, 0], dtype=torch.int32,
+                                   device=dev))
 
 
-def decode_main_shape(torch, dev):
-    """Decode attention as the serve path calls it: q [8, 24, 128] bf16
-    against one layer's [8, 8, 2176, 128] cache, valid_len 2049..2176 (the
-    range the 128 decode steps run through, one per request here)."""
-    g = torch.Generator(device="cpu").manual_seed(42)
-    b, hq, hk, d = SERVE["requests"], 24, 8, 128
-    s = SERVE["prompt_len"] + SERVE["decode"]
+def decode_shape(torch, dev, cfg, sv: dict, seed: int):
+    """Decode attention as phase 5 or 7 serves ``cfg`` at ``sv``, at the
+    64th decode step: q [B, Hq, D] bf16 (a slice of the [B, 1, Hq, D]
+    projection) against one layer's [B, Hk, prompt + decode, D] cache, and
+    the slot range [lo, hi) the decoder's position mask leaves at that
+    step (``layers.decode_slot_range``, the model's window applied)."""
+    from repro_torch.models.layers import decode_slot_range
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    b, hq, hk, d = sv["requests"], cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    s = sv["prompt_len"] + sv["decode"]
+    t = sv["prompt_len"] + 64
     q = _randn(torch, g, (b, 1, hq, d), dev, torch.bfloat16)[:, 0]
     k = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
     v = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
-    vl = torch.linspace(SERVE["prompt_len"] + 1, s, b).round().to(
-        dev, torch.int32)
-    return q, k, v, vl
+    lo, hi = decode_slot_range(t, s, cfg.window, cfg.chunk_attn)
+    return q, k, v, lo, hi
 
 
 def decode_sweep(torch, dev) -> tuple[dict, int]:
     """Every ``decode_cases`` case through the kernel and its plain
     version, again on the same inputs (bit-identical: the splits' ticket
-    counter was left zeroed) and again with garbage past valid_len:
+    counter was left zeroed), again with garbage outside [lo, valid_len)
+    and, where lo is 0, without lo (bit-identical):
     (worst max|diff| per dtype, cases run); raises on a mismatch."""
     from repro_torch.kernels.decode_attn.kernel import decode_attention
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n_cases = 0
-    for label, name, q, k, v, vl in itertools.chain(
+    for label, name, q, k, v, vl, lo in itertools.chain(
             decode_cases(torch, dev), decode_layout_cases(torch, dev)):
-        got = decode_attention(q, k, v, vl)
-        want = decode_attention_ref(q, k, v, vl)
+        got = decode_attention(q, k, v, vl, lo)
+        want = decode_attention_ref(q, k, v, vl, 0 if lo is None else lo)
         worst[name] = max(worst[name],
                           attn_err(torch, got, want, name, label)[0])
-        if not torch.equal(decode_attention(q, k, v, vl), got):
+        if not torch.equal(decode_attention(q, k, v, vl, lo), got):
             raise AssertionError(f"decode_attention not repeatable: {label}")
-        # garbage past valid_len (NaN values included) changes nothing
-        past = (torch.arange(k.shape[2], device=dev)[None, :]
-                >= vl[:, None].long())[:, None, :, None]
-        again = decode_attention(q, k.masked_fill(past, 999.0),
-                                 v.masked_fill(past, float("nan")), vl)
+        if lo is not None and not bool(lo.any()) and not torch.equal(
+                decode_attention(q, k, v, vl), got):
+            raise AssertionError(f"decode_attention lo=0 differs from no "
+                                 f"lo: {label}")
+        # garbage outside the span (NaN values included) changes nothing
+        slot = torch.arange(k.shape[2], device=dev)[None, :]
+        out = slot >= vl[:, None].long()
+        if lo is not None:
+            out |= slot < lo[:, None].long()
+        out = out[:, None, :, None]
+        again = decode_attention(q, k.masked_fill(out, 999.0),
+                                 v.masked_fill(out, float("nan")), vl, lo)
         if not torch.equal(again, got):
-            raise AssertionError(f"decode_attention read past valid_len: "
-                                 f"{label}")
+            raise AssertionError(f"decode_attention read outside "
+                                 f"[lo, valid_len): {label}")
         n_cases += 1
     torch.cuda.synchronize()
     return worst, n_cases
 
 
-def check_decode(torch, dev) -> dict:
+def decode_launch(torch, q, k, v, bounds, span: int, out):
+    """The bare launch of the decode kernel into ``out`` at the wrapper's
+    plan for ``span``: ``bounds`` int32 [2, B], each row's first slot and
+    end."""
+    import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attn.kernel import (_sm_count,
-                                                        decode_attention,
                                                         split_plan, tickets)
-    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
-    worst, n_cases = decode_sweep(torch, dev)
-    q, k, v, vl = decode_main_shape(torch, dev)
-    out = decode_attention(q, k, v, vl)
-    want = decode_attention_ref(q, k, v, vl)
-    err, rel = attn_err(torch, out, want, "bfloat16",
-                        "decode main-path shape")
-    typical = float(want.float().abs().median())
     b, hq, d = q.shape
     _, hk, s, _ = k.shape
-    import ctypes
-    fn = _build.library().decode_attn_bf16
-    chunk, n_splits = split_plan(b, hk, s, _sm_count(out.device.index))
+    dev = q.device
+    chunk, n_splits = split_plan(b, hk, span, _sm_count(dev.index))
     part_ml = torch.empty((2, b, hq, n_splits), device=dev)
     part_acc = torch.empty((b, hq, n_splits, d), device=dev)
     strides = (ctypes.c_int64 * 10)(*q.stride()[:2], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:2])
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(),
-            out.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-            part_acc.data_ptr(), tickets(out.device, b * hk).data_ptr(), b,
-            hq, hk, s, d, strides, chunk, n_splits,
-            torch.cuda.current_stream().cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bounds[1].data_ptr(),
+            bounds[0].data_ptr(), out.data_ptr(), part_ml[0].data_ptr(),
+            part_ml[1].data_ptr(), part_acc.data_ptr(),
+            tickets(dev, b * hk).data_ptr(), b, hq, hk, s, d, strides, chunk,
+            n_splits, torch.cuda.current_stream().cuda_stream)
+    fn = _build.library().decode_attn_bf16
+    return (lambda: fn(*args)), chunk, n_splits
+
+
+def decode_row(torch, q, k, v, lo: int, hi: int, label: str) -> dict:
+    """One decode shape, launched as the serve path launches it: every row
+    attends to the slots [lo, hi), bounds from ``layers.slot_bounds`` and
+    the plan cut over hi - lo.  The wrapper held against the plain
+    version, then the bare launch, the wrapper, the plain version and the
+    library call (``scaled_dot_product_attention`` over the sliced slots)
+    timed, and the byte bound of the slots the span holds."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attention
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.models.layers import slot_bounds
+    b, hq, d = q.shape
+    _, hk, s, _ = k.shape
+    bounds = slot_bounds(q.device, b, lo, hi)
+    span = hi - lo
+
+    def wrapper():
+        return decode_attention(q, k, v, bounds[1], bounds[0], span)
+    out = wrapper()
+    want = decode_attention_ref(q, k, v, hi, lo)
+    err, rel = attn_err(torch, out, want, "bfloat16", label)
+    typical = float(want.float().abs().median())
+    launch, chunk, n_splits = decode_launch(torch, q, k, v, bounds, span,
+                                            out)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    mask = (torch.arange(s, device=dev)[None, :] < vl[:, None].long()
-            )[:, None, None, :]
     q4 = q[:, :, None]
-    total = int(vl.long().sum())
-    nbytes = 2 * total * hk * d * 2 + 2 * 2 * q.numel() + 4 * b
+    total = b * span
+    nbytes = 2 * total * hk * d * 2 + 2 * 2 * q.numel() + bounds.numel() * 4
     flops = 4 * hq * d * total
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flop_ms = flops / BF16_FLOP_PER_S * 1e3
     res = {
-        "name": "decode_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/decode_attn.cu",
-        "replaces": "src/repro/kernels/decode_attn/kernel.py:81",
         "max_abs_err": err, "max_rel_err": rel, "median_abs_ref": typical,
-        "sweep_cases": n_cases, "sweep_max_abs_err": worst,
-        "shape": f"q [{b}, {hq}, {d}] bf16, caches [{b}, {hk}, {s}, {d}], "
-                 f"valid_len {vl.tolist()}",
         "splits": n_splits, "chunk": chunk,
-        "ms": device_ms(lambda: fn(*args), cold=True),
-        "warm_ms": device_ms(lambda: fn(*args), cold=False),
-        "wrapper_ms": call_ms(lambda: decode_attention(q, k, v, vl)),
-        "plain_ms": device_ms(lambda: decode_attention_ref(q, k, v, vl),
+        "ms": device_ms(launch, cold=True),
+        "warm_ms": device_ms(launch, cold=False),
+        "wrapper_ms": call_ms(wrapper),
+        "plain_ms": device_ms(lambda: decode_attention_ref(q, k, v, hi, lo),
                               cold=True),
-        "library_ms": device_ms(
-            lambda: sdpa(q4, k, v, attn_mask=mask, enable_gqa=True),
-            cold=True),
+        "library_ms": device_ms(lambda: sdpa(q4, k[:, :, lo:hi],
+                                             v[:, :, lo:hi],
+                                             enable_gqa=True), cold=True),
         "bound_bytes": nbytes, "bound_flop": flops,
         "bound_ms": max(byte_ms, flop_ms),
         "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
     }
-    add_rates(res, nbytes, "TB/s")
+    return add_rates(res, nbytes, "TB/s")
+
+
+def check_decode(torch, dev) -> dict:
+    """The sweep, then one row per served model at its decode shape:
+    llama3.2-3b (phase 5), h2o-danube-1.8b with its window binding and
+    mixtral-8x7b (phase 7)."""
+    from repro_torch.configs import get_config
+    worst, n_cases = decode_sweep(torch, dev)
+    res = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attn.cu",
+        "replaces": "src/repro/kernels/decode_attn/kernel.py:81",
+        "sweep_cases": n_cases, "sweep_max_abs_err": worst,
+    }
+    for key, arch, sv, seed in (
+            (None, ARCH, SERVE, 42),
+            ("window_shape", "h2o-danube-1.8b", SERVE_7["h2o-danube-1.8b"],
+             44),
+            ("moe_shape", "mixtral-8x7b", SERVE_7["mixtral-8x7b"], 45)):
+        cfg = get_config(arch)
+        q, k, v, lo, hi = decode_shape(torch, dev, cfg, sv, seed)
+        b, hq, d = q.shape
+        _, hk, s, _ = k.shape
+        row = {"shape": f"{arch} decode at t={hi - 1}, window {cfg.window}: "
+                        f"q [{b}, {hq}, {d}] bf16, caches [{b}, {hk}, {s}, "
+                        f"{d}], slots [{lo}, {hi}) on every row",
+               **decode_row(torch, q, k, v, lo, hi, f"decode {arch} shape")}
+        if key is None:
+            res.update(row)
+        else:
+            res[key] = row
+        del q, k, v
     emit({"phase": "kernel", **res})
     return res
 
@@ -1038,51 +1234,78 @@ def run_serve(torch, dev: str) -> dict:
     res = serve(ARCH, reduced=False, verbose=False, device=dev, **SERVE)
     launches = {"flash_attention": flash_ops.launches,
                 "decode_attention": decode_ops.launches}
-    want = {"flash_attention": cfg.num_layers,
-            "decode_attention": cfg.num_layers * SERVE["decode"]}
-    if launches != want or res["launches"] != want:
-        raise AssertionError(f"serve launched {launches} "
-                             f"(reported {res['launches']}), want {want}")
-    if res["generated"] != SERVE["decode"] + 1 or not all(
-            0 <= t < cfg.vocab_size for t in res["sample"]):
-        raise AssertionError(f"serve output malformed: {res}")
+    check_served(cfg, SERVE, res, launches)
     emit({"phase": "serve", "reduced": False, **SERVE, **res})
     return launches
 
 
-def check_decode_matches_prefill(torch, dev: str) -> dict:
-    """Full width: the decode step at position S == the last logits of a
-    prefill over S + 1 tokens (the reference's
-    tests/test_models.py::test_decode_matches_prefill, 2 requests)."""
+def check_served(cfg, sv: dict, res: dict, launches: dict) -> None:
+    """Raise unless a serve run of ``cfg`` at ``sv`` launched each
+    attention kernel once per layer a prefill and a decode step (counted
+    by the ops counters and reported by ``serve``) and generated
+    ``decode + 1`` in-vocabulary tokens."""
+    want = {"flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * sv["decode"]}
+    if launches != want or res["launches"] != want:
+        raise AssertionError(f"{cfg.name} launched {launches} (reported "
+                             f"{res['launches']}), want {want}")
+    if res["generated"] != sv["decode"] + 1 or not all(
+            0 <= t < cfg.vocab_size for t in res["sample"]):
+        raise AssertionError(f"{cfg.name} output malformed: {res}")
+
+
+def check_decode_matches_prefill(torch, dev: str, cfg, s: int,
+                                 **extra) -> dict:
+    """Full width: the decode step at position ``s`` == the last logits of
+    a prefill over ``s`` + 1 tokens (the reference's
+    tests/test_models.py::test_decode_matches_prefill, 2 requests), on the
+    serving path's weights (seed 1).  For an MoE config the routing's own
+    drop counts of the prefill and of the decode step are reported."""
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
-    from repro_torch.models import get_model
-    from repro_torch.models.transformer import cast_params
-    cfg = get_config(ARCH)
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models import get_model, moe
     model = get_model(cfg)
-    params = cast_params(model.init(cfg, torch.Generator(dev).manual_seed(1)),
-                         cfg)
-    b, s = 2, SERVE["prompt_len"]
+    params = init_params(cfg, torch.device(dev), 1)
+    b = 2
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (b, s + 1)), device=dev)
-    _, caches = model.prefill(params, {"tokens": toks[:, :s]}, cfg)
-    caches = {n: {kv: F.pad(c, (0, 0, 0, 1)) for kv, c in g.items()}
-              for n, g in caches.items()}
-    got, _ = model.decode(params, caches, toks[:, s:], s, cfg)
+    drops = {}
+    moe.dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    try:
+        _, caches = model.prefill(params, {"tokens": toks[:, :s]}, cfg)
+        drops["prefill"] = int(moe.dropped)
+        caches = {n: {kv: F.pad(c, (0, 0, 0, 1)) for kv, c in g.items()}
+                  for n, g in caches.items()}
+        moe.dropped.zero_()
+        got, _ = model.decode(params, caches, toks[:, s:], s, cfg)
+        drops["decode_step"] = int(moe.dropped)
+    finally:
+        moe.dropped = None
+    del caches
     ref, _ = model.prefill(params, {"tokens": toks}, cfg)
     if got.shape != (b, cfg.padded_vocab) or not bool(
             torch.isfinite(got).all() and torch.isfinite(ref).all()):
         raise AssertionError("decode/prefill logits malformed")
     rel = float((got - ref).abs().max() / ref.abs().max())
-    res = {"phase": "decode_vs_prefill", "arch": ARCH, "requests": b,
+    res = {"phase": "decode_vs_prefill", "arch": cfg.name, "requests": b,
            "position": s, "max_abs_ref": float(ref.abs().max()),
            "rel_err": rel, "limit": 0.03,
            "argmax_equal": bool(torch.equal(got.argmax(-1),
-                                            ref.argmax(-1)))}
+                                            ref.argmax(-1))), **extra}
+    if dev != "cpu":
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if cfg.num_experts:
+        per_token = cfg.num_layers // cfg.moe_period * cfg.top_k
+        res["moe_dropped"] = {
+            "prefill": drops["prefill"],
+            "prefill_assignments": b * s * per_token,
+            "decode_step": drops["decode_step"],
+            "decode_step_assignments": b * per_token}
     emit(res)
     if not rel < 0.03:
-        raise AssertionError(f"decode differs from prefill: {rel}")
+        raise AssertionError(f"{cfg.name}: decode differs from prefill: "
+                             f"{rel}")
     return res
 
 
@@ -1113,6 +1336,59 @@ def profile_serve(torch) -> None:
           "top": [{"name": e.key[:70], "count": e.count,
                    "device_ms": e.self_device_time_total / 1e3}
                   for e in on_dev[:20]]})
+
+
+def profile_decode(torch, cfg, sv: dict, steps: int = 8,
+                   dev: str = "cuda") -> None:
+    """``steps`` decode steps of ``cfg`` after a prefill of ``sv``'s batch,
+    first on the host clock, then again under torch.profiler: per step the
+    wall ms, the device ms, the device events, and the device's busy share
+    of the unprofiled wall (what says whether a step is host-bound)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models import get_model
+    dev = torch.device(dev)
+    model = get_model(cfg)
+    params = init_params(cfg, dev, 0)
+    b, s = sv["requests"], sv["prompt_len"]
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), device=dev)
+    logits, caches = model.prefill(params, {"tokens": toks}, cfg)
+    caches = {n: {kv: F.pad(c, (0, 0, 0, 2 * steps + 2)) for kv, c in
+                  g.items()} for n, g in caches.items()}
+    tok = logits.argmax(-1)[:, None]
+
+    def run(t0: int, n: int) -> None:
+        nonlocal tok
+        for i in range(n):
+            out, _ = model.decode(params, caches, tok, t0 + i, cfg)
+            tok = out.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+
+    run(s, 2)                                   # warm
+    t0 = time.perf_counter()
+    run(s + 2, steps)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(s + 2 + steps, steps)
+    avgs = prof.key_averages()
+    (OUT / f"profile_decode_{cfg.name}.txt").write_text(
+        avgs.table(sort_by="self_device_time_total", row_limit=40))
+    on_dev = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in on_dev) / 1e3 / steps
+    emit({"phase": "profile_decode", "arch": cfg.name,
+          "layers": cfg.num_layers, "requests": b, "position": s + 2 + steps,
+          "wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms,
+          "device_events_per_step": sum(e.count for e in on_dev) / steps,
+          "device_busy_share": dev_ms / wall_ms,
+          "top": [{"name": e.key[:70], "count": e.count,
+                   "device_ms": e.self_device_time_total / 1e3}
+                  for e in on_dev[:12]]})
 
 
 # --------------------------------------------------------------- scenarios
@@ -1160,9 +1436,10 @@ def port_api():
 
 
 def _jsonable(obj):
-    """The record as it reads back from JSON (tuples become lists), so a
-    fresh record compares with ``==`` against the pinned one."""
-    return json.loads(json.dumps(obj))
+    """The record as it reads back from JSON (tuples become lists, numpy
+    scalars Python ones), so a fresh record compares with ``==`` against
+    the pinned one."""
+    return json.loads(json.dumps(obj, default=lambda x: x.item()))
 
 
 def history_rows(history) -> list:
@@ -1417,11 +1694,237 @@ def scenario_phase(torch, dev: str) -> dict:
     return totals, walls
 
 
+# ------------------------------------------------- serve, window and MoE
+# Phase 7 drives the port's serve controller and serves the two sliding-
+# window models.  (a) holds JustinServeController's decisions exactly
+# against the reference's answers, pinned in tests/data/torch_serve.json
+# (written by ``tests/test_torch_pins.py --write-serve`` through
+# ``run_serve_controller`` over the reference's modules): a smaller
+# workload than the default (160 prefixes of 256 tokens at 120 requests/s),
+# at which the first window is above 0.8 busy and each policy steps.
+SERVE_PINS = ROOT / "tests" / "data" / "torch_serve.json"
+SERVE_CTL = dict(target_rps=120.0, n_prefixes=160, prefix_tokens=256)
+SERVE_POLICIES = ("ds2", "justin", "threshold")
+# (b) h2o-danube-1.8b at full width and depth: prompts longer than its
+# 4,096-token window, so the window binds in prefill and in every decode
+# step.  (c) mixtral-8x7b at full width, 16 of its 32 layers: 23.2 B
+# parameters, 46.4 GB of bf16 layers and 1.05 GB of float32 embed and
+# unembed, to fit one 80 GB card.
+SERVE_7 = {"h2o-danube-1.8b": dict(requests=8, prompt_len=6144, decode=128),
+           "mixtral-8x7b": dict(requests=8, prompt_len=2048, decode=128)}
+MIXTRAL_LAYERS = 16
+
+
+def serve_api(package: str = "repro_torch"):
+    """The serve controller's entry points of one package."""
+    import importlib
+    from types import SimpleNamespace
+    eng = importlib.import_module(f"{package}.serve.engine")
+    return SimpleNamespace(JustinServeController=eng.JustinServeController,
+                           WorkloadSpec=eng.WorkloadSpec)
+
+
+def run_serve_controller(api, policy: str) -> dict:
+    """(a) ``JustinServeController.autoscale()`` under ``policy`` at
+    ``SERVE_CTL``: the result, steps, replicas, level and every history
+    row."""
+    ctl = api.JustinServeController(
+        SERVE_CTL["target_rps"], policy=policy,
+        workload=api.WorkloadSpec(n_prefixes=SERVE_CTL["n_prefixes"],
+                                  prefix_tokens=SERVE_CTL["prefix_tokens"]))
+    res = ctl.autoscale()
+    return _jsonable({"result": res, "steps": ctl.steps,
+                      "replicas": len(ctl.replicas), "level": ctl.level,
+                      "history": ctl.history})
+
+
+def moe_ffn_plain(torch, p: dict, x, cfg):
+    """A plain float32 version of ``models.moe.moe_ffn``, written apart
+    from the port's buffer scatter: per expert, the (token, choice)
+    assignments routed to it in token order, the first ``cap`` kept, their
+    SwiGLU outputs in float32 scaled by the renormalised gates and added
+    into their tokens' rows.  x [N, D].  Returns (y [N, D] float32, the
+    assignments dropped)."""
+    import torch.nn.functional as F
+    n, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    gates, sel = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    cap = max(1, -(-int(n * k * cfg.capacity_factor) // e))
+    flat_sel, flat_gate = sel.reshape(-1), gates.reshape(-1)
+    y = torch.zeros((n, d), dtype=torch.float32, device=x.device)
+    kept = 0
+    for j in range(e):
+        idx = torch.nonzero(flat_sel == j).squeeze(1)[:cap]
+        tok = idx // k
+        xe = x[tok].float()
+        h = F.silu(xe @ p["wg"][j].float()) * (xe @ p["wu"][j].float())
+        y.index_add_(0, tok, (h @ p["wo"][j].float()) * flat_gate[idx, None])
+        kept += idx.numel()
+    if cfg.shared_expert:
+        xf = x.float()
+        y += (F.silu(xf @ p["sh_wg"].float()) * (xf @ p["sh_wu"].float())
+              ) @ p["sh_wo"].float()
+    return y, n * k - kept
+
+
+def check_moe_layer(torch, dev: str, cfg, sv: dict) -> dict:
+    """One MoE layer of ``cfg`` at full width, bf16 on the card, at the
+    shapes (c) serves it: the prefill's B x prompt tokens and a decode
+    step's B.  ``moe_ffn`` on the block's normed input (``rms_norm`` of a
+    N(0, 1) hidden state; in the skewed prefill plus 3 x one direction
+    that every token shares, so tokens route alike and the capacity bound
+    drops, as on the served path's random weights) held against
+    ``moe_ffn_plain`` in float32 on the same bf16 weights and input
+    (N(0, 0.02), seed 7), max|diff| / max|ref| < 0.03 (the models' bf16
+    limit); the routing's own drop count must equal the plain version's."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rms_norm
+    g = torch.Generator(device=dev).manual_seed(7)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+
+    def draw(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+    p = {"router": draw(d, e), "wg": draw(e, d, f), "wu": draw(e, d, f),
+         "wo": draw(e, f, d)}
+    if cfg.shared_expert:
+        p |= {"sh_wg": draw(d, f), "sh_wu": draw(d, f), "sh_wo": draw(f, d)}
+    ln2 = torch.ones(d, device=dev)
+    res = {}
+    for what, s, skew in (("prefill", sv["prompt_len"], 0.0),
+                          ("prefill_skewed", sv["prompt_len"], 3.0),
+                          ("decode_step", 1, 0.0)):
+        x = (torch.randn((sv["requests"], s, d), generator=g, device=dev)
+             + skew * torch.randn(d, generator=g, device=dev)
+             ).to(torch.bfloat16)
+        h = rms_norm(x, ln2)
+        moe.dropped = torch.zeros((), dtype=torch.int64, device=dev)
+        try:
+            t0 = time.perf_counter()
+            got = moe.moe_ffn(p, h, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            dropped = int(moe.dropped)
+        finally:
+            moe.dropped = None
+        want, want_dropped = moe_ffn_plain(torch, p, h.reshape(-1, d), cfg)
+        got = got.reshape(-1, d)
+        if got.dtype != torch.bfloat16 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"moe layer {what}: malformed output")
+        rel = float((got.float() - want).abs().max() / want.abs().max())
+        res[what] = {"tokens": got.shape[0], "rel_err": rel, "limit": 0.03,
+                     "dropped": dropped, "dropped_plain": want_dropped,
+                     "assignments": got.shape[0] * cfg.top_k,
+                     "wall_s": wall}
+        del x, h, got, want
+        if not rel < 0.03 or dropped != want_dropped:
+            emit({"phase": "moe_layer", "arch": cfg.name, **res})
+            raise AssertionError(f"moe layer {what}: {res[what]}")
+    res = {"phase": "moe_layer", "arch": cfg.name,
+           "weights": "one layer, bf16, N(0, 0.02) seed 7", **res,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(res)
+    return res
+
+
+def serve_phase(torch, dev: str) -> dict:
+    """Phase 7: (a) the serve controller against its pins, (b) h2o-danube
+    and (c) mixtral served at full width through the port's serve entry
+    point, each with its launch counts (reset just before, read just
+    after) and peak memory, then its decode-vs-prefill check.  Returns the
+    attention kernels' launch totals."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops as decode_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch.serve import _serve, serve
+    from repro_torch.models import moe
+    t_phase = time.perf_counter()
+    totals = {"flash_attention": 0, "decode_attention": 0}
+
+    def reset():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flash_ops.launches = 0
+        decode_ops.launches = 0
+        torch.cuda.synchronize()
+
+    def launches():
+        return {"flash_attention": flash_ops.launches,
+                "decode_attention": decode_ops.launches}
+
+    # (a) the serve controller, held against the reference's answers
+    pins = json.loads(SERVE_PINS.read_text())
+    api = serve_api()
+    for policy in SERVE_POLICIES:
+        reset()
+        t0 = time.perf_counter()
+        rec = run_serve_controller(api, policy)
+        wall = time.perf_counter() - t0
+        hold(f"serve controller {policy}", rec, pins[policy])
+        emit({"phase": "serve_controller", "policy": policy, "wall_s": wall,
+              "pin_equal": True, "steps": rec["steps"],
+              "replicas": rec["replicas"], "level": rec["level"],
+              "theta": rec["result"]["theta"],
+              "busyness": rec["result"]["busyness"],
+              "windows": len(rec["history"]),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": launches()})
+
+    # (b) h2o-danube-1.8b, full width and depth, window binding
+    arch = "h2o-danube-1.8b"
+    cfg, sv = get_config(arch), SERVE_7[arch]
+    reset()
+    res = serve(arch, reduced=False, verbose=False, device=dev, **sv)
+    got = launches()
+    check_served(cfg, sv, res, got)
+    emit({"phase": "serve_window", "reduced": False, "window": cfg.window,
+          **sv, **res})
+    for k, n in got.items():
+        totals[k] += n
+    reset()
+    check_decode_matches_prefill(torch, dev, cfg, sv["prompt_len"])
+
+    # (c) mixtral-8x7b, full width, depth cut to fit the card
+    arch = "mixtral-8x7b"
+    full, sv = get_config(arch), SERVE_7[arch]
+    cfg = full.replace(num_layers=MIXTRAL_LAYERS)
+    cut = {"num_layers": [MIXTRAL_LAYERS, full.num_layers]}
+    reset()
+    moe.dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    try:
+        res = _serve(cfg, dev=torch.device(dev), seed=0, **sv)
+        dropped = int(moe.dropped)
+    finally:
+        moe.dropped = None
+    got = launches()
+    check_served(cfg, sv, res, got)
+    emit({"phase": "serve_moe", "reduced": cut, "window": cfg.window,
+          "experts": cfg.num_experts, "top_k": cfg.top_k,
+          "moe_dropped_run": dropped,
+          "moe_assignments_run": cfg.num_layers // cfg.moe_period
+          * cfg.top_k * sv["requests"] * (sv["prompt_len"] + sv["decode"]),
+          **sv, **res})
+    for k, n in got.items():
+        totals[k] += n
+    reset()
+    check_decode_matches_prefill(torch, dev, cfg, sv["prompt_len"],
+                                 reduced=cut)
+    reset()
+    check_moe_layer(torch, dev, cfg, sv)
+    emit({"phase": "serve_done", "seconds": time.perf_counter() - t_phase,
+          "launches": totals})
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile q8_justin, the serve path and the "
-                         "128-tenant fleet into chiprun_out/")
+                    help="also profile q8_justin, the serve path, the "
+                         "128-tenant fleet and the decode steps of the "
+                         "three served models into chiprun_out/")
     args = ap.parse_args(argv)
 
     import torch
@@ -1487,9 +1990,12 @@ def main(argv=None) -> int:
                     walls.get("q8_justin"), episode="q8_justin")
 
     # 5. serve at full width
+    from repro_torch.configs import get_config
     totals.update(run_serve(torch, dev))
     torch.cuda.empty_cache()
-    check_decode_matches_prefill(torch, dev)
+    torch.cuda.reset_peak_memory_stats()
+    check_decode_matches_prefill(torch, dev, get_config(ARCH),
+                                 SERVE["prompt_len"])
     torch.cuda.empty_cache()
     if args.profile:
         profile_serve(torch)
@@ -1504,13 +2010,33 @@ def main(argv=None) -> int:
             port_api(), {"device": dev}, "d_fleet_128", "vectorized"),
             walls["d_fleet_128_vectorized"], run="d_fleet_128_vectorized")
 
+    # 7. serve controller, sliding window and mixture of experts
+    for k, n in serve_phase(torch, dev).items():
+        totals[k] += n
+    torch.cuda.empty_cache()
+    if args.profile:
+        from repro_torch.configs import get_config
+        for cfg, sv in ((get_config(ARCH), SERVE),
+                        (get_config("h2o-danube-1.8b"),
+                         SERVE_7["h2o-danube-1.8b"]),
+                        (get_config("mixtral-8x7b").replace(
+                            num_layers=MIXTRAL_LAYERS),
+                         SERVE_7["mixtral-8x7b"])):
+            profile_decode(torch, cfg, sv)
+            gc.collect()
+            torch.cuda.empty_cache()
+
     for row in rows:
         row["launches"] = totals[row["name"]]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
-    emit({"kernels": [{k: r[k] for k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "bound_share", "achieved", "achieved_unit", "warm_ms", "wrapper_ms")}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_share", "achieved", "achieved_unit", "warm_ms",
+            "wrapper_ms")
+    emit({"kernels": [{
+        **{k: r[k] for k in ("name", "route", "source", "replaces",
+                             "launches", "max_abs_err", *keys)},
+        **{x: {k: r[x][k] for k in ("shape", "max_abs_err", *keys)}
+           for x in ("window_shape", "moe_shape") if x in r}}
         for r in rows]})
     print(name_power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,15 +1,19 @@
 // Decode attention: one query token per (b, q-head) against a KV cache
-// [B, Hk, S, D], slots >= valid_len[b] masked.
+// [B, Hk, S, D], attending to the slots [lo[b], valid_len[b]) only.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attn/kernel.py
 // (_decode_kernel / decode_attention).  The TPU version walks the cache's
 // KV blocks as a sequential grid axis per (b, head), carrying m, l and the
 // accumulator in VMEM scratch, and skips blocks past valid_len.  On Hopper
 // a sequential walk per (b, head) would leave most of the 132 SMs idle at
-// serving batch sizes, so the cache is split along S (FlashDecoding): one
-// block per (split, b, KV head) walks its share and writes a partial
-// (m, l, acc); the last block of each (b, KV head) to finish merges the
-// partials and writes the output, in the same launch.
+// serving batch sizes, so the attended span [lo, valid_len) is split
+// (FlashDecoding): one block per (split, b, KV head) walks its share and
+// writes a partial (m, l, acc); the last block of each (b, KV head) to
+// finish merges the partials and writes the output, in the same launch.
+// The model's sliding window is the span's first slot lo: a block's share
+// starts at lo + split * chunk, so no slot below lo is ever loaded (for a
+// byte-bound kernel that is the window's whole gain), and no tile has a
+// lower edge to mask; the upper edge, valid_len, is masked as before.
 //
 // Bound on an H100: bytes.  At the serving path's decode (B 8, Hk 8,
 // D 128, bf16, valid_len ~2112) the kernel must read 2*B*Hk*valid_len*D*2
@@ -20,7 +24,7 @@
 // tiles of 64 slots (32 in f32) through a ring of three stages, each one
 // cp.async.bulk per tile when the slots are contiguous (the serve cache's
 // tile is 16 KB in one piece) and 16-byte cp.async per row otherwise,
-// completing on the stage's mbarrier; tiles past valid_len are never
+// completing on the stage's mbarrier; tiles outside the span are never
 // loaded.  Eight consumer warps each own an eighth of every tile and keep
 // their own online-softmax state, so a tile costs no block-wide barrier:
 // only the stage barriers and warp shuffles.  The kernel is compiled for
@@ -31,8 +35,8 @@
 //
 // Semantics, as the TPU kernel: q upcast to f32 and scaled by D^-0.5,
 // scores and statistics in f32, output acc / max(l, 1e-30) in q's dtype;
-// valid_len 0 gives zeros.  valid_len is clamped to [0, S]; nothing at or
-// past it is read.
+// an empty span gives zeros.  valid_len is clamped to [0, S] and lo to
+// [0, valid_len]; nothing outside [lo, valid_len) is read.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -67,7 +71,8 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const int32_t* valid;
+  const int32_t* valid;           // [B] span ends
+  const int32_t* lo;              // [B] span starts
   void* out;
   float* part_m;                  // [B, Hq, n_splits]
   float* part_l;                  // [B, Hq, n_splits]
@@ -134,8 +139,11 @@ decode_kernel(Params p) {
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int vl = max(0, min(p.valid[b], p.s));
-  const int s0 = split * p.chunk;
-  const int s1 = min(s0 + p.chunk, vl);
+  const int lo = max(0, min(p.lo[b], vl));
+  // the last split runs to vl, so a plan cut for a shorter span than a
+  // row's is slower, never wrong
+  const int s0 = lo + split * p.chunk;
+  const int s1 = split == p.n_splits - 1 ? vl : min(s0 + p.chunk, vl);
   const int n_tiles = s1 > s0 ? (s1 - s0 + L::kRows - 1) / L::kRows : 0;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
@@ -449,15 +457,16 @@ int launch_g(const Params& p, dim3 grid, cudaStream_t stream) {
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* valid,
-           void* out, void* part_m, void* part_l, void* part_acc,
-           void* counter, int64_t b, int64_t hq, int64_t hk, int64_t s,
-           int64_t d, const int64_t* st, int64_t chunk, int64_t n_splits,
-           void* stream) {
+           const void* lo, void* out, void* part_m, void* part_l,
+           void* part_acc, void* counter, int64_t b, int64_t hq, int64_t hk,
+           int64_t s, int64_t d, const int64_t* st, int64_t chunk,
+           int64_t n_splits, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.valid = static_cast<const int32_t*>(valid);
+  p.lo = static_cast<const int32_t*>(lo);
   p.out = out;
   p.part_m = static_cast<float*>(part_m);
   p.part_l = static_cast<float*>(part_l);
@@ -506,29 +515,33 @@ int launch(const void* q, const void* k, const void* v, const void* valid,
 
 }  // namespace
 
-// strides: 10 int64 element strides: q (batch, head), k and v (batch,
-// head, slot), out (batch, head).  Scratch part_m/part_l [B, Hq, n_splits]
-// and part_acc [B, Hq, n_splits, D] are float32; counter is int32
-// [>= B * Hk], zero on entry and left zero on exit.
+// valid and lo: int32 [B] span ends and starts.  strides: 10 int64 element
+// strides: q (batch, head), k and v (batch, head, slot), out (batch, head).
+// Scratch part_m/part_l [B, Hq, n_splits] and part_acc [B, Hq, n_splits, D]
+// are float32; counter is int32 [>= B * Hk], zero on entry and left zero on
+// exit.
 extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v,
-                                const void* valid, void* out, void* part_m,
-                                void* part_l, void* part_acc, void* counter,
-                                int64_t b, int64_t hq, int64_t hk, int64_t s,
-                                int64_t d, const int64_t* strides,
+                                const void* valid, const void* lo, void* out,
+                                void* part_m, void* part_l, void* part_acc,
+                                void* counter, int64_t b, int64_t hq,
+                                int64_t hk, int64_t s, int64_t d,
+                                const int64_t* strides,
                                 int64_t chunk, int64_t n_splits,
                                 void* stream) {
-  return launch<bf16>(q, k, v, valid, out, part_m, part_l, part_acc, counter,
-                      b, hq, hk, s, d, strides, chunk, n_splits, stream);
+  return launch<bf16>(q, k, v, valid, lo, out, part_m, part_l, part_acc,
+                      counter, b, hq, hk, s, d, strides, chunk, n_splits,
+                      stream);
 }
 
 extern "C" int decode_attn_f32(const void* q, const void* k, const void* v,
-                               const void* valid, void* out, void* part_m,
-                               void* part_l, void* part_acc, void* counter,
-                               int64_t b, int64_t hq, int64_t hk, int64_t s,
-                               int64_t d, const int64_t* strides,
+                               const void* valid, const void* lo, void* out,
+                               void* part_m, void* part_l, void* part_acc,
+                               void* counter, int64_t b, int64_t hq,
+                               int64_t hk, int64_t s, int64_t d,
+                               const int64_t* strides,
                                int64_t chunk, int64_t n_splits,
                                void* stream) {
-  return launch<float>(q, k, v, valid, out, part_m, part_l, part_acc,
+  return launch<float>(q, k, v, valid, lo, out, part_m, part_l, part_acc,
                        counter, b, hq, hk, s, d, strides, chunk, n_splits,
                        stream);
 }

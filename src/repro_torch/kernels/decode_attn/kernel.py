@@ -20,11 +20,13 @@ BLOCKS_PER_SM = 2
 
 def split_plan(batch: int, kv_heads: int, slots: int, sms: int
                ) -> tuple[int, int]:
-    """(chunk, n_splits): the cache is cut along S into n_splits chunks of
-    ``chunk`` slots (a multiple of TILE) so that the batch * kv_heads *
-    n_splits blocks fit on the card at once, BLOCKS_PER_SM on each SM: a
-    second wave of blocks would stream its bytes after the first one's
-    tail, and the last block of each (b, KV head) merges the splits."""
+    """(chunk, n_splits): the attended span of ``slots`` slots (``valid_len
+    - lo``, at least 1) is cut into n_splits chunks of ``chunk`` slots (a
+    multiple of TILE) so that the batch * kv_heads * n_splits blocks fit on
+    the card at once, BLOCKS_PER_SM on each SM: a second wave of blocks
+    would stream its bytes after the first one's tail, and the last block
+    of each (b, KV head) merges the splits."""
+    slots = max(slots, 1)
     want = min(max(1, BLOCKS_PER_SM * sms // (batch * kv_heads)),
                _cdiv(slots, TILE))
     chunk = _cdiv(_cdiv(slots, want), TILE) * TILE
@@ -36,21 +38,28 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, valid_len: torch.Tensor
-                     ) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors q [B, Hq, D], caches [B, Hk, S, D]
-    (Hq % Hk == 0, Hq / Hk <= 8: KV heads are indexed, never repeated) and
-    valid_len [B] int32.  Any strides with a contiguous last dimension; the
-    kernel copies cache rows 16 bytes at a time, so a cache whose base or
-    strides are not 16-byte aligned is first copied to a contiguous tensor
-    (the serve path's caches never are).  Returns [B, Hq, D].
+                     v_cache: torch.Tensor, valid_len: torch.Tensor,
+                     lo: torch.Tensor | None = None,
+                     span: int | None = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors q [B, Hq, D] and caches
+    [B, Hk, S, D] (Hq % Hk == 0, Hq / Hk <= 8: KV heads are indexed, never
+    repeated).  Row b attends to the slots [lo[b], valid_len[b]), each an
+    int32 [B] tensor on q's device (``lo`` None: 0).  ``span``, the
+    longest ``valid_len - lo`` of any row as the caller knows it (the
+    serve path from its ints), is what ``split_plan`` cuts, so the plan
+    needs nothing from the card; None plans over S.  A span shorter than a
+    row's only makes that row's last split longer.  Any strides with a
+    contiguous last dimension; the kernel copies cache rows 16 bytes at a
+    time, so a cache whose base or strides are not 16-byte aligned is
+    first copied to a contiguous tensor (the serve path's caches never
+    are).  Returns [B, Hq, D].
 
     One launch: the splits' last block merges them, found by an atomic
     ticket in a per-device int32 buffer that the kernel leaves zeroed.
     Calls on two streams at once must not share that buffer: run them on
     one stream.  Raises on anything the kernel does not take."""
-    ts = (q, k_cache, v_cache, valid_len)
-    if not all(t.is_cuda for t in ts):
+    ts = (q, k_cache, v_cache, valid_len) + (() if lo is None else (lo,))
+    if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in ts):
         raise ValueError("decode_attention kernel needs CUDA tensors")
     if len({t.device for t in ts}) != 1:
         raise ValueError("decode_attention inputs on different devices")
@@ -74,16 +83,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"up to {MAX_D}")
     if s >= 2**31:
         raise ValueError("cache too long for int32 slots")
-    if valid_len.dtype != torch.int32 or tuple(valid_len.shape) != (b,):
-        raise ValueError(f"valid_len must be int32 [{b}], got "
-                         f"{valid_len.dtype} {tuple(valid_len.shape)}")
+    if lo is None:
+        lo = torch.zeros_like(valid_len)
+    for name, x in (("valid_len", valid_len), ("lo", lo)):
+        if x.dtype != torch.int32 or tuple(x.shape) != (b,):
+            raise ValueError(f"{name} must be int32 [{b}], got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    valid_len, lo = valid_len.contiguous(), lo.contiguous()
     if any(t.stride(-1) != 1 for t in (q, k_cache, v_cache)):
         raise ValueError("decode_attention needs a contiguous last dimension")
-    valid_len = valid_len.contiguous()
     k_cache, v_cache = (c if rows_aligned(c) else c.clone(
         memory_format=torch.contiguous_format) for c in (k_cache, v_cache))
     dev = q.device
-    chunk, n_splits = split_plan(b, hk, s, _sm_count(dev.index))
+    chunk, n_splits = split_plan(b, hk, s if span is None else min(span, s),
+                                 _sm_count(dev.index))
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     part_ml = torch.empty((2, b, hq, n_splits), dtype=torch.float32,
                           device=dev)
@@ -96,10 +109,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_build.library(), name)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            valid_len.data_ptr(), out.data_ptr(), part_ml[0].data_ptr(),
-            part_ml[1].data_ptr(), part_acc.data_ptr(),
-            tickets(dev, b * hk).data_ptr(), b, hq, hk, s, d, strides, chunk,
-            n_splits, stream)
+            valid_len.data_ptr(), lo.data_ptr(), out.data_ptr(),
+            part_ml[0].data_ptr(), part_ml[1].data_ptr(),
+            part_acc.data_ptr(), tickets(dev, b * hk).data_ptr(), b, hq, hk,
+            s, d, strides, chunk, n_splits, stream)
     _build.check(err, name)
     return out
 

@@ -14,22 +14,24 @@ launches = 0
 
 
 def decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-           valid_len) -> torch.Tensor:
+           valid_len, lo=None, span: int | None = None) -> torch.Tensor:
     """q [B, Hq, D]; caches [B, Hk, S, D], GQA when Hk < Hq (KV heads
-    indexed, never repeated on the card); valid_len an int or [B] ints:
-    slots >= valid_len[b] are masked, valid_len 0 gives zeros.  Returns
-    [B, Hq, D] in q's dtype.  Degenerate shapes short-circuit: no query
-    gives an empty result, an empty cache gives zeros."""
+    indexed, never repeated on the card); row b attends to the slots
+    [lo[b], valid_len[b]) (``lo`` None: 0); an empty span gives zeros.  On
+    the card each bound is an int32 [B] tensor on q's device and ``span``
+    the longest span the caller knows of, which the kernel's split plan
+    cuts (``kernel.decode_attention``); on the CPU a bound may also be an
+    int.  Returns [B, Hq, D] in q's dtype.  Degenerate shapes
+    short-circuit: no query gives an empty result, an empty cache gives
+    zeros."""
     global launches
     if q.numel() == 0:
         return torch.empty_like(q)
     if k_cache.shape[2] == 0:
         return torch.zeros_like(q)
     if q.is_cuda:
-        valid = torch.as_tensor(valid_len, dtype=torch.int32,
-                                device=q.device).reshape(-1)
-        out = decode_attention(q, k_cache, v_cache,
-                               valid.expand(q.shape[0]).contiguous())
+        out = decode_attention(q, k_cache, v_cache, valid_len, lo, span)
         launches += 1
         return out
-    return decode_attention_ref(q, k_cache, v_cache, valid_len)
+    return decode_attention_ref(q, k_cache, v_cache, valid_len,
+                                0 if lo is None else lo)

@@ -1,6 +1,7 @@
 """Serving entry point: prefill a batch of prompts, then greedy decode
 against a KV cache, on the card (or on the CPU when asked, at a reduced
-config).
+config).  Any architecture of ``repro_torch.configs``: dense, sliding
+window (h2o-danube-1.8b) and mixture of experts (mixtral-8x7b).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
       --requests 4 --prompt-len 32 --decode 16
@@ -23,7 +24,6 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models import get_model
-from repro_torch.models.transformer import cast_params
 
 
 def _sync(dev: torch.device) -> None:
@@ -38,8 +38,8 @@ def serve(arch: str, *, requests: int = 4, prompt_len: int = 32,
     ``decode + 1`` greedy tokens each (the first is the prefill's argmax).
 
     Weights are the reference's random initialisation drawn from a
-    ``torch.Generator`` seeded with ``seed`` on the run's device, cast
-    once to the compute dtype; prompts come from
+    ``torch.Generator`` seeded with ``seed`` on the run's device, the layer
+    matrices straight into the compute dtype; prompts come from
     ``numpy.random.default_rng(seed)``.  ``device=None`` means ``cuda``,
     which must exist.  The result has the reference's keys plus
     ``prefill_s``, ``decode_ms_per_step``, ``peak_mem_gb`` (card only) and
@@ -48,9 +48,29 @@ def serve(arch: str, *, requests: int = 4, prompt_len: int = 32,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    model = get_model(cfg)
+    result = _serve(cfg, requests=requests, prompt_len=prompt_len,
+                    decode=decode, dev=dev, seed=seed)
+    result["arch"] = arch
+    if verbose:
+        print(f"[serve] {result}")
+    return result
+
+
+def init_params(cfg, dev: torch.device, seed: int) -> dict:
+    """The serving tree: drawn in the sorted-path order from a generator
+    seeded with ``seed``, the layer matrices straight into the compute
+    dtype (the float32 tree of a model at mixtral's size would not fit the
+    card before its cast)."""
     gen = torch.Generator(dev).manual_seed(seed)
-    params = cast_params(model.init(cfg, gen), cfg)
+    return get_model(cfg).init(cfg, gen,
+                               dtype=getattr(torch, cfg.compute_dtype))
+
+
+def _serve(cfg, *, requests: int, prompt_len: int, decode: int,
+           dev: torch.device, seed: int) -> dict:
+    """``serve``'s body for one ``ArchConfig`` on ``dev``."""
+    model = get_model(cfg)
+    params = init_params(cfg, dev, seed)
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (requests, prompt_len))
     tokens = torch.as_tensor(toks, device=dev)
@@ -77,8 +97,8 @@ def serve(arch: str, *, requests: int = 4, prompt_len: int = 32,
     t2 = time.perf_counter()
     gen_tokens = torch.stack(out_tokens, 1).cpu()
     wall = t2 - t0
-    result = {
-        "arch": arch, "requests": requests, "generated": decode + 1,
+    return {
+        "arch": cfg.name, "requests": requests, "generated": decode + 1,
         "tokens_per_s": requests * (decode + 1) / wall,
         "wall_s": wall,
         "sample": [int(x) for x in gen_tokens[0][:8]],
@@ -89,9 +109,6 @@ def serve(arch: str, *, requests: int = 4, prompt_len: int = 32,
         "launches": {"flash_attention": flash_ops.launches - launches0[0],
                      "decode_attention": decode_ops.launches - launches0[1]},
     }
-    if verbose:
-        print(f"[serve] {result}")
-    return result
 
 
 def main() -> None:

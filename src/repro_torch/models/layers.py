@@ -7,14 +7,17 @@ its Pallas kernels):
 * ``chunked_attention`` — prefill attention, through
   ``kernels.flash_attn.ops.attention``;
 * ``decode_attention`` — one new token against a KV cache, through
-  ``kernels.decode_attn.ops.decode``.
+  ``kernels.decode_attn.ops.decode``, masked by absolute position as the
+  reference masks it (causal, sliding window, chunk).
 
-On a CUDA tensor both run the hand-written Hopper kernels, on a CPU
-tensor their plain PyTorch versions.  All softmax and normalisation
+On a CUDA tensor both run the hand-written Hopper kernels; on a CPU
+tensor prefill runs the flash kernel's plain version and decode computes
+the reference's full position mask.  All softmax and normalisation
 statistics are computed in float32 whatever the compute dtype.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -22,6 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.flash_attn import ops as flash_ops
+
+NEG_INF = -1e30
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -56,16 +61,98 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_ops.attention(q, k, v, causal=causal, window=window)
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, valid_len) -> torch.Tensor:
-    """Grouped decode attention, KV heads never repeated on the card.
+def ring_positions(t: int, n_slots: int, device=None) -> torch.Tensor:
+    """Absolute position held by each slot of a ring cache of ``n_slots``
+    at time ``t`` (-1 if unwritten): the reference's ``_ring_positions``.
+    For ``t < n_slots`` a slot holds its own index (or nothing yet)."""
+    j = torch.arange(n_slots, device=device)
+    pos = t - torch.remainder(t - j, n_slots)
+    return torch.where(pos >= 0, pos, -1)
 
-    q: [B, Hq, 1, Dh]; caches: [B, Hk, S, Dh]; valid_len: an int or [B]
-    ints, the cache slots [0, valid_len) each row attends to (the JAX
-    layer's ``kv_positions = arange(S)`` with ``t = valid_len - 1``).
-    Returns [B, Hq, 1, Dh]."""
-    o = decode_ops.decode(q[:, :, 0], k_cache, v_cache, valid_len)
-    return o[:, :, None]
+
+def decode_slot_range(t: int, n_slots: int, window: int | None,
+                      chunk_attn: int | None) -> tuple[int, int]:
+    """The slots [lo, hi) that the decode mask of a ring cache leaves at
+    time ``t``, when they are one contiguous range: slots hold their own
+    positions (``t < n_slots``), or a full ring fits inside the window
+    and the chunk.  Raises for a wrapped ring the window or chunk cuts
+    (no entry point reaches one)."""
+    if t < n_slots:
+        lo = 0
+        if window is not None:
+            lo = max(lo, t - window + 1)
+        if chunk_attn is not None:
+            lo = max(lo, t // chunk_attn * chunk_attn)
+        return lo, t + 1
+    if (window is None or n_slots <= window) and (
+            chunk_attn is None
+            or (t - n_slots + 1) // chunk_attn == t // chunk_attn):
+        return 0, n_slots
+    raise NotImplementedError(
+        f"decode at t={t} over a wrapped ring of {n_slots} slots cut by "
+        f"window={window} / chunk_attn={chunk_attn}: the mask is not one "
+        f"slot range, which is all the kernel takes")
+
+
+@functools.lru_cache(maxsize=4)
+def slot_bounds(device: torch.device, batch: int, lo: int, hi: int
+                ) -> torch.Tensor:
+    """int32 [2, batch] on ``device``: every row's first slot ``lo`` and
+    end ``hi``, the decode kernel's per-row bounds.  Made by two fills on
+    the device (no host copy, no sync) and kept for the next calls with
+    the same range, so a decode step's layers share one."""
+    bounds = torch.empty((2, batch), dtype=torch.int32, device=device)
+    bounds[0].fill_(lo)
+    bounds[1].fill_(hi)
+    return bounds
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_positions, t, *,
+                     window: int | None = None,
+                     chunk_attn: int | None = None) -> torch.Tensor:
+    """Grouped decode attention with the reference's position mask.
+
+    q: [B, Hq, 1, Dh]; caches: [B, Hk, S, Dh]; kv_positions: [B, S]
+    absolute position held by each slot (-1 = empty), or None for the
+    ring positions of the cache at ``t`` (``ring_positions``, what the
+    decoder passes); t: the current position, an int or [B].  A slot is
+    attended when ``0 <= pos <= t``, ``pos > t - window`` and ``pos //
+    chunk_attn == t // chunk_attn`` (each where set).  Returns
+    [B, Hq, 1, Dh].
+
+    On a CPU tensor the mask is computed in full (the plain path).  On a
+    CUDA tensor the mask must be one slot range per row, known from ints
+    (``kv_positions`` None, ``t`` an int; ``decode_slot_range``), and the
+    kernel reads only that range (``slot_bounds``, its split plan cut from
+    the ints); anything else raises there."""
+    if q.is_cuda:
+        if kv_positions is not None or not isinstance(t, int):
+            raise NotImplementedError(
+                "decode_attention on the card takes the ring cache's own "
+                "positions (kv_positions=None) at an int t")
+        lo, hi = decode_slot_range(t, k_cache.shape[2], window, chunk_attn)
+        bounds = slot_bounds(q.device, q.shape[0], lo, hi)
+        o = decode_ops.decode(q[:, :, 0], k_cache, v_cache, bounds[1],
+                              bounds[0], span=hi - lo)
+        return o[:, :, None]
+    b, hq, _, dh = q.shape
+    hk, s = k_cache.shape[1], k_cache.shape[2]
+    if kv_positions is None:
+        kv_positions = ring_positions(t, s, q.device)[None].expand(b, s)
+    qg = q.reshape(b, hk, hq // hk, dh).float() * dh ** -0.5
+    sc = torch.einsum("bkgd,bksd->bkgs", qg, k_cache.float())
+    tb = torch.as_tensor(t, device=q.device).reshape(-1).expand(b)[:, None]
+    mask = (kv_positions >= 0) & (kv_positions <= tb)
+    if window is not None:
+        mask &= kv_positions > tb - window
+    if chunk_attn is not None:
+        mask &= (torch.div(kv_positions, chunk_attn, rounding_mode="floor")
+                 == torch.div(tb, chunk_attn, rounding_mode="floor"))
+    sc = sc.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
+    return o.reshape(b, hq, 1, dh).to(q.dtype)
 
 
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,

@@ -1,8 +1,8 @@
 """Model API: one set of entry points per family, chosen from ArchConfig.
 
-The port has the dense decoder; the other families of the JAX package
-(MoE, VLM, enc-dec, SSM, hybrid) raise until they are ported (ROADMAP
-queue 1).  Training (``loss``) comes with ``train/``.
+The port has the decoder families ``dense`` and ``moe`` (sliding window
+included); VLM, enc-dec, SSM and hybrid raise until they are ported
+(ROADMAP queue 1).  Training (``loss``) comes with ``train/``.
 """
 from __future__ import annotations
 
@@ -23,10 +23,14 @@ class ModelFns:
 
 
 def get_model(cfg: ArchConfig) -> ModelFns:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return ModelFns(tfm.decoder_param_shapes, tfm.init_decoder_params,
                         tfm.decoder_prefill, tfm.decoder_decode_step,
                         tfm.decoder_cache_shapes)
+    missing = {"vlm": "the image-token frontend of models/transformer.py",
+               "encdec": "the encoder-decoder of models/transformer.py",
+               "ssm": "models/ssm.py", "hybrid": "models/hybrid.py"}
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1); the "
-        f"port runs family 'dense'")
+        f"family {cfg.family!r} is not ported yet: it needs "
+        f"{missing.get(cfg.family, 'a model module')} (ROADMAP queue 1); "
+        f"the port runs families 'dense' and 'moe'")

@@ -1,23 +1,31 @@
-"""Decoder-only dense transformer: prefill and KV-cache decode.
+"""Decoder-only transformer (dense and MoE): prefill and KV-cache decode.
 
 The parameter tree is the JAX package's (``models/transformer.py``), key
-for key and shape for shape: layers stacked on a leading axis under
-``params["layers"]["dense0"]`` (``wq`` is ``[L, d_model, H*Dh]``), so one
-tree carries across by a tree map.  The stack runs as a Python loop over
-that axis (PyTorch runs eagerly; the reference's ``lax.scan``).  One GPU
-needs no mesh, so the reference's sharding constraints have no
+for key and shape for shape: layers stacked on a leading axis in layer
+groups under ``params["layers"]`` — ``"dense0"`` for a dense model, one
+group ``"moe"`` for an all-MoE model (mixtral), and ``"dense0"`` ..
+``"dense{p-2}"`` plus ``"moe"`` when every ``moe_period``-th layer is MoE
+(llama4) — so one tree carries across by a tree map.  The stack runs as
+a Python loop over the groups' leading axis, the group's layers in
+sorted key order (the reference's ``lax.scan`` over ``_group_body``).
+One GPU needs no mesh, so the reference's sharding constraints have no
 counterpart here.
 
 Weights may be held in the config's ``param_dtype`` (float32) and are cast
 to the compute dtype per use, as the reference does; ``cast_params``
-makes those casts once, which gives the same bf16 values.
+makes those casts once, which gives the same bf16 values, and
+``init_decoder_params(..., dtype=)`` draws the layer matrices straight
+into the compute dtype, slice by slice, for models whose float32 tree
+would not fit the card.
 
-Caches are ``{"dense0": {"k", "v"}}`` of ``[L, B, Hk, S, Dh]``.  Prefill
-fills them; decode writes slot ``t`` in place (the reference returns a
-new cache; the port updates the one it is given and returns it).
-
-Only full causal self-attention is ported: a config with ``window`` or
-``chunk_attn`` (ring-buffer caches) raises, see ROADMAP queue 1.
+Caches are ``{group: {"k", "v"}}`` of ``[L_group, B, Hk, S, Dh]``.
+Prefill fills S slots (as the reference returns them, whatever the
+window); decode writes slot ``t % S`` in place (the reference returns a
+new cache; the port updates the one it is given and returns it) and
+masks by each slot's absolute position under the sliding window
+(``layers.decode_attention``).  ``chunk_attn``, head padding and the
+VLM, enc-dec, SSM and hybrid families are not ported yet (ROADMAP queue
+1) and raise.
 """
 from __future__ import annotations
 
@@ -26,26 +34,34 @@ import torch
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (chunked_attention, decode_attention,
                                        rms_norm, rotary, swiglu)
+from repro_torch.models.moe import moe_ffn, moe_param_shapes
 
-MATRICES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+# leaves held in the compute dtype: the layer and expert matrices (norm
+# scales, the router and the embedding stay in param_dtype)
+MATRICES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "sh_wg", "sh_wu",
+            "sh_wo")
 
 
 def kv_cache_len(cfg: ArchConfig, seq_len: int) -> int:
-    """Slots the decode KV cache needs for a context of ``seq_len``: all
-    of them under full attention, the only kind ported (a window or chunk
-    would cap it, with the ring cache of ROADMAP queue 1)."""
+    """Slots the decode KV cache needs for a context of ``seq_len``."""
+    if cfg.chunk_attn is not None:
+        return min(cfg.chunk_attn, seq_len)
+    if cfg.window is not None:
+        return min(cfg.window, seq_len)
     return seq_len
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.num_experts:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP queue 1 lists it); the port runs dense decoders")
-    if cfg.window is not None or cfg.chunk_attn is not None:
+            f"(ROADMAP queue 1 lists it); the port runs dense and MoE "
+            f"decoders")
+    if cfg.chunk_attn is not None:
         raise NotImplementedError(
-            f"{cfg.name}: sliding-window / chunked attention with a ring "
-            f"cache is not ported yet (ROADMAP queue 1)")
+            f"{cfg.name}: chunked local attention (chunk_attn) needs a chunk "
+            f"mask in both attention kernels, not ported yet (ROADMAP "
+            f"queue 1)")
     if cfg.padded_heads != cfg.num_heads:
         raise NotImplementedError(
             f"{cfg.name}: head padding is an XLA layout knob the port does "
@@ -66,12 +82,11 @@ def _qkv(p, h: torch.Tensor, cfg: ArchConfig):
 
 
 def attn_block(p, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
-               positions: torch.Tensor, cache: dict, t: int | None = None,
-               valid_len: torch.Tensor | None = None):
+               positions: torch.Tensor, cache: dict, t: int | None = None):
     """Returns (x + attn_out, cache).  ``cache`` {"k", "v"} [B, Hk, S, Dh]
     is written in place: prefill fills its first Sq slots, decode writes
-    slot ``t % S`` and attends to ``valid_len`` (default ``min(t+1, S)``)
-    slots.  ``mode`` is "prefill" or "decode"."""
+    slot ``t % S`` and attends to the slots the position mask leaves at
+    ``t`` under ``cfg.window``.  ``mode`` is "prefill" or "decode"."""
     _check_supported(cfg)
     h = rms_norm(x, p["ln1"])
     b, s, _ = x.shape
@@ -79,21 +94,19 @@ def attn_block(p, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     q = rotary(q, positions, cfg.rope_theta)
     k = rotary(k, positions, cfg.rope_theta)
     if mode == "decode":
-        n_slots = cache["k"].shape[2]
-        slot = t % n_slots
+        slot = t % cache["k"].shape[2]
         cache["k"][:, :, slot] = k[:, 0]
         cache["v"][:, :, slot] = v[:, 0]
-        if valid_len is None:
-            valid_len = min(t + 1, n_slots)
-        o = decode_attention(q.transpose(1, 2), cache["k"], cache["v"],
-                             valid_len)
+        o = decode_attention(q.transpose(1, 2), cache["k"], cache["v"], None,
+                             t, window=cfg.window, chunk_attn=cfg.chunk_attn)
     elif mode == "prefill":
         cache["k"][:, :, :s] = k.transpose(1, 2)
         cache["v"][:, :, :s] = v.transpose(1, 2)
         # q stays a [B, S, H, Dh] buffer seen as [B, H, S, Dh]; the output
         # has the same layout, so the transpose back below is free
         o = chunked_attention(q.transpose(1, 2), cache["k"][:, :, :s],
-                              cache["v"][:, :, :s], causal=True)
+                              cache["v"][:, :, :s], causal=True,
+                              window=cfg.window)
     else:
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
@@ -105,23 +118,55 @@ def dense_ffn_block(p, x: torch.Tensor) -> torch.Tensor:
     return x + swiglu(h, p["wg"], p["wu"], p["wd"])
 
 
+def moe_ffn_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    h = rms_norm(x, p["ln2"])
+    return x + moe_ffn(p["moe"], h, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
 
-def decoder_param_shapes(cfg: ArchConfig) -> dict:
-    _check_supported(cfg)
-    d, hd, f, n = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.num_layers
-    layer = {
+def _attn_shapes(cfg: ArchConfig, n: int) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    return {
         "ln1": (n, d),
         "wq": (n, d, cfg.num_heads * hd),
         "wk": (n, d, cfg.num_kv_heads * hd),
         "wv": (n, d, cfg.num_kv_heads * hd),
         "wo": (n, cfg.num_heads * hd, d),
-        "ln2": (n, d), "wg": (n, d, f), "wu": (n, d, f), "wd": (n, f, d),
     }
+
+
+def _dense_ffn_shapes(cfg: ArchConfig, n: int) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"ln2": (n, d), "wg": (n, d, f), "wu": (n, d, f), "wd": (n, f, d)}
+
+
+def _moe_ffn_shapes(cfg: ArchConfig, n: int) -> dict:
+    return {"ln2": (n, cfg.d_model), "moe": moe_param_shapes(cfg, n)}
+
+
+def _layer_group_shapes(cfg: ArchConfig) -> dict:
+    """Shape tree of the stacked layer groups (the reference's)."""
+    if cfg.num_experts and cfg.moe_period > 1:
+        n = cfg.num_layers // cfg.moe_period
+        group: dict = {}
+        for j in range(cfg.moe_period - 1):
+            group[f"dense{j}"] = _attn_shapes(cfg, n) | _dense_ffn_shapes(cfg, n)
+        group["moe"] = _attn_shapes(cfg, n) | _moe_ffn_shapes(cfg, n)
+        return group
+    n = cfg.num_layers
+    if cfg.num_experts:
+        return {"moe": _attn_shapes(cfg, n) | _moe_ffn_shapes(cfg, n)}
+    return {"dense0": _attn_shapes(cfg, n) | _dense_ffn_shapes(cfg, n)}
+
+
+def decoder_param_shapes(cfg: ArchConfig) -> dict:
+    _check_supported(cfg)
+    d = cfg.d_model
     shapes: dict = {"embed": (cfg.padded_vocab, d), "ln_f": (d,),
-                    "layers": {"dense0": layer}}
+                    "layers": _layer_group_shapes(cfg)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (d, cfg.padded_vocab)
     return shapes
@@ -143,32 +188,42 @@ def _set(tree: dict, path: tuple, val) -> None:
 
 
 def init_decoder_params(cfg: ArchConfig, generator: torch.Generator,
-                        device=None) -> dict:
+                        device=None, dtype: torch.dtype | None = None
+                        ) -> dict:
     """The reference's initialisation: every leaf of two or more
-    dimensions N(0, 0.02) in float32 then cast to ``param_dtype``, every
-    1-D leaf ones.  (By that rule the stacked per-layer norm scales
-    ``ln1``/``ln2`` [L, d] are drawn, as in the reference.)  Leaves are
-    drawn in sorted-path order from ``generator``, on ``device`` (the
-    generator's device by default)."""
+    dimensions N(0, 0.02) drawn in float32, every 1-D leaf ones.  (By that
+    rule the stacked per-layer norm scales ``ln1``/``ln2`` [L, d] are
+    drawn, as in the reference.)  Leaves are drawn in sorted-path order
+    from ``generator``, on ``device`` (the generator's device by default),
+    a leaf of three or more dimensions one matrix at a time (a layer's, or
+    a layer's expert's), so the float32 draw never exceeds one matrix.
+    Leaves are held in ``param_dtype``; with ``dtype`` given, the
+    ``MATRICES`` leaves are held in it instead, which gives the tree
+    ``cast_params`` makes from the float32 one, bit for bit, at the peak
+    memory of the cast tree."""
     device = generator.device if device is None else device
-    dtype = getattr(torch, cfg.param_dtype)
+    pdt = getattr(torch, cfg.param_dtype)
     params: dict = {}
     for path, shape in _leaves(decoder_param_shapes(cfg)):
-        if len(shape) >= 2:
-            leaf = torch.randn(shape, generator=generator,
-                               dtype=torch.float32, device=device)
-            leaf = leaf.mul_(0.02).to(dtype)
-        else:
-            leaf = torch.ones(shape, dtype=dtype, device=device)
+        ldt = dtype if dtype is not None and path[-1] in MATRICES else pdt
+        if len(shape) == 1:
+            _set(params, path, torch.ones(shape, dtype=ldt, device=device))
+            continue
+        leaf = torch.empty(shape, dtype=ldt, device=device)
+        for mat in leaf.reshape(-1, *shape[-2:]):
+            mat.copy_(torch.randn(shape[-2:], generator=generator,
+                                  dtype=torch.float32, device=device)
+                      .mul_(0.02))
         _set(params, path, leaf)
     return params
 
 
 def cast_params(params: dict, cfg: ArchConfig) -> dict:
     """A tree whose layer matrices are in the compute dtype, cast once
-    (bit-identical to the reference's cast per use).  Norm scales and the
-    embedding stay as they are: the norms scale in float32 and the logits
-    are taken against the float32 embedding."""
+    (bit-identical to the reference's cast per use).  Norm scales, the
+    router and the embedding stay as they are: the norms scale in float32,
+    the router runs in float32 and the logits are taken against the
+    float32 embedding."""
     dt = getattr(torch, cfg.compute_dtype)
     out: dict = {}
     for path, leaf in _leaves(params):
@@ -181,11 +236,13 @@ def cast_params(params: dict, cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def decoder_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
-    """KV-cache tree shapes matching the stacked layer layout."""
+    """KV-cache tree shapes matching the stacked layer groups: a ring of
+    ``kv_cache_len`` slots per layer (the reference's)."""
     _check_supported(cfg)
-    kv = (cfg.num_layers, batch, cfg.num_kv_heads,
-          kv_cache_len(cfg, seq_len), cfg.head_dim)
-    return {"dense0": {"k": kv, "v": kv}}
+    n_slots = kv_cache_len(cfg, seq_len)
+    return {name: {kv: (shapes["ln1"][0], batch, cfg.num_kv_heads, n_slots,
+                        cfg.head_dim) for kv in ("k", "v")}
+            for name, shapes in _layer_group_shapes(cfg).items()}
 
 
 def _embed_tokens(params, tokens: torch.Tensor, cfg: ArchConfig):
@@ -198,16 +255,25 @@ def _logits(params, x_last: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x_last.float() @ unembed.float()
 
 
+def _index(tree: dict, i: int) -> dict:
+    return {k: _index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
 def _run_stack(params, x, cfg: ArchConfig, mode: str, positions, caches,
-               t=None, valid_len=None):
-    lp = params["layers"]["dense0"]
-    lc = caches["dense0"]
-    for i in range(cfg.num_layers):
-        p = {name: w[i] for name, w in lp.items()}
-        x, _ = attn_block(p, x, cfg, mode=mode, positions=positions,
-                          cache={"k": lc["k"][i], "v": lc["v"][i]}, t=t,
-                          valid_len=valid_len)
-        x = dense_ffn_block(p, x)
+               t=None):
+    groups = params["layers"]
+    n = next(iter(groups.values()))["ln1"].shape[0]
+    for i in range(n):
+        for name in sorted(groups):    # dense0..denseK then moe
+            p = _index(groups[name], i)
+            lc = caches[name]
+            x, _ = attn_block(p, x, cfg, mode=mode, positions=positions,
+                              cache={"k": lc["k"][i], "v": lc["v"][i]}, t=t)
+            if name.startswith("dense"):
+                x = dense_ffn_block(p, x)
+            else:
+                x = moe_ffn_block(p, x, cfg)
     return x
 
 
@@ -217,10 +283,10 @@ def decoder_prefill(params, batch: dict, cfg: ArchConfig):
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
-    shapes = decoder_cache_shapes(cfg, b, s)
-    caches = {name: {kv: torch.empty(shp, dtype=x.dtype, device=x.device)
-                     for kv, shp in group.items()}
-              for name, group in shapes.items()}
+    caches = {name: {kv: torch.empty((shapes["ln1"][0], b, cfg.num_kv_heads,
+                                      s, cfg.head_dim), dtype=x.dtype,
+                                     device=x.device) for kv in ("k", "v")}
+              for name, shapes in _layer_group_shapes(cfg).items()}
     positions = torch.arange(s, device=x.device)
     x = _run_stack(params, x, cfg, "prefill", positions, caches)
     x = rms_norm(x[:, -1], params["ln_f"])
@@ -229,16 +295,11 @@ def decoder_prefill(params, batch: dict, cfg: ArchConfig):
 
 def decoder_decode_step(params, caches, tokens: torch.Tensor, t: int,
                         cfg: ArchConfig):
-    """tokens: [B, 1] new token ids at absolute position ``t``.  Writes the
-    new keys and values into ``caches`` in place.  Returns (logits [B, V]
-    float32, caches)."""
+    """tokens: [B, 1] new token ids at absolute position ``t`` (an int).
+    Writes the new keys and values into ``caches`` in place.  Returns
+    (logits [B, V] float32, caches)."""
     x = _embed_tokens(params, tokens, cfg)
-    b = x.shape[0]
-    n_slots = caches["dense0"]["k"].shape[3]
     positions = torch.arange(t, t + 1, device=x.device)
-    valid_len = torch.full((b,), min(t + 1, n_slots), dtype=torch.int32,
-                           device=x.device)
-    x = _run_stack(params, x, cfg, "decode", positions, caches, t=t,
-                   valid_len=valid_len)
+    x = _run_stack(params, x, cfg, "decode", positions, caches, t=t)
     x = rms_norm(x[:, -1], params["ln_f"])
     return _logits(params, x, cfg), caches

@@ -161,7 +161,8 @@ def test_decode_attention_matches_model_layer(h, kv, dtype):
     want = jax_layers.decode_attention(jq[:, :, None], jk, jv, kv_pos,
                                        jnp.asarray(lens - 1))
     got = torch_layers.decode_attention(tq[:, :, None], tk, tv,
-                                        torch.from_numpy(lens))
+                                        torch.from_numpy(np.array(kv_pos)),
+                                        torch.from_numpy(lens - 1))
     assert got.shape == (3, h, 1, 32)
     _close(got, want, dtype)
 

@@ -268,3 +268,104 @@ def test_cuda_decoder_matches_cpu_and_launches_the_kernels(hopper):
             assert decode_ops.launches == cfg.num_layers * 5
     ref = logits["cpu"]
     assert float((logits["cuda"] - ref).abs().max() / ref.abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [80, 128])
+def test_cuda_decode_window_span_matches_plain_version(hopper, d):
+    """The first slot ``lo``: at 0 the same bits as without it; inside the
+    first tile, on a tile edge, at valid_len - 1 and ragged within
+    ``ATTN_TOL`` of the plain version; one range on every row with the
+    plan cut over its span (the decoder's call), too short, or over S;
+    garbage below lo never read."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attention
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    g = torch.Generator(device="cpu").manual_seed(d)
+    b, hq, hk, s = 4, 32, 8, 2100
+    q = torch.randn((b, hq, d), generator=g).to(hopper, torch.bfloat16)
+    k, v = (torch.randn((b, hk, s, d), generator=g).to(hopper,
+                                                       torch.bfloat16)
+            for _ in range(2))
+    vl = torch.tensor([s, 2000, 700, 65], dtype=torch.int32, device=hopper)
+    base = decode_attention(q, k, v, vl)
+    assert torch.equal(decode_attention(q, k, v, vl, torch.zeros_like(vl)),
+                       base)
+    for los in ([5, 1, 17, 63], [64, 128, 0, 64], [s - 1, 1999, 699, 64],
+                [1000, 3, 650, 0]):
+        lo = torch.tensor(los, dtype=torch.int32, device=hopper)
+        got = decode_attention(q, k, v, vl, lo)
+        _smoke().attn_err(torch, got, decode_attention_ref(q, k, v, vl, lo),
+                          "bfloat16", f"lo={los} D={d}")
+        below = (torch.arange(s, device=hopper)[None, :]
+                 < lo[:, None].long())[:, None, :, None]
+        assert torch.equal(decode_attention(
+            q, k.masked_fill(below, float("nan")),
+            v.masked_fill(below, float("nan")), vl, lo), got)
+    # the serve path's launch: one range on every row, the plan cut over
+    # its span (and a plan cut too short, which only lengthens the last
+    # split)
+    from repro_torch.models.layers import slot_bounds
+    t, window = 2000, 1024
+    bounds = slot_bounds(hopper, b, t - window + 1, t + 1)
+    want = decode_attention_ref(q, k, v, t + 1, t - window + 1)
+    for span in (window, 64, None):
+        got = decode_attention(q, k, v, bounds[1], bounds[0], span)
+        _smoke().attn_err(torch, got, want, "bfloat16", f"span={span}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_head_dim_80_with_window(hopper):
+    from repro_torch.kernels.flash_attn.kernel import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    n = 0
+    for label, name, q, k, v, causal, window in \
+            _smoke().flash_window_cases(torch, hopper):
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        _smoke().attn_err(torch, got, want, name, label)
+        n += 1
+    assert n > 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "mixtral-8x7b"])
+def test_cuda_window_and_moe_decoders_match_cpu(hopper, arch):
+    """The reduced sliding-window (and MoE) decoder in float32 on the card
+    against the same weights and tokens on the CPU, the decode steps past
+    the window of 32; every layer launches the kernels."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops as decode_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.models import get_model
+    cfg = get_config(arch).reduced().replace(compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 69),
+                         generator=torch.Generator().manual_seed(1))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        flash_ops.launches = decode_ops.launches = 0
+        out, caches = model.prefill(p, {"tokens": toks[:, :64].to(dev)}, cfg)
+        caches = {g: {kv: F.pad(c, (0, 0, 0, 5)) for kv, c in d.items()}
+                  for g, d in caches.items()}
+        steps = [out]
+        for i in range(5):
+            out, caches = model.decode(p, caches,
+                                       toks[:, 64 + i:65 + i].to(dev),
+                                       64 + i, cfg)
+            steps.append(out)
+        logits[dev] = torch.stack(steps).cpu()
+        if dev == "cuda":
+            assert flash_ops.launches == cfg.num_layers
+            assert decode_ops.launches == cfg.num_layers * 5
+    ref = logits["cpu"]
+    assert float((logits["cuda"] - ref).abs().max() / ref.abs().max()) < 1e-4
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}

@@ -33,6 +33,9 @@ def test_port_files_exist():
     assert (ROOT / "src" / "repro_torch" / "csrc" / "window_agg.cu").exists()
     assert (ROOT / "src" / "repro_torch" / "csrc" / "flash_attn.cu").exists()
     assert (ROOT / "src" / "repro_torch" / "csrc" / "decode_attn.cu").exists()
+    for module in ("serve/kv_cache.py", "serve/engine.py", "models/moe.py",
+                   "configs/h2o_danube_1_8b.py", "configs/mixtral_8x7b.py"):
+        assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -88,6 +91,36 @@ def test_scenario_entry_points_raise_when_no_cuda(monkeypatch, name):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
         _scenario_entry_points()[name]()
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "mixtral-8x7b",
+                                  "minitron-4b", "internlm2-20b"])
+def test_serve_without_device_raises_when_no_cuda(monkeypatch, arch):
+    """Every architecture the port serves resolves its device first:
+    without one given and no CUDA, ``serve`` raises before it builds
+    anything."""
+    from repro_torch.launch.serve import serve
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(arch, requests=1, prompt_len=8, decode=1, verbose=False)
+
+
+def test_decode_layer_on_the_card_never_takes_the_plain_mask():
+    """On a CUDA tensor the decode layer hands the kernel a slot range or
+    raises: an explicit position map, a tensor ``t`` or a wrapped ring the
+    window cuts never fall back to the plain path's full mask."""
+    from repro_torch.models import layers
+
+    class FakeCuda:
+        is_cuda = True
+        shape = (1, 2, 1, 16)
+
+    k = torch.zeros((1, 1, 64, 16))
+    for kw in (dict(kv_positions=torch.arange(64)[None], t=10),
+               dict(kv_positions=None, t=torch.tensor([10])),
+               dict(kv_positions=None, t=100)):
+        with pytest.raises(NotImplementedError):
+            layers.decode_attention(FakeCuda(), k, k, window=32, **kw)
 
 
 def test_cuda_tensor_without_build_raises_not_falls_back(monkeypatch):

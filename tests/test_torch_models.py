@@ -153,13 +153,18 @@ def test_prefill_and_decode_match_jax(jax_params, dtype):
 
 
 def test_window_config_raises_not_computed_another_way():
-    cfg = get_config(ARCH).reduced().replace(window=32)
+    """A sliding window is ported (``test_torch_window.py``); the chunked
+    local window (``chunk_attn``) and the families still to port raise
+    rather than compute something else."""
+    cfg = get_config(ARCH).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg).prefill(
             cast_params(get_model(cfg).init(cfg, torch.Generator()), cfg),
-            {"tokens": torch.zeros((1, 8), dtype=torch.long)}, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg.replace(family="moe"))
+            {"tokens": torch.zeros((1, 8), dtype=torch.long)},
+            cfg.replace(chunk_attn=32))
+    for family in ("vlm", "encdec", "ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_model(cfg.replace(family=family))
 
 
 def test_serve_reduced_on_cpu_has_the_reference_keys():

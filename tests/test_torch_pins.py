@@ -18,6 +18,11 @@ and ``-m ""`` runs them here.
 Write the file from the reference with
 
     PYTHONPATH=src python tests/test_torch_pins.py --write
+
+``tests/data/torch_serve.json`` holds the reference's answers to phase 7
+(a), ``JustinServeController.autoscale()`` under ds2, justin and threshold
+(``chip_smoke.run_serve_controller``), checked here for both packages and
+written with ``--write-serve`` (a few seconds).
 """
 import importlib.util
 import json
@@ -139,8 +144,44 @@ def test_port_on_cpu_reproduces_pin(key, tmp_path):
                         compute(key, api, dev, driver), PINS[key])
 
 
+# ------------------------------------------------ phase 7 (a): serve control
+def write_serve_pins() -> None:
+    api = chip_smoke.serve_api("repro")
+    pins = {"_meta": {
+        "written_by": "PYTHONPATH=src python tests/test_torch_pins.py "
+                      "--write-serve (the reference package, on the CPU)",
+        "serve_ctl": chip_smoke.SERVE_CTL}}
+    for policy in chip_smoke.SERVE_POLICIES:
+        pins[policy] = chip_smoke.run_serve_controller(api, policy)
+    chip_smoke.SERVE_PINS.write_text(json.dumps(pins, separators=(",", ":"))
+                                     + "\n")
+
+
+SERVE_PINS = json.loads(chip_smoke.SERVE_PINS.read_text()) \
+    if chip_smoke.SERVE_PINS.exists() else {}
+
+
+def test_serve_pin_file_covers_every_policy():
+    assert set(SERVE_PINS) == {"_meta", *chip_smoke.SERVE_POLICIES}
+    assert SERVE_PINS["_meta"]["serve_ctl"] == chip_smoke.SERVE_CTL
+    # the workload is one at which every policy steps and Justin also
+    # scales the page budget up
+    for policy in chip_smoke.SERVE_POLICIES:
+        rec = SERVE_PINS[policy]
+        assert rec["history"][0]["busyness"] > 0.8 and rec["steps"] >= 1
+    assert SERVE_PINS["justin"]["level"] >= 1
+
+
+@pytest.mark.parametrize("package", ["repro", "repro_torch"])
+@pytest.mark.parametrize("policy", ["ds2", "justin", "threshold"])
+def test_serve_controller_reproduces_pin(package, policy):
+    chip_smoke.hold(f"{package} {policy}", chip_smoke.run_serve_controller(
+        chip_smoke.serve_api(package), policy), SERVE_PINS[policy])
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--write"]:
+    writers = {"--write": write_pins, "--write-serve": write_serve_pins}
+    if len(sys.argv) != 2 or sys.argv[1] not in writers:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_pins.py "
-                 "--write")
-    write_pins()
+                 "--write | --write-serve")
+    writers[sys.argv[1]]()
