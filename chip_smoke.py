@@ -55,15 +55,33 @@ Phases, each printing JSON lines:
    one full-width MoE layer, bf16 on the card at the prefill's and a
    decode step's token counts, against a plain float32 version written
    apart from the port's routing buffer (< 0.03, equal drop counts).
-   Every line carries its launch counts or peak device memory.
+   Every line carries its launch counts or peak device memory;
+8. chunk, VLM and encoder-decoder — the reference's remaining attention
+   families at full width through the port's serve entry point: (a)
+   llama4-maverick-400b-a17b, 2 of its 48 layers (one dense, one MoE),
+   2 requests of 10,240 prompt tokens across its 8,192-token chunk edge
+   and 64 decode steps reading the span from slot 8,192, 2 flash and 128
+   decode launches; (b) internvl2-26b at full depth, 8 requests of 256
+   image embeddings and 1,792 text tokens, 64 steps, 48 / 3,072
+   launches; (c) whisper-medium at full depth, 8 requests of 1,500
+   frames and 384 prompt tokens, 64 steps, 72 flash launches (24
+   encoder, 24 self, 24 cross) and 48 decode launches a step.  Each then
+   holds the decode step at the prompt's end against a prefill over one
+   more token (2 requests, < 0.03); each line carries its launch counts
+   and peak device memory, and each model is freed before the next.
 
 Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
 spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
-and head dim 80 under a binding window in the flash kernel, and holds
-and times each attention kernel at the shape every served model gives
-it, launched as the serve path launches it: llama3.2-3b's (the main
-row), h2o-danube-1.8b's (``window_shape`` in its lines) and
-mixtral-8x7b's (``moe_shape``).
+and head dim 80 under a binding window and llama4's chunk mask (an edge
+inside a query tile, on a tile edge, a chunk smaller than a tile, rows at
+negative positions) in the flash kernel, and holds and times each
+attention kernel at the shape every served model gives it, launched as
+the serve path launches it: llama3.2-3b's (the main row),
+h2o-danube-1.8b's (``window_shape`` in its lines), mixtral-8x7b's
+(``moe_shape``), llama4-maverick's (``chunk_shape``; the flash row also
+times the same launch without the chunk, ``unchunked_ms``),
+internvl2-26b's (``vlm_shape``) and whisper-medium's (``encoder_shape``,
+``cross_shape``, ``encdec_self_shape``).
 
 Any mismatch or exception exits non-zero; only after every phase passed
 are the kernel table, the ``nvidia-smi`` line and the final
@@ -99,6 +117,9 @@ ATTN_TOL = {"float32": dict(rel=0.0, atol=1e-5),
             "bfloat16": dict(rel=2.0 ** -6, atol=1e-6)}
 ARCH = "llama3.2-3b"
 SERVE = dict(requests=8, prompt_len=2048, decode=128)
+# the attention kernels' rows at the other served models' shapes (phase 3)
+SHAPE_KEYS = ("window_shape", "moe_shape", "chunk_shape", "vlm_shape",
+              "encoder_shape", "cross_shape", "encdec_self_shape")
 
 
 def emit(obj: dict) -> None:
@@ -747,6 +768,40 @@ def flash_window_cases(torch, dev):
            "bfloat16", q, k, v, True, 1000)
 
 
+def flash_chunk_cases(torch, dev):
+    """(label, dtype name, q, k, v, causal, window, chunk): llama4's local
+    chunk in both routes (bf16 128-row tiles, f32 64-row tiles): a chunk
+    edge inside a query tile (300), on tile edges (256), a chunk smaller
+    than a tile (48), rows at negative positions (causal with Sq > Skv:
+    the first rows see no key), suffix-aligned queries (Sq < Skv), a
+    window with a chunk, no causal mask (keys past the row's chunk cut
+    too), D 64 / 80 / 128, GQA 5:1 and 6:1 (llama4's and internvl2's
+    groups), and q as the serve path's [B, S, H, D] view."""
+    g = torch.Generator(device="cpu").manual_seed(36)
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        for b, sq, skv, hq, hk, d, causal, window, chunk in (
+                (1, 1000, 1000, 5, 1, 128, True, None, 300),
+                (1, 1024, 1024, 6, 1, 128, True, None, 256),
+                (2, 300, 300, 5, 1, 64, True, None, 48),
+                (1, 700, 300, 6, 1, 128, True, None, 64),
+                (1, 200, 1000, 5, 1, 80, True, None, 384),
+                (1, 1000, 1000, 6, 2, 128, True, 200, 300),
+                (1, 513, 513, 5, 1, 64, False, None, 100)):
+            q = _randn(torch, g, (b, hq, sq, d), dev, dt)
+            k = _randn(torch, g, (b, hk, skv, d), dev, dt)
+            v = _randn(torch, g, (b, hk, skv, d), dev, dt)
+            yield (f"{name} Sq={sq} Skv={skv} D={d} {hq}:{hk} "
+                   f"causal={causal} window={window} chunk={chunk}", name,
+                   q, k, v, causal, window, chunk)
+    dt = torch.bfloat16
+    q = _randn(torch, g, (2, 1500, 10, 128), dev, dt).transpose(1, 2)
+    k = _randn(torch, g, (2, 2, 1500, 128), dev, dt)
+    v = _randn(torch, g, (2, 2, 1500, 128), dev, dt)
+    yield ("bfloat16 [B,S,H,D] view Sq=Skv=1500 D=128 10:2 causal "
+           "chunk=1000", "bfloat16", q, k, v, True, None, 1000)
+
+
 def flash_shape(torch, dev, cfg, sv: dict, seed: int):
     """Prefill attention as phase 5 or 7 serves ``cfg`` at ``sv``: q a
     [B, S, Hq, D] projection seen as [B, Hq, S, D], k/v the [B, Hk, S, D]
@@ -761,18 +816,22 @@ def flash_shape(torch, dev, cfg, sv: dict, seed: int):
 
 
 def flash_sweep(torch, dev) -> tuple[dict, int]:
-    """Every ``flash_cases``, layout and D 80 window case through the
-    kernel and its plain version: (worst max|diff| per dtype, cases run);
-    raises on a mismatch."""
+    """Every ``flash_cases``, layout, D 80 window and chunk case through
+    the kernel and its plain version: (worst max|diff| per dtype, cases
+    run); raises on a mismatch."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n_cases = 0
-    for label, name, q, k, v, causal, window in itertools.chain(
+    cases = itertools.chain(
+        (c + (None,) for c in itertools.chain(
             flash_cases(torch, dev), flash_layout_cases(torch, dev),
-            flash_window_cases(torch, dev)):
-        got = flash_attention(q, k, v, causal=causal, window=window)
-        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            flash_window_cases(torch, dev))),
+        flash_chunk_cases(torch, dev))
+    for label, name, q, k, v, causal, window, chunk in cases:
+        kw = dict(causal=causal, window=window, chunk_attn=chunk)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
         worst[name] = max(worst[name],
                           attn_err(torch, got, want, name, label)[0])
         n_cases += 1
@@ -780,87 +839,166 @@ def flash_sweep(torch, dev) -> tuple[dict, int]:
     return worst, n_cases
 
 
-def attended_keys(sq: int, skv: int, window: int | None) -> int:
-    """Keys the causal (and windowed) mask leaves summed over query rows,
-    row i at position i + skv - sq: what the operations bound counts."""
+def attended_keys(sq: int, skv: int, window: int | None, causal: bool = True,
+                  chunk: int | None = None) -> int:
+    """Keys the mask leaves summed over query rows, row i at position
+    i + skv - sq: causal, the window and llama4's chunk (floor division),
+    each where set.  What the operations bound counts."""
     total = 0
     for i in range(sq):
         pos = i + skv - sq
-        lo = 0 if window is None else max(0, pos - window + 1)
-        total += max(0, min(skv, pos + 1) - lo)
+        lo, hi = 0, skv
+        if causal:
+            hi = min(hi, pos + 1)
+        if window is not None:
+            lo = max(lo, pos - window + 1)
+        if chunk is not None:
+            lo = max(lo, pos // chunk * chunk)
+            hi = min(hi, pos // chunk * chunk + chunk)
+        total += max(0, hi - lo)
     return total
 
 
-def flash_row(torch, q, k, v, window, label: str, plain_whole: bool
-              ) -> dict:
-    """One prefill shape (bf16, causal): the kernel held against the plain
-    version (request by request, whose scores would not fit the card at
-    once at the window shape), then the bare launch, the wrapper, the
-    plain version and the library call timed, and the operations bound of
-    the attended pairs.  ``plain_whole``: the plain version timed in one
-    call; else in one call per request, which is the same work."""
+def _parts(q, k, v, per: str) -> list:
+    """The plain version's calls for one shape: the whole batch, one per
+    request, or one per (request, KV head) with its group of q-heads,
+    whose float32 scores take a few GB at llama4's 10,240 keys."""
+    b, hq = q.shape[:2]
+    hk = k.shape[1]
+    if per == "whole":
+        return [(q, k, v)]
+    if per == "request":
+        return [(q[i:i + 1], k[i:i + 1], v[i:i + 1]) for i in range(b)]
+    g = hq // hk
+    return [(q[i:i + 1, j * g:(j + 1) * g], k[i:i + 1, j:j + 1],
+             v[i:i + 1, j:j + 1]) for i in range(b) for j in range(hk)]
+
+
+def flash_row(torch, q, k, v, label: str, *, causal: bool = True,
+              window: int | None = None, chunk: int | None = None,
+              per: str = "whole") -> dict:
+    """One prefill shape (bf16): the kernel held against the plain version
+    (in ``per`` parts: whole, per request or per (request, KV head),
+    whose scores would not fit the card at once at the larger shapes),
+    then the bare launch, the wrapper, the plain version and the library
+    call timed, and the operations bound of the attended pairs.  With a
+    chunk, the same bare launch without it (``unchunked_ms``: the causal
+    mask alone, every tile below the diagonal run)."""
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn.kernel import flash_attention
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
-    out = flash_attention(q, k, v, causal=True, window=window)
-    want = torch.cat([flash_attention_ref(q[i:i + 1], k[i:i + 1],
-                                          v[i:i + 1], causal=True,
-                                          window=window)
-                      for i in range(q.shape[0])])
-    err, rel = attn_err(torch, out, want, "bfloat16", label)
-    typical = float(want.float().abs().median())
-    del want
-    b, hq, s, d = q.shape
-    hk = k.shape[1]
+    mask_kw = dict(causal=causal, window=window, chunk_attn=chunk)
+    out = flash_attention(q, k, v, **mask_kw)
+    parts = _parts(q, k, v, per)
+    outs = _parts(out, k, v, per)
+    err = rel = 0.0
+    typical = []
+    for (qp, kp, vp), (op, _, _) in zip(parts, outs):
+        want = flash_attention_ref(qp, kp, vp, **mask_kw)
+        e, r = attn_err(torch, op, want, "bfloat16", label)
+        err, rel = max(err, e), max(rel, r)
+        typical.append(float(want.float().abs().median()))
+        del want
+    b, hq, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
     # the bare launch into a preallocated output, as the library call
     fn = _build.library().flash_attn_bf16
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3])
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            hk, s, s, d, strides, 1, window or 0,
-            torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(c):
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                hq, hk, sq, skv, d, strides, int(causal), window or 0, c,
+                stream)
+        return lambda: fn(*args)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if window is None or window >= s:    # the causal mask alone
-        lib = (lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    if chunk is None and (window is None or window >= skv) and (
+            not causal or sq == skv):     # causal alone, or no mask
+        lib = (lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
     else:                    # a mask: KV heads repeated first (not timed)
-        pos = torch.arange(s, device=q.device)
-        mask = (pos[None, :] <= pos[:, None]) \
-            & (pos[None, :] > pos[:, None] - window)
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        if chunk is not None:
+            mask &= torch.div(kpos, chunk, rounding_mode="floor") \
+                == torch.div(qpos, chunk, rounding_mode="floor")
         kr, vr = (t.repeat_interleave(hq // hk, dim=1) for t in (k, v))
         lib = (lambda: sdpa(q, kr, vr, attn_mask=mask))
-    if plain_whole:
-        plain = (lambda: flash_attention_ref(q, k, v, causal=True,
-                                             window=window))
-    else:
-        plain = (lambda: [flash_attention_ref(
-            q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True, window=window)
-            for i in range(b)])
-    flops = 4 * b * hq * d * attended_keys(s, s, window)
+    plain = (lambda: [flash_attention_ref(qp, kp, vp, **mask_kw)
+                      for qp, kp, vp in parts])
+    flops = 4 * b * hq * d * attended_keys(sq, skv, window, causal, chunk)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
     flop_ms = flops / BF16_FLOP_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     res = {
-        "max_abs_err": err, "max_rel_err": rel, "median_abs_ref": typical,
-        "ms": device_ms(lambda: fn(*args), cold=True),
-        "warm_ms": device_ms(lambda: fn(*args), cold=False, reps=10),
-        "wrapper_ms": call_ms(lambda: flash_attention(q, k, v, causal=True,
-                                                      window=window),
+        "max_abs_err": err, "max_rel_err": rel,
+        "median_abs_ref": statistics.median(typical),
+        "ms": device_ms(launch(chunk or 0), cold=True),
+        "warm_ms": device_ms(launch(chunk or 0), cold=False, reps=10),
+        "wrapper_ms": call_ms(lambda: flash_attention(q, k, v, **mask_kw),
                               reps=10),
         "plain_ms": device_ms(plain, cold=True, reps=5),
-        "plain_calls": 1 if plain_whole else b,
+        "plain_calls": len(parts),
         "library_ms": device_ms(lib, cold=True),
         "bound_flop": flops, "bound_bytes": nbytes,
         "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
     }
+    if chunk is not None:
+        res["unchunked_ms"] = device_ms(launch(0), cold=True)
+        res["unchunked_flop"] = 4 * b * hq * d * attended_keys(
+            sq, skv, window, causal)
     return add_rates(res, flops, "TFLOP/s")
+
+
+def flash_slice7_shapes(torch, dev):
+    """(key, arch, q, k, v, mask, per) at the prefill shapes phase 8
+    launches: llama4-maverick's chunked prefill (2 x 10,240, chunk 8,192,
+    GQA 5), internvl2-26b's (8 x (256 + 1,792), GQA 6), whisper-medium's
+    encoder (8 x 1,500 frames, D 64, not causal; q, k and v views of the
+    [B, S, H, D] projections), its decoder's causal self-attention over
+    the 384-token prompt and its cross-attention prefill (384 tokens
+    against the 1,500-slot cross cache, not causal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prefix_len
+    bf = torch.bfloat16
+    for key, arch, seed in (("chunk_shape", LLAMA4, 37),
+                            ("vlm_shape", "internvl2-26b", 38)):
+        cfg, sv = get_config(arch), SERVE_8[arch]
+        sv = dict(sv, prompt_len=prefix_len(cfg) + sv["prompt_len"])
+        q, k, v, window = flash_shape(torch, dev, cfg, sv, seed)
+        yield (key, arch, q, k, v,
+               dict(causal=True, window=window, chunk=cfg.chunk_attn),
+               "kv_head" if cfg.chunk_attn else "request")
+        del q, k, v
+    cfg, sv = get_config(WHISPER), SERVE_8[WHISPER]
+    g = torch.Generator(device="cpu").manual_seed(39)
+    b, h, d, f = sv["requests"], cfg.num_heads, cfg.head_dim, cfg.enc_seq
+    qkv = _randn(torch, g, (b, f, 3, h, d), dev, bf)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    yield ("encoder_shape", WHISPER, q, k, v, dict(causal=False), "whole")
+    del q, k, v, qkv
+    q, k, v, _ = flash_shape(torch, dev, cfg, sv, 40)
+    yield ("encdec_self_shape", WHISPER, q, k, v, dict(causal=True),
+           "whole")
+    del q, k, v
+    q = _randn(torch, g, (b, sv["prompt_len"], h, d), dev, bf).transpose(1, 2)
+    k = _randn(torch, g, (b, cfg.num_kv_heads, f, d), dev, bf)
+    v = _randn(torch, g, (b, cfg.num_kv_heads, f, d), dev, bf)
+    yield ("cross_shape", WHISPER, q, k, v, dict(causal=False), "whole")
 
 
 def check_flash(torch, dev) -> dict:
     """The sweep, then one row per served model at its prefill shape:
     llama3.2-3b (phase 5), h2o-danube-1.8b with its window binding and
-    mixtral-8x7b, whose window is longer than its prompts (phase 7)."""
+    mixtral-8x7b, whose window is longer than its prompts (phase 7), and
+    the shapes of phase 8 (``flash_slice7_shapes``)."""
     from repro_torch.configs import get_config
     worst, n_cases = flash_sweep(torch, dev)
     res = {
@@ -880,12 +1018,23 @@ def check_flash(torch, dev) -> dict:
         row = {"shape": f"{arch} prefill: q [{b}, {hq}, {s}, {d}] bf16 (a "
                         f"[B, S, H, D] buffer), k/v [{b}, {hk}, {s}, {d}], "
                         f"causal, window {window}",
-               **flash_row(torch, q, k, v, window, f"flash {arch} shape",
-                           plain_whole=key is None)}
+               **flash_row(torch, q, k, v, f"flash {arch} shape",
+                           window=window,
+                           per="whole" if key is None else "request")}
         if key is None:
             res.update(row)
         else:
             res[key] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    for key, arch, q, k, v, mask, per in flash_slice7_shapes(torch, dev):
+        b, hq, sq, d = q.shape
+        hk, skv = k.shape[1], k.shape[2]
+        res[key] = {"shape": f"{arch} {key[:-6]}: q [{b}, {hq}, {sq}, {d}] "
+                             f"bf16 (strides {list(q.stride())}), k/v [{b}, "
+                             f"{hk}, {skv}, {d}], {mask}",
+                    **flash_row(torch, q, k, v, f"flash {arch} {key}",
+                                per=per, **mask)}
         del q, k, v
         torch.cuda.empty_cache()
     emit({"phase": "kernel", **res})
@@ -962,22 +1111,32 @@ def decode_layout_cases(torch, dev):
                                    device=dev))
 
 
-def decode_shape(torch, dev, cfg, sv: dict, seed: int):
-    """Decode attention as phase 5 or 7 serves ``cfg`` at ``sv``, at the
-    64th decode step: q [B, Hq, D] bf16 (a slice of the [B, 1, Hq, D]
-    projection) against one layer's [B, Hk, prompt + decode, D] cache, and
-    the slot range [lo, hi) the decoder's position mask leaves at that
-    step (``layers.decode_slot_range``, the model's window applied)."""
+def decode_shape(torch, dev, cfg, sv: dict, seed: int, cross: bool = False):
+    """Decode attention as phase 5, 7 or 8 serves ``cfg`` at ``sv``, at the
+    64th decode step (the last of 64): q [B, Hq, D] bf16 (a slice of the
+    [B, 1, Hq, D] projection) against one layer's [B, Hk, S, D] cache of
+    S = prefix + prompt + decode slots (a VLM's prefix: its image tokens),
+    and the slot range [lo, hi) the decoder's position mask leaves at that
+    step (``layers.decode_slot_range``, the model's window or chunk
+    applied).  ``cross``: an enc-dec's cross-attention instead, every one
+    of the ``enc_seq`` slots at ``t = enc_seq - 1``."""
+    from repro_torch.launch.serve import prefix_len
     from repro_torch.models.layers import decode_slot_range
     g = torch.Generator(device="cpu").manual_seed(seed)
     b, hq, hk, d = sv["requests"], cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim
-    s = sv["prompt_len"] + sv["decode"]
-    t = sv["prompt_len"] + 64
+    if cross:
+        s = t = cfg.enc_seq
+        t -= 1
+        window = chunk = None
+    else:
+        s = prefix_len(cfg) + sv["prompt_len"] + sv["decode"]
+        t = prefix_len(cfg) + sv["prompt_len"] + min(64, sv["decode"] - 1)
+        window, chunk = cfg.window, cfg.chunk_attn
     q = _randn(torch, g, (b, 1, hq, d), dev, torch.bfloat16)[:, 0]
     k = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
     v = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
-    lo, hi = decode_slot_range(t, s, cfg.window, cfg.chunk_attn)
+    lo, hi = decode_slot_range(t, s, window, chunk)
     return q, k, v, lo, hi
 
 
@@ -1095,7 +1254,10 @@ def decode_row(torch, q, k, v, lo: int, hi: int, label: str) -> dict:
 def check_decode(torch, dev) -> dict:
     """The sweep, then one row per served model at its decode shape:
     llama3.2-3b (phase 5), h2o-danube-1.8b with its window binding and
-    mixtral-8x7b (phase 7)."""
+    mixtral-8x7b (phase 7), llama4-maverick's chunk span [8,192, t + 1),
+    internvl2-26b's group of 6 after its image tokens, and whisper-
+    medium's self-attention and its cross-attention over 1,500 frames
+    (phase 8)."""
     from repro_torch.configs import get_config
     worst, n_cases = decode_sweep(torch, dev)
     res = {
@@ -1108,14 +1270,21 @@ def check_decode(torch, dev) -> dict:
             (None, ARCH, SERVE, 42),
             ("window_shape", "h2o-danube-1.8b", SERVE_7["h2o-danube-1.8b"],
              44),
-            ("moe_shape", "mixtral-8x7b", SERVE_7["mixtral-8x7b"], 45)):
+            ("moe_shape", "mixtral-8x7b", SERVE_7["mixtral-8x7b"], 45),
+            ("chunk_shape", LLAMA4, SERVE_8[LLAMA4], 46),
+            ("vlm_shape", "internvl2-26b", SERVE_8["internvl2-26b"], 47),
+            ("encdec_self_shape", WHISPER, SERVE_8[WHISPER], 48),
+            ("cross_shape", WHISPER, SERVE_8[WHISPER], 49)):
         cfg = get_config(arch)
-        q, k, v, lo, hi = decode_shape(torch, dev, cfg, sv, seed)
+        q, k, v, lo, hi = decode_shape(torch, dev, cfg, sv, seed,
+                                       cross=key == "cross_shape")
         b, hq, d = q.shape
         _, hk, s, _ = k.shape
-        row = {"shape": f"{arch} decode at t={hi - 1}, window {cfg.window}: "
-                        f"q [{b}, {hq}, {d}] bf16, caches [{b}, {hk}, {s}, "
-                        f"{d}], slots [{lo}, {hi}) on every row",
+        what = "cross-attention decode" if key == "cross_shape" else \
+            f"decode, window {cfg.window}, chunk {cfg.chunk_attn},"
+        row = {"shape": f"{arch} {what} at t={hi - 1}: q [{b}, {hq}, {d}] "
+                        f"bf16, caches [{b}, {hk}, {s}, {d}], slots [{lo}, "
+                        f"{hi}) on every row",
                **decode_row(torch, q, k, v, lo, hi, f"decode {arch} shape")}
         if key is None:
             res.update(row)
@@ -1239,13 +1408,24 @@ def run_serve(torch, dev: str) -> dict:
     return launches
 
 
+def attn_launches(cfg) -> tuple[int, int]:
+    """(flash launches a prefill, decode launches a step): one per
+    attention of a layer; an enc-dec's prefill runs its encoder layers'
+    self-attention and its decoder layers' self- and cross-attention, its
+    decode step the decoder's two."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    return cfg.num_layers, cfg.num_layers
+
+
 def check_served(cfg, sv: dict, res: dict, launches: dict) -> None:
     """Raise unless a serve run of ``cfg`` at ``sv`` launched each
-    attention kernel once per layer a prefill and a decode step (counted
-    by the ops counters and reported by ``serve``) and generated
-    ``decode + 1`` in-vocabulary tokens."""
-    want = {"flash_attention": cfg.num_layers,
-            "decode_attention": cfg.num_layers * sv["decode"]}
+    attention kernel once per attention a prefill and a decode step
+    (``attn_launches``; counted by the ops counters and reported by
+    ``serve``) and generated ``decode + 1`` in-vocabulary tokens."""
+    per_prefill, per_step = attn_launches(cfg)
+    want = {"flash_attention": per_prefill,
+            "decode_attention": per_step * sv["decode"]}
     if launches != want or res["launches"] != want:
         raise AssertionError(f"{cfg.name} launched {launches} (reported "
                              f"{res['launches']}), want {want}")
@@ -1256,14 +1436,17 @@ def check_served(cfg, sv: dict, res: dict, launches: dict) -> None:
 
 def check_decode_matches_prefill(torch, dev: str, cfg, s: int,
                                  **extra) -> dict:
-    """Full width: the decode step at position ``s`` == the last logits of
-    a prefill over ``s`` + 1 tokens (the reference's
+    """Full width: the decode step after ``s`` prompt tokens == the last
+    logits of a prefill over ``s`` + 1 tokens (the reference's
     tests/test_models.py::test_decode_matches_prefill, 2 requests), on the
-    serving path's weights (seed 1).  For an MoE config the routing's own
-    drop counts of the prefill and of the decode step are reported."""
+    serving path's weights (seed 1); a VLM's images or an enc-dec's frames
+    are the same in both (``make_batch``, seed 1), and the step is at the
+    position after the prefix and the prompt.  For an MoE config the
+    routing's own drop counts of the prefill and of the decode step are
+    reported."""
     import numpy as np
-    import torch.nn.functional as F
-    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.serve import (init_params, make_batch, pad_kv,
+                                          prefix_len)
     from repro_torch.models import get_model, moe
     model = get_model(cfg)
     params = init_params(cfg, torch.device(dev), 1)
@@ -1273,23 +1456,24 @@ def check_decode_matches_prefill(torch, dev: str, cfg, s: int,
     drops = {}
     moe.dropped = torch.zeros((), dtype=torch.int64, device=dev)
     try:
-        _, caches = model.prefill(params, {"tokens": toks[:, :s]}, cfg)
+        _, caches = model.prefill(params, make_batch(cfg, toks[:, :s], 1),
+                                  cfg)
         drops["prefill"] = int(moe.dropped)
-        caches = {n: {kv: F.pad(c, (0, 0, 0, 1)) for kv, c in g.items()}
-                  for n, g in caches.items()}
+        caches = pad_kv(caches, 1)
         moe.dropped.zero_()
-        got, _ = model.decode(params, caches, toks[:, s:], s, cfg)
+        got, _ = model.decode(params, caches, toks[:, s:],
+                              prefix_len(cfg) + s, cfg)
         drops["decode_step"] = int(moe.dropped)
     finally:
         moe.dropped = None
     del caches
-    ref, _ = model.prefill(params, {"tokens": toks}, cfg)
+    ref, _ = model.prefill(params, make_batch(cfg, toks, 1), cfg)
     if got.shape != (b, cfg.padded_vocab) or not bool(
             torch.isfinite(got).all() and torch.isfinite(ref).all()):
         raise AssertionError("decode/prefill logits malformed")
     rel = float((got - ref).abs().max() / ref.abs().max())
     res = {"phase": "decode_vs_prefill", "arch": cfg.name, "requests": b,
-           "position": s, "max_abs_ref": float(ref.abs().max()),
+           "position": prefix_len(cfg) + s, "max_abs_ref": float(ref.abs().max()),
            "rel_err": rel, "limit": 0.03,
            "argmax_equal": bool(torch.equal(got.argmax(-1),
                                             ref.argmax(-1))), **extra}
@@ -1829,6 +2013,27 @@ def check_moe_layer(torch, dev: str, cfg, sv: dict) -> dict:
     return res
 
 
+def reset_counts(torch) -> None:
+    """Free what the last run left, reset the peak memory and the
+    attention kernels' launch counts, and wait for the card."""
+    from repro_torch.kernels.decode_attn import ops as decode_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.launches = 0
+    decode_ops.launches = 0
+    torch.cuda.synchronize()
+
+
+def attn_counts() -> dict:
+    """The attention kernels' launch counts since ``reset_counts``."""
+    from repro_torch.kernels.decode_attn import ops as decode_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    return {"flash_attention": flash_ops.launches,
+            "decode_attention": decode_ops.launches}
+
+
 def serve_phase(torch, dev: str) -> dict:
     """Phase 7: (a) the serve controller against its pins, (b) h2o-danube
     and (c) mixtral served at full width through the port's serve entry
@@ -1836,30 +2041,16 @@ def serve_phase(torch, dev: str) -> dict:
     after) and peak memory, then its decode-vs-prefill check.  Returns the
     attention kernels' launch totals."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attn import ops as decode_ops
-    from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.launch.serve import _serve, serve
     from repro_torch.models import moe
     t_phase = time.perf_counter()
     totals = {"flash_attention": 0, "decode_attention": 0}
 
-    def reset():
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        flash_ops.launches = 0
-        decode_ops.launches = 0
-        torch.cuda.synchronize()
-
-    def launches():
-        return {"flash_attention": flash_ops.launches,
-                "decode_attention": decode_ops.launches}
-
     # (a) the serve controller, held against the reference's answers
     pins = json.loads(SERVE_PINS.read_text())
     api = serve_api()
     for policy in SERVE_POLICIES:
-        reset()
+        reset_counts(torch)
         t0 = time.perf_counter()
         rec = run_serve_controller(api, policy)
         wall = time.perf_counter() - t0
@@ -1871,20 +2062,20 @@ def serve_phase(torch, dev: str) -> dict:
               "busyness": rec["result"]["busyness"],
               "windows": len(rec["history"]),
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "launches": launches()})
+              "launches": attn_counts()})
 
     # (b) h2o-danube-1.8b, full width and depth, window binding
     arch = "h2o-danube-1.8b"
     cfg, sv = get_config(arch), SERVE_7[arch]
-    reset()
+    reset_counts(torch)
     res = serve(arch, reduced=False, verbose=False, device=dev, **sv)
-    got = launches()
+    got = attn_counts()
     check_served(cfg, sv, res, got)
     emit({"phase": "serve_window", "reduced": False, "window": cfg.window,
           **sv, **res})
     for k, n in got.items():
         totals[k] += n
-    reset()
+    reset_counts(torch)
     check_decode_matches_prefill(torch, dev, cfg, sv["prompt_len"])
 
     # (c) mixtral-8x7b, full width, depth cut to fit the card
@@ -1892,14 +2083,14 @@ def serve_phase(torch, dev: str) -> dict:
     full, sv = get_config(arch), SERVE_7[arch]
     cfg = full.replace(num_layers=MIXTRAL_LAYERS)
     cut = {"num_layers": [MIXTRAL_LAYERS, full.num_layers]}
-    reset()
+    reset_counts(torch)
     moe.dropped = torch.zeros((), dtype=torch.int64, device=dev)
     try:
         res = _serve(cfg, dev=torch.device(dev), seed=0, **sv)
         dropped = int(moe.dropped)
     finally:
         moe.dropped = None
-    got = launches()
+    got = attn_counts()
     check_served(cfg, sv, res, got)
     emit({"phase": "serve_moe", "reduced": cut, "window": cfg.window,
           "experts": cfg.num_experts, "top_k": cfg.top_k,
@@ -1909,13 +2100,83 @@ def serve_phase(torch, dev: str) -> dict:
           **sv, **res})
     for k, n in got.items():
         totals[k] += n
-    reset()
+    reset_counts(torch)
     check_decode_matches_prefill(torch, dev, cfg, sv["prompt_len"],
                                  reduced=cut)
-    reset()
+    reset_counts(torch)
     check_moe_layer(torch, dev, cfg, sv)
     emit({"phase": "serve_done", "seconds": time.perf_counter() - t_phase,
           "launches": totals})
+    return totals
+
+
+# ------------------------------------------- chunk, VLM and encoder-decoder
+# Phase 8 serves the reference's remaining attention families at full
+# width: (a) llama4-maverick-400b-a17b, 2 of its 48 layers (one dense and
+# one MoE layer: ~16.5 B parameters in bf16 plus embed and unembed, ~37
+# GB), 2 x 10,240 prompt tokens across its 8,192-token chunk edge, so the
+# chunk mask binds in prefill and every decode step reads the span from
+# slot 8,192; (b) internvl2-26b at full depth (48 layers, ~42 GB), 256
+# image embeddings and 1,792 text tokens a request; (c) whisper-medium at
+# full depth (24 + 24 layers) over 1,500 frames a request.
+LLAMA4 = "llama4-maverick-400b-a17b"
+WHISPER = "whisper-medium"
+LLAMA4_LAYERS = 2
+SERVE_8 = {LLAMA4: dict(requests=2, prompt_len=10240, decode=64),
+           "internvl2-26b": dict(requests=8, prompt_len=1792, decode=64),
+           WHISPER: dict(requests=8, prompt_len=384, decode=64)}
+
+
+def families_phase(torch, dev: str) -> dict:
+    """Phase 8: llama4-maverick (depth cut), internvl2-26b and
+    whisper-medium served at full width through the port's serve entry
+    point, each with its launch counts (reset just before, read just
+    after) and peak memory, then its decode-vs-prefill check; every model
+    is freed before the next one.  Returns the attention kernels' launch
+    totals."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _serve, prefix_len, serve
+    from repro_torch.models import moe
+    from repro_torch.models.layers import decode_slot_range
+    t_phase = time.perf_counter()
+    totals = {"flash_attention": 0, "decode_attention": 0}
+    for arch, sv in SERVE_8.items():
+        cfg = get_config(arch)
+        line = {"phase": "serve_family", "arch": arch, "family": cfg.family,
+                "reduced": False, **sv}
+        reset_counts(torch)
+        if arch == LLAMA4:
+            line["reduced"] = {"num_layers": [LLAMA4_LAYERS, cfg.num_layers]}
+            cfg = cfg.replace(num_layers=LLAMA4_LAYERS)
+            t = sv["prompt_len"]
+            line["chunk_attn"] = cfg.chunk_attn
+            line["decode_spans"] = [
+                list(decode_slot_range(t + i, t + sv["decode"], cfg.window,
+                                       cfg.chunk_attn))
+                for i in (0, sv["decode"] - 1)]
+            moe.dropped = torch.zeros((), dtype=torch.int64, device=dev)
+            try:
+                res = _serve(cfg, dev=torch.device(dev), seed=0, **sv)
+                line["moe_dropped_run"] = int(moe.dropped)
+            finally:
+                moe.dropped = None
+            line["moe_assignments_run"] = (
+                cfg.num_layers // cfg.moe_period * cfg.top_k
+                * sv["requests"] * (sv["prompt_len"] + sv["decode"]))
+        else:
+            res = serve(arch, reduced=False, verbose=False, device=dev, **sv)
+        got = attn_counts()
+        check_served(cfg, sv, res, got)
+        line["first_decode_position"] = prefix_len(cfg) + sv["prompt_len"]
+        emit({**line, **res})
+        for k, n in got.items():
+            totals[k] += n
+        reset_counts(torch)
+        check_decode_matches_prefill(torch, dev, cfg, sv["prompt_len"],
+                                     reduced=line["reduced"])
+    reset_counts(torch)
+    emit({"phase": "families_done",
+          "seconds": time.perf_counter() - t_phase, "launches": totals})
     return totals
 
 
@@ -2026,6 +2287,11 @@ def main(argv=None) -> int:
             gc.collect()
             torch.cuda.empty_cache()
 
+    # 8. chunked attention, VLM and encoder-decoder
+    for k, n in families_phase(torch, dev).items():
+        totals[k] += n
+    torch.cuda.empty_cache()
+
     for row in rows:
         row["launches"] = totals[row["name"]]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -2036,7 +2302,7 @@ def main(argv=None) -> int:
         **{k: r[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", *keys)},
         **{x: {k: r[x][k] for k in ("shape", "max_abs_err", *keys)}
-           for x in ("window_shape", "moe_shape") if x in r}}
+           for x in SHAPE_KEYS if x in r}}
         for r in rows]})
     print(name_power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

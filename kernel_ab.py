@@ -1,11 +1,15 @@
-"""A/B timing of the port's two state-store kernels against another commit's.
+"""A/B timing of the port's state-store and prefill-attention kernels
+against another commit's.
 
-Loads the kernel wrappers ``sorted_probe(table, queries)`` and
-``window_agg(seg_ids, values, n_segments)`` of this checkout and of a
-baseline tree (the ``src/repro_torch`` of another commit) into one
-process, each bound to its own tree's kernel build, and times them in
-turns (baseline, current, current, baseline) on one card, cold and warm,
-at ``chip_smoke.py``'s main shapes and the store's call-site shapes.  A
+Loads the kernel wrappers ``sorted_probe(table, queries)``,
+``window_agg(seg_ids, values, n_segments)`` and ``flash_attention(q, k,
+v, causal=, window=)`` of this checkout and of a baseline tree (the
+``src/repro_torch`` of another commit) into one process, each bound to
+its own tree's kernel build, and times them in turns (baseline, current,
+current, baseline) on one card, cold and warm, at ``chip_smoke.py``'s
+main shapes and the store's call-site shapes, and (flash, cold) at the
+prefill shapes of llama3.2-3b, h2o-danube-1.8b and mixtral-8x7b, where
+both builds must give the same bits.  A
 wrapper's time is all the device work of one call: for a segment sum
 that zeroes its outputs and casts its ids apart from the kernel, those
 launches too.  The current probe's two routes are also timed by their
@@ -29,6 +33,8 @@ import pathlib
 import statistics
 import sys
 
+import numpy as np
+
 import chip_smoke as cs
 
 PACKAGE = "repro_torch"
@@ -46,8 +52,10 @@ def load_wrappers(src: pathlib.Path | None = None) -> dict:
     wrappers keep their own ``_build`` and library."""
     def load() -> dict:
         return {k: getattr(importlib.import_module(
-            f"{PACKAGE}.kernels.{k}.kernel"), k)
-            for k in ("sorted_probe", "window_agg")}
+            f"{PACKAGE}.kernels.{mod}.kernel"), k)
+            for k, mod in (("sorted_probe", "sorted_probe"),
+                           ("window_agg", "window_agg"),
+                           ("flash_attention", "flash_attn"))}
 
     if src is None:
         return load()
@@ -65,14 +73,19 @@ def load_wrappers(src: pathlib.Path | None = None) -> dict:
     return wrappers
 
 
-def in_turns(variants: dict, cold: bool) -> dict:
-    """Device ms of each variant, timed in turns A, B, B, A (median of the
-    two runs each)."""
+def in_turns(variants: dict, cold: bool, rounds: int = 1) -> dict:
+    """Every run's device ms of each variant, timed in turns A, B, B, A,
+    ``rounds`` times."""
     names = list(variants)
     runs = {k: [] for k in names}
-    for order in (names, names[::-1]):
-        for k in order:
-            runs[k].append(cs.device_ms(variants[k], cold=cold))
+    for _ in range(rounds):
+        for order in (names, names[::-1]):
+            for k in order:
+                runs[k].append(cs.device_ms(variants[k], cold=cold))
+    return runs
+
+
+def medians(runs: dict) -> dict:
     return {k: statistics.median(v) for k, v in runs.items()}
 
 
@@ -98,7 +111,7 @@ def probe_rows(torch, base, cur, dev) -> list:
             cs.probe_check(torch, table, q, got, f"lanes {lanes} at {label}")
             variants[f"lanes {lanes}"] = launch
         for cold in (True, False):
-            ms = in_turns(variants, cold)
+            ms = medians(in_turns(variants, cold))
             rows.append({"kernel": "sorted_probe", "shape": label,
                          "n": len(q), "t": len(table), "queries_sorted": srt,
                          "plan_lanes": probe_plan(len(q), len(table))[0],
@@ -123,13 +136,50 @@ def agg_rows(torch, base, cur, dev) -> list:
                 raise AssertionError(f"{name} window_agg differs from the "
                                      f"plain version at {label}")
         for cold in (True, False):
-            ms = in_turns(variants, cold)
+            ms = medians(in_turns(variants, cold))
             rows.append({"kernel": "window_agg", "shape": label,
                          "n": len(gids), "segments": s, "cold": cold,
                          "ms": ms, "speedup": ms["base"] / ms["current"],
                          "bound_ms": cs.agg_bound_bytes(gids, w, s)
                          / cs.HBM_BYTES_PER_S * 1e3})
             cs.emit(rows[-1])
+    return rows
+
+
+def flash_rows(torch, base, cur, dev) -> list:
+    """The prefill kernel at the served models' shapes without a chunk:
+    both builds' outputs bit for bit equal, then timed cold in turns, ten
+    runs each (five rounds of A, B, B, A), with every run and the spread
+    of each variant's runs (the distance between their quartiles)."""
+    from repro_torch.configs import get_config
+    rows = []
+    for arch, sv, seed in ((cs.ARCH, cs.SERVE, 32),
+                           ("h2o-danube-1.8b", cs.SERVE_7["h2o-danube-1.8b"],
+                            35),
+                           ("mixtral-8x7b", cs.SERVE_7["mixtral-8x7b"], 36)):
+        q, k, v, window = cs.flash_shape(torch, dev, get_config(arch), sv,
+                                         seed)
+        variants = {"base": lambda a=(q, k, v), w=window: base(
+                        *a, causal=True, window=w),
+                    "current": lambda a=(q, k, v), w=window: cur(
+                        *a, causal=True, window=w)}
+        if not torch.equal(variants["base"](), variants["current"]()):
+            raise AssertionError(f"flash_attention differs from the base "
+                                 f"build at {arch}'s shape")
+        runs = in_turns(variants, cold=True, rounds=5)
+        ms = medians(runs)
+        spread = {name: float(np.subtract(*np.percentile(r, [75, 25])))
+                  for name, r in runs.items()}
+        rows.append({"kernel": "flash_attention", "shape": f"{arch} prefill",
+                     "q": list(q.shape), "kv": list(k.shape),
+                     "window": window, "cold": True, "ms": ms,
+                     "spread": spread, "runs": runs,
+                     "current_wins": sum(c < b for b, c in zip(
+                         runs["base"], runs["current"])),
+                     "speedup": ms["base"] / ms["current"]})
+        cs.emit(rows[-1])
+        del q, k, v, variants
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -150,6 +200,8 @@ def main(argv=None) -> int:
              "nvidia_smi": cs.smi()})
     rows = probe_rows(torch, base["sorted_probe"], cur["sorted_probe"], dev)
     rows += agg_rows(torch, base["window_agg"], cur["window_agg"], dev)
+    rows += flash_rows(torch, base["flash_attention"],
+                       cur["flash_attention"], dev)
     cs.OUT.mkdir(exist_ok=True)
     (cs.OUT / "kernel_ab.json").write_text(json.dumps(rows, indent=1))
     return 0

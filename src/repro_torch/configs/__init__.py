@@ -10,11 +10,14 @@ from repro_torch.models.config import (SHAPES, ArchConfig, ShapeConfig,
                                        applicable_shapes)
 
 _MODULES = {
+    "whisper-medium": "whisper_medium",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "mixtral-8x7b": "mixtral_8x7b",
     "llama3.2-3b": "llama3_2_3b",
     "internlm2-20b": "internlm2_20b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "minitron-4b": "minitron_4b",
+    "internvl2-26b": "internvl2_26b",
 }
 
 

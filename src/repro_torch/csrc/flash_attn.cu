@@ -28,26 +28,30 @@
 // operand with its own strides, so the serve path's [B, S, H, D] q view
 // is read with no copy; D <= 128 is covered as ceil(D / 64) 64-column
 // panels.  No FLOP goes to KV tiles wholly above the causal diagonal or
-// outside the sliding window: they are skipped, as the TPU kernel skips
-// them with pl.when, and only tiles on the diagonal, the window's edge or
-// the ragged end run the mask.  The float32 instantiation keeps a plain
-// route on CUDA cores (64-row tiles, synchronous loads) in full f32; it
-// serves tests, never the serve path.
+// outside the sliding window or the local chunk: they are skipped, as
+// the TPU kernel skips them with pl.when, and only tiles on the diagonal,
+// the window's or a chunk's edge or the ragged end run the mask.  The
+// float32 instantiation keeps a plain route on CUDA cores (64-row tiles,
+// synchronous loads) in full f32; it serves tests, never the serve path.
 //
 // Semantics, as the TPU kernel: scores in f32 from the inputs, scaled by
 // D^-0.5; query row i sits at position i + (Skv - Sq) (suffix alignment);
 // causal keeps keys <= that position, a window w keeps keys > position - w;
-// masks are predicates, never sentinel scores; the output is
-// acc / max(l, 1e-30) in q's dtype.  A row with no key left by the mask
-// (causal with Sq > Skv, rows before position 0) gives zeros.  That is a
-// choice: the TPU kernel gives zeros there only where it skips every KV
-// block of the row's 256-row query block; inside a block it runs, such a
-// row weighs each of the block's keys (padding included) equally, and the
-// pure-jnp oracle averages every key.  GQA by indexing: q-head h reads KV
-// head h / (Hq / Hk); the caller never repeats K or V.  Every tensor is
-// taken with the element strides it has (batch, head, sequence); only the
-// last dimension must be contiguous, and the bf16 route needs 16-byte
-// aligned bases and strides (the wrapper copies an operand that is not).
+// and, which the TPU kernel lacks, a chunk width c (llama4's chunked local
+// attention, as the JAX model layer's chunked_attention masks it) keeps
+// keys k with floor(k / c) == floor(position / c), floor division since a
+// position may be negative; masks are predicates, never sentinel scores;
+// the output is acc / max(l, 1e-30) in q's dtype.  A row with no key left
+// by the mask (causal with Sq > Skv, rows before position 0) gives zeros.
+// That is a choice: the TPU kernel gives zeros there only where it skips
+// every KV block of the row's 256-row query block; inside a block it runs,
+// such a row weighs each of the block's keys (padding included) equally,
+// and the pure-jnp oracle averages every key.  GQA by indexing: q-head h
+// reads KV head h / (Hq / Hk); the caller never repeats K or V.  Every
+// tensor is taken with the element strides it has (batch, head, sequence);
+// only the last dimension must be contiguous, and the bf16 route needs
+// 16-byte aligned bases and strides (the wrapper copies an operand that is
+// not).
 #include <cmath>
 #include <cstdint>
 #include <cuda.h>
@@ -66,25 +70,51 @@ struct Strides {
   int64_t b, h, s;                // element strides; the last dim is unit
 };
 
+// floor(a / c) * c for c > 0: the first position of a's chunk
+__device__ __forceinline__ int chunk_start(int a, int c) {
+  const int q = a / c;
+  return (q - (a % c < 0)) * c;
+}
+
+// The keys [lo, hi) that the query at position pos keeps: every mask is
+// one range, and both ends only grow with pos
+struct KeyRange {
+  int lo, hi;
+};
+
+__device__ __forceinline__ KeyRange key_range(int pos, int skv, int causal,
+                                              int window, int chunk) {
+  KeyRange r{0, skv};
+  if (causal) r.hi = min(r.hi, pos + 1);
+  if (window > 0) r.lo = max(r.lo, pos - window + 1);
+  if (chunk > 0) {
+    const int c = chunk_start(pos, chunk);
+    r.lo = max(r.lo, c);
+    r.hi = min(r.hi, c + chunk);
+  }
+  return r;
+}
+
 // the KV tiles [t_begin, t_end) of kBK keys that some row of the query
-// tile [q0, q0 + q_rows) may see; the rest are skipped
+// tile [q0, q0 + q_rows) may see (the rest are skipped), and the bounds
+// that every row keeps: a tile within [lo_last, hi_first) needs no mask
 struct TileRange {
-  int t_begin, t_end, q_first, q_last;
+  int t_begin, t_end, lo_last, hi_first;
 };
 
 __device__ __forceinline__ TileRange tile_range(int q0, int q_rows, int sq,
                                                 int skv, int causal,
-                                                int window, int kBK) {
+                                                int window, int chunk,
+                                                int kBK) {
   const int shift = skv - sq;
+  const KeyRange first = key_range(q0 + shift, skv, causal, window, chunk);
+  const KeyRange last = key_range(q0 + q_rows - 1 + shift, skv, causal,
+                                  window, chunk);
   TileRange r;
-  r.q_first = q0 + shift;
-  r.q_last = q0 + q_rows - 1 + shift;
-  int kv_hi = skv;
-  if (causal) kv_hi = min(kv_hi, r.q_last + 1);
-  int kv_lo = 0;
-  if (window > 0) kv_lo = max(0, r.q_first - window + 1);
-  r.t_begin = kv_lo / kBK;
-  r.t_end = kv_hi > kv_lo ? (kv_hi + kBK - 1) / kBK : r.t_begin;
+  r.t_begin = first.lo / kBK;
+  r.t_end = last.hi > first.lo ? (last.hi + kBK - 1) / kBK : r.t_begin;
+  r.lo_last = last.lo;
+  r.hi_first = first.hi;
   return r;
 }
 
@@ -106,6 +136,7 @@ struct Params {
   Strides os;
   int hq, hk, sq, skv, d, n_qt;
   int causal, window;             // window <= 0: no window
+  int chunk;                      // chunk <= 0: no chunk
   float scale_log2;               // D^-0.5 * log2(e)
   // for each tensor map, the dimension (1..3) that holds S, H and B,
   // two bits each: dims 1..3 are ordered by stride on the host
@@ -225,7 +256,10 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
   hopper::tma_load_4d(dst, map, d0, at(1), at(2), at(3), bar);
 }
 
-template <int NP>
+// kChunk: whether p.chunk is set.  Compiled into every launch, the
+// chunk's floor divisions cost the unchunked ones ~4 % on an H100
+// (kernel_ab.py), so only chunked launches carry them.
+template <int NP, bool kChunk>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
@@ -246,8 +280,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
   const int kvh = h / (p.hq / p.hk);
   const int q0 = (p.n_qt - 1 - static_cast<int>(blockIdx.y)) * kBQ;
   const int q_rows = min(kBQ, p.sq - q0);
+  const int chunk = kChunk ? p.chunk : 0;
   const TileRange tr = tile_range(q0, q_rows, p.sq, p.skv, p.causal,
-                                  p.window, kBK);
+                                  p.window, chunk, kBK);
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -296,7 +331,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
   // 8 j + col + {0, 1} of every 8-column chunk j
   const int row0 = half * 64 + warp * 16 + lane / 4, row1 = row0 + 8;
   const int col = 2 * (lane & 3);
-  const int pos0 = q0 + row0 + p.skv - p.sq, pos1 = pos0 + 8;
+  const int pos0 = q0 + row0 + p.skv - p.sq;
+  const KeyRange keys0 = key_range(pos0, p.skv, p.causal, p.window, chunk);
+  const KeyRange keys1 = key_range(pos0 + 8, p.skv, p.causal, p.window,
+                                   chunk);
   const float sl2 = p.scale_log2;
 
   float o[NP * 32], s[64];
@@ -344,22 +382,18 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
   // into alpha0/alpha1
   auto softmax = [&](int t, float& alpha0, float& alpha1) {
     // which keys each row keeps: all of them, except on the diagonal,
-    // the window's edge and the ragged end
+    // the window's or a chunk's edge and the ragged end
     const int k0 = t * kBK;
     uint32_t keep0 = 0xffffffffu, keep1 = 0xffffffffu;
-    if (k0 + kBK > p.skv || (p.causal && k0 + kBK - 1 > tr.q_first)
-        || (p.window > 0 && k0 <= tr.q_last - p.window)) {
+    if (k0 < tr.lo_last || k0 + kBK > tr.hi_first) {
       keep0 = keep1 = 0u;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kp = k0 + 8 * j + col + e;
-          const bool in = kp < p.skv;
-          const bool ok0 = in && (!p.causal || kp <= pos0)
-                           && (p.window <= 0 || kp > pos0 - p.window);
-          const bool ok1 = in && (!p.causal || kp <= pos1)
-                           && (p.window <= 0 || kp > pos1 - p.window);
+          const bool ok0 = kp >= keys0.lo && kp < keys0.hi;
+          const bool ok1 = kp >= keys1.lo && kp < keys1.hi;
           keep0 |= static_cast<uint32_t>(ok0) << (2 * j + e);
           keep1 |= static_cast<uint32_t>(ok1) << (2 * j + e);
         }
@@ -552,22 +586,23 @@ int encode(CUtensorMap* map, const void* ptr, int64_t b, int64_t h,
   return res == CUDA_SUCCESS ? 0 : kEncodeFailed;
 }
 
-template <int NP>
+template <int NP, bool kChunk>
 int launch_np(const CUtensorMap& qm, const CUtensorMap& km,
               const CUtensorMap& vm, const Params& p, dim3 grid,
               cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<NP>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_bf16<NP, kChunk>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_bf16<NP><<<grid, kThreads, smem, stream>>>(qm, km, vm, p);
+  flash_fwd_bf16<NP, kChunk><<<grid, kThreads, smem, stream>>>(qm, km, vm,
+                                                               p);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
            int64_t hq, int64_t hk, int64_t sq, int64_t skv, int64_t d,
-           const int64_t* st, int64_t causal, int64_t window,
+           const int64_t* st, int64_t causal, int64_t window, int64_t chunk,
            void* stream) {
   Params p;
   p.o = o;
@@ -580,6 +615,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   p.n_qt = static_cast<int>((sq + kBQ - 1) / kBQ);
   p.causal = causal != 0;
   p.window = static_cast<int>(window);
+  p.chunk = static_cast<int>(chunk);
   p.scale_log2 = static_cast<float>(std::pow(static_cast<double>(d), -0.5)
                                     * 1.4426950408889634);
   if (p.n_qt > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -591,8 +627,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   const dim3 grid(static_cast<unsigned>(b * hq),
                   static_cast<unsigned>(p.n_qt));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d <= kPanel ? launch_np<1>(qm, km, vm, p, grid, s)
-                     : launch_np<2>(qm, km, vm, p, grid, s);
+  if (d <= kPanel) {
+    return p.chunk > 0 ? launch_np<1, true>(qm, km, vm, p, grid, s)
+                       : launch_np<1, false>(qm, km, vm, p, grid, s);
+  }
+  return p.chunk > 0 ? launch_np<2, true>(qm, km, vm, p, grid, s)
+                     : launch_np<2, false>(qm, km, vm, p, grid, s);
 }
 
 }  // namespace bf
@@ -617,6 +657,7 @@ struct Params {
   Strides qs, ks, vs, os;
   int hq, hk, sq, skv, d;
   int causal, window;             // window <= 0: no window
+  int chunk;                      // chunk <= 0: no chunk
   float scale;
   int vec;                        // 16-byte loads are aligned
 };
@@ -677,10 +718,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_f32(Params p) {
   for (int i = tid; i < kBQ * kLdO; i += kThreads) Os[i] = 0.f;
   __syncthreads();                        // a block with no tile reads Os
   const TileRange tr = tile_range(q0, q_rows, p.sq, p.skv, p.causal,
-                                  p.window, kBK);
+                                  p.window, p.chunk, kBK);
 
   const bool row_ok = row < q_rows;
-  const int my_pos = q0 + row + p.skv - p.sq;
+  const KeyRange keys = key_range(q0 + row + p.skv - p.sq, p.skv, p.causal,
+                                  p.window, p.chunk);
   float m = kNegInf, l = 0.f;
 
   for (int t = tr.t_begin; t < tr.t_end; ++t) {
@@ -711,9 +753,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_f32(Params p) {
 #pragma unroll
     for (int j = 0; j < kColsPerThread; ++j) {
       const int kp = k0 + quad + 4 * j;
-      const bool keep = row_ok && kp < p.skv
-                        && (!p.causal || kp <= my_pos)
-                        && (p.window <= 0 || kp > my_pos - p.window);
+      const bool keep = row_ok && kp >= keys.lo && kp < keys.hi;
       sv[j] *= p.scale;
       if (keep) {
         ok |= 1u << j;
@@ -761,7 +801,8 @@ bool aligned16(const void* ptr) {
 
 int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
            int64_t hq, int64_t hk, int64_t sq, int64_t skv, int64_t d,
-           const int64_t* st, int64_t causal, int64_t window, void* stream) {
+           const int64_t* st, int64_t causal, int64_t window, int64_t chunk,
+           void* stream) {
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -778,6 +819,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   p.d = static_cast<int>(d);
   p.causal = causal != 0;
   p.window = static_cast<int>(window);
+  p.chunk = static_cast<int>(chunk);
   p.scale = static_cast<float>(std::pow(static_cast<double>(d), -0.5));
   bool vec = aligned16(q) && aligned16(k) && aligned16(v) && d % 4 == 0;
   for (int i = 0; i < 9; ++i) vec = vec && st[i] % 4 == 0;
@@ -798,23 +840,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
 
 }  // namespace
 
-// strides: 12 int64 element strides, (batch, head, seq) of q, k, v, out.
-// Returns 0, a CUDA error code, or (bf16) -1 when cuTensorMapEncodeTiled
-// is not found and -2 when it refuses an operand's tensor map.
+// strides: 12 int64 element strides, (batch, head, seq) of q, k, v, out;
+// window and chunk: 0 for none.  Returns 0, a CUDA error code, or (bf16)
+// -1 when cuTensorMapEncodeTiled is not found and -2 when it refuses an
+// operand's tensor map.
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
                                void* o, int64_t b, int64_t hq, int64_t hk,
                                int64_t sq, int64_t skv, int64_t d,
                                const int64_t* strides, int64_t causal,
-                               int64_t window, void* stream) {
+                               int64_t window, int64_t chunk, void* stream) {
   return bf::launch(q, k, v, o, b, hq, hk, sq, skv, d, strides, causal,
-                    window, stream);
+                    window, chunk, stream);
 }
 
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
                               void* o, int64_t b, int64_t hq, int64_t hk,
                               int64_t sq, int64_t skv, int64_t d,
                               const int64_t* strides, int64_t causal,
-                              int64_t window, void* stream) {
+                              int64_t window, int64_t chunk, void* stream) {
   return f32::launch(q, k, v, o, b, hq, hk, sq, skv, d, strides, causal,
-                     window, stream);
+                     window, chunk, stream);
 }

@@ -42,11 +42,11 @@ _SIGNATURES = {
     "window_agg_f32": ([_P, _L, _P, _L, _L, _L, _P, _P, _P], _I),
     "window_agg_i64": ([_P, _L, _P, _L, _L, _L, _P, _P, _P], _I),
     # q, k, v, out, b, hq, hk, sq, skv, d, strides[12], causal, window,
-    # stream
+    # chunk, stream
     "flash_attn_bf16": ([_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L, _L,
-                         _P], _I),
+                         _L, _P], _I),
     "flash_attn_f32": ([_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L, _L,
-                        _P], _I),
+                        _L, _P], _I),
     # q, k, v, valid_len, lo, out, part_m, part_l, part_acc, tickets, b,
     # hq, hk, s, d, strides[10], chunk, n_splits, stream
     "decode_attn_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,

@@ -1,1 +1,1 @@
-"""Forward attention (prefill) with causal and sliding-window masks."""
+"""Forward attention (prefill) with causal, sliding-window and chunk masks."""

@@ -22,10 +22,12 @@ def tma_ready(t: torch.Tensor) -> bool:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    chunk_attn: int | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors q [B, Hq, Sq, D], k/v [B, Hk, Skv,
-    D] (Hq % Hk == 0: KV heads are indexed, never repeated).  Any strides
+    D] (Hq % Hk == 0: KV heads are indexed, never repeated).  ``window``
+    keeps keys within it of each row's position, ``chunk_attn`` keys in
+    the row's chunk of that many positions (floor division).  Any strides
     with a contiguous last dimension; the output has q's layout.  The bf16
     route reads operands through TMA tensor maps, which need 16-byte
     aligned bases and strides: an operand that breaks that (see
@@ -54,6 +56,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("sequence too long for int32 positions")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    if chunk_attn is not None and chunk_attn <= 0:
+        raise ValueError(f"chunk_attn must be positive, got {chunk_attn}")
+    if max(sq, skv) + (chunk_attn or 0) >= 2**31:
+        raise ValueError("chunk too long for int32 positions")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs a contiguous last dimension")
     if q.dtype == torch.bfloat16:
@@ -68,6 +74,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = getattr(_build.library(), name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, hq, hk, sq, skv, d, strides, int(causal), window or 0,
-            stream)
+            chunk_attn or 0, stream)
     _build.check(err, name)
     return out

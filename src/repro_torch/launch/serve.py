@@ -1,7 +1,11 @@
 """Serving entry point: prefill a batch of prompts, then greedy decode
 against a KV cache, on the card (or on the CPU when asked, at a reduced
 config).  Any architecture of ``repro_torch.configs``: dense, sliding
-window (h2o-danube-1.8b) and mixture of experts (mixtral-8x7b).
+window (h2o-danube-1.8b), mixture of experts (mixtral-8x7b) with
+llama4's chunked local attention (llama4-maverick-400b-a17b), the VLM
+with its image-embedding prefix (internvl2-26b) and the encoder-decoder
+(whisper-medium, over a batch of audio frames).  A VLM decodes from the
+position where its prefill stopped, after the image tokens.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
       --requests 4 --prompt-len 32 --decode 16
@@ -24,6 +28,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models import get_model
+from repro_torch.models.transformer import VIT_STUB_DIM
 
 
 def _sync(dev: torch.device) -> None:
@@ -39,8 +44,10 @@ def serve(arch: str, *, requests: int = 4, prompt_len: int = 32,
 
     Weights are the reference's random initialisation drawn from a
     ``torch.Generator`` seeded with ``seed`` on the run's device, the layer
-    matrices straight into the compute dtype; prompts come from
-    ``numpy.random.default_rng(seed)``.  ``device=None`` means ``cuda``,
+    matrices straight into the compute dtype; prompts, and a VLM's image
+    embeddings or an enc-dec's frames, come from
+    ``numpy.random.default_rng(seed)`` (``make_batch``).  ``device=None``
+    means ``cuda``,
     which must exist.  The result has the reference's keys plus
     ``prefill_s``, ``decode_ms_per_step``, ``peak_mem_gb`` (card only) and
     the kernel ``launches`` of this call."""
@@ -66,6 +73,38 @@ def init_params(cfg, dev: torch.device, seed: int) -> dict:
                                dtype=getattr(torch, cfg.compute_dtype))
 
 
+def make_batch(cfg, tokens: torch.Tensor, seed: int) -> dict:
+    """The prefill batch for ``tokens`` [B, S]: a VLM's ``img_emb``
+    [B, img_tokens, 1024] or an enc-dec's ``frames`` [B, enc_seq, 1024]
+    drawn N(0, 1) in float32 from ``numpy.random.default_rng(seed)``
+    (the same for every prompt length), on the tokens' device."""
+    batch = {"tokens": tokens}
+    extra = {"vlm": ("img_emb", cfg.img_tokens),
+             "encdec": ("frames", cfg.enc_seq)}.get(cfg.family)
+    if extra is not None:
+        name, n = extra
+        arr = np.random.default_rng(seed).standard_normal(
+            (tokens.shape[0], n, VIT_STUB_DIM), dtype=np.float32)
+        batch[name] = torch.as_tensor(arr, device=tokens.device)
+    return batch
+
+
+def prefix_len(cfg) -> int:
+    """Positions a prefill fills before the prompt: a VLM's image
+    tokens, else none.  A decode step after a prompt of S tokens is at
+    ``prefix_len(cfg) + S``."""
+    return cfg.img_tokens if cfg.family == "vlm" else 0
+
+
+def pad_kv(caches: dict, n: int) -> dict:
+    """Grow the self-attention caches by ``n`` slots so decode can
+    append: every leaf keyed "k" or "v" (the reference's ``pad_kv``); an
+    enc-dec's ``cross_k``/``cross_v`` stay as they are."""
+    return {key: pad_kv(val, n) if isinstance(val, dict)
+            else F.pad(val, (0, 0, 0, n)) if key in ("k", "v") else val
+            for key, val in caches.items()}
+
+
 def _serve(cfg, *, requests: int, prompt_len: int, decode: int,
            dev: torch.device, seed: int) -> dict:
     """``serve``'s body for one ``ArchConfig`` on ``dev``."""
@@ -73,25 +112,25 @@ def _serve(cfg, *, requests: int, prompt_len: int, decode: int,
     params = init_params(cfg, dev, seed)
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (requests, prompt_len))
-    tokens = torch.as_tensor(toks, device=dev)
+    batch = make_batch(cfg, torch.as_tensor(toks, device=dev), seed)
+    t0_pos = prefix_len(cfg) + prompt_len
     launches0 = (flash_ops.launches, decode_ops.launches)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = model.prefill(params, {"tokens": tokens}, cfg)
+    logits, caches = model.prefill(params, batch, cfg)
     _sync(dev)
     t1 = time.perf_counter()
     # grow the caches so decode can append (prefill returns exactly S slots)
-    caches = {name: {kv: F.pad(c, (0, 0, 0, decode)) for kv, c in
-                     group.items()} for name, group in caches.items()}
+    caches = pad_kv(caches, decode)
     _sync(dev)
     t_dec = time.perf_counter()
     out_tokens = [logits.argmax(-1)]
     for i in range(decode):
         logits, caches = model.decode(params, caches, out_tokens[-1][:, None],
-                                      prompt_len + i, cfg)
+                                      t0_pos + i, cfg)
         out_tokens.append(logits.argmax(-1))
     _sync(dev)
     t2 = time.perf_counter()

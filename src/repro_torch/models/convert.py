@@ -1,9 +1,12 @@
 """Carry model parameters and KV caches from the JAX package to the port.
 
 The two packages share the parameter tree (same keys, same stacked
-``[L, ...]`` shapes) and the cache tree (``{"dense0": {"k", "v"}}`` of
-``[L, B, Hk, S, Dh]``); only the array type differs.  The JAX side hands
-its trees over as numpy arrays (``jax.tree.map(np.asarray, tree)``).
+``[L, ...]`` shapes) and the cache tree: a decoder's
+``{"dense0": {"k", "v"}}`` of ``[L, B, Hk, S, Dh]``, an enc-dec's
+``{"self": {"k", "v"}, "cross_k", "cross_v"}`` whose cross caches are
+leaves; only the array type differs.  Any nesting of dicts carries over,
+leaf for leaf.  The JAX side hands its trees over as numpy arrays
+(``jax.tree.map(np.asarray, tree)``).
 """
 from __future__ import annotations
 

@@ -1,11 +1,12 @@
-"""Building blocks of the dense decoder.
+"""Building blocks shared by the model families.
 
 Attention has two entry points, the counterparts of the JAX package's
 ``chunked_attention`` and ``decode_attention`` (the pure-jnp oracles of
 its Pallas kernels):
 
-* ``chunked_attention`` — prefill attention, through
-  ``kernels.flash_attn.ops.attention``;
+* ``chunked_attention`` — prefill, encoder and cross attention, through
+  ``kernels.flash_attn.ops.attention`` (causal or not, sliding window,
+  llama4's local chunk);
 * ``decode_attention`` — one new token against a KV cache, through
   ``kernels.decode_attn.ops.decode``, masked by absolute position as the
   reference masks it (causal, sliding window, chunk).
@@ -37,6 +38,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (y * scale.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last dim, statistics in float32 (the biased
+    variance, as ``jnp.var``)."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float
            ) -> torch.Tensor:
     """Rotary embedding, half-split (not interleaved), angles in float32.
@@ -52,13 +64,27 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def sinusoid_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal position table [seq, dim] in float32:
+    sines then cosines of ``pos * 10000**(-i / (dim / 2 - 1))``."""
+    half = dim // 2
+    freq = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=device) / max(half - 1, 1))
+    ang = torch.arange(seq, dtype=torch.float32, device=device)[:, None] \
+        * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True, window: int | None = None
-                      ) -> torch.Tensor:
+                      causal: bool = True, window: int | None = None,
+                      chunk_attn: int | None = None) -> torch.Tensor:
     """q: [B, Hq, Sq, Dh]; k, v: [B, Hk, Skv, Dh] with Hq % Hk == 0.  Query
-    row i sits at position i + Skv - Sq (suffix alignment).  Returns
-    [B, Hq, Sq, Dh] in q's dtype (with q's layout on the card)."""
-    return flash_ops.attention(q, k, v, causal=causal, window=window)
+    row i sits at position i + Skv - Sq (suffix alignment); with
+    ``chunk_attn`` a query attends only keys of its own chunk of that many
+    positions (``k // c == q // c``).  Returns [B, Hq, Sq, Dh] in q's dtype
+    (with q's layout on the card)."""
+    return flash_ops.attention(q, k, v, causal=causal, window=window,
+                               chunk_attn=chunk_attn)
 
 
 def ring_positions(t: int, n_slots: int, device=None) -> torch.Tensor:
@@ -161,3 +187,12 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     g = x @ wg.to(dt)
     u = x @ wu.to(dt)
     return (F.silu(g) * u) @ wo.to(dt)
+
+
+def gelu_mlp(x: torch.Tensor, wi: torch.Tensor, bi: torch.Tensor,
+             wo: torch.Tensor, bo: torch.Tensor) -> torch.Tensor:
+    """Two-layer MLP with the tanh-approximated GELU (``jax.nn.gelu``'s
+    default)."""
+    dt = x.dtype
+    h = F.gelu(x @ wi.to(dt) + bi.to(dt), approximate="tanh")
+    return h @ wo.to(dt) + bo.to(dt)

@@ -1,4 +1,5 @@
-"""Decoder-only transformer (dense and MoE): prefill and KV-cache decode.
+"""Decoder-only transformer (dense, MoE and VLM) and the Whisper-style
+encoder-decoder: prefill and KV-cache decode.
 
 The parameter tree is the JAX package's (``models/transformer.py``), key
 for key and shape for shape: layers stacked on a leading axis in layer
@@ -20,12 +21,28 @@ would not fit the card.
 
 Caches are ``{group: {"k", "v"}}`` of ``[L_group, B, Hk, S, Dh]``.
 Prefill fills S slots (as the reference returns them, whatever the
-window); decode writes slot ``t % S`` in place (the reference returns a
-new cache; the port updates the one it is given and returns it) and
-masks by each slot's absolute position under the sliding window
-(``layers.decode_attention``).  ``chunk_attn``, head padding and the
-VLM, enc-dec, SSM and hybrid families are not ported yet (ROADMAP queue
-1) and raise.
+window or chunk); decode writes slot ``t % S`` in place (the reference
+returns a new cache; the port updates the one it is given and returns
+it) and masks by each slot's absolute position under the sliding window
+and llama4's local chunk (``layers.decode_attention``).
+
+A VLM (internvl2) is the decoder with ``img_proj`` [1024, d]: the image
+embeddings ``batch["img_emb"]`` [B, img_tokens, 1024] are projected and
+put before the token embeddings, and positions run over the whole
+sequence, so the prefill fills ``img_tokens + S`` slots.
+
+The encoder-decoder (whisper) has its own tree (``encdec_param_shapes``:
+``enc_layers``, ``dec_layers`` with the cross-attention weights under
+``x_*``, ``frame_proj``, ``ln_enc``): the encoder projects
+``batch["frames"]`` [B, enc_seq, 1024], adds sinusoid positions and runs
+non-causal self-attention without rotary and a SwiGLU FFN per layer;
+each decoder layer runs causal self-attention with rotary, then
+cross-attention over the encoder output (no rotary, not causal), then a
+SwiGLU FFN.  Caches are ``{"self": {"k", "v"}, "cross_k", "cross_v"}``,
+the cross caches ``[L, B, Hk, enc_seq, Dh]`` filled by the prefill and
+attended whole at every decode step.  The SSM and hybrid families are
+not ported yet (ROADMAP queue 1, slice 8) and raise, as does head
+padding (an XLA layout knob).
 """
 from __future__ import annotations
 
@@ -33,13 +50,17 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (chunked_attention, decode_attention,
-                                       rms_norm, rotary, swiglu)
+                                       rms_norm, rotary, sinusoid_positions,
+                                       swiglu)
 from repro_torch.models.moe import moe_ffn, moe_param_shapes
 
-# leaves held in the compute dtype: the layer and expert matrices (norm
-# scales, the router and the embedding stay in param_dtype)
+VIT_STUB_DIM = 1024     # the VLM/audio frontend stubs emit this width
+
+# leaves held in the compute dtype: the layer, cross-attention, expert and
+# frontend-projection matrices (norm scales, the router and the embedding
+# stay in param_dtype)
 MATRICES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "sh_wg", "sh_wu",
-            "sh_wo")
+            "sh_wo", "x_wq", "x_wk", "x_wv", "x_wo", "img_proj", "frame_proj")
 
 
 def kv_cache_len(cfg: ArchConfig, seq_len: int) -> int:
@@ -51,17 +72,16 @@ def kv_cache_len(cfg: ArchConfig, seq_len: int) -> int:
     return seq_len
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+DECODER_FAMILIES = ("dense", "moe", "vlm")
+
+
+def _check_supported(cfg: ArchConfig,
+                     families: tuple = DECODER_FAMILIES) -> None:
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP queue 1 lists it); the port runs dense and MoE "
-            f"decoders")
-    if cfg.chunk_attn is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: chunked local attention (chunk_attn) needs a chunk "
-            f"mask in both attention kernels, not ported yet (ROADMAP "
-            f"queue 1)")
+            f"{cfg.name}: family {cfg.family!r} does not run on these entry "
+            f"points (they take {', '.join(families)}; SSM and hybrid are "
+            f"not ported yet: ROADMAP queue 1, slice 8)")
     if cfg.padded_heads != cfg.num_heads:
         raise NotImplementedError(
             f"{cfg.name}: head padding is an XLA layout knob the port does "
@@ -82,33 +102,62 @@ def _qkv(p, h: torch.Tensor, cfg: ArchConfig):
 
 
 def attn_block(p, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
-               positions: torch.Tensor, cache: dict, t: int | None = None):
-    """Returns (x + attn_out, cache).  ``cache`` {"k", "v"} [B, Hk, S, Dh]
-    is written in place: prefill fills its first Sq slots, decode writes
-    slot ``t % S`` and attends to the slots the position mask leaves at
-    ``t`` under ``cfg.window``.  ``mode`` is "prefill" or "decode"."""
-    _check_supported(cfg)
+               positions: torch.Tensor | None = None,
+               cache: dict | None = None, t: int | None = None,
+               use_rotary: bool = True, causal: bool = True,
+               kv_override: tuple | None = None):
+    """Returns (x + attn_out, cache).  ``mode`` is "prefill", "decode" or
+    "encode".  Self-attention: ``cache`` {"k", "v"} [B, Hk, S, Dh] is
+    written in place: prefill fills its first Sq slots, decode writes slot
+    ``t % S`` and attends to the slots the position mask leaves at ``t``
+    under ``cfg.window`` and ``cfg.chunk_attn``; "encode" keeps no cache
+    (the encoder: ``causal=False``, ``use_rotary=False``).
+    Cross-attention (``kv_override``, the encoder's keys and values
+    [B, Hk, enc_seq, Dh]): q from ``h @ wq`` without rotary, not causal;
+    decode attends every encoder slot, at ``t = enc_seq - 1`` as the
+    reference does."""
     h = rms_norm(x, p["ln1"])
     b, s, _ = x.shape
-    q, k, v = _qkv(p, h, cfg)
-    q = rotary(q, positions, cfg.rope_theta)
-    k = rotary(k, positions, cfg.rope_theta)
-    if mode == "decode":
-        slot = t % cache["k"].shape[2]
-        cache["k"][:, :, slot] = k[:, 0]
-        cache["v"][:, :, slot] = v[:, 0]
-        o = decode_attention(q.transpose(1, 2), cache["k"], cache["v"], None,
-                             t, window=cfg.window, chunk_attn=cfg.chunk_attn)
-    elif mode == "prefill":
-        cache["k"][:, :, :s] = k.transpose(1, 2)
-        cache["v"][:, :, :s] = v.transpose(1, 2)
-        # q stays a [B, S, H, Dh] buffer seen as [B, H, S, Dh]; the output
-        # has the same layout, so the transpose back below is free
-        o = chunked_attention(q.transpose(1, 2), cache["k"][:, :, :s],
-                              cache["v"][:, :, :s], causal=True,
-                              window=cfg.window)
+    if kv_override is not None:
+        q = (h @ p["wq"].to(h.dtype)).reshape(b, s, cfg.num_heads,
+                                             cfg.head_dim)
+        k, v = kv_override
+        if mode == "decode":
+            o = decode_attention(q.transpose(1, 2), k, v, None,
+                                 k.shape[2] - 1)
+        else:
+            o = chunked_attention(q.transpose(1, 2), k, v, causal=False,
+                                  window=cfg.window,
+                                  chunk_attn=cfg.chunk_attn)
     else:
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+        q, k, v = _qkv(p, h, cfg)
+        if use_rotary:
+            q = rotary(q, positions, cfg.rope_theta)
+            k = rotary(k, positions, cfg.rope_theta)
+        if mode == "decode":
+            slot = t % cache["k"].shape[2]
+            cache["k"][:, :, slot] = k[:, 0]
+            cache["v"][:, :, slot] = v[:, 0]
+            o = decode_attention(q.transpose(1, 2), cache["k"], cache["v"],
+                                 None, t, window=cfg.window,
+                                 chunk_attn=cfg.chunk_attn)
+        elif mode == "prefill":
+            cache["k"][:, :, :s] = k.transpose(1, 2)
+            cache["v"][:, :, :s] = v.transpose(1, 2)
+            # q stays a [B, S, H, Dh] buffer seen as [B, H, S, Dh]; the
+            # output has the same layout, so the transpose back is free
+            o = chunked_attention(q.transpose(1, 2), cache["k"][:, :, :s],
+                                  cache["v"][:, :, :s], causal=causal,
+                                  window=cfg.window,
+                                  chunk_attn=cfg.chunk_attn)
+        elif mode == "encode":
+            o = chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=cfg.window,
+                                  chunk_attn=cfg.chunk_attn)
+        else:
+            raise ValueError(f"mode must be 'prefill', 'decode' or "
+                             f"'encode', got {mode!r}")
     o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
     return x + o @ p["wo"].to(x.dtype), cache
 
@@ -169,7 +218,27 @@ def decoder_param_shapes(cfg: ArchConfig) -> dict:
                     "layers": _layer_group_shapes(cfg)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (d, cfg.padded_vocab)
+    if cfg.family == "vlm":
+        shapes["img_proj"] = (VIT_STUB_DIM, d)
     return shapes
+
+
+def encdec_param_shapes(cfg: ArchConfig) -> dict:
+    """The reference's enc-dec tree: stacked encoder layers (attention and
+    SwiGLU FFN) and decoder layers (self-attention, cross-attention under
+    ``x_*``, SwiGLU FFN)."""
+    _check_supported(cfg, ("encdec",))
+    d = cfg.d_model
+    ne, nd = cfg.enc_layers, cfg.num_layers
+    enc = _attn_shapes(cfg, ne) | _dense_ffn_shapes(cfg, ne)
+    dec = (_attn_shapes(cfg, nd)
+           | {f"x_{k}": v for k, v in _attn_shapes(cfg, nd).items()}
+           | _dense_ffn_shapes(cfg, nd))
+    return {"embed": (cfg.padded_vocab, d),
+            "frame_proj": (VIT_STUB_DIM, d),
+            "enc_layers": enc, "dec_layers": dec,
+            "ln_enc": (d,), "ln_f": (d,),
+            "unembed": (d, cfg.padded_vocab)}
 
 
 def _leaves(tree: dict, prefix: tuple = ()):
@@ -190,6 +259,21 @@ def _set(tree: dict, path: tuple, val) -> None:
 def init_decoder_params(cfg: ArchConfig, generator: torch.Generator,
                         device=None, dtype: torch.dtype | None = None
                         ) -> dict:
+    """The decoder's tree, drawn as ``_init_from_shapes`` draws."""
+    return _init_from_shapes(decoder_param_shapes(cfg), cfg, generator,
+                             device, dtype)
+
+
+def init_encdec_params(cfg: ArchConfig, generator: torch.Generator,
+                       device=None, dtype: torch.dtype | None = None
+                       ) -> dict:
+    """The enc-dec tree, drawn as ``_init_from_shapes`` draws."""
+    return _init_from_shapes(encdec_param_shapes(cfg), cfg, generator,
+                             device, dtype)
+
+
+def _init_from_shapes(shapes: dict, cfg: ArchConfig,
+                      generator: torch.Generator, device, dtype) -> dict:
     """The reference's initialisation: every leaf of two or more
     dimensions N(0, 0.02) drawn in float32, every 1-D leaf ones.  (By that
     rule the stacked per-layer norm scales ``ln1``/``ln2`` [L, d] are
@@ -204,7 +288,7 @@ def init_decoder_params(cfg: ArchConfig, generator: torch.Generator,
     device = generator.device if device is None else device
     pdt = getattr(torch, cfg.param_dtype)
     params: dict = {}
-    for path, shape in _leaves(decoder_param_shapes(cfg)):
+    for path, shape in _leaves(shapes):
         ldt = dtype if dtype is not None and path[-1] in MATRICES else pdt
         if len(shape) == 1:
             _set(params, path, torch.ones(shape, dtype=ldt, device=device))
@@ -277,12 +361,26 @@ def _run_stack(params, x, cfg: ArchConfig, mode: str, positions, caches,
     return x
 
 
+def _prepend_images(params, x_tok: torch.Tensor, batch: dict,
+                    cfg: ArchConfig) -> torch.Tensor:
+    """A VLM's sequence: the projected image embeddings
+    ``batch["img_emb"]`` [B, img_tokens, 1024] before the token
+    embeddings; any other family's token embeddings as they are."""
+    if cfg.family != "vlm":
+        return x_tok
+    dt = x_tok.dtype
+    img_x = batch["img_emb"].to(dt) @ params["img_proj"].to(dt)
+    return torch.cat([img_x, x_tok], dim=1)
+
+
 def decoder_prefill(params, batch: dict, cfg: ArchConfig):
-    """batch["tokens"]: [B, S] ids.  Returns (last-token logits [B, V]
-    float32, caches with exactly S slots)."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = _embed_tokens(params, tokens, cfg)
+    """batch["tokens"]: [B, S] ids (and a VLM's ``img_emb``).  Returns
+    (last-token logits [B, V] float32, caches with exactly as many slots
+    as positions: S, or img_tokens + S for a VLM)."""
+    _check_supported(cfg)
+    x = _prepend_images(params, _embed_tokens(params, batch["tokens"], cfg),
+                        batch, cfg)
+    b, s, _ = x.shape
     caches = {name: {kv: torch.empty((shapes["ln1"][0], b, cfg.num_kv_heads,
                                       s, cfg.head_dim), dtype=x.dtype,
                                      device=x.device) for kv in ("k", "v")}
@@ -295,11 +393,109 @@ def decoder_prefill(params, batch: dict, cfg: ArchConfig):
 
 def decoder_decode_step(params, caches, tokens: torch.Tensor, t: int,
                         cfg: ArchConfig):
-    """tokens: [B, 1] new token ids at absolute position ``t`` (an int).
-    Writes the new keys and values into ``caches`` in place.  Returns
-    (logits [B, V] float32, caches)."""
+    """tokens: [B, 1] new token ids at absolute position ``t`` (an int;
+    for a VLM the image tokens count).  Writes the new keys and values
+    into ``caches`` in place.  Returns (logits [B, V] float32, caches)."""
+    _check_supported(cfg)
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(t, t + 1, device=x.device)
     x = _run_stack(params, x, cfg, "decode", positions, caches, t=t)
+    x = rms_norm(x[:, -1], params["ln_f"])
+    return _logits(params, x, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# Whisper-style encoder-decoder
+# ---------------------------------------------------------------------------
+
+def encdec_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """The reference's enc-dec cache tree: self-attention k/v of
+    ``seq_len`` slots and the cross-attention keys and values over the
+    encoder's ``enc_seq`` frames, per decoder layer."""
+    _check_supported(cfg, ("encdec",))
+    kv = (cfg.num_layers, batch, cfg.num_kv_heads, seq_len, cfg.head_dim)
+    xkv = (cfg.num_layers, batch, cfg.num_kv_heads, cfg.enc_seq,
+           cfg.head_dim)
+    return {"self": {"k": kv, "v": kv}, "cross_k": xkv, "cross_v": xkv}
+
+
+def _encode(params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Encoder output [B, enc_seq, d]: the frames projected, plus sinusoid
+    positions, through non-causal self-attention layers without rotary."""
+    dt = getattr(torch, cfg.compute_dtype)
+    x = frames.to(dt) @ params["frame_proj"].to(dt)
+    x = x + sinusoid_positions(x.shape[1], cfg.d_model,
+                               x.device).to(dt)[None]
+    layers = params["enc_layers"]
+    for i in range(layers["ln1"].shape[0]):
+        p = _index(layers, i)
+        x, _ = attn_block(p, x, cfg, mode="encode", use_rotary=False,
+                          causal=False)
+        x = dense_ffn_block(p, x)
+    return rms_norm(x, params["ln_enc"])
+
+
+def _dec_body(p, x: torch.Tensor, cfg: ArchConfig, mode: str, positions,
+              cache: dict, t: int | None = None) -> torch.Tensor:
+    """One decoder layer: causal self-attention with rotary over
+    ``cache["self"]``, cross-attention over ``cache["cross_k"]`` /
+    ``cache["cross_v"]`` [B, Hk, enc_seq, Dh], then the SwiGLU FFN."""
+    x, _ = attn_block(p, x, cfg, mode=mode, positions=positions,
+                      cache=cache["self"], t=t)
+    xp = {k[2:]: v for k, v in p.items() if k.startswith("x_")}
+    x, _ = attn_block(xp, x, cfg, mode=mode,
+                      kv_override=(cache["cross_k"], cache["cross_v"]))
+    return dense_ffn_block(p, x)
+
+
+def _layer_cache(caches: dict, i: int) -> dict:
+    return {"self": {kv: caches["self"][kv][i] for kv in ("k", "v")},
+            "cross_k": caches["cross_k"][i], "cross_v": caches["cross_v"][i]}
+
+
+def encdec_prefill(params, batch: dict, cfg: ArchConfig):
+    """batch["frames"]: [B, enc_seq, 1024], batch["tokens"]: [B, S] ids.
+    Returns (last-token logits [B, V] float32, caches: self-attention with
+    exactly S slots, and the cross-attention keys and values of every
+    decoder layer over the encoder output)."""
+    _check_supported(cfg, ("encdec",))
+    enc_out = _encode(params, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = _embed_tokens(params, tokens, cfg)
+    shapes = encdec_cache_shapes(cfg, b, s)
+    caches = {"self": {kv: torch.empty(shape, dtype=x.dtype,
+                                       device=x.device)
+                       for kv, shape in shapes["self"].items()},
+              "cross_k": torch.empty(shapes["cross_k"], dtype=x.dtype,
+                                     device=x.device),
+              "cross_v": torch.empty(shapes["cross_v"], dtype=x.dtype,
+                                     device=x.device)}
+    positions = torch.arange(s, device=x.device)
+    layers = params["dec_layers"]
+    for i in range(cfg.num_layers):
+        p = _index(layers, i)
+        lc = _layer_cache(caches, i)
+        for w, c in (("x_wk", lc["cross_k"]), ("x_wv", lc["cross_v"])):
+            c.copy_((enc_out @ p[w].to(x.dtype)).reshape(
+                b, -1, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2))
+        x = _dec_body(p, x, cfg, "prefill", positions, lc)
+    x = rms_norm(x[:, -1], params["ln_f"])
+    return _logits(params, x, cfg), caches
+
+
+def encdec_decode_step(params, caches, tokens: torch.Tensor, t: int,
+                       cfg: ArchConfig):
+    """tokens: [B, 1] new token ids at absolute position ``t`` (an int).
+    Writes the new self-attention keys and values into ``caches`` in
+    place; the cross caches are read whole.  Returns (logits [B, V]
+    float32, caches)."""
+    _check_supported(cfg, ("encdec",))
+    x = _embed_tokens(params, tokens, cfg)
+    positions = torch.arange(t, t + 1, device=x.device)
+    layers = params["dec_layers"]
+    for i in range(cfg.num_layers):
+        x = _dec_body(_index(layers, i), x, cfg, "decode", positions,
+                      _layer_cache(caches, i), t=t)
     x = rms_norm(x[:, -1], params["ln_f"])
     return _logits(params, x, cfg), caches

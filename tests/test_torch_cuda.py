@@ -369,3 +369,62 @@ def test_cuda_window_and_moe_decoders_match_cpu(hopper, arch):
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+@pytest.mark.gpu
+def test_cuda_flash_chunk_mask_matches_plain_version(hopper):
+    """llama4's chunk mask in both routes (bf16 wgmma, f32 CUDA cores):
+    an edge inside a query tile, on tile edges, a chunk smaller than a
+    tile, rows at negative positions, Sq < Skv, with a window, without
+    the causal mask, GQA 5 and 6."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    names = set()
+    for label, name, q, k, v, causal, window, chunk in \
+            _smoke().flash_chunk_cases(torch, hopper):
+        kw = dict(causal=causal, window=window, chunk_attn=chunk)
+        _smoke().attn_err(torch, flash_attention(q, k, v, **kw),
+                          flash_attention_ref(q, k, v, **kw), name, label)
+        names.add(name)
+    assert names == {"float32", "bfloat16"}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "internvl2-26b", "whisper-medium"])
+def test_cuda_chunk_vlm_encdec_decoders_match_cpu(hopper, arch):
+    """The reduced llama4 (chunk 32), internvl2 (8 image tokens) and
+    whisper (16 frames) in float32 on the card against the same weights
+    and inputs on the CPU: a 64-token prefill and 5 decode steps, the
+    first at a chunk start; every attention launches its kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops as decode_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch.serve import make_batch, pad_kv, prefix_len
+    from repro_torch.models import get_model
+    cfg = get_config(arch).reduced().replace(compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 69),
+                         generator=torch.Generator().manual_seed(1))
+    per_prefill, per_step = _smoke().attn_launches(cfg)
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        flash_ops.launches = decode_ops.launches = 0
+        out, caches = model.prefill(p, make_batch(cfg, toks[:, :64].to(dev),
+                                                  2), cfg)
+        caches = pad_kv(caches, 5)
+        steps = [out]
+        for i in range(5):
+            out, caches = model.decode(p, caches,
+                                       toks[:, 64 + i:65 + i].to(dev),
+                                       prefix_len(cfg) + 64 + i, cfg)
+            steps.append(out)
+        logits[dev] = torch.stack(steps).cpu()
+        if dev == "cuda":
+            assert flash_ops.launches == per_prefill
+            assert decode_ops.launches == per_step * 5
+    ref = logits["cpu"]
+    assert float((logits["cuda"] - ref).abs().max() / ref.abs().max()) < 1e-4

@@ -159,11 +159,12 @@ def test_kernel_ab_loads_another_tree_beside_this_one(tmp_path, monkeypatch):
     base = kernel_ab.load_wrappers(tmp_path / "src")
     assert kernel_ab._package_modules() == before
     assert str(tmp_path / "src") not in sys.path
-    for k in ("sorted_probe", "window_agg"):
+    for k in ("sorted_probe", "window_agg", "flash_attention"):
         assert cur[k].__globals__["_build"] is _build
         other = base[k].__globals__["_build"]
         assert other is not _build
         assert other.CSRC == tmp_path / "src" / "repro_torch" / "csrc"
         assert other.build_dir() == tmp_path / "build" / "repro_torch"
     assert base["sorted_probe"].__globals__["_build"] \
-        is base["window_agg"].__globals__["_build"]
+        is base["window_agg"].__globals__["_build"] \
+        is base["flash_attention"].__globals__["_build"]

@@ -153,18 +153,23 @@ def test_prefill_and_decode_match_jax(jax_params, dtype):
 
 
 def test_window_config_raises_not_computed_another_way():
-    """A sliding window is ported (``test_torch_window.py``); the chunked
-    local window (``chunk_attn``) and the families still to port raise
-    rather than compute something else."""
+    """A sliding window, the chunked local window (``chunk_attn``) and
+    the VLM and enc-dec families are ported (``test_torch_window.py``,
+    ``test_torch_chunk.py``, ``test_torch_vlm.py``,
+    ``test_torch_encdec.py``); the families still to port raise rather
+    than compute something else, and so does a family handed to the
+    other family's entry points."""
     cfg = get_config(ARCH).reduced()
+    params = cast_params(get_model(cfg).init(cfg, torch.Generator()), cfg)
+    for family in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8"):
+            get_model(cfg.replace(family=family))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg).prefill(
-            cast_params(get_model(cfg).init(cfg, torch.Generator()), cfg),
-            {"tokens": torch.zeros((1, 8), dtype=torch.long)},
-            cfg.replace(chunk_attn=32))
-    for family in ("vlm", "encdec", "ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(cfg.replace(family=family))
+            params, {"tokens": torch.zeros((1, 8), dtype=torch.long)},
+            cfg.replace(family="encdec"))
+    for family in ("vlm", "encdec"):
+        assert get_model(cfg.replace(family=family)) is not None
 
 
 def test_serve_reduced_on_cpu_has_the_reference_keys():

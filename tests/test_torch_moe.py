@@ -224,6 +224,18 @@ def test_reduced_llama4_moe_period_and_shared_expert_match_jax(dtype):
 
 
 def test_llama4_chunked_attention_still_raises():
+    """llama4's chunk mask is ported (``test_torch_chunk.py`` holds it
+    against the reference); what the kernels do not take still raises
+    rather than being computed another way: a decode over a wrapped ring
+    that the chunk cuts (no entry point reaches one: the serve caches hold
+    their own positions) and a chunk width that is not positive."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.models import layers
     cfg = _configs(LLAMA4)[1].replace(chunk_attn=32)
-    with pytest.raises(NotImplementedError, match="chunk_attn"):
-        get_model(cfg).param_shapes(cfg)
+    assert sorted(get_model(cfg).param_shapes(cfg)["layers"]) == [
+        "dense0", "moe"]
+    with pytest.raises(NotImplementedError, match="chunk_attn=32"):
+        layers.decode_slot_range(100, 64, None, cfg.chunk_attn)
+    q = torch.zeros((1, 4, 8, 16))
+    with pytest.raises(ValueError, match="chunk_attn"):
+        flash_ops.attention(q, q, q, chunk_attn=0)

@@ -1,8 +1,10 @@
 """Shared by the port's model parity tests (``test_torch_window.py``,
-``test_torch_moe.py``): one configuration's prefill and teacher-forced
+``test_torch_moe.py``, ``test_torch_chunk.py``, ``test_torch_vlm.py``,
+``test_torch_encdec.py``): one configuration's prefill and teacher-forced
 decode steps through the JAX model and the port on the same weights (the
-JAX initialisation carried over as numpy by ``params_from_numpy``) and
-the same tokens, and the relative error the tests bound,
+JAX initialisation carried over as numpy by ``params_from_numpy``), the
+same tokens and the same extra batch inputs (a VLM's image embeddings,
+an enc-dec's frames), and the relative error the tests bound,
 max|Δ| / max|ref|."""
 import functools
 
@@ -10,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
-import torch.nn.functional as F
-from jax.tree_util import DictKey, tree_map_with_path
+from jax.tree_util import DictKey, tree_flatten_with_path, tree_map_with_path
 
 from repro.models import cpu_mesh_ctx
 from repro.models import get_model as jax_get_model
+from repro_torch.launch.serve import pad_kv, prefix_len
 from repro_torch.models import get_model
 from repro_torch.models.convert import caches_from_numpy, params_from_numpy
 from repro_torch.models.transformer import cast_params
@@ -51,49 +53,61 @@ def _pad_jax(caches, n):
     return tree_map_with_path(f, caches)
 
 
+def _leaf(tree: dict, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 def run_both(jcfg, tcfg, np_params, toks: np.ndarray, prompt: int,
-             steps: int) -> list:
-    """Prefill ``toks[:, :prompt]`` in both packages, then ``steps``
-    decode steps fed ``toks`` (teacher forcing).  Returns [(label, the
-    port's output, the reference's)] for the prefill, its caches, each
-    step, and the first step again run from the JAX caches carried over
-    by ``caches_from_numpy``."""
+             steps: int, extra: dict | None = None) -> list:
+    """Prefill ``toks[:, :prompt]`` in both packages, with the numpy batch
+    inputs ``extra`` beside the tokens (``img_emb``, ``frames``), then
+    ``steps`` decode steps fed ``toks`` (teacher forcing) at equal
+    positions ``t``: a VLM's count its image tokens (``prefix_len``).
+    Returns [(label, the port's output, the reference's)] for the
+    prefill, every leaf of its cache tree, each step, and the first step
+    again run from the JAX caches carried over by ``caches_from_numpy``.
+    The self-attention caches grow by ``steps`` slots (leaves keyed "k"
+    or "v", the reference's ``pad_kv``), the cross caches stay."""
     jmodel, tmodel, mctx = jax_get_model(jcfg), get_model(tcfg), \
         cpu_mesh_ctx()
     jp = jax.tree.map(jnp.asarray, np_params)
     tp = cast_params(params_from_numpy(np_params, "cpu"), tcfg)
+    extra = extra or {}
     out = []
-    jl, jc = jmodel.prefill(jp, {"tokens": jnp.asarray(toks[:, :prompt])},
-                            jcfg, mctx)
+    jl, jc = jmodel.prefill(jp, {"tokens": jnp.asarray(toks[:, :prompt]),
+                                 **{k: jnp.asarray(v)
+                                    for k, v in extra.items()}}, jcfg, mctx)
     tl, tc = tmodel.prefill(tp, {"tokens": torch.from_numpy(
-        toks[:, :prompt])}, tcfg)
+        toks[:, :prompt]), **{k: torch.from_numpy(v)
+                              for k, v in extra.items()}}, tcfg)
     assert tl.dtype == torch.float32 and tl.shape == jl.shape
     out.append(("prefill", tl, jl))
     assert sorted(tc) == sorted(jc)
     carried = caches_from_numpy(jax.tree.map(np.asarray, jc), "cpu")
     assert sorted(carried) == sorted(jc)
-    for group in jc:
-        for kv in ("k", "v"):
-            want = np.asarray(jc[group][kv], np.float32)
-            assert tuple(tc[group][kv].shape) == want.shape
-            assert carried[group][kv].dtype == tc[group][kv].dtype
-            out.append((f"cache {group}.{kv}", tc[group][kv], want))
+    for path, leaf in tree_flatten_with_path(jc)[0]:
+        keys = tuple(p.key for p in path)
+        want = np.asarray(leaf, np.float32)
+        assert tuple(_leaf(tc, keys).shape) == want.shape
+        assert _leaf(carried, keys).dtype == _leaf(tc, keys).dtype
+        out.append((f"cache {'.'.join(keys)}", _leaf(tc, keys), want))
     jc = _pad_jax(jc, steps)
-    carried = {g: {kv: F.pad(c, (0, 0, 0, steps)) for kv, c in d.items()}
-               for g, d in carried.items()}
+    carried = pad_kv(carried, steps)
     jdecode = jax.jit(lambda p, c, tok, t: jmodel.decode(p, c, tok, t, jcfg,
                                                          mctx))
-    tc = {g: {kv: F.pad(c, (0, 0, 0, steps)) for kv, c in d.items()}
-          for g, d in tc.items()}
+    tc = pad_kv(tc, steps)
     for i in range(steps):
-        t = prompt + i
-        jl, jc = jdecode(jp, jc, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
-        tl, tc = tmodel.decode(tp, tc, torch.from_numpy(toks[:, t:t + 1]),
+        j = prompt + i                   # the token fed
+        t = prefix_len(tcfg) + j         # and its position
+        jl, jc = jdecode(jp, jc, jnp.asarray(toks[:, j:j + 1]), jnp.int32(t))
+        tl, tc = tmodel.decode(tp, tc, torch.from_numpy(toks[:, j:j + 1]),
                                t, tcfg)
         out.append((f"decode t={t}", tl, jl))
         if i == 0:
             tl, _ = tmodel.decode(tp, carried, torch.from_numpy(
-                toks[:, t:t + 1]), t, tcfg)
+                toks[:, j:j + 1]), t, tcfg)
             out.append((f"decode t={t} from the carried caches", tl, jl))
     return out
 
