@@ -68,20 +68,34 @@ Phases, each printing JSON lines:
    encoder, 24 self, 24 cross) and 48 decode launches a step.  Each then
    holds the decode step at the prompt's end against a prefill over one
    more token (2 requests, < 0.03); each line carries its launch counts
-   and peak device memory, and each model is freed before the next.
+   and peak device memory, and each model is freed before the next;
+9. state-space and hybrid — (a) recurrentgemma-2b at full width and depth
+   (18 RG-LRU and 8 local-attention layers, head dim 256, 10 q-heads on
+   one KV head), 8 requests of 4,096 prompt tokens, past its 2,048-token
+   window, and 128 decode steps: 8 flash and 1,024 decode launches;
+   (b) mamba2-130m at full width and depth (24 SSD layers), 8 requests
+   of 8,192 prompt tokens (32 SSD chunks) and 128 steps: no attention
+   kernel, 0 and 0 launches, checked as such.  Each then holds the
+   decode step at the prompt's end against a prefill over one more
+   token (2 requests, < 0.03), with its peak device memory.
 
 Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
 spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
 and head dim 80 under a binding window and llama4's chunk mask (an edge
 inside a query tile, on a tile edge, a chunk smaller than a tile, rows at
-negative positions) in the flash kernel, and holds and times each
+negative positions) in the flash kernel, head dim 256 (and 160) in both
+flash routes (causal or not, windows, ragged lengths, a chunk, the
+[B, S, H, D] view) and groups of 1, 5, 10 and 16 q-heads per KV head at
+head dim 128 and 256 in the decode kernel (a group above 8 heads at D
+128, or 4 at D 256, runs in sub-groups), and holds and times each
 attention kernel at the shape every served model gives it, launched as
 the serve path launches it: llama3.2-3b's (the main row),
 h2o-danube-1.8b's (``window_shape`` in its lines), mixtral-8x7b's
 (``moe_shape``), llama4-maverick's (``chunk_shape``; the flash row also
 times the same launch without the chunk, ``unchunked_ms``),
-internvl2-26b's (``vlm_shape``) and whisper-medium's (``encoder_shape``,
-``cross_shape``, ``encdec_self_shape``).
+internvl2-26b's (``vlm_shape``), whisper-medium's (``encoder_shape``,
+``cross_shape``, ``encdec_self_shape``) and recurrentgemma-2b's
+(``hybrid_shape``).
 
 Any mismatch or exception exits non-zero; only after every phase passed
 are the kernel table, the ``nvidia-smi`` line and the final
@@ -119,7 +133,8 @@ ARCH = "llama3.2-3b"
 SERVE = dict(requests=8, prompt_len=2048, decode=128)
 # the attention kernels' rows at the other served models' shapes (phase 3)
 SHAPE_KEYS = ("window_shape", "moe_shape", "chunk_shape", "vlm_shape",
-              "encoder_shape", "cross_shape", "encdec_self_shape")
+              "encoder_shape", "cross_shape", "encdec_self_shape",
+              "hybrid_shape")
 
 
 def emit(obj: dict) -> None:
@@ -802,6 +817,43 @@ def flash_chunk_cases(torch, dev):
            "chunk=1000", "bfloat16", q, k, v, True, None, 1000)
 
 
+def flash_d256_cases(torch, dev):
+    """(label, dtype name, q, k, v, causal, window, chunk) above head dim
+    128, the instantiations that take 64-key tiles in a two-stage ring
+    (bf16) and 32-row tiles (f32): D 256 (four full panels) and D 160
+    (two and a half), causal or not, a window that binds (1, 256 and
+    recurrentgemma's 2,048 over 4,096 positions), ragged Sq and Skv
+    (Sq < Skv, and Sq > Skv where the first rows see no key), a chunk, GQA
+    10:1 (recurrentgemma's MQA group), 4:2 and 1:1, and q as the serve
+    path's [B, S, H, D] view; bf16 and f32."""
+    g = torch.Generator(device="cpu").manual_seed(50)
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        for b, sq, skv, hq, hk, d, causal, window, chunk in (
+                (2, 300, 300, 10, 1, 256, True, None, None),
+                (1, 1000, 1000, 10, 1, 256, True, 256, None),
+                (2, 7, 300, 4, 2, 256, True, None, None),
+                (2, 513, 300, 3, 1, 256, True, None, None),
+                (1, 513, 513, 10, 1, 256, False, 128, None),
+                (2, 300, 300, 2, 2, 256, True, 1, None),
+                (1, 700, 700, 10, 1, 256, True, None, 200),
+                (2, 513, 513, 4, 2, 160, True, None, None),
+                (1, 300, 1000, 10, 1, 160, True, 300, None)):
+            q = _randn(torch, g, (b, hq, sq, d), dev, dt)
+            k = _randn(torch, g, (b, hk, skv, d), dev, dt)
+            v = _randn(torch, g, (b, hk, skv, d), dev, dt)
+            yield (f"{name} Sq={sq} Skv={skv} D={d} {hq}:{hk} "
+                   f"causal={causal} window={window} chunk={chunk}", name,
+                   q, k, v, causal, window, chunk)
+    dt = torch.bfloat16
+    for s, window in ((300, None), (4096, 2048)):
+        q = _randn(torch, g, (1, s, 10, 256), dev, dt).transpose(1, 2)
+        k = _randn(torch, g, (1, 1, s, 256), dev, dt)
+        v = _randn(torch, g, (1, 1, s, 256), dev, dt)
+        yield (f"bfloat16 [B,S,H,D] view Sq=Skv={s} D=256 10:1 causal "
+               f"window={window}", "bfloat16", q, k, v, True, window, None)
+
+
 def flash_shape(torch, dev, cfg, sv: dict, seed: int):
     """Prefill attention as phase 5 or 7 serves ``cfg`` at ``sv``: q a
     [B, S, Hq, D] projection seen as [B, Hq, S, D], k/v the [B, Hk, S, D]
@@ -816,9 +868,9 @@ def flash_shape(torch, dev, cfg, sv: dict, seed: int):
 
 
 def flash_sweep(torch, dev) -> tuple[dict, int]:
-    """Every ``flash_cases``, layout, D 80 window and chunk case through
-    the kernel and its plain version: (worst max|diff| per dtype, cases
-    run); raises on a mismatch."""
+    """Every ``flash_cases``, layout, D 80 window, chunk and D 256 case
+    through the kernel and its plain version: (worst max|diff| per dtype,
+    cases run); raises on a mismatch."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -827,7 +879,7 @@ def flash_sweep(torch, dev) -> tuple[dict, int]:
         (c + (None,) for c in itertools.chain(
             flash_cases(torch, dev), flash_layout_cases(torch, dev),
             flash_window_cases(torch, dev))),
-        flash_chunk_cases(torch, dev))
+        flash_chunk_cases(torch, dev), flash_d256_cases(torch, dev))
     for label, name, q, k, v, causal, window, chunk in cases:
         kw = dict(causal=causal, window=window, chunk_attn=chunk)
         got = flash_attention(q, k, v, **kw)
@@ -997,7 +1049,9 @@ def flash_slice7_shapes(torch, dev):
 def check_flash(torch, dev) -> dict:
     """The sweep, then one row per served model at its prefill shape:
     llama3.2-3b (phase 5), h2o-danube-1.8b with its window binding and
-    mixtral-8x7b, whose window is longer than its prompts (phase 7), and
+    mixtral-8x7b, whose window is longer than its prompts (phase 7),
+    recurrentgemma-2b's local attention (phase 9: head dim 256, 10 q-heads
+    on one KV head, its 2,048 window binding over 4,096 positions), and
     the shapes of phase 8 (``flash_slice7_shapes``)."""
     from repro_torch.configs import get_config
     worst, n_cases = flash_sweep(torch, dev)
@@ -1011,7 +1065,8 @@ def check_flash(torch, dev) -> dict:
             (None, ARCH, SERVE, 32),
             ("window_shape", "h2o-danube-1.8b", SERVE_7["h2o-danube-1.8b"],
              35),
-            ("moe_shape", "mixtral-8x7b", SERVE_7["mixtral-8x7b"], 36)):
+            ("moe_shape", "mixtral-8x7b", SERVE_7["mixtral-8x7b"], 36),
+            ("hybrid_shape", HYBRID, SERVE_9[HYBRID], 52)):
         q, k, v, window = flash_shape(torch, dev, get_config(arch), sv, seed)
         b, hq, s, d = q.shape
         hk = k.shape[1]
@@ -1111,6 +1166,33 @@ def decode_layout_cases(torch, dev):
                                    device=dev))
 
 
+def decode_group_cases(torch, dev):
+    """Groups the kernel serves in sub-groups and head dim 256: G 1, 5, 10
+    and 16 q-heads per KV head at D 128 (up to 8 heads a block: 10 and 16
+    take two) and D 256 (up to 4: 5 takes two, 10 three of 4, 4 and 2, 16
+    four), S 300 and 2,048, valid_len ragged with and without a first slot
+    lo (recurrentgemma's window: lo = valid_len - 2,048), a valid_len of
+    0; bf16 and f32."""
+    g = torch.Generator(device="cpu").manual_seed(51)
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        for d in (128, 256):
+            for hq, hk in ((2, 2), (5, 1), (20, 2), (16, 1)):
+                for s in (300, 2048):
+                    q = _randn(torch, g, (3, hq, d), dev, dt)
+                    k = _randn(torch, g, (3, hk, s, d), dev, dt)
+                    v = _randn(torch, g, (3, hk, s, d), dev, dt)
+                    lens = [s, s // 2 + 7, 0]
+                    for los in (None, [max(0, s - 2048 + 1), 33, 0]):
+                        vl = torch.tensor(lens, dtype=torch.int32,
+                                          device=dev)
+                        lo = None if los is None else torch.tensor(
+                            los, dtype=torch.int32, device=dev)
+                        yield (f"{name} S={s} D={d} {hq}:{hk} "
+                               f"valid_len={lens} lo={los}", name, q, k, v,
+                               vl, lo)
+
+
 def decode_shape(torch, dev, cfg, sv: dict, seed: int, cross: bool = False):
     """Decode attention as phase 5, 7 or 8 serves ``cfg`` at ``sv``, at the
     64th decode step (the last of 64): q [B, Hq, D] bf16 (a slice of the
@@ -1141,17 +1223,18 @@ def decode_shape(torch, dev, cfg, sv: dict, seed: int, cross: bool = False):
 
 
 def decode_sweep(torch, dev) -> tuple[dict, int]:
-    """Every ``decode_cases`` case through the kernel and its plain
-    version, again on the same inputs (bit-identical: the splits' ticket
-    counter was left zeroed), again with garbage outside [lo, valid_len)
-    and, where lo is 0, without lo (bit-identical):
+    """Every ``decode_cases``, layout and group case through the kernel and
+    its plain version, again on the same inputs (bit-identical: the
+    splits' ticket counters were left zeroed), again with garbage outside
+    [lo, valid_len) and, where lo is 0, without lo (bit-identical):
     (worst max|diff| per dtype, cases run); raises on a mismatch."""
     from repro_torch.kernels.decode_attn.kernel import decode_attention
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n_cases = 0
     for label, name, q, k, v, vl, lo in itertools.chain(
-            decode_cases(torch, dev), decode_layout_cases(torch, dev)):
+            decode_cases(torch, dev), decode_layout_cases(torch, dev),
+            decode_group_cases(torch, dev)):
         got = decode_attention(q, k, v, vl, lo)
         want = decode_attention_ref(q, k, v, vl, 0 if lo is None else lo)
         worst[name] = max(worst[name],
@@ -1185,11 +1268,13 @@ def decode_launch(torch, q, k, v, bounds, span: int, out):
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attn.kernel import (_sm_count,
-                                                        split_plan, tickets)
+                                                        split_plan,
+                                                        sub_groups, tickets)
     b, hq, d = q.shape
     _, hk, s, _ = k.shape
     dev = q.device
-    chunk, n_splits = split_plan(b, hk, span, _sm_count(dev.index))
+    n_sub = sub_groups(hq // hk, d)
+    chunk, n_splits = split_plan(b, hk, span, _sm_count(dev.index), n_sub)
     part_ml = torch.empty((2, b, hq, n_splits), device=dev)
     part_acc = torch.empty((b, hq, n_splits, d), device=dev)
     strides = (ctypes.c_int64 * 10)(*q.stride()[:2], *k.stride()[:3],
@@ -1197,8 +1282,8 @@ def decode_launch(torch, q, k, v, bounds, span: int, out):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bounds[1].data_ptr(),
             bounds[0].data_ptr(), out.data_ptr(), part_ml[0].data_ptr(),
             part_ml[1].data_ptr(), part_acc.data_ptr(),
-            tickets(dev, b * hk).data_ptr(), b, hq, hk, s, d, strides, chunk,
-            n_splits, torch.cuda.current_stream().cuda_stream)
+            tickets(dev, b * hk * n_sub).data_ptr(), b, hq, hk, s, d, strides,
+            chunk, n_splits, n_sub, torch.cuda.current_stream().cuda_stream)
     fn = _build.library().decode_attn_bf16
     return (lambda: fn(*args)), chunk, n_splits
 
@@ -1257,7 +1342,9 @@ def check_decode(torch, dev) -> dict:
     mixtral-8x7b (phase 7), llama4-maverick's chunk span [8,192, t + 1),
     internvl2-26b's group of 6 after its image tokens, and whisper-
     medium's self-attention and its cross-attention over 1,500 frames
-    (phase 8)."""
+    (phase 8), and recurrentgemma-2b's windowed span of 2,048 slots at
+    head dim 256 with 10 q-heads on one KV head (phase 9: three
+    sub-groups)."""
     from repro_torch.configs import get_config
     worst, n_cases = decode_sweep(torch, dev)
     res = {
@@ -1274,7 +1361,8 @@ def check_decode(torch, dev) -> dict:
             ("chunk_shape", LLAMA4, SERVE_8[LLAMA4], 46),
             ("vlm_shape", "internvl2-26b", SERVE_8["internvl2-26b"], 47),
             ("encdec_self_shape", WHISPER, SERVE_8[WHISPER], 48),
-            ("cross_shape", WHISPER, SERVE_8[WHISPER], 49)):
+            ("cross_shape", WHISPER, SERVE_8[WHISPER], 49),
+            ("hybrid_shape", HYBRID, SERVE_9[HYBRID], 53)):
         cfg = get_config(arch)
         q, k, v, lo, hi = decode_shape(torch, dev, cfg, sv, seed,
                                        cross=key == "cross_shape")
@@ -1412,9 +1500,17 @@ def attn_launches(cfg) -> tuple[int, int]:
     """(flash launches a prefill, decode launches a step): one per
     attention of a layer; an enc-dec's prefill runs its encoder layers'
     self-attention and its decoder layers' self- and cross-attention, its
-    decode step the decoder's two."""
+    decode step the decoder's two; a hybrid's attention layers only
+    (recurrentgemma: 8 of 26); an SSM none."""
     if cfg.family == "encdec":
         return cfg.enc_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        groups, tail = divmod(cfg.num_layers, len(cfg.block_pattern))
+        n = (groups * cfg.block_pattern.count("attn")
+             + cfg.block_pattern[:tail].count("attn"))
+        return n, n
     return cfg.num_layers, cfg.num_layers
 
 
@@ -1529,10 +1625,9 @@ def profile_decode(torch, cfg, sv: dict, steps: int = 8,
     wall ms, the device ms, the device events, and the device's busy share
     of the unprofiled wall (what says whether a step is host-bound)."""
     import numpy as np
-    import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.serve import init_params
+    from repro_torch.launch.serve import init_params, pad_kv
     from repro_torch.models import get_model
     dev = torch.device(dev)
     model = get_model(cfg)
@@ -1541,8 +1636,7 @@ def profile_decode(torch, cfg, sv: dict, steps: int = 8,
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, s)), device=dev)
     logits, caches = model.prefill(params, {"tokens": toks}, cfg)
-    caches = {n: {kv: F.pad(c, (0, 0, 0, 2 * steps + 2)) for kv, c in
-                  g.items()} for n, g in caches.items()}
+    caches = pad_kv(caches, 2 * steps + 2)
     tok = logits.argmax(-1)[:, None]
 
     def run(t0: int, n: int) -> None:
@@ -2180,12 +2274,71 @@ def families_phase(torch, dev: str) -> dict:
     return totals
 
 
+# ------------------------------------------------ state-space and hybrid
+# Phase 9 serves the two families whose decode state is constant in the
+# context, at full width and depth: (a) recurrentgemma-2b (18 RG-LRU and
+# 8 local-attention layers, head dim 256, 10 q-heads on one KV head; ~2.9
+# B parameters: the layer matrices in bf16, ~4.5 GB, and the 256,000 x
+# 2,560 embedding in float32, 2.6 GB), 8 x 4,096 prompt tokens, so its
+# 2,048-token window binds on every row past position 2,047, then 128
+# decode steps; (b) mamba2-130m (24 SSD layers), 8 x 8,192 prompt tokens
+# (32 chunks of 256), then 128 decode steps.  recurrentgemma launches 8
+# flash and 8 decode kernels a step; mamba2 launches none, checked as
+# such.
+HYBRID = "recurrentgemma-2b"
+SSM = "mamba2-130m"
+SERVE_9 = {HYBRID: dict(requests=8, prompt_len=4096, decode=128),
+           SSM: dict(requests=8, prompt_len=8192, decode=128)}
+
+
+def state_space_phase(torch, dev: str) -> dict:
+    """Phase 9: recurrentgemma-2b and mamba2-130m served at full width and
+    depth through the port's serve entry point, each with its launch
+    counts (reset just before, read just after) and peak memory, then its
+    decode-vs-prefill check; each model is freed before the next.
+    Returns the attention kernels' launch totals."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.layers import decode_slot_range
+    t_phase = time.perf_counter()
+    totals = {"flash_attention": 0, "decode_attention": 0}
+    for arch, sv in SERVE_9.items():
+        cfg = get_config(arch)
+        line = {"phase": "serve_state_space", "arch": arch,
+                "family": cfg.family, "reduced": False, "layers":
+                cfg.num_layers, "attention_layers": attn_launches(cfg)[0],
+                **sv}
+        t = sv["prompt_len"]
+        if cfg.family == "hybrid":
+            line["window"] = cfg.window
+            line["decode_spans"] = [
+                list(decode_slot_range(t + i, t + sv["decode"], cfg.window,
+                                       None))
+                for i in (0, sv["decode"] - 1)]
+        else:
+            line["ssd_chunks"] = -(-t // cfg.ssd_chunk)
+        reset_counts(torch)
+        res = serve(arch, reduced=False, verbose=False, device=dev, **sv)
+        got = attn_counts()
+        check_served(cfg, sv, res, got)
+        emit({**line, **res})
+        for k, n in got.items():
+            totals[k] += n
+        reset_counts(torch)
+        check_decode_matches_prefill(torch, dev, cfg, t)
+    reset_counts(torch)
+    emit({"phase": "state_space_done",
+          "seconds": time.perf_counter() - t_phase, "launches": totals})
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile q8_justin, the serve path, the "
                          "128-tenant fleet and the decode steps of the "
-                         "three served models into chiprun_out/")
+                         "served models of phases 5, 7 and 9 into "
+                         "chiprun_out/")
     args = ap.parse_args(argv)
 
     import torch
@@ -2291,6 +2444,16 @@ def main(argv=None) -> int:
     for k, n in families_phase(torch, dev).items():
         totals[k] += n
     torch.cuda.empty_cache()
+
+    # 9. state-space and hybrid: mamba2 and recurrentgemma
+    for k, n in state_space_phase(torch, dev).items():
+        totals[k] += n
+    torch.cuda.empty_cache()
+    if args.profile:
+        for arch, sv in SERVE_9.items():
+            profile_decode(torch, get_config(arch), sv)
+            gc.collect()
+            torch.cuda.empty_cache()
 
     for row in rows:
         row["launches"] = totals[row["name"]]

@@ -1,15 +1,18 @@
-"""A/B timing of the port's state-store and prefill-attention kernels
-against another commit's.
+"""A/B timing of the port's state-store and attention kernels against
+another commit's.
 
 Loads the kernel wrappers ``sorted_probe(table, queries)``,
-``window_agg(seg_ids, values, n_segments)`` and ``flash_attention(q, k,
-v, causal=, window=)`` of this checkout and of a baseline tree (the
+``window_agg(seg_ids, values, n_segments)``, ``flash_attention(q, k,
+v, causal=, window=)`` and ``decode_attention(q, k_cache, v_cache,
+valid_len, lo, span)`` of this checkout and of a baseline tree (the
 ``src/repro_torch`` of another commit) into one process, each bound to
 its own tree's kernel build, and times them in turns (baseline, current,
 current, baseline) on one card, cold and warm, at ``chip_smoke.py``'s
-main shapes and the store's call-site shapes, and (flash, cold) at the
-prefill shapes of llama3.2-3b, h2o-danube-1.8b and mixtral-8x7b, where
-both builds must give the same bits.  A
+main shapes and the store's call-site shapes, and (attention, cold) at
+the prefill and decode shapes of llama3.2-3b, h2o-danube-1.8b and
+mixtral-8x7b, where both prefill builds must give the same bits and both
+decode builds must agree with the plain version (their bits are
+reported).  A
 wrapper's time is all the device work of one call: for a segment sum
 that zeroes its outputs and casts its ids apart from the kernel, those
 launches too.  The current probe's two routes are also timed by their
@@ -55,7 +58,8 @@ def load_wrappers(src: pathlib.Path | None = None) -> dict:
             f"{PACKAGE}.kernels.{mod}.kernel"), k)
             for k, mod in (("sorted_probe", "sorted_probe"),
                            ("window_agg", "window_agg"),
-                           ("flash_attention", "flash_attn"))}
+                           ("flash_attention", "flash_attn"),
+                           ("decode_attention", "decode_attn"))}
 
     if src is None:
         return load()
@@ -146,17 +150,35 @@ def agg_rows(torch, base, cur, dev) -> list:
     return rows
 
 
+# the served models whose attention shapes both builds run: (arch, serve
+# sizes, flash seed, decode seed), the seeds of chip_smoke's phase 3 rows
+SERVED = ((cs.ARCH, cs.SERVE, 32, 42),
+          ("h2o-danube-1.8b", cs.SERVE_7["h2o-danube-1.8b"], 35, 44),
+          ("mixtral-8x7b", cs.SERVE_7["mixtral-8x7b"], 36, 45))
+
+
+def turns_row(variants: dict, **row) -> dict:
+    """``variants`` timed cold in turns, ten runs each (five rounds of A,
+    B, B, A): the row with every run, the medians and the spread of each
+    variant's runs (the distance between their quartiles)."""
+    runs = in_turns(variants, cold=True, rounds=5)
+    ms = medians(runs)
+    spread = {name: float(np.subtract(*np.percentile(r, [75, 25])))
+              for name, r in runs.items()}
+    row.update(cold=True, ms=ms, spread=spread, runs=runs,
+               current_wins=sum(c < b for b, c in zip(runs["base"],
+                                                      runs["current"])),
+               speedup=ms["base"] / ms["current"])
+    cs.emit(row)
+    return row
+
+
 def flash_rows(torch, base, cur, dev) -> list:
     """The prefill kernel at the served models' shapes without a chunk:
-    both builds' outputs bit for bit equal, then timed cold in turns, ten
-    runs each (five rounds of A, B, B, A), with every run and the spread
-    of each variant's runs (the distance between their quartiles)."""
+    both builds' outputs bit for bit equal, then timed in turns."""
     from repro_torch.configs import get_config
     rows = []
-    for arch, sv, seed in ((cs.ARCH, cs.SERVE, 32),
-                           ("h2o-danube-1.8b", cs.SERVE_7["h2o-danube-1.8b"],
-                            35),
-                           ("mixtral-8x7b", cs.SERVE_7["mixtral-8x7b"], 36)):
+    for arch, sv, seed, _ in SERVED:
         q, k, v, window = cs.flash_shape(torch, dev, get_config(arch), sv,
                                          seed)
         variants = {"base": lambda a=(q, k, v), w=window: base(
@@ -166,19 +188,42 @@ def flash_rows(torch, base, cur, dev) -> list:
         if not torch.equal(variants["base"](), variants["current"]()):
             raise AssertionError(f"flash_attention differs from the base "
                                  f"build at {arch}'s shape")
-        runs = in_turns(variants, cold=True, rounds=5)
-        ms = medians(runs)
-        spread = {name: float(np.subtract(*np.percentile(r, [75, 25])))
-                  for name, r in runs.items()}
-        rows.append({"kernel": "flash_attention", "shape": f"{arch} prefill",
-                     "q": list(q.shape), "kv": list(k.shape),
-                     "window": window, "cold": True, "ms": ms,
-                     "spread": spread, "runs": runs,
-                     "current_wins": sum(c < b for b, c in zip(
-                         runs["base"], runs["current"])),
-                     "speedup": ms["base"] / ms["current"]})
-        cs.emit(rows[-1])
+        rows.append(turns_row(variants, kernel="flash_attention",
+                              shape=f"{arch} prefill", q=list(q.shape),
+                              kv=list(k.shape), window=window))
         del q, k, v, variants
+        torch.cuda.empty_cache()
+    return rows
+
+
+def decode_rows(torch, base, cur, dev) -> list:
+    """The decode kernel at the served models' decode shapes, launched as
+    the serve path launches it (one slot range on every row, bounds from
+    ``layers.slot_bounds``, the plan cut over the span): each build held
+    against the plain version, whether their bits agree reported, then
+    timed in turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.models.layers import slot_bounds
+    rows = []
+    for arch, sv, _, seed in SERVED:
+        q, k, v, lo, hi = cs.decode_shape(torch, dev, get_config(arch), sv,
+                                          seed)
+        bounds = slot_bounds(q.device, q.shape[0], lo, hi)
+        args = (q, k, v, bounds[1], bounds[0], hi - lo)
+        variants = {"base": lambda: base(*args),
+                    "current": lambda: cur(*args)}
+        want = decode_attention_ref(q, k, v, hi, lo)
+        outs = {name: fn() for name, fn in variants.items()}
+        for name, out in outs.items():
+            cs.attn_err(torch, out, want, "bfloat16",
+                        f"{name} decode_attention at {arch}'s shape")
+        rows.append(turns_row(variants, kernel="decode_attention",
+                              shape=f"{arch} decode", q=list(q.shape),
+                              kv=list(k.shape), slots=[lo, hi],
+                              bit_equal=torch.equal(outs["base"],
+                                                    outs["current"])))
+        del q, k, v, variants, outs
         torch.cuda.empty_cache()
     return rows
 
@@ -202,6 +247,8 @@ def main(argv=None) -> int:
     rows += agg_rows(torch, base["window_agg"], cur["window_agg"], dev)
     rows += flash_rows(torch, base["flash_attention"],
                        cur["flash_attention"], dev)
+    rows += decode_rows(torch, base["decode_attention"],
+                        cur["decode_attention"], dev)
     cs.OUT.mkdir(exist_ok=True)
     (cs.OUT / "kernel_ab.json").write_text(json.dumps(rows, indent=1))
     return 0

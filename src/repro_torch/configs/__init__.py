@@ -1,7 +1,6 @@
 """Registry of the architectures the port can run (``--arch <id>``).
 
-The JAX package's registry lists ten; the port lists those whose family
-it has ported (ROADMAP queue 1 says which come next)."""
+The JAX package's registry lists ten, and so does the port."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +17,8 @@ _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "minitron-4b": "minitron_4b",
     "internvl2-26b": "internvl2_26b",
+    "mamba2-130m": "mamba2_130m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 

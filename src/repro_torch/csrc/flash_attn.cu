@@ -26,13 +26,20 @@
 // registers for the whole walk, and each tile's softmax runs while the
 // tensor cores do the previous tile's P V.  The tensor maps take every
 // operand with its own strides, so the serve path's [B, S, H, D] q view
-// is read with no copy; D <= 128 is covered as ceil(D / 64) 64-column
-// panels.  No FLOP goes to KV tiles wholly above the causal diagonal or
-// outside the sliding window or the local chunk: they are skipped, as
-// the TPU kernel skips them with pl.when, and only tiles on the diagonal,
-// the window's or a chunk's edge or the ragged end run the mask.  The
+// is read with no copy; D <= 256 is covered as NP = ceil(D / 64)
+// 64-column panels.  Up to D 128 a K/V tile holds 128 keys in a ring of
+// three stages.  Above it (recurrentgemma's D 256) the Q tile alone takes
+// NP * 16 KB and O takes NP * 32 accumulator floats a thread, so a tile
+// holds 64 keys (S is an m64n64 product) in a ring of two stages: at NP 4,
+// 64 KB of Q and 2 * (32 + 32) KB of K/V, and O, S and P in 176 registers
+// of the 232 a consumer has.  No FLOP goes to KV tiles wholly above the
+// causal diagonal or outside the sliding window or the local chunk: they
+// are skipped, as the TPU kernel skips them with pl.when, and only tiles
+// on the diagonal, the window's or a chunk's edge or the ragged end run
+// the mask.  The
 // float32 instantiation keeps a plain route on CUDA cores (64-row tiles,
-// synchronous loads) in full f32; it serves tests, never the serve path.
+// 32-row ones above D 128, synchronous loads) in full f32; it serves
+// tests, never the serve path.
 //
 // Semantics, as the TPU kernel: scores in f32 from the inputs, scaled by
 // D^-0.5; query row i sits at position i + (Skv - Sq) (suffix alignment);
@@ -122,12 +129,9 @@ __device__ __forceinline__ TileRange tile_range(int q0, int q_rows, int sq,
 namespace bf {
 
 constexpr int kBQ = 128;              // query rows per block
-constexpr int kBK = 128;              // keys per K/V tile
-constexpr int kStages = 3;            // depth of the K/V ring
 constexpr int kThreads = 384;         // producer + two consumer warpgroups
 constexpr int kPanel = 64;            // columns of a 128-byte swizzled panel
 constexpr int kQBytes = kBQ * 128;    // one panel of the Q tile
-constexpr int kTileBytes = kBK * 128; // one panel of a K or V tile
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
@@ -143,13 +147,21 @@ struct Params {
   int q_order, k_order, v_order;
 };
 
-template <int NP>
+// the instantiations: NP panels of D, kBK keys per K/V tile (a panel of
+// a tile is kBK * 128 bytes), kStages deep ring
+template <int NP, int kBK, int kStages>
 constexpr size_t smem_bytes() {
   return 1024                                   // room to align to 1 KB
          + size_t(NP) * kQBytes                 // Q
-         + 2 * size_t(kStages) * NP * kTileBytes  // K and V rings
+         + 2 * size_t(kStages) * NP * kBK * 128  // K and V rings
          + 8 * (3 * kStages + 1);               // mbarriers
 }
+static_assert(smem_bytes<2, 128, 3>() <= 232448, "D <= 128 tiles");
+static_assert(smem_bytes<4, 64, 2>() <= 232448, "D <= 256 tiles");
+
+// the keys per K/V tile and the ring's depth at NP panels
+constexpr int tile_keys(int np) { return np <= 2 ? 128 : 64; }
+constexpr int ring_stages(int np) { return np <= 2 ? 3 : 2; }
 
 // d (+)= A B over k16: A [64 x 16] and B [128 x 16], both K-major in shared
 // memory with the 128-byte swizzle; ``accumulate`` 0 overwrites d
@@ -182,19 +194,19 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d += A B over k16: A [64 x 16] bf16 from registers a[0..3] (the
-// accumulator layout packed in pairs), B [16 x 64] MN-major in shared
-// memory with the 128-byte swizzle (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
-                                                const uint32_t* a,
-                                                uint64_t desc_b) {
+// d (+)= A B over k16: A [64 x 16] and B [64 x 16], both K-major in shared
+// memory with the 128-byte swizzle; ``accumulate`` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b,
+                                               int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
       "%30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -202,15 +214,43 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[O .. O + 32) += A B over k16: A [64 x 16] bf16 from registers
+// a[0..3] (the accumulator layout packed in pairs), B [16 x 64] MN-major
+// in shared memory with the 128-byte swizzle (the transpose bit set)
+template <int O, int N>
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[N],
+                                                const uint32_t* a,
+                                                uint64_t desc_b) {
+  static_assert(O + 32 <= N, "accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]),
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]),
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]),
+        "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// d += A B over k16: A [64 x 16] bf16 from registers a[0..3] (the
-// accumulator layout packed in pairs), B [16 x 128] MN-major in shared
-// memory with the 128-byte swizzle (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+// d[O .. O + 64) += A B over k16: A [64 x 16] bf16 from registers
+// a[0..3] (the accumulator layout packed in pairs), B [16 x 128] MN-major
+// in shared memory with the 128-byte swizzle (the transpose bit set)
+template <int O, int N>
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[N],
                                                 const uint32_t* a,
                                                 uint64_t desc_b) {
+  static_assert(O + 64 <= N, "accumulator");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -220,19 +260,22 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
       "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
       "%58, %59, %60, %61, %62, %63}"
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]),
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]),
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]),
+        "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31]),
+        "+f"(d[O + 32]), "+f"(d[O + 33]), "+f"(d[O + 34]), "+f"(d[O + 35]),
+        "+f"(d[O + 36]), "+f"(d[O + 37]), "+f"(d[O + 38]), "+f"(d[O + 39]),
+        "+f"(d[O + 40]), "+f"(d[O + 41]), "+f"(d[O + 42]), "+f"(d[O + 43]),
+        "+f"(d[O + 44]), "+f"(d[O + 45]), "+f"(d[O + 46]), "+f"(d[O + 47]),
+        "+f"(d[O + 48]), "+f"(d[O + 49]), "+f"(d[O + 50]), "+f"(d[O + 51]),
+        "+f"(d[O + 52]), "+f"(d[O + 53]), "+f"(d[O + 54]), "+f"(d[O + 55]),
+        "+f"(d[O + 56]), "+f"(d[O + 57]), "+f"(d[O + 58]), "+f"(d[O + 59]),
+        "+f"(d[O + 60]), "+f"(d[O + 61]), "+f"(d[O + 62]), "+f"(d[O + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -259,11 +302,13 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
 // kChunk: whether p.chunk is set.  Compiled into every launch, the
 // chunk's floor divisions cost the unchunked ones ~4 % on an H100
 // (kernel_ab.py), so only chunked launches carry them.
-template <int NP, bool kChunk>
+template <int NP, int kBK, int kStages, bool kChunk>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap, const Params p) {
+  constexpr int kTileBytes = kBK * 128;   // one panel of a K or V tile
+  constexpr int kCols = kBK / 8;          // 8-key chunks of a score row
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1 KB: tiles start on 1 KB
   unsigned char* Qs = reinterpret_cast<unsigned char*>(
@@ -337,11 +382,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
                                    chunk);
   const float sl2 = p.scale_log2;
 
-  float o[NP * 32], s[64];
+  float o[NP * 32], s[kBK / 2];
 #pragma unroll
   for (int i = 0; i < NP * 32; ++i) o[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf;   // running max, scaled by sl2
   float l0 = 0.f, l1 = 0.f;           // this thread's share of the sums
 
@@ -356,22 +401,36 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
           1024);
       const uint64_t db = hopper::smem_desc_sw128(
           Ks + (st * NP + kk / 4) * kTileBytes + (kk % 4) * 32, 16, 1024);
-      wgmma_ss_m64n128(s, da, db, kk > 0);
+      if constexpr (kBK == 128) {
+        wgmma_ss_m64n128(s, da, db, kk > 0);
+      } else {
+        wgmma_ss_m64n64(s, da, db, kk > 0);
+      }
     }
     hopper::wgmma_commit();
   };
 
-  // O += P V of the tile in stage st over eight k16 steps of keys
-  auto issue_pv = [&](int st, uint32_t (&pa)[32]) {
+  // O += P V of the tile in stage st over kBK / 16 k16 steps of keys, two
+  // 64-column panels of O a product (one where NP is odd)
+  auto issue_pv = [&](int st, uint32_t (&pa)[kBK / 4]) {
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint64_t db = hopper::smem_desc_sw128(
-          Vs + st * NP * kTileBytes + kk * 16 * 128, kTileBytes, 1024);
+      // B at panel pn of V: 16 keys, the panels kTileBytes apart
+      auto db = [&](int pn) {
+        return hopper::smem_desc_sw128(
+            Vs + (st * NP + pn) * kTileBytes + kk * 16 * 128, kTileBytes,
+            1024);
+      };
       if constexpr (NP == 1) {
-        wgmma_rs_m64n64(o, pa + 4 * kk, db);
+        wgmma_rs_m64n64<0>(o, pa + 4 * kk, db(0));
       } else {
-        wgmma_rs_m64n128(o, pa + 4 * kk, db);
+        wgmma_rs_m64n128<0>(o, pa + 4 * kk, db(0));
+      }
+      if constexpr (NP == 3) {
+        wgmma_rs_m64n64<64>(o, pa + 4 * kk, db(2));
+      } else if constexpr (NP == 4) {
+        wgmma_rs_m64n128<64>(o, pa + 4 * kk, db(2));
       }
     }
     hopper::wgmma_commit();
@@ -388,7 +447,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
     if (k0 < tr.lo_last || k0 + kBK > tr.hi_first) {
       keep0 = keep1 = 0u;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kCols; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kp = k0 + 8 * j + col + e;
@@ -401,7 +460,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
     }
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kCols; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         if ((keep0 >> (2 * j + e)) & 1u) mx0 = fmaxf(mx0, s[4 * j + e]);
@@ -419,7 +478,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
     m1 = mn1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kCols; ++j) {
       float pr[4];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -437,9 +496,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
     l1 = l1 * alpha1 + sum1;
   };
   // P to bf16, pairs of the accumulator layout: the A operand of P V
-  auto pack = [&](uint32_t (&pa)[32]) {
+  auto pack = [&](uint32_t (&pa)[kBK / 4]) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kCols; ++j) {
       pa[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
       pa[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
     }
@@ -464,7 +523,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
   hopper::mbar_wait(q_bar, 0);
   const int n_tiles = tr.t_end - tr.t_begin;
   if (n_tiles > 0) {
-    uint32_t pa[32];
+    uint32_t pa[kBK / 4];
     float alpha0 = 1.f, alpha1 = 1.f;
     hopper::mbar_wait(&full_k[0], 0);
     hopper::fence_operand(s);
@@ -590,14 +649,23 @@ template <int NP, bool kChunk>
 int launch_np(const CUtensorMap& qm, const CUtensorMap& km,
               const CUtensorMap& vm, const Params& p, dim3 grid,
               cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<NP>();
+  constexpr int bk = tile_keys(NP), stages = ring_stages(NP);
+  constexpr size_t smem = smem_bytes<NP, bk, stages>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<NP, kChunk>,
+      flash_fwd_bf16<NP, bk, stages, kChunk>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_bf16<NP, kChunk><<<grid, kThreads, smem, stream>>>(qm, km, vm,
-                                                               p);
+  flash_fwd_bf16<NP, bk, stages, kChunk><<<grid, kThreads, smem, stream>>>(
+      qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NP>
+int launch_chunk(const CUtensorMap& qm, const CUtensorMap& km,
+                 const CUtensorMap& vm, const Params& p, dim3 grid,
+                 cudaStream_t stream) {
+  return p.chunk > 0 ? launch_np<NP, true>(qm, km, vm, p, grid, stream)
+                     : launch_np<NP, false>(qm, km, vm, p, grid, stream);
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
@@ -619,20 +687,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   p.scale_log2 = static_cast<float>(std::pow(static_cast<double>(d), -0.5)
                                     * 1.4426950408889634);
   if (p.n_qt > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (d > 4 * kPanel) return static_cast<int>(cudaErrorInvalidValue);
+  const int np = static_cast<int>((d + kPanel - 1) / kPanel);
+  const int bk = tile_keys(np);           // the box rows of K and V
   CUtensorMap qm, km, vm;
   int err = encode(&qm, q, b, hq, sq, d, st, kBQ, &p.q_order);
-  if (err == 0) err = encode(&km, k, b, hk, skv, d, st + 3, kBK, &p.k_order);
-  if (err == 0) err = encode(&vm, v, b, hk, skv, d, st + 6, kBK, &p.v_order);
+  if (err == 0) err = encode(&km, k, b, hk, skv, d, st + 3, bk, &p.k_order);
+  if (err == 0) err = encode(&vm, v, b, hk, skv, d, st + 6, bk, &p.v_order);
   if (err != 0) return err;
   const dim3 grid(static_cast<unsigned>(b * hq),
                   static_cast<unsigned>(p.n_qt));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= kPanel) {
-    return p.chunk > 0 ? launch_np<1, true>(qm, km, vm, p, grid, s)
-                       : launch_np<1, false>(qm, km, vm, p, grid, s);
+  switch (np) {
+    case 1: return launch_chunk<1>(qm, km, vm, p, grid, s);
+    case 2: return launch_chunk<2>(qm, km, vm, p, grid, s);
+    case 3: return launch_chunk<3>(qm, km, vm, p, grid, s);
+    default: return launch_chunk<4>(qm, km, vm, p, grid, s);
   }
-  return p.chunk > 0 ? launch_np<2, true>(qm, km, vm, p, grid, s)
-                     : launch_np<2, false>(qm, km, vm, p, grid, s);
 }
 
 }  // namespace bf
@@ -640,14 +711,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
 // ========================================== float32: CUDA cores, in full f32
 namespace f32 {
 
-constexpr int kBQ = 64;           // query rows per block
-constexpr int kBK = 64;           // keys per KV tile
-constexpr int kThreads = 256;     // 8 warps; 4 threads per query row
-constexpr int kMaxD = 128;
-constexpr int kLd = kMaxD + 4;    // row stride (elements) of Q/K/V tiles
-constexpr int kLdS = kBK + 4;     // row stride of the score tile
-constexpr int kLdO = kMaxD + 4;   // row stride of the accumulator
-constexpr int kColsPerThread = kBK / 4;
+// the tiles of the instantiation for D <= MD (128 or 256): at 256, 32-row
+// tiles keep Q, K, V, the scores and the accumulator in 138 KB
+template <int MD>
+struct Geom {
+  static constexpr int kBQ = MD <= 128 ? 64 : 32;   // query rows per block
+  static constexpr int kBK = kBQ;                   // keys per KV tile
+  static constexpr int kThreads = 4 * kBQ;          // 4 threads a query row
+  static constexpr int kLd = MD + 4;    // row stride (elements) of Q/K/V
+  static constexpr int kLdS = kBK + 4;  // row stride of the score tile
+  static constexpr int kLdO = MD + 4;   // row stride of the accumulator
+  static constexpr int kColsPerThread = kBK / 4;
+  static constexpr size_t kSmem = (3 * size_t(kBQ) * kLd + size_t(kBQ) * kLdS
+                                   + size_t(kBQ) * kLdO) * sizeof(float);
+};
+static_assert(Geom<256>::kSmem <= 232448, "f32 tiles at D 256");
 
 struct Params {
   const float* q;
@@ -655,22 +733,17 @@ struct Params {
   const float* v;
   float* o;
   Strides qs, ks, vs, os;
-  int hq, hk, sq, skv, d;
+  int b, hq, hk, sq, skv, d;
   int causal, window;             // window <= 0: no window
   int chunk;                      // chunk <= 0: no chunk
   float scale;
   int vec;                        // 16-byte loads are aligned
 };
 
-constexpr size_t smem_bytes() {
-  return (3 * size_t(kBQ) * kLd + size_t(kBQ) * kLdS
-          + size_t(kBQ) * kLdO) * sizeof(float);
-}
-
 // rows [0, rows_valid) of a [kRows, d] tile from global into shared memory
 // (row stride kLd); rows past rows_valid are zero, so a masked key never
 // brings a non-finite value into the products.
-template <int kRows>
+template <int kRows, int kLd>
 __device__ void load_tile(float* dst, const float* src, int64_t row_stride,
                           int rows_valid, int d, int vec) {
   if (vec) {
@@ -693,7 +766,13 @@ __device__ void load_tile(float* dst, const float* src, int64_t row_stride,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_f32(Params p) {
+template <int MD>
+__global__ void __launch_bounds__(Geom<MD>::kThreads, 2)
+flash_fwd_f32(Params p) {
+  using G = Geom<MD>;
+  constexpr int kBQ = G::kBQ, kBK = G::kBK, kThreads = G::kThreads;
+  constexpr int kLd = G::kLd, kLdS = G::kLdS, kLdO = G::kLdO;
+  constexpr int kColsPerThread = G::kColsPerThread;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Ks = Qs + kBQ * kLd;
@@ -714,7 +793,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_f32(Params p) {
   const float* kg = p.k + b * p.ks.b + kvh * p.ks.h;
   const float* vg = p.v + b * p.vs.b + kvh * p.vs.h;
 
-  load_tile<kBQ>(Qs, qg, p.qs.s, q_rows, p.d, p.vec);
+  load_tile<kBQ, kLd>(Qs, qg, p.qs.s, q_rows, p.d, p.vec);
   for (int i = tid; i < kBQ * kLdO; i += kThreads) Os[i] = 0.f;
   __syncthreads();                        // a block with no tile reads Os
   const TileRange tr = tile_range(q0, q_rows, p.sq, p.skv, p.causal,
@@ -729,13 +808,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_f32(Params p) {
     const int k0 = t * kBK;
     const int k_rows = min(kBK, p.skv - k0);
     __syncthreads();                      // last tile's readers are done
-    load_tile<kBK>(Ks, kg + static_cast<int64_t>(k0) * p.ks.s, p.ks.s,
-                   k_rows, p.d, p.vec);
-    load_tile<kBK>(Vs, vg + static_cast<int64_t>(k0) * p.vs.s, p.vs.s,
-                   k_rows, p.d, p.vec);
+    load_tile<kBK, kLd>(Ks, kg + static_cast<int64_t>(k0) * p.ks.s, p.ks.s,
+                        k_rows, p.d, p.vec);
+    load_tile<kBK, kLd>(Vs, vg + static_cast<int64_t>(k0) * p.vs.s, p.vs.s,
+                        k_rows, p.d, p.vec);
     __syncthreads();
 
-    // scores of this thread's 16 columns of its row
+    // scores of this thread's kColsPerThread columns of its row
     float sv[kColsPerThread];
 #pragma unroll
     for (int j = 0; j < kColsPerThread; ++j) sv[j] = 0.f;
@@ -799,6 +878,19 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
+template <int MD>
+int launch_md(const Params& p, cudaStream_t stream) {
+  using G = Geom<MD>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32<MD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(G::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((p.sq + G::kBQ - 1) / G::kBQ),
+                  static_cast<unsigned>(p.hq), static_cast<unsigned>(p.b));
+  flash_fwd_f32<MD><<<grid, G::kThreads, G::kSmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
            int64_t hq, int64_t hk, int64_t sq, int64_t skv, int64_t d,
            const int64_t* st, int64_t causal, int64_t window, int64_t chunk,
@@ -812,6 +904,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   p.ks = {st[3], st[4], st[5]};
   p.vs = {st[6], st[7], st[8]};
   p.os = {st[9], st[10], st[11]};
+  p.b = static_cast<int>(b);
   p.hq = static_cast<int>(hq);
   p.hk = static_cast<int>(hk);
   p.sq = static_cast<int>(sq);
@@ -824,16 +917,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   bool vec = aligned16(q) && aligned16(k) && aligned16(v) && d % 4 == 0;
   for (int i = 0; i < 9; ++i) vec = vec && st[i] % 4 == 0;
   p.vec = vec;
-  constexpr size_t smem = smem_bytes();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((sq + kBQ - 1) / kBQ),
-                  static_cast<unsigned>(hq), static_cast<unsigned>(b));
-  flash_fwd_f32<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      p);
-  return static_cast<int>(cudaGetLastError());
+  if (d > 256) return static_cast<int>(cudaErrorInvalidValue);
+  return d <= 128 ? launch_md<128>(p, static_cast<cudaStream_t>(stream))
+                  : launch_md<256>(p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace f32

@@ -48,11 +48,11 @@ _SIGNATURES = {
     "flash_attn_f32": ([_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L, _L,
                         _L, _P], _I),
     # q, k, v, valid_len, lo, out, part_m, part_l, part_acc, tickets, b,
-    # hq, hk, s, d, strides[10], chunk, n_splits, stream
+    # hq, hk, s, d, strides[10], chunk, n_splits, n_sub, stream
     "decode_attn_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
-                          _L, _L, _S, _L, _L, _P], _I),
+                          _L, _L, _S, _L, _L, _L, _P], _I),
     "decode_attn_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
-                         _L, _L, _S, _L, _L, _P], _I),
+                         _L, _L, _S, _L, _L, _L, _P], _I),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -8,7 +8,7 @@ import torch
 from repro_torch.kernels import _build
 
 _FN = {torch.bfloat16: "flash_attn_bf16", torch.float32: "flash_attn_f32"}
-MAX_D = 128
+MAX_D = 256
 TMA_ALIGN = 16         # bytes: TMA's base and stride alignment
 
 

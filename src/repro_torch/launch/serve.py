@@ -3,16 +3,21 @@ against a KV cache, on the card (or on the CPU when asked, at a reduced
 config).  Any architecture of ``repro_torch.configs``: dense, sliding
 window (h2o-danube-1.8b), mixture of experts (mixtral-8x7b) with
 llama4's chunked local attention (llama4-maverick-400b-a17b), the VLM
-with its image-embedding prefix (internvl2-26b) and the encoder-decoder
-(whisper-medium, over a batch of audio frames).  A VLM decodes from the
-position where its prefill stopped, after the image tokens.
+with its image-embedding prefix (internvl2-26b), the encoder-decoder
+(whisper-medium, over a batch of audio frames), the state-space model
+(mamba2-130m) and the RG-LRU / local-attention hybrid
+(recurrentgemma-2b).  A VLM decodes from the position where its prefill
+stopped, after the image tokens.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
       --requests 4 --prompt-len 32 --decode 16
 
 Every attention goes through ``kernels/flash_attn`` (prefill) and
 ``kernels/decode_attn`` (decode): the hand-written CUDA kernels on the
-card, their plain versions on the CPU.
+card, their plain versions on the CPU.  mamba2 has no attention, and
+recurrentgemma's recurrent layers none: their recurrent states (the
+cache leaves ``conv``, ``state`` and ``h``) are constant in the context
+and pass ``pad_kv`` untouched.
 """
 from __future__ import annotations
 

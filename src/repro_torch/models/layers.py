@@ -196,3 +196,38 @@ def gelu_mlp(x: torch.Tensor, wi: torch.Tensor, bi: torch.Tensor,
     dt = x.dtype
     h = F.gelu(x @ wi.to(dt) + bi.to(dt), approximate="tanh")
     return h @ wo.to(dt) + bo.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (mamba2 / RG-LRU blocks)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor | None = None) -> torch.Tensor:
+    """x: [B, S, C]; w: [C, W] depthwise causal filter; returns [B, S, C]
+    in x's dtype, the sum taken in float32 (the reference's)."""
+    width = w.shape[-1]
+    s = x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    w32 = w.float()
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):                       # width is tiny (4): unroll
+        out = out + xp[:, i:i + s].float() * w32[:, i]
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
+
+
+def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
+                w: torch.Tensor, b: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step.  x_t: [B, C]; conv_state: [B, W-1, C] (the raw
+    inputs of the last W-1 positions).  Returns (y [B, C] in x_t's dtype,
+    the new state [B, W-1, C])."""
+    width = w.shape[-1]
+    hist = torch.cat([conv_state, x_t[:, None, :]], dim=1)    # [B, W, C]
+    y = torch.sum(hist.float() * w.T.float()[None], dim=1)
+    if b is not None:
+        y = y + b.float()
+    new_state = hist[:, 1:] if width > 1 else conv_state
+    return y.to(x_t.dtype), new_state

@@ -1,16 +1,18 @@
 """Model API: one set of entry points per family, chosen from ArchConfig.
 
-The port has the decoder families ``dense``, ``moe`` (sliding window and
-llama4's local chunk included) and ``vlm`` (the image-token prefix) on
-the decoder's functions, and ``encdec`` (whisper) on the
-encoder-decoder's; SSM and hybrid raise until they are ported (ROADMAP
-queue 1, slice 8).  Training (``loss``) comes with ``train/``.
+The port has every family of the JAX package: the decoder families
+``dense``, ``moe`` (sliding window and llama4's local chunk included) and
+``vlm`` (the image-token prefix) on the decoder's functions, ``encdec``
+(whisper) on the encoder-decoder's, ``ssm`` (mamba2) on ``ssm.py``'s and
+``hybrid`` (recurrentgemma) on ``hybrid.py``'s.  Training (``loss``)
+comes with ``train/``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
 
+from repro_torch.models import hybrid, ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ArchConfig
 
@@ -33,9 +35,12 @@ def get_model(cfg: ArchConfig) -> ModelFns:
         return ModelFns(tfm.encdec_param_shapes, tfm.init_encdec_params,
                         tfm.encdec_prefill, tfm.encdec_decode_step,
                         tfm.encdec_cache_shapes)
-    missing = {"ssm": "models/ssm.py", "hybrid": "models/hybrid.py"}
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: it needs "
-        f"{missing.get(cfg.family, 'a model module')} (ROADMAP queue 1, "
-        f"slice 8); the port runs families 'dense', 'moe', 'vlm' and "
-        f"'encdec'")
+    if cfg.family == "ssm":
+        return ModelFns(ssm.ssm_param_shapes, ssm.init_ssm_params,
+                        ssm.ssm_prefill, ssm.ssm_decode_step,
+                        ssm.ssm_cache_shapes)
+    if cfg.family == "hybrid":
+        return ModelFns(hybrid.hybrid_param_shapes, hybrid.init_hybrid_params,
+                        hybrid.hybrid_prefill, hybrid.hybrid_decode_step,
+                        hybrid.hybrid_cache_shapes)
+    raise NotImplementedError(f"unknown family {cfg.family!r}")

@@ -40,9 +40,10 @@ each decoder layer runs causal self-attention with rotary, then
 cross-attention over the encoder output (no rotary, not causal), then a
 SwiGLU FFN.  Caches are ``{"self": {"k", "v"}, "cross_k", "cross_v"}``,
 the cross caches ``[L, B, Hk, enc_seq, Dh]`` filled by the prefill and
-attended whole at every decode step.  The SSM and hybrid families are
-not ported yet (ROADMAP queue 1, slice 8) and raise, as does head
-padding (an XLA layout knob).
+attended whole at every decode step.  The SSM and hybrid families have
+their own modules (``ssm.py``, ``hybrid.py``), built from this one's
+blocks, initialisation and helpers; head padding (an XLA layout knob)
+raises.
 """
 from __future__ import annotations
 
@@ -57,10 +58,13 @@ from repro_torch.models.moe import moe_ffn, moe_param_shapes
 VIT_STUB_DIM = 1024     # the VLM/audio frontend stubs emit this width
 
 # leaves held in the compute dtype: the layer, cross-attention, expert and
-# frontend-projection matrices (norm scales, the router and the embedding
-# stay in param_dtype)
+# frontend-projection matrices, mamba2's projections and the RG-LRU's
+# (norm scales, the router, the embedding, and the SSM's and RG-LRU's conv
+# filters, decays and biases, which the reference uses in float32, stay in
+# param_dtype)
 MATRICES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "sh_wg", "sh_wu",
-            "sh_wo", "x_wq", "x_wk", "x_wv", "x_wo", "img_proj", "frame_proj")
+            "sh_wo", "x_wq", "x_wk", "x_wv", "x_wo", "img_proj", "frame_proj",
+            "wz", "wxbc", "wdt", "out_proj", "wx", "wy", "wa", "wi")
 
 
 def kv_cache_len(cfg: ArchConfig, seq_len: int) -> int:
@@ -80,8 +84,8 @@ def _check_supported(cfg: ArchConfig,
     if cfg.family not in families:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} does not run on these entry "
-            f"points (they take {', '.join(families)}; SSM and hybrid are "
-            f"not ported yet: ROADMAP queue 1, slice 8)")
+            f"points (they take {', '.join(families)}; models.get_model "
+            f"picks a family's own)")
     if cfg.padded_heads != cfg.num_heads:
         raise NotImplementedError(
             f"{cfg.name}: head padding is an XLA layout knob the port does "
@@ -337,6 +341,14 @@ def _logits(params, x_last: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """float32 logits [B, V] of the final hidden states [B, d]."""
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return x_last.float() @ unembed.float()
+
+
+def _alloc(shapes: dict, like: torch.Tensor) -> dict:
+    """A tree of empty tensors of ``shapes`` in ``like``'s dtype and on its
+    device."""
+    return {k: _alloc(v, like) if isinstance(v, dict)
+            else torch.empty(v, dtype=like.dtype, device=like.device)
+            for k, v in shapes.items()}
 
 
 def _index(tree: dict, i: int) -> dict:

@@ -8,7 +8,9 @@ Pallas kernels through their ``ops`` (interpret mode, as
 ``chunked_attention`` / ``decode_attention`` (with ``kv_positions =
 arange(S)`` and ``t = valid_len - 1``).  The shapes are those of
 ``test_kernels.py``: GQA 4:2 and 3:1, windows 64/128, ragged
-``valid_len`` and garbage past it.  Tolerances: 1e-5 in float32, 2e-2 in
+``valid_len`` and garbage past it; and recurrentgemma's local attention,
+head dim 256 with 10 q-heads on one KV head, and a group of 10 at head
+dim 128 (20:2), which the decode kernel serves in sub-groups.  Tolerances: 1e-5 in float32, 2e-2 in
 bfloat16 (one output rounding).  The CUDA kernels themselves run only on
 a card (``test_torch_cuda``).
 """
@@ -43,7 +45,7 @@ def _close(got: torch.Tensor, want, dtype: str) -> None:
 
 
 @pytest.mark.parametrize("s,dh,hq,hk", [(128, 64, 4, 2), (300, 64, 3, 1),
-                                        (512, 128, 4, 2)])
+                                        (512, 128, 4, 2), (256, 256, 10, 1)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_pallas_kernel(s, dh, hq, hk, causal, dtype):
@@ -118,7 +120,8 @@ def _decode_inputs(r, b, h, kv, s, dh, dtype):
 
 
 @pytest.mark.parametrize("s,h,kv,dh", [(512, 8, 4, 64), (1000, 4, 4, 128),
-                                       (513, 8, 2, 64), (300, 3, 1, 64)])
+                                       (513, 8, 2, 64), (300, 3, 1, 64),
+                                       (512, 10, 1, 256), (300, 20, 2, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_matches_pallas_kernel(s, h, kv, dh, dtype):
     r = np.random.default_rng(s + h)

@@ -428,3 +428,84 @@ def test_cuda_chunk_vlm_encdec_decoders_match_cpu(hopper, arch):
             assert decode_ops.launches == per_step * 5
     ref = logits["cpu"]
     assert float((logits["cuda"] - ref).abs().max() / ref.abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_flash_head_dim_256_matches_plain_version(hopper):
+    """Head dim 256 and 160 in both routes (bf16 64-key tiles in a
+    two-stage ring, f32 32-row tiles): windows, ragged lengths, a chunk,
+    GQA 10:1 and the [B, S, H, D] view at recurrentgemma's 4,096
+    positions and 2,048 window."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    names = set()
+    for label, name, q, k, v, causal, window, chunk in \
+            _smoke().flash_d256_cases(torch, hopper):
+        kw = dict(causal=causal, window=window, chunk_attn=chunk)
+        _smoke().attn_err(torch, flash_attention(q, k, v, **kw),
+                          flash_attention_ref(q, k, v, **kw), name, label)
+        names.add(name)
+    assert names == {"float32", "bfloat16"}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_decode_groups_and_head_dim_256_match_plain_version(hopper):
+    """Groups of 1, 5, 10 and 16 q-heads per KV head at head dim 128 and
+    256 (sub-groups of at most 8 and 4 heads), with and without a first
+    slot; back-to-back calls are bit-identical (every sub-group's ticket
+    was left zeroed)."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attention
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    n = 0
+    for label, name, q, k, v, vl, lo in \
+            _smoke().decode_group_cases(torch, hopper):
+        got = decode_attention(q, k, v, vl, lo)
+        want = decode_attention_ref(q, k, v, vl, 0 if lo is None else lo)
+        _smoke().attn_err(torch, got, want, name, label)
+        assert torch.equal(decode_attention(q, k, v, vl, lo), got), label
+        n += 1
+    assert n > 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b"])
+def test_cuda_state_space_and_hybrid_match_cpu(hopper, arch):
+    """The reduced mamba2 and recurrentgemma (at its real attention
+    geometry: head dim 256, 10 q-heads on one KV head) in float32 on the
+    card against the same weights and tokens on the CPU: a 64-token
+    prefill and 5 decode steps past the window of 32; the hybrid's
+    attention layers launch the kernels, mamba2 launches none."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops as decode_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch.serve import pad_kv
+    from repro_torch.models import get_model
+    cfg = get_config(arch).reduced().replace(compute_dtype="float32")
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(head_dim=256, num_heads=10, num_kv_heads=1)
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 69),
+                         generator=torch.Generator().manual_seed(1))
+    per_prefill, per_step = _smoke().attn_launches(cfg)
+    assert (per_prefill > 0) == (cfg.family == "hybrid")
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        flash_ops.launches = decode_ops.launches = 0
+        out, caches = model.prefill(p, {"tokens": toks[:, :64].to(dev)}, cfg)
+        caches = pad_kv(caches, 5)
+        steps = [out]
+        for i in range(5):
+            out, caches = model.decode(p, caches,
+                                       toks[:, 64 + i:65 + i].to(dev),
+                                       64 + i, cfg)
+            steps.append(out)
+        logits[dev] = torch.stack(steps).cpu()
+        if dev == "cuda":
+            assert flash_ops.launches == per_prefill
+            assert decode_ops.launches == per_step * 5
+    ref = logits["cpu"]
+    assert float((logits["cuda"] - ref).abs().max() / ref.abs().max()) < 1e-4

@@ -13,7 +13,7 @@ from hypothesis import strategies as st  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn.kernel import (  # noqa: E402
-    BLOCKS_PER_SM, TILE, rows_aligned, split_plan)
+    BLOCKS_PER_SM, TILE, max_heads, rows_aligned, split_plan, sub_groups)
 from repro_torch.kernels.flash_attn.kernel import tma_ready  # noqa: E402
 from repro_torch.kernels.sorted_probe.kernel import (  # noqa: E402
     INDEXED_QUERIES, THREADS, probe_blocks, probe_plan)
@@ -60,9 +60,10 @@ def test_probe_plan_at_the_census_shapes():
 
 @settings(max_examples=300, deadline=None)
 @given(batch=st.integers(1, 64), kv_heads=st.integers(1, 16),
-       slots=st.integers(1, 40_000), sms=st.integers(1, 200))
-def test_split_plan_cuts_the_cache_once(batch, kv_heads, slots, sms):
-    chunk, n_splits = split_plan(batch, kv_heads, slots, sms)
+       slots=st.integers(1, 40_000), sms=st.integers(1, 200),
+       n_sub=st.integers(1, 4))
+def test_split_plan_cuts_the_cache_once(batch, kv_heads, slots, sms, n_sub):
+    chunk, n_splits = split_plan(batch, kv_heads, slots, sms, n_sub)
     assert chunk % TILE == 0 and chunk > 0 and n_splits >= 1
     assert n_splits * chunk >= slots
     # split i is the slots [i * chunk, min((i + 1) * chunk, slots)): they
@@ -73,9 +74,9 @@ def test_split_plan_cuts_the_cache_once(batch, kv_heads, slots, sms):
     assert all(lo < hi for lo, hi in bounds)
     assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
     # one wave: the blocks fit on the card at once, unless the (b, KV
-    # head) pairs alone do not
-    assert batch * kv_heads * n_splits <= max(BLOCKS_PER_SM * sms,
-                                              batch * kv_heads)
+    # head, sub-group) triples alone do not
+    blocks = batch * kv_heads * n_sub
+    assert blocks * n_splits <= max(BLOCKS_PER_SM * sms, blocks)
 
 
 def test_split_plan_at_the_serve_shape():
@@ -85,6 +86,26 @@ def test_split_plan_at_the_serve_shape():
     # enough (b, KV head) pairs to fill the card: one split
     assert split_plan(32, 8, 2176, 132) == (2176, 1)
     assert split_plan(8, 8, 7, 132) == (64, 1)
+    # recurrentgemma's decode: 8 requests x 1 KV head x 3 sub-groups over
+    # the window's 2,048 slots, 11 splits of 192: 264 blocks, one wave
+    assert split_plan(8, 1, 2048, 132, sub_groups(10, 256)) == (192, 11)
+
+
+@pytest.mark.parametrize("group", range(1, 41))
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_sub_groups_cover_the_group(group, d):
+    """A group is cut into sub-groups of ceil(group / n) q-heads, at most
+    ``max_heads(d)`` each (the kernel's per-head registers), none empty:
+    the blocks of one KV head serve each of its q-heads once."""
+    n = sub_groups(group, d)
+    heads = -(-group // n)
+    assert heads <= max_heads(d) and (n - 1) * heads < group
+    assert n == -(-group // max_heads(d))
+    served = [h for sub in range(n)
+              for h in range(sub * heads, min(group, (sub + 1) * heads))]
+    assert served == list(range(group))
+    assert (sub_groups(10, 256), sub_groups(10, 128), sub_groups(8, 128),
+            sub_groups(16, 256), sub_groups(1, 256)) == (3, 2, 1, 4, 1)
 
 
 def _bf16(*shape):

@@ -154,17 +154,19 @@ def test_prefill_and_decode_match_jax(jax_params, dtype):
 
 def test_window_config_raises_not_computed_another_way():
     """A sliding window, the chunked local window (``chunk_attn``) and
-    the VLM and enc-dec families are ported (``test_torch_window.py``,
+    every family are ported (``test_torch_window.py``,
     ``test_torch_chunk.py``, ``test_torch_vlm.py``,
-    ``test_torch_encdec.py``); the families still to port raise rather
-    than compute something else, and so does a family handed to the
-    other family's entry points."""
+    ``test_torch_encdec.py``, ``test_torch_ssm.py``,
+    ``test_torch_hybrid.py``): each family resolves to its own entry
+    points, and a family handed to another family's entry points raises
+    rather than computing something else."""
+    from repro_torch.models import hybrid, ssm
     cfg = get_config(ARCH).reduced()
     params = cast_params(get_model(cfg).init(cfg, torch.Generator()), cfg)
-    for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8"):
-            get_model(cfg.replace(family=family))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for family, prefill in (("ssm", ssm.ssm_prefill),
+                            ("hybrid", hybrid.hybrid_prefill)):
+        assert get_model(cfg.replace(family=family)).prefill is prefill
+    with pytest.raises(NotImplementedError, match="does not run on these"):
         get_model(cfg).prefill(
             params, {"tokens": torch.zeros((1, 8), dtype=torch.long)},
             cfg.replace(family="encdec"))

@@ -1,6 +1,6 @@
 """Shared by the port's model parity tests (``test_torch_window.py``,
 ``test_torch_moe.py``, ``test_torch_chunk.py``, ``test_torch_vlm.py``,
-``test_torch_encdec.py``): one configuration's prefill and teacher-forced
+``test_torch_encdec.py``, ``test_torch_ssm.py``, ``test_torch_hybrid.py``): one configuration's prefill and teacher-forced
 decode steps through the JAX model and the port on the same weights (the
 JAX initialisation carried over as numpy by ``params_from_numpy``), the
 same tokens and the same extra batch inputs (a VLM's image embeddings,
@@ -92,7 +92,9 @@ def run_both(jcfg, tcfg, np_params, toks: np.ndarray, prompt: int,
         want = np.asarray(leaf, np.float32)
         assert tuple(_leaf(tc, keys).shape) == want.shape
         assert _leaf(carried, keys).dtype == _leaf(tc, keys).dtype
-        out.append((f"cache {'.'.join(keys)}", _leaf(tc, keys), want))
+        # a copy: decode writes the recurrent states in place
+        out.append((f"cache {'.'.join(keys)}", _leaf(tc, keys).clone(),
+                    want))
     jc = _pad_jax(jc, steps)
     carried = pad_kv(carried, steps)
     jdecode = jax.jit(lambda p, c, tok, t: jmodel.decode(p, c, tok, t, jcfg,
