@@ -2,6 +2,7 @@
 
     python chip_smoke.py                      # every phase, all 4 episodes
     python chip_smoke.py --profile            # also torch.profiler passes
+    python chip_smoke.py --profile train      # only the training step's
 
 Phases, each printing JSON lines:
 
@@ -77,7 +78,22 @@ Phases, each printing JSON lines:
    of 8,192 prompt tokens (32 SSD chunks) and 128 steps: no attention
    kernel, 0 and 0 launches, checked as such.  Each then holds the
    decode step at the prompt's end against a prefill over one more
-   token (2 requests, < 0.03), with its peak device memory.
+   token (2 requests, < 0.03), with its peak device memory;
+10. training — (a) the flash backward kernel (csrc/flash_attn_bwd.cu)
+   against ``flash_attention_bwd_ref`` over a sweep of every mask, group
+   and head dim of the trainable families (and the forward's log-sum-exp
+   against the plain version's), each case run twice and equal bit for
+   bit, then timed at llama3.2-3b's training shape and recurrentgemma's
+   (``hybrid_shape``); (b) ``repro_torch.launch.train.train(
+   "llama3.2-3b", reduced=False)``: full width and depth, 4 steps on a
+   repeated batch of 2 x 2,048 tokens, 56 forward and 28 backward flash
+   launches a step, the first loss near a random initialisation's and
+   falling, step seconds, tokens/s, peak memory and the model-FLOP
+   share; then one full-width layer's gradients through the kernels
+   against the same layer in float32 on the plain attention (< 0.03);
+   (c) every reduced family's 3 training steps against the reference's
+   losses in ``tests/data/torch_train.json``, and a ``fail_at`` restart
+   through a checkpoint at reduced size.
 
 Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
 spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
@@ -108,6 +124,7 @@ import argparse
 import gc
 import itertools
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -939,7 +956,8 @@ def flash_row(torch, q, k, v, label: str, *, causal: bool = True,
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn.kernel import flash_attention
-    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attn.ref import (attention_mask,
+                                                    flash_attention_ref)
     mask_kw = dict(causal=causal, window=window, chunk_attn=chunk)
     out = flash_attention(q, k, v, **mask_kw)
     parts = _parts(q, k, v, per)
@@ -961,25 +979,16 @@ def flash_row(torch, q, k, v, label: str, *, causal: bool = True,
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(c):
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                hq, hk, sq, skv, d, strides, int(causal), window or 0, c,
-                stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None, b, hq, hk, sq, skv, d, strides, int(causal),
+                window or 0, c, stream)
         return lambda: fn(*args)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if chunk is None and (window is None or window >= skv) and (
             not causal or sq == skv):     # causal alone, or no mask
         lib = (lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
     else:                    # a mask: KV heads repeated first (not timed)
-        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-        kpos = torch.arange(skv, device=q.device)[None, :]
-        mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos <= qpos
-        if window is not None:
-            mask &= kpos > qpos - window
-        if chunk is not None:
-            mask &= torch.div(kpos, chunk, rounding_mode="floor") \
-                == torch.div(qpos, chunk, rounding_mode="floor")
+        mask = attention_mask(sq, skv, q.device, **mask_kw)
         kr, vr = (t.repeat_interleave(hq // hk, dim=1) for t in (k, v))
         lib = (lambda: sdpa(q, kr, vr, attn_mask=mask))
     plain = (lambda: [flash_attention_ref(qp, kp, vp, **mask_kw)
@@ -2116,6 +2125,7 @@ def reset_counts(torch) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     flash_ops.launches = 0
+    flash_ops.bwd_launches = 0
     decode_ops.launches = 0
     torch.cuda.synchronize()
 
@@ -2332,14 +2342,593 @@ def state_space_phase(torch, dev: str) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------- training
+# Phase 10 trains on the card.  (a) The flash backward kernel
+# (csrc/flash_attn_bwd.cu) against its plain version,
+# ``flash_attention_bwd_ref``, over a sweep of every mask, group and head
+# dim of the trainable families, and timed at llama3.2-3b's training shape
+# (2 x 2,048 tokens, Hq 24 on Hk 8, D 128, causal): bf16 within 3e-2 of
+# max|ref| per gradient (the kernel rounds P and dS to bf16 for its
+# products, the plain version stays in float32), f32 within 1e-4; every
+# case run twice, equal bit for bit (no atomics).  (b)
+# ``repro_torch.launch.train.train("llama3.2-3b", reduced=False)`` at full
+# width and depth, 4 steps on one repeated batch of 2 x 2,048 tokens: the
+# first loss near a random initialisation's (ln V plus half the logits'
+# variance, 0.02^2 d), falling over the steps, 56 forward (28 and their
+# recomputation under remat) and 28 backward flash launches a step; then
+# one full-width layer's gradients through the kernels in bf16 against the
+# same layer in float32 on the plain attention.  (c) Every reduced
+# family's 3 training steps against the reference's losses pinned in
+# tests/data/torch_train.json, and a ``fail_at`` restart through a
+# checkpoint at reduced size (a full-width checkpoint is 38.5 GB: left
+# out).
+TRAIN = dict(steps=4, batch=2, seq=2048)
+TRAIN_PINS = ROOT / "tests" / "data" / "torch_train.json"
+TRAIN_PIN = dict(steps=3, batch=2, seq=64, seed=0, lr=1e-3)
+# a pinned loss is a mean over 126 tokens' NLLs: the port on the CPU lands
+# within 2.3e-5 of the reference's; the card's bf16 kernels also round the
+# probabilities and dS to bf16, which moves a mean far less than 1e-3
+TRAIN_PIN_TOL = 1e-3
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# max|got - want| / max|want| of whole losses or gradients, by compute dtype
+REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def flash_bwd_cases(torch, dev):
+    """(label, dtype name, q, k, v, causal, window, chunk): the reduced
+    configs' shapes (D 16: causal, window 32, chunk 32, the encoder and the
+    cross-attention), ragged lengths, Sq > Skv (rows with no key) and
+    Sq < Skv, no causal mask, h2o-danube's D 80 under a window, llama4's
+    chunk with and without the causal mask and with a window, whisper's
+    cross shape (D 64), recurrentgemma's D 256 with 10 q-heads on one KV
+    head, D 160 and 48, a window of 1, groups 1 to 10, and the training
+    path's [B, S, H, D] views; bf16 and f32."""
+    g = torch.Generator(device="cpu").manual_seed(60)
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        for b, sq, skv, hq, hk, d, causal, window, chunk in (
+                (2, 64, 64, 4, 2, 16, True, None, None),
+                (2, 64, 64, 4, 2, 16, True, 32, None),
+                (2, 64, 64, 4, 2, 16, True, None, 32),
+                (2, 16, 16, 4, 2, 16, False, None, None),
+                (2, 64, 16, 4, 2, 16, False, None, None),
+                (1, 300, 300, 8, 2, 128, True, None, None),
+                (1, 513, 513, 3, 1, 64, False, None, None),
+                (1, 513, 300, 4, 4, 128, True, None, None),
+                (1, 200, 700, 6, 1, 128, True, None, None),
+                (1, 700, 700, 4, 1, 80, True, 256, None),
+                (1, 1000, 1000, 5, 1, 128, True, None, 300),
+                (1, 513, 513, 5, 1, 64, False, None, 100),
+                (1, 600, 600, 6, 2, 128, True, 200, 256),
+                (1, 300, 1500, 4, 4, 64, False, None, None),
+                (1, 500, 500, 10, 1, 256, True, 128, None),
+                (1, 300, 300, 2, 2, 160, True, None, None),
+                (1, 300, 300, 2, 1, 48, True, 1, None)):
+            q = _randn(torch, g, (b, hq, sq, d), dev, dt)
+            k = _randn(torch, g, (b, hk, skv, d), dev, dt)
+            v = _randn(torch, g, (b, hk, skv, d), dev, dt)
+            yield (f"{name} Sq={sq} Skv={skv} D={d} {hq}:{hk} "
+                   f"causal={causal} window={window} chunk={chunk}", name,
+                   q, k, v, causal, window, chunk)
+    dt = torch.bfloat16
+    for s, d, hq, hk in ((700, 128, 6, 2), (300, 256, 10, 1)):
+        q = _randn(torch, g, (2, s, hq, d), dev, dt).transpose(1, 2)
+        k = _randn(torch, g, (2, s, hk, d), dev, dt).transpose(1, 2)
+        v = _randn(torch, g, (2, s, hk, d), dev, dt).transpose(1, 2)
+        yield (f"bfloat16 [B,S,H,D] views Sq=Skv={s} D={d} {hq}:{hk} causal",
+               "bfloat16", q, k, v, True, None, None)
+
+
+def bwd_err(torch, got, want, dtype: str, label: str) -> float:
+    """The worst of max|got - want| / max(max|want|, 2^-4) over (dq, dk,
+    dv); raises past ``BWD_TOL[dtype]`` (NaN does not pass).  The inputs
+    are N(0, 1), so the gradients are of order 1 but for a window of 1:
+    each row then keeps one key, whose softmax has no gradient, so dq and
+    dk are 0 but for rounding (dP - Delta, two sums of the same products
+    in different orders), and the floor keeps that rounding from reading
+    as a relative error of order 1."""
+    worst = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label} {name}: got {g.dtype} "
+                                 f"{tuple(g.shape)}, want {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        err = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max().clamp_min(2.0 ** -4))
+        if not err <= BWD_TOL[dtype]:
+            raise AssertionError(f"{label} {name}: max|diff| / max|ref| "
+                                 f"{err} > {BWD_TOL[dtype]}")
+        worst = max(worst, err)
+    return worst
+
+
+def lse_check(torch, got, want, label: str) -> None:
+    """The forward's log-sum-exp against the plain version's: +inf on the
+    same rows (no key), within 1e-3 elsewhere."""
+    inf = torch.isinf(want)
+    if not torch.equal(torch.isinf(got), inf) or not bool(
+            ((got - want).abs()[~inf] <= 1e-3).all()):
+        raise AssertionError(f"{label}: lse off the plain version's")
+
+
+def flash_bwd_sweep(torch, dev) -> tuple[dict, int]:
+    """Every ``flash_bwd_cases`` case: the forward with its log-sum-exp
+    against the plain version's, the backward kernel against
+    ``flash_attention_bwd_ref`` on the same inputs (the kernel's output
+    and log-sum-exp, a random dO), and a second backward launch equal bit
+    for bit.  Returns (worst error per dtype, cases run)."""
+    from repro_torch.kernels.flash_attn.kernel import (flash_attention,
+                                                       flash_attention_bwd)
+    from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
+                                                    flash_attention_ref)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_cases = 0
+    g = torch.Generator(device="cpu").manual_seed(61)
+    for label, name, q, k, v, causal, window, chunk in flash_bwd_cases(
+            torch, dev):
+        kw = dict(causal=causal, window=window, chunk_attn=chunk)
+        out, lse = flash_attention(q, k, v, lse=True, **kw)
+        want_o, want_lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+        attn_err(torch, out, want_o, name, label)
+        lse_check(torch, lse, want_lse, label)
+        do = _randn(torch, g, tuple(out.shape), dev, out.dtype)
+        got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        want = flash_attention_bwd_ref(q, k, v, out, do, lse, **kw)
+        worst[name] = max(worst[name], bwd_err(torch, got, want, name, label))
+        again = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{label}: backward not repeatable")
+        n_cases += 1
+    torch.cuda.synchronize()
+    return worst, n_cases
+
+
+def train_attn_shape(torch, dev, cfg, b: int, s: int, seed: int):
+    """Attention as the training pass launches it for ``cfg``: q, k and v
+    [B, S, H, D] projections seen as [B, H, S, D]."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    hq, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return tuple(_randn(torch, g, (b, s, h, d), dev,
+                        torch.bfloat16).transpose(1, 2)
+                 for h in (hq, hk, hk))
+
+
+def flash_bwd_row(torch, q, k, v, label: str, *, causal: bool = True,
+                  window: int | None = None) -> dict:
+    """The backward at one training shape (bf16): the kernel held against
+    the plain version, then the bare launch (cold and warm), the wrapper,
+    the plain version and the library call (the backward of
+    ``scaled_dot_product_attention`` over KV heads repeated first) timed,
+    and the operations bound of the five products over the attended
+    pairs (bytes: q, k, v, o, dO and the log-sum-exp read, dq, dk and dv
+    written; the kernel's own scratch, Delta and a group's float32 dk/dv
+    shares, is not counted)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn.kernel import (flash_attention,
+                                                       flash_attention_bwd)
+    from repro_torch.kernels.flash_attn.ref import (attention_mask,
+                                                    flash_attention_bwd_ref)
+    kw = dict(causal=causal, window=window, chunk_attn=None)
+    out, lse = flash_attention(q, k, v, lse=True, **kw)
+    g = torch.Generator(device="cpu").manual_seed(62)
+    do = _randn(torch, g, tuple(out.shape), q.device, out.dtype)
+    got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    want = flash_attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    err = bwd_err(torch, got, want, "bfloat16", label)
+    abs_err = float(max((a.float() - w.float()).abs().max()
+                        for a, w in zip(got, want)))
+    del want
+    b, hq, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    fn = _build.library().flash_attn_bwd_bf16
+    dq, dk, dv = got
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    part = (torch.empty((2, b, hq, skv, d), dtype=torch.float32,
+                        device=q.device) if hq != hk else None)
+    strides = (ctypes.c_int64 * 24)(*(st for t in (q, k, v, out, do, dq, dk,
+                                                   dv)
+                                      for st in t.stride()[:3]))
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), b, hq, hk, sq, skv, d,
+            strides, int(causal), window or 0, 0, stream)
+
+    def launch():
+        return fn(*args)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ql = q.detach().requires_grad_(True)
+    kl, vl = (t.repeat_interleave(hq // hk, dim=1).detach()
+              .requires_grad_(True) for t in (k, v))
+    if window is None or window >= skv:
+        ol = sdpa(ql, kl, vl, is_causal=causal)
+    else:                          # the window as a boolean mask
+        ol = sdpa(ql, kl, vl, attn_mask=attention_mask(
+            sq, skv, q.device, causal=causal, window=window))
+    pairs = attended_keys(sq, skv, window, causal)
+    flops = 10 * b * hq * d * pairs
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + out.numel() + do.numel()) + 4 * lse.numel()
+    flop_ms = flops / BF16_FLOP_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    res = {
+        "max_abs_err": abs_err, "max_rel_err": err,
+        "ms": device_ms(launch, cold=True),
+        "warm_ms": device_ms(launch, cold=False, reps=10),
+        "wrapper_ms": call_ms(lambda: flash_attention_bwd(
+            q, k, v, out, do, lse, **kw), reps=10),
+        "plain_ms": device_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, out, do, lse, **kw), cold=True, reps=5),
+        "library_ms": device_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do, retain_graph=True), cold=True),
+        "bound_flop": flops, "bound_bytes": nbytes,
+        "bound_ms": max(flop_ms, byte_ms),
+        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "launches_per_call": 3 if hq == hk else 4,
+    }
+    return add_rates(res, flops, "TFLOP/s")
+
+
+def check_flash_bwd(torch, dev) -> dict:
+    """Phase 10 (a): the sweep, then the row at llama3.2-3b's training
+    shape (the kernel line's main row) and at recurrentgemma-2b's (D 256,
+    10 q-heads on one KV head, window 2,048 binding over 4,096 tokens:
+    ``hybrid_shape``)."""
+    from repro_torch.configs import get_config
+    worst, n_cases = flash_bwd_sweep(torch, dev)
+    res = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attn/kernel.py:102 (its "
+                    "backward: no TPU counterpart; the reference "
+                    "differentiates chunked_attention, "
+                    "src/repro/models/layers.py:98, by autodiff)",
+        "sweep_cases": n_cases, "sweep_max_rel_err": worst,
+    }
+    for key, arch, b, s, seed in ((None, ARCH, TRAIN["batch"], TRAIN["seq"],
+                                   63),
+                                  ("hybrid_shape", HYBRID, 1, 4096, 64)):
+        cfg = get_config(arch)
+        q, k, v = train_attn_shape(torch, dev, cfg, b, s, seed)
+        row = {"shape": f"{arch} training: q [{b}, {cfg.num_heads}, {s}, "
+                        f"{cfg.head_dim}], k/v [{b}, {cfg.num_kv_heads}, "
+                        f"{s}, {cfg.head_dim}] bf16 ([B, S, H, D] views), "
+                        f"causal, window {cfg.window}",
+               **flash_bwd_row(torch, q, k, v, f"flash bwd {arch}",
+                               window=cfg.window)}
+        if key is None:
+            res.update(row)
+        else:
+            res[key] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", **res})
+    return res
+
+
+def init_loss(cfg) -> float:
+    """The expected first loss of the reference's initialisation: the
+    logits h . E_j of a unit-RMS final state against N(0, 0.02^2)
+    embedding rows are N(0, 0.02^2 d), so E[logsumexp] = ln V plus half
+    that variance, and the gold logit averages 0."""
+    return math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
+
+
+def n_params(cfg) -> int:
+    """The parameters of ``cfg``'s tree."""
+    from repro_torch.models import get_model
+
+    def count(t):
+        if isinstance(t, dict):
+            return sum(count(v) for v in t.values())
+        return math.prod(t)
+    return count(get_model(cfg).param_shapes(cfg))
+
+
+def train_full(torch, dev: str) -> dict:
+    """Phase 10 (b), first part: llama3.2-3b trained at full width and
+    depth through the user's entry point.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch.train import train
+    cfg = get_config(ARCH)
+    reset_counts(torch)
+    flash_ops.bwd_launches = 0
+    res = train(ARCH, reduced=False, device=dev, verbose=False,
+                repeat_batch=True, **TRAIN)
+    got = {"flash_attention": flash_ops.launches,
+           "flash_attention_bwd": flash_ops.bwd_launches}
+    want = {"flash_attention": 2 * cfg.num_layers * TRAIN["steps"],
+            "flash_attention_bwd": cfg.num_layers * TRAIN["steps"]}
+    losses = res["losses"]
+    expect = init_loss(cfg)
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    n = n_params(cfg)
+    line = {"phase": "train", "arch": ARCH, "reduced": False, **TRAIN,
+            "repeat_batch": True, "remat": cfg.remat, "params": n,
+            "expected_first_loss": expect, **res,
+            "launches": got, "launches_want": want,
+            "model_flop_share": 6 * n * tokens / res["step_s"]
+            / BF16_FLOP_PER_S}
+    emit(line)
+    if got != want:
+        raise AssertionError(f"training launched {got}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or not (
+            abs(losses[0] - expect) < 0.5 and losses[-1] < losses[0]):
+        raise AssertionError(f"training losses {losses}: want the first "
+                             f"within 0.5 of {expect} and a fall")
+    return got
+
+
+def layer_grads(torch, dev: str, cfg, x, r, plain: bool) -> dict:
+    """The gradients of sum(layer(x) * r) for one full-width llama layer
+    (attention block, then SwiGLU FFN, "train" mode), every leaf float32
+    N(0, 0.02) from seed 71 (norm scales ones), in ``cfg``'s compute
+    dtype; ``plain`` routes the attention through the plain version."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.models import transformer as tfm
+    shapes = tfm._attn_shapes(cfg, 1) | tfm._dense_ffn_shapes(cfg, 1)
+    g = torch.Generator(device=dev).manual_seed(71)
+    p = {}
+    for name in sorted(shapes):
+        shape = shapes[name][1:]
+        p[name] = (torch.ones(shape, device=dev) if len(shape) == 1 else
+                   torch.randn(shape, generator=g, device=dev) * 0.02)
+        p[name].requires_grad_(True)
+    dt = getattr(torch, cfg.compute_dtype)
+    positions = torch.arange(x.shape[1], device=dev)
+    kernel = flash_ops.attention
+    if plain:
+        flash_ops.attention = flash_attention_ref
+    try:
+        y, _ = tfm.attn_block(p, x.to(dt), cfg, mode="train",
+                              positions=positions)
+        y = tfm.dense_ffn_block(p, y)
+    finally:
+        flash_ops.attention = kernel
+    loss = torch.sum(y.float() * r)
+    grads = torch.autograd.grad(loss, [p[n] for n in sorted(p)])
+    return dict(zip(sorted(p), grads))
+
+
+def check_layer_grads(torch, dev: str) -> dict:
+    """Phase 10 (b), second part: one full-width llama3.2-3b layer on 2 x
+    2,048 tokens, its gradients through the flash kernels in bf16 against
+    the same layer in float32 on the plain attention, every leaf within
+    3e-2 of max|ref| (wq, wk and wv get theirs through the backward
+    kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    cfg = get_config(ARCH)
+    g = torch.Generator(device="cpu").manual_seed(72)
+    shape = (TRAIN["batch"], TRAIN["seq"], cfg.d_model)
+    x = torch.randn(shape, generator=g).to(dev)
+    r = torch.randn(shape, generator=g).to(dev)
+    reset_counts(torch)
+    flash_ops.bwd_launches = 0
+    got = layer_grads(torch, dev, cfg, x, r, plain=False)
+    launches = {"flash_attention": flash_ops.launches,
+                "flash_attention_bwd": flash_ops.bwd_launches}
+    want = layer_grads(torch, dev, cfg.replace(compute_dtype="float32"), x,
+                       r, plain=True)
+    errs = {n: float((got[n].float() - want[n]).abs().max()
+                     / want[n].abs().max().clamp_min(1e-30)) for n in want}
+    res = {"phase": "train_layer", "arch": ARCH, "tokens": list(shape[:2]),
+           "rel_err": errs, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(res)
+    if launches != {"flash_attention": 1, "flash_attention_bwd": 1}:
+        raise AssertionError(f"layer launched {launches}")
+    bad = {n: e for n, e in errs.items() if not e <= REL_TOL["bfloat16"]}
+    if bad:
+        raise AssertionError(f"layer gradients off the plain f32 layer: {bad}")
+    return res
+
+
+def train_pin_inputs(cfg, seed: int = TRAIN_PIN["seed"]):
+    """The pinned runs' inputs, from ``numpy.random.default_rng(seed)``:
+    the parameters (``cfg``'s tree: N(0, 0.02) float32 for every leaf of
+    two or more dimensions, ones for the rest, drawn in sorted path order)
+    and one batch a step (tokens, a VLM's ``img_emb``, an enc-dec's
+    ``frames``).  Numpy's draws are the same on every machine, which
+    torch's and jax's are not between each other."""
+    import numpy as np
+    from repro_torch.models import get_model
+    r = np.random.default_rng(seed)
+
+    def draw(t):
+        if isinstance(t, dict):
+            return {k: draw(t[k]) for k in sorted(t)}
+        return (np.ones(t, np.float32) if len(t) == 1 else
+                (r.standard_normal(t, dtype=np.float32) * 0.02))
+    params = draw(get_model(cfg).param_shapes(cfg))
+    b, s = TRAIN_PIN["batch"], TRAIN_PIN["seq"]
+    batches = []
+    for _ in range(TRAIN_PIN["steps"]):
+        bt = {"tokens": r.integers(0, cfg.vocab_size, (b, s))
+              .astype(np.int32)}
+        if cfg.family == "vlm":
+            bt["tokens"] = bt["tokens"][:, :s - cfg.img_tokens]
+            bt["img_emb"] = r.standard_normal((b, cfg.img_tokens, 1024),
+                                              dtype=np.float32)
+        if cfg.family == "encdec":
+            bt["frames"] = r.standard_normal((b, cfg.enc_seq, 1024),
+                                             dtype=np.float32)
+        batches.append(bt)
+    return params, batches
+
+
+def run_train_pin(torch, arch: str, dev: str) -> dict:
+    """The port's ``make_train_step`` on ``arch``'s reduced config for the
+    pinned steps from ``train_pin_inputs`` (parameters cast to the
+    config's param dtype): {"losses": [...]}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_config(arch).reduced()
+    np_params, batches = train_pin_inputs(cfg)
+    params = params_from_numpy(np_params, dev,
+                               getattr(torch, cfg.param_dtype))
+    ocfg = AdamWConfig(lr=TRAIN_PIN["lr"], opt_dtype=cfg.opt_dtype)
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    losses = []
+    for bt in batches:
+        data = {k: torch.from_numpy(v).to(dev).long() if k == "tokens"
+                else torch.from_numpy(v).to(dev) for k, v in bt.items()}
+        params, opt, m = step(params, opt, data)
+        losses.append(float(m["loss"]))
+    return {"losses": losses}
+
+
+def hold_losses(label: str, got: list, want: list) -> float:
+    """The worst |got - want| / |want| over the steps; raises past
+    ``TRAIN_PIN_TOL``."""
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if len(got) != len(want) or not all(e <= TRAIN_PIN_TOL for e in errs):
+        raise AssertionError(f"{label}: losses {got}, pinned {want}")
+    return max(errs)
+
+
+def train_reduced(torch, dev: str) -> dict:
+    """Phase 10 (c): every reduced family's pinned steps on the card, and a
+    ``fail_at`` restart through a checkpoint (llama3.2-3b reduced: 4 steps,
+    a checkpoint every 2, the failure at step 3) whose losses equal the
+    unfailed run's.  Returns the flash launch counts."""
+    import shutil
+    from repro_torch.configs import list_archs
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch.train import train
+    pins = json.loads(TRAIN_PINS.read_text())
+    reset_counts(torch)
+    flash_ops.bwd_launches = 0
+    for arch in list_archs():
+        t0 = time.perf_counter()
+        got = run_train_pin(torch, arch, dev)
+        err = hold_losses(arch, got["losses"], pins[arch]["losses"])
+        emit({"phase": "train_pin", "arch": arch, "reduced": True,
+              **TRAIN_PIN, "losses": got["losses"],
+              "pinned": pins[arch]["losses"], "max_rel_err": err,
+              "wall_s": time.perf_counter() - t0})
+    ckpt = OUT / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(reduced=True, steps=4, batch=2, seq=64, device=dev,
+              verbose=False)
+    plain = train(ARCH, **kw)
+    failed = train(ARCH, ckpt_dir=str(ckpt), ckpt_every=2, fail_at=3, **kw)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    line = {"phase": "train_restart", "arch": ARCH, "reduced": True,
+            "restarts": failed["restarts"], "losses": failed["losses"],
+            "unfailed_losses": plain["losses"]}
+    emit(line)
+    if failed["restarts"] != 1 or failed["losses"][-1] != \
+            plain["losses"][-1] or failed["losses"][3] != plain["losses"][2]:
+        raise AssertionError(f"restart through a checkpoint: {line}")
+    return {"flash_attention": flash_ops.launches,
+            "flash_attention_bwd": flash_ops.bwd_launches}
+
+
+# device kernels of a training step by group (name substrings), for
+# ``profile_train``; the rest is elementwise, reduction, copy and the like
+TRAIN_GROUPS = {"flash_fwd": ("flash_fwd",), "flash_bwd": ("flash_bwd",),
+                "matmul": ("gemm", "nvjet", "xmma", "cutlass", "Kernel2")}
+
+
+def profile_train(torch, dev: str = "cuda", steps: int = 2) -> None:
+    """llama3.2-3b at full width and depth, ``TRAIN``'s batch repeated:
+    one warm step, ``steps`` steps on the host clock, then ``steps``
+    under torch.profiler: per step the wall s, the device s, the device
+    time by kernel group (``TRAIN_GROUPS``) and the device's busy share
+    of the unprofiled wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import _init, synth_batch
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_config(ARCH)
+    device = torch.device(dev)
+    params = _init(get_model(cfg), cfg, device, 0)
+    ocfg = AdamWConfig(lr=1e-3, opt_dtype=cfg.opt_dtype)
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    data = synth_batch(cfg, TRAIN["batch"], TRAIN["seq"],
+                       torch.Generator().manual_seed(1000), device)
+
+    def run(n: int) -> None:
+        nonlocal params, opt
+        for _ in range(n):
+            params, opt, _ = step(params, opt, data)
+        torch.cuda.synchronize()
+
+    OUT.mkdir(exist_ok=True)
+    run(1)                                      # warm
+    t0 = time.perf_counter()
+    run(steps)
+    wall = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(steps)
+    avgs = prof.key_averages()
+    (OUT / "profile_train.txt").write_text(
+        avgs.table(sort_by="self_device_time_total", row_limit=50))
+    on_dev = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    dev_s = sum(e.self_device_time_total for e in on_dev) / 1e6 / steps
+    groups = {}
+    for name, marks in TRAIN_GROUPS.items():
+        rows = [e for e in on_dev if any(m in e.key for m in marks)]
+        groups[name] = {"calls": sum(e.count for e in rows) / steps,
+                        "device_s": sum(e.self_device_time_total
+                                        for e in rows) / 1e6 / steps}
+    groups["other_device_s"] = dev_s - sum(g["device_s"]
+                                           for g in groups.values())
+    emit({"phase": "profile_train", "arch": ARCH, **TRAIN,
+          "wall_s_per_step": wall, "device_s_per_step": dev_s,
+          "device_busy_share": dev_s / wall, "groups": groups,
+          "device_events_per_step": sum(e.count for e in on_dev) / steps,
+          "top": [{"name": e.key[:70], "count": e.count,
+                   "device_ms": e.self_device_time_total / 1e3}
+                  for e in on_dev[:15]]})
+    del params, opt
+
+
+def train_phase(torch, dev: str) -> dict:
+    """Phase 10 (b) and (c).  Returns the flash kernels' launch totals
+    (the backward's for the kernel line)."""
+    t_phase = time.perf_counter()
+    totals = train_full(torch, dev)
+    reset_counts(torch)
+    check_layer_grads(torch, dev)
+    reset_counts(torch)
+    for k, n in train_reduced(torch, dev).items():
+        totals[k] += n
+    reset_counts(torch)
+    emit({"phase": "train_done", "seconds": time.perf_counter() - t_phase,
+          "launches": totals})
+    return totals
+
+
+PROFILES = ("episode", "serve", "fleet", "decode", "train")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile q8_justin, the serve path, the "
-                         "128-tenant fleet and the decode steps of the "
-                         "served models of phases 5, 7 and 9 into "
+    ap.add_argument("--profile", nargs="*", choices=PROFILES, default=None,
+                    help="also profile (all, or the ones named) q8_justin "
+                         "(episode), the serve path (serve), the 128-tenant "
+                         "fleet (fleet), the decode steps of the served "
+                         "models of phases 5, 7 and 9 (decode) and a "
+                         "llama3.2-3b training step (train) into "
                          "chiprun_out/")
     args = ap.parse_args(argv)
+    profile = set(PROFILES) if args.profile == [] else set(
+        args.profile or ())
 
     import torch
     if not torch.cuda.is_available():
@@ -2398,7 +2987,7 @@ def main(argv=None) -> int:
             if n == 0:
                 raise AssertionError(f"{key} never launched {k}")
             totals[k] += n
-    if args.profile:
+    if "episode" in profile:
         profile_run("q8_justin", lambda: run_episode("q8_justin", golden,
                                                      dev),
                     walls.get("q8_justin"), episode="q8_justin")
@@ -2411,7 +3000,7 @@ def main(argv=None) -> int:
     check_decode_matches_prefill(torch, dev, get_config(ARCH),
                                  SERVE["prompt_len"])
     torch.cuda.empty_cache()
-    if args.profile:
+    if "serve" in profile:
         profile_serve(torch)
 
     # 6. scenarios: priced reconfiguration, faults, co-location, fleets
@@ -2419,7 +3008,7 @@ def main(argv=None) -> int:
     for k, n in launches.items():
         totals[k] += n
     torch.cuda.empty_cache()
-    if args.profile:
+    if "fleet" in profile:
         profile_run("d_fleet_128", lambda: run_fleet_case(
             port_api(), {"device": dev}, "d_fleet_128", "vectorized"),
             walls["d_fleet_128_vectorized"], run="d_fleet_128_vectorized")
@@ -2428,7 +3017,7 @@ def main(argv=None) -> int:
     for k, n in serve_phase(torch, dev).items():
         totals[k] += n
     torch.cuda.empty_cache()
-    if args.profile:
+    if "decode" in profile:
         from repro_torch.configs import get_config
         for cfg, sv in ((get_config(ARCH), SERVE),
                         (get_config("h2o-danube-1.8b"),
@@ -2449,11 +3038,23 @@ def main(argv=None) -> int:
     for k, n in state_space_phase(torch, dev).items():
         totals[k] += n
     torch.cuda.empty_cache()
-    if args.profile:
+    if "decode" in profile:
         for arch, sv in SERVE_9.items():
             profile_decode(torch, get_config(arch), sv)
             gc.collect()
             torch.cuda.empty_cache()
+
+    # 10. training: the flash backward kernel, llama3.2-3b at full width,
+    # every reduced family against its pin, a restart through a checkpoint
+    rows.append(check_flash_bwd(torch, dev))
+    torch.cuda.empty_cache()
+    for k, n in train_phase(torch, dev).items():
+        totals[k] = totals.get(k, 0) + n
+    torch.cuda.empty_cache()
+    if "train" in profile:
+        profile_train(torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     for row in rows:
         row["launches"] = totals[row["name"]]

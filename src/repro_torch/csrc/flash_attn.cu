@@ -48,7 +48,12 @@
 // attention, as the JAX model layer's chunked_attention masks it) keeps
 // keys k with floor(k / c) == floor(position / c), floor division since a
 // position may be negative; masks are predicates, never sentinel scores;
-// the output is acc / max(l, 1e-30) in q's dtype.  A row with no key left
+// the output is acc / max(l, 1e-30) in q's dtype.  With ``lse`` given
+// (training: the backward kernel, csrc/flash_attn_bwd.cu, reads it), each
+// row's log-sum-exp of its scaled scores, m * scale + log l, goes to lse
+// [B, Hq, Sq] float32, +inf for a row with no key; it is a template flag
+// (kLse), so the serving launches (lse null) run the code they ran
+// before.  A row with no key left
 // by the mask (causal with Sq > Skv, rows before position 0) gives zeros.
 // That is a choice: the TPU kernel gives zeros there only where it skips
 // every KV block of the row's 256-row query block; inside a block it runs,
@@ -137,6 +142,7 @@ constexpr int kConsumerRegs = 232;
 
 struct Params {
   void* o;
+  float* lse;                     // [B, Hq, Sq], written when kLse
   Strides os;
   int hq, hk, sq, skv, d, n_qt;
   int causal, window;             // window <= 0: no window
@@ -301,8 +307,9 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
 
 // kChunk: whether p.chunk is set.  Compiled into every launch, the
 // chunk's floor divisions cost the unchunked ones ~4 % on an H100
-// (kernel_ab.py), so only chunked launches carry them.
-template <int NP, int kBK, int kStages, bool kChunk>
+// (kernel_ab.py), so only chunked launches carry them.  kLse: whether
+// the rows' log-sum-exp goes to p.lse (training's forward).
+template <int NP, int kBK, int kStages, bool kChunk, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
@@ -565,6 +572,20 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  if constexpr (kLse) {
+    // m is in the log2 domain of the scaled scores: lse = m ln 2 + ln l
+    if (col == 0) {
+      float* lse = p.lse + (static_cast<int64_t>(b) * p.hq + h) * p.sq + q0;
+      if (row0 < q_rows) {
+        lse[row0] = l0 > 0.f ? m0 * 0.6931471805599453f + logf(l0)
+                             : INFINITY;
+      }
+      if (row1 < q_rows) {
+        lse[row1] = l1 > 0.f ? m1 * 0.6931471805599453f + logf(l1)
+                             : INFINITY;
+      }
+    }
+  }
   bf16* og = static_cast<bf16*>(p.o) + b * p.os.b + h * p.os.h;
   bf16* out0 = og + static_cast<int64_t>(q0 + row0) * p.os.s;
   bf16* out1 = og + static_cast<int64_t>(q0 + row1) * p.os.s;
@@ -645,35 +666,46 @@ int encode(CUtensorMap* map, const void* ptr, int64_t b, int64_t h,
   return res == CUDA_SUCCESS ? 0 : kEncodeFailed;
 }
 
-template <int NP, bool kChunk>
+template <int NP, bool kChunk, bool kLse>
 int launch_np(const CUtensorMap& qm, const CUtensorMap& km,
               const CUtensorMap& vm, const Params& p, dim3 grid,
               cudaStream_t stream) {
   constexpr int bk = tile_keys(NP), stages = ring_stages(NP);
   constexpr size_t smem = smem_bytes<NP, bk, stages>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<NP, bk, stages, kChunk>,
+      flash_fwd_bf16<NP, bk, stages, kChunk, kLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_bf16<NP, bk, stages, kChunk><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, p);
+  flash_fwd_bf16<NP, bk, stages, kChunk, kLse>
+      <<<grid, kThreads, smem, stream>>>(qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NP>
+template <int NP, bool kLse>
 int launch_chunk(const CUtensorMap& qm, const CUtensorMap& km,
                  const CUtensorMap& vm, const Params& p, dim3 grid,
                  cudaStream_t stream) {
-  return p.chunk > 0 ? launch_np<NP, true>(qm, km, vm, p, grid, stream)
-                     : launch_np<NP, false>(qm, km, vm, p, grid, stream);
+  return p.chunk > 0
+             ? launch_np<NP, true, kLse>(qm, km, vm, p, grid, stream)
+             : launch_np<NP, false, kLse>(qm, km, vm, p, grid, stream);
 }
 
-int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
-           int64_t hq, int64_t hk, int64_t sq, int64_t skv, int64_t d,
-           const int64_t* st, int64_t causal, int64_t window, int64_t chunk,
-           void* stream) {
+template <int NP>
+int launch_lse(const CUtensorMap& qm, const CUtensorMap& km,
+               const CUtensorMap& vm, const Params& p, dim3 grid,
+               cudaStream_t stream) {
+  return p.lse != nullptr
+             ? launch_chunk<NP, true>(qm, km, vm, p, grid, stream)
+             : launch_chunk<NP, false>(qm, km, vm, p, grid, stream);
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int64_t b, int64_t hq, int64_t hk, int64_t sq, int64_t skv,
+           int64_t d, const int64_t* st, int64_t causal, int64_t window,
+           int64_t chunk, void* stream) {
   Params p;
   p.o = o;
+  p.lse = lse;
   p.os = {st[9], st[10], st[11]};
   p.hq = static_cast<int>(hq);
   p.hk = static_cast<int>(hk);
@@ -699,10 +731,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
                   static_cast<unsigned>(p.n_qt));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (np) {
-    case 1: return launch_chunk<1>(qm, km, vm, p, grid, s);
-    case 2: return launch_chunk<2>(qm, km, vm, p, grid, s);
-    case 3: return launch_chunk<3>(qm, km, vm, p, grid, s);
-    default: return launch_chunk<4>(qm, km, vm, p, grid, s);
+    case 1: return launch_lse<1>(qm, km, vm, p, grid, s);
+    case 2: return launch_lse<2>(qm, km, vm, p, grid, s);
+    case 3: return launch_lse<3>(qm, km, vm, p, grid, s);
+    default: return launch_lse<4>(qm, km, vm, p, grid, s);
   }
 }
 
@@ -732,6 +764,7 @@ struct Params {
   const float* k;
   const float* v;
   float* o;
+  float* lse;                     // [B, Hq, Sq], written when kLse
   Strides qs, ks, vs, os;
   int b, hq, hk, sq, skv, d;
   int causal, window;             // window <= 0: no window
@@ -766,7 +799,7 @@ __device__ void load_tile(float* dst, const float* src, int64_t row_stride,
   }
 }
 
-template <int MD>
+template <int MD, bool kLse>
 __global__ void __launch_bounds__(Geom<MD>::kThreads, 2)
 flash_fwd_f32(Params p) {
   using G = Geom<MD>;
@@ -871,6 +904,10 @@ flash_fwd_f32(Params p) {
                 + static_cast<int64_t>(q0 + row) * p.os.s;
     const float denom = fmaxf(l, 1e-30f);
     for (int c = quad; c < p.d; c += 4) og[c] = Os[row * kLdO + c] / denom;
+    if (kLse && quad == 0) {
+      p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.sq + q0 + row] =
+          l > 0.f ? m + logf(l) : INFINITY;
+    }
   }
 }
 
@@ -878,28 +915,35 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
-template <int MD>
+template <int MD, bool kLse>
 int launch_md(const Params& p, cudaStream_t stream) {
   using G = Geom<MD>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<MD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<MD, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(G::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((p.sq + G::kBQ - 1) / G::kBQ),
                   static_cast<unsigned>(p.hq), static_cast<unsigned>(p.b));
-  flash_fwd_f32<MD><<<grid, G::kThreads, G::kSmem, stream>>>(p);
+  flash_fwd_f32<MD, kLse><<<grid, G::kThreads, G::kSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
-           int64_t hq, int64_t hk, int64_t sq, int64_t skv, int64_t d,
-           const int64_t* st, int64_t causal, int64_t window, int64_t chunk,
-           void* stream) {
+template <int MD>
+int launch_lse(const Params& p, cudaStream_t stream) {
+  return p.lse != nullptr ? launch_md<MD, true>(p, stream)
+                          : launch_md<MD, false>(p, stream);
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int64_t b, int64_t hq, int64_t hk, int64_t sq, int64_t skv,
+           int64_t d, const int64_t* st, int64_t causal, int64_t window,
+           int64_t chunk, void* stream) {
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);
   p.o = static_cast<float*>(o);
+  p.lse = lse;
   p.qs = {st[0], st[1], st[2]};
   p.ks = {st[3], st[4], st[5]};
   p.vs = {st[6], st[7], st[8]};
@@ -918,8 +962,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   for (int i = 0; i < 9; ++i) vec = vec && st[i] % 4 == 0;
   p.vec = vec;
   if (d > 256) return static_cast<int>(cudaErrorInvalidValue);
-  return d <= 128 ? launch_md<128>(p, static_cast<cudaStream_t>(stream))
-                  : launch_md<256>(p, static_cast<cudaStream_t>(stream));
+  return d <= 128 ? launch_lse<128>(p, static_cast<cudaStream_t>(stream))
+                  : launch_lse<256>(p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace f32
@@ -927,23 +971,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
 }  // namespace
 
 // strides: 12 int64 element strides, (batch, head, seq) of q, k, v, out;
+// lse: null, or float32 [B, Hq, Sq] contiguous for the rows' log-sum-exp;
 // window and chunk: 0 for none.  Returns 0, a CUDA error code, or (bf16)
 // -1 when cuTensorMapEncodeTiled is not found and -2 when it refuses an
 // operand's tensor map.
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
-                               void* o, int64_t b, int64_t hq, int64_t hk,
-                               int64_t sq, int64_t skv, int64_t d,
+                               void* o, float* lse, int64_t b, int64_t hq,
+                               int64_t hk, int64_t sq, int64_t skv, int64_t d,
                                const int64_t* strides, int64_t causal,
                                int64_t window, int64_t chunk, void* stream) {
-  return bf::launch(q, k, v, o, b, hq, hk, sq, skv, d, strides, causal,
+  return bf::launch(q, k, v, o, lse, b, hq, hk, sq, skv, d, strides, causal,
                     window, chunk, stream);
 }
 
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
-                              void* o, int64_t b, int64_t hq, int64_t hk,
-                              int64_t sq, int64_t skv, int64_t d,
+                              void* o, float* lse, int64_t b, int64_t hq,
+                              int64_t hk, int64_t sq, int64_t skv, int64_t d,
                               const int64_t* strides, int64_t causal,
                               int64_t window, int64_t chunk, void* stream) {
-  return f32::launch(q, k, v, o, b, hq, hk, sq, skv, d, strides, causal,
+  return f32::launch(q, k, v, o, lse, b, hq, hk, sq, skv, d, strides, causal,
                      window, chunk, stream);
 }

@@ -41,12 +41,16 @@ _SIGNATURES = {
     # seg, id bytes, values, n, v, s, sums, counts, stream
     "window_agg_f32": ([_P, _L, _P, _L, _L, _L, _P, _P, _P], _I),
     "window_agg_i64": ([_P, _L, _P, _L, _L, _L, _P, _P, _P], _I),
-    # q, k, v, out, b, hq, hk, sq, skv, d, strides[12], causal, window,
-    # chunk, stream
-    "flash_attn_bf16": ([_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L, _L,
-                         _L, _P], _I),
-    "flash_attn_f32": ([_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L, _L,
-                        _L, _P], _I),
+    # q, k, v, out, lse (or null), b, hq, hk, sq, skv, d, strides[12],
+    # causal, window, chunk, stream
+    "flash_attn_bf16": ([_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L,
+                         _L, _L, _P], _I),
+    "flash_attn_f32": ([_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L,
+                        _L, _L, _P], _I),
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, dkv_part (or null), b, hq,
+    # hk, sq, skv, d, strides[24], causal, window, chunk, stream
+    "flash_attn_bwd_bf16": ([_P] * 11 + [_L] * 6 + [_S, _L, _L, _L, _P], _I),
+    "flash_attn_bwd_f32": ([_P] * 11 + [_L] * 6 + [_S, _L, _L, _L, _P], _I),
     # q, k, v, valid_len, lo, out, part_m, part_l, part_acc, tickets, b,
     # hq, hk, s, d, strides[10], chunk, n_splits, n_sub, stream
     "decode_attn_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,

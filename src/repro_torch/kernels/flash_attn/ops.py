@@ -1,16 +1,49 @@
 """Public wrapper for flash attention.
 
-CUDA tensors go through the hand-written kernel, CPU tensors through the
-plain PyTorch version; there is no other path and no fallback.
-``launches`` counts kernel launches (reset it to 0 to count a run)."""
+CUDA tensors go through the hand-written kernels, CPU tensors through the
+plain PyTorch version; there is no other path and no fallback.  On the
+card a call that must carry a gradient (grad enabled and q, k or v
+requiring it) goes through ``FlashAttention``: the forward kernel with
+the rows' log-sum-exp, and the backward kernel (``csrc/flash_attn_bwd.cu``)
+for its gradient.  A serving call (no gradient) launches the forward
+alone.  On the CPU the plain version is differentiable as it is.
+``launches`` counts forward launches and ``bwd_launches`` backward
+launches (reset them to 0 to count a run)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attn.kernel import flash_attention
+from repro_torch.kernels.flash_attn.kernel import (flash_attention,
+                                                   flash_attention_bwd)
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
 launches = 0
+bwd_launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel (with its log-sum-exp, saved with q, k, v and
+    the output) and the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk_attn):
+        global launches
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   chunk_attn=chunk_attn, lse=True)
+        launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = dict(causal=causal, window=window, chunk_attn=chunk_attn)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        global bwd_launches
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, **ctx.mask)
+        bwd_launches += 1
+        return dq, dk, dv, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -20,8 +53,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     indexed, never repeated on the card); query row i at position
     i + Skv - Sq, masked as ``flash_attention_ref`` says (causal, sliding
     ``window``, local chunk of ``chunk_attn`` positions).  Returns
-    [B, Hq, Sq, D] in q's dtype.  Degenerate shapes short-circuit: no
-    query gives an empty result, no key gives zeros."""
+    [B, Hq, Sq, D] in q's dtype, differentiable in q, k and v on either
+    device.  Degenerate shapes short-circuit: no query gives an empty
+    result, no key gives zeros."""
     global launches
     if chunk_attn is not None and chunk_attn <= 0:
         raise ValueError(f"chunk_attn must be positive, got {chunk_attn}")
@@ -30,6 +64,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[2] == 0:
         return torch.zeros_like(q)
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, window, chunk_attn)
         out = flash_attention(q, k, v, causal=causal, window=window,
                               chunk_attn=chunk_attn)
         launches += 1

@@ -3,9 +3,13 @@
 Every architecture is an ``ArchConfig``; the four input shapes are
 ``ShapeConfig``s.  ``reduced()`` derives a tiny same-family config for
 CPU tests.  Field for field the same dataclasses as the JAX package's
-``models/config.py``, so a configuration means the same in both; the
-execution knobs that only steer XLA (remat, scan, sharding, chunk sizes)
-are kept for that reason and are not read by the port.
+``models/config.py``, so a configuration means the same in both (and
+``repr`` gives the same string, which the checkpoints' config hash
+reads).  Training reads ``remat`` (any value but "none" recomputes each
+layer in the backward pass, ``torch.utils.checkpoint``), ``loss_chunk``
+and ``opt_dtype``; the execution knobs that only steer XLA (scan,
+sharding, the attention chunk sizes) are kept for that reason and are
+not read by the port.
 """
 
 from __future__ import annotations

@@ -176,13 +176,14 @@ def hybrid_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _apply_block(kind: str, p, x: torch.Tensor, cfg: ArchConfig, mode: str,
-                 positions, cache: dict, t: int | None) -> torch.Tensor:
+                 positions, cache: dict | None, t: int | None
+                 ) -> torch.Tensor:
     """One layer; its cache (views into the stacked caches) is updated in
-    place."""
+    place ("train" has none)."""
     if kind == "rec":
         x, new = rec_block(p, x, cfg, mode=mode,
                            cache=cache if mode == "decode" else None)
-        for k, c in cache.items():
+        for k, c in (cache or {}).items():
             c.copy_(new[k])
         return x
     return _attn_layer(p, x, cfg, mode=mode, positions=positions,
@@ -190,26 +191,51 @@ def _apply_block(kind: str, p, x: torch.Tensor, cfg: ArchConfig, mode: str,
 
 
 def _run_hybrid(params, x: torch.Tensor, cfg: ArchConfig, mode: str,
-                positions, caches: dict, t: int | None = None
+                positions, caches: dict | None, t: int | None = None
                 ) -> torch.Tensor:
     """The full groups in turn, each group's layers in sorted key order,
-    then the tail layers (the reference's ``_run_hybrid``)."""
-    groups = params["groups"]
-    names = sorted(groups)
-    for i in range(next(iter(groups.values()))["ln1"].shape[0]):
+    then the tail layers (the reference's ``_run_hybrid``).  "train" takes
+    no caches and runs each group index under ``remat``, as the reference
+    checkpoints its scanned group body (the tail layers are not)."""
+    names = sorted(params["groups"])
+    groups = {name: tfm._layers(params["groups"][name]) for name in names}
+
+    def body(x, gp, gcache):
         for name in names:
-            x = _apply_block(name.split("_")[1], tfm._index(groups[name], i),
-                             x, cfg, mode, positions,
-                             tfm._index(caches["groups"][name], i), t)
+            x = _apply_block(name.split("_")[1], gp[name], x, cfg, mode,
+                             positions,
+                             None if gcache is None else gcache[name], t)
+        return x
+
+    for i in range(len(groups[names[0]])):
+        gp = {name: groups[name][i] for name in names}
+        if caches is None:
+            x = tfm.remat(cfg, body, x, gp, None)
+        else:
+            x = body(x, gp, {name: tfm._index(caches["groups"][name], i)
+                             for name in names})
     for key in sorted(k for k in params if k.startswith("tail")):
         x = _apply_block(key.split("_")[1], tfm._index(params[key], 0), x,
-                         cfg, mode, positions, caches[key], t)
+                         cfg, mode, positions,
+                         None if caches is None else caches[key], t)
     return x
 
 
 def _logits(params, x_last: torch.Tensor) -> torch.Tensor:
     """float32 logits [B, V] against the tied embedding."""
     return x_last.float() @ params["embed"].T.float()
+
+
+def hybrid_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """The training loss (float32 scalar) of ``batch["tokens"]`` [B, S]:
+    the stack in "train" mode, then the next-token cross-entropy against
+    the tied embedding."""
+    tokens = batch["tokens"]
+    x = tfm._embed_tokens(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    x = _run_hybrid(params, x, cfg, "train", positions, None)
+    x = rms_norm(x, params["ln_f"])
+    return tfm.next_token_loss(x, tokens, params["embed"].T, cfg)
 
 
 def hybrid_prefill(params, batch: dict, cfg: ArchConfig):

@@ -23,6 +23,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.flash_attn import ops as flash_ops
@@ -231,3 +232,47 @@ def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
         y = y + b.float()
     new_state = hist[:, 1:] if width > 1 else conv_state
     return y.to(x_t.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (never holds the full [N, V] logits for backward)
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(h_c: torch.Tensor, unembed: torch.Tensor, y_c: torch.Tensor,
+                w_c: torch.Tensor) -> torch.Tensor:
+    logits = (h_c @ unembed.to(h_c.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, y_c[:, None])[:, 0]
+    return torch.sum((lse - gold) * w_c)
+
+
+def chunked_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
+                         labels: torch.Tensor, weights: torch.Tensor,
+                         chunk: int) -> torch.Tensor:
+    """h: [N, D] final hidden states; unembed: [D, V]; labels/weights: [N].
+
+    Returns the float32 sum of weighted token NLLs (the caller divides by
+    the weight sum), the reference's ``chunked_softmax_xent``: N padded to
+    a multiple of ``chunk`` (zero weights), each chunk's logits taken as
+    ``h_c @ unembed`` in h's dtype and cast to float32, logsumexp minus
+    the gold logit.  Each chunk runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint``), so its logits are recomputed in the
+    backward pass, not kept."""
+    n = h.shape[0]
+    chunk = min(chunk, n)
+    pad = (-n) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        weights = F.pad(weights, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, n + pad, chunk):
+        args = (h[i:i + chunk], unembed, labels[i:i + chunk],
+                weights[i:i + chunk])
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_xent_chunk, *args,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            total = total + _xent_chunk(*args)
+    return total

@@ -1,4 +1,5 @@
-"""Mamba2 (SSD, state-space duality) blocks: prefill and recurrent decode.
+"""Mamba2 (SSD, state-space duality) blocks: the training loss, prefill
+and recurrent decode.
 
 The counterpart of the JAX package's ``models/ssm.py``.  Prefill runs the
 chunked SSD algorithm of arXiv:2405.21060 (``ssd_chunked``: an
@@ -69,8 +70,9 @@ def ssd_chunked(x: torch.Tensor, a_bar: torch.Tensor, b_mat: torch.Tensor,
     a_cum = torch.cumsum(ac, dim=-1)                            # [b,h,c,q]
 
     # 1. intra-chunk (diagonal blocks): (C B^T) * L, then times x
-    l_mat = torch.exp(_segsum(ac))                              # [b,h,c,l,s]
-    l_mat.mul_(torch.einsum("bcln,bcsn->bcls", cc, bc)[:, None])
+    # (out of place: autograd keeps exp's output for its gradient)
+    l_mat = torch.exp(_segsum(ac)) \
+        * torch.einsum("bcln,bcsn->bcls", cc, bc)[:, None]     # [b,h,c,l,s]
     y = torch.einsum("bhcls,bcshp->bclhp", l_mat, xc)
     del l_mat
 
@@ -195,18 +197,42 @@ def ssm_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
                       cfg.ssm_state)}
 
 
+def _train_layer(cfg: ArchConfig):
+    def body(x, p):
+        return mamba_block(p, x, cfg, mode="train")[0]
+    return body
+
+
 def _stack(params, x: torch.Tensor, cfg: ArchConfig, mode: str,
-           caches: dict) -> torch.Tensor:
+           caches: dict | None) -> torch.Tensor:
     """Every layer in turn (the reference's ``_stack_scan``), each layer's
-    new cache written into ``caches`` [L, ...] in place."""
-    layers = params["layers"]
-    for i in range(layers["ln"].shape[0]):
+    new cache written into ``caches`` [L, ...] in place; "train" takes no
+    caches and runs each layer under ``remat``."""
+    layers = tfm._layers(params["layers"])
+    if caches is None:
+        body = _train_layer(cfg)
+        for p in layers:
+            x = tfm.remat(cfg, body, x, p)
+        return x
+    for i, p in enumerate(layers):
         cache = {k: c[i] for k, c in caches.items()}
-        x, new = mamba_block(tfm._index(layers, i), x, cfg, mode=mode,
+        x, new = mamba_block(p, x, cfg, mode=mode,
                              cache=cache if mode == "decode" else None)
         for k, c in cache.items():
             c.copy_(new[k])
     return x
+
+
+def ssm_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """The training loss (float32 scalar) of ``batch["tokens"]`` [B, S]:
+    the SSD stack in "train" mode, then the next-token cross-entropy
+    against the (tied) embedding."""
+    tokens = batch["tokens"]
+    x = _stack(params, tfm._embed_tokens(params, tokens, cfg), cfg, "train",
+               None)
+    x = rms_norm(x, params["ln_f"])
+    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return tfm.next_token_loss(x, tokens, unembed, cfg)
 
 
 def ssm_prefill(params, batch: dict, cfg: ArchConfig):

@@ -1,5 +1,5 @@
 """Decoder-only transformer (dense, MoE and VLM) and the Whisper-style
-encoder-decoder: prefill and KV-cache decode.
+encoder-decoder: the training loss, prefill and KV-cache decode.
 
 The parameter tree is the JAX package's (``models/transformer.py``), key
 for key and shape for shape: layers stacked on a leading axis in layer
@@ -44,13 +44,26 @@ attended whole at every decode step.  The SSM and hybrid families have
 their own modules (``ssm.py``, ``hybrid.py``), built from this one's
 blocks, initialisation and helpers; head padding (an XLA layout knob)
 raises.
+
+Training (``decoder_loss``, ``encdec_loss``): the reference's losses,
+next-token cross-entropy over the text positions through
+``layers.chunked_softmax_xent``.  The float32 parameters stay the leaves
+autograd differentiates; every matrix is cast to the compute dtype where
+it is used, inside the layer, so under ``cfg.remat`` (each layer run
+under ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``) the
+bf16 copies are recomputed in the backward pass, not kept.  A stacked
+leaf is split into its layers once per forward (``_layers``:
+``torch.unbind``), so its gradient is stacked once, not summed into a
+zero tensor of the whole leaf at every layer.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (chunked_attention, decode_attention,
+from repro_torch.models.layers import (chunked_attention,
+                                       chunked_softmax_xent, decode_attention,
                                        rms_norm, rotary, sinusoid_positions,
                                        swiglu)
 from repro_torch.models.moe import moe_ffn, moe_param_shapes
@@ -111,11 +124,12 @@ def attn_block(p, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                use_rotary: bool = True, causal: bool = True,
                kv_override: tuple | None = None):
     """Returns (x + attn_out, cache).  ``mode`` is "prefill", "decode" or
-    "encode".  Self-attention: ``cache`` {"k", "v"} [B, Hk, S, Dh] is
+    "train".  Self-attention: ``cache`` {"k", "v"} [B, Hk, S, Dh] is
     written in place: prefill fills its first Sq slots, decode writes slot
     ``t % S`` and attends to the slots the position mask leaves at ``t``
-    under ``cfg.window`` and ``cfg.chunk_attn``; "encode" keeps no cache
-    (the encoder: ``causal=False``, ``use_rotary=False``).
+    under ``cfg.window`` and ``cfg.chunk_attn``; "train" keeps no cache
+    (the training pass, and the encoder: ``causal=False``,
+    ``use_rotary=False``).
     Cross-attention (``kv_override``, the encoder's keys and values
     [B, Hk, enc_seq, Dh]): q from ``h @ wq`` without rotary, not causal;
     decode attends every encoder slot, at ``t = enc_seq - 1`` as the
@@ -154,14 +168,14 @@ def attn_block(p, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                                   cache["v"][:, :, :s], causal=causal,
                                   window=cfg.window,
                                   chunk_attn=cfg.chunk_attn)
-        elif mode == "encode":
+        elif mode == "train":
             o = chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
                                   window=cfg.window,
                                   chunk_attn=cfg.chunk_attn)
         else:
             raise ValueError(f"mode must be 'prefill', 'decode' or "
-                             f"'encode', got {mode!r}")
+                             f"'train', got {mode!r}")
     o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
     return x + o @ p["wo"].to(x.dtype), cache
 
@@ -334,7 +348,14 @@ def decoder_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
 
 
 def _embed_tokens(params, tokens: torch.Tensor, cfg: ArchConfig):
-    return params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
+    """The tokens' rows of the embedding in the compute dtype.  Under a
+    gradient the table is cast first, as the reference casts it, so the
+    rows' gradients are summed in the compute dtype as there; serving
+    gathers first (the same values, without a cast of the whole table)."""
+    dt = getattr(torch, cfg.compute_dtype)
+    if torch.is_grad_enabled() and params["embed"].requires_grad:
+        return params["embed"].to(dt)[tokens]
+    return params["embed"][tokens].to(dt)
 
 
 def _logits(params, x_last: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -356,20 +377,59 @@ def _index(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def _run_stack(params, x, cfg: ArchConfig, mode: str, positions, caches,
-               t=None):
-    groups = params["layers"]
-    n = next(iter(groups.values()))["ln1"].shape[0]
-    for i in range(n):
-        for name in sorted(groups):    # dense0..denseK then moe
-            p = _index(groups[name], i)
-            lc = caches[name]
+def _layers(tree: dict) -> list[dict]:
+    """A stacked tree [L, ...] as L per-layer trees of views, each leaf
+    split once (``torch.unbind``: under autograd one stacking backward per
+    leaf, where indexing layer by layer would add each layer's gradient
+    into a zero tensor of the whole leaf)."""
+    flat = {k: _layers(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    n = len(next(iter(flat.values())))
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+def remat(cfg: ArchConfig, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    the config asks for rematerialisation (``cfg.remat`` not "none": the
+    reference's ``jax.checkpoint``; "dots" recomputes everything too) and
+    a gradient is being taken; its activations are then recomputed in the
+    backward pass."""
+    if cfg.remat != "none" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _group_layer(cfg: ArchConfig, mode: str, positions, t=None):
+    """One index of the stacked groups: each group's layer in sorted key
+    order (dense0..denseK then moe), the reference's ``_group_body``."""
+    def body(x, gp: dict, gcache: dict | None):
+        for name in sorted(gp):
+            p = gp[name]
             x, _ = attn_block(p, x, cfg, mode=mode, positions=positions,
-                              cache={"k": lc["k"][i], "v": lc["v"][i]}, t=t)
+                              cache=None if gcache is None else gcache[name],
+                              t=t)
             if name.startswith("dense"):
                 x = dense_ffn_block(p, x)
             else:
                 x = moe_ffn_block(p, x, cfg)
+        return x
+    return body
+
+
+def _run_stack(params, x, cfg: ArchConfig, mode: str, positions,
+               caches: dict | None = None, t=None):
+    """The decoder stack.  ``caches`` (prefill, decode) are written in
+    place; "train" takes none and runs each layer under ``remat``."""
+    groups = {name: _layers(g) for name, g in params["layers"].items()}
+    body = _group_layer(cfg, mode, positions, t)
+    for i in range(len(next(iter(groups.values())))):
+        gp = {name: g[i] for name, g in groups.items()}
+        if caches is None:
+            x = remat(cfg, body, x, gp, None)
+        else:
+            x = body(x, gp, {name: {"k": c["k"][i], "v": c["v"][i]}
+                             for name, c in caches.items()})
     return x
 
 
@@ -383,6 +443,39 @@ def _prepend_images(params, x_tok: torch.Tensor, batch: dict,
     dt = x_tok.dtype
     img_x = batch["img_emb"].to(dt) @ params["img_proj"].to(dt)
     return torch.cat([img_x, x_tok], dim=1)
+
+
+def next_token_loss(x: torch.Tensor, tokens: torch.Tensor, unembed,
+                    cfg: ArchConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of the final hidden states x [B, S,
+    d] (after ``ln_f``) against ``tokens`` [B, S]: label i is token
+    i + 1, the last position weighs 0 (the reference's labels roll the
+    first token there), through ``chunked_softmax_xent`` in chunks of
+    ``cfg.loss_chunk``."""
+    b, s = tokens.shape
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    weights = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    weights[:, -1] = 0.0
+    loss_sum = chunked_softmax_xent(x.reshape(b * s, -1), unembed,
+                                    labels.reshape(-1), weights.reshape(-1),
+                                    cfg.loss_chunk)
+    return loss_sum / torch.clamp(weights.sum(), min=1.0)
+
+
+def decoder_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """The training loss (float32 scalar) of ``batch["tokens"]`` [B, S]
+    (and a VLM's ``img_emb``): the stack in "train" mode over the whole
+    sequence, the cross-entropy over the text positions only."""
+    _check_supported(cfg)
+    tokens = batch["tokens"]
+    x = _prepend_images(params, _embed_tokens(params, tokens, cfg), batch,
+                        cfg)
+    n_img = x.shape[1] - tokens.shape[1]
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_stack(params, x, cfg, "train", positions)
+    x = rms_norm(x, params["ln_f"])
+    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return next_token_loss(x[:, n_img:], tokens, unembed, cfg)
 
 
 def decoder_prefill(params, batch: dict, cfg: ArchConfig):
@@ -431,19 +524,25 @@ def encdec_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
     return {"self": {"k": kv, "v": kv}, "cross_k": xkv, "cross_v": xkv}
 
 
+def _enc_layer(cfg: ArchConfig):
+    def body(x, p):
+        x, _ = attn_block(p, x, cfg, mode="train", use_rotary=False,
+                          causal=False)
+        return dense_ffn_block(p, x)
+    return body
+
+
 def _encode(params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Encoder output [B, enc_seq, d]: the frames projected, plus sinusoid
-    positions, through non-causal self-attention layers without rotary."""
+    positions, through non-causal self-attention layers without rotary
+    (each under ``remat`` when a gradient is taken)."""
     dt = getattr(torch, cfg.compute_dtype)
     x = frames.to(dt) @ params["frame_proj"].to(dt)
     x = x + sinusoid_positions(x.shape[1], cfg.d_model,
                                x.device).to(dt)[None]
-    layers = params["enc_layers"]
-    for i in range(layers["ln1"].shape[0]):
-        p = _index(layers, i)
-        x, _ = attn_block(p, x, cfg, mode="encode", use_rotary=False,
-                          causal=False)
-        x = dense_ffn_block(p, x)
+    body = _enc_layer(cfg)
+    for p in _layers(params["enc_layers"]):
+        x = remat(cfg, body, x, p)
     return rms_norm(x, params["ln_enc"])
 
 
@@ -463,6 +562,40 @@ def _dec_body(p, x: torch.Tensor, cfg: ArchConfig, mode: str, positions,
 def _layer_cache(caches: dict, i: int) -> dict:
     return {"self": {kv: caches["self"][kv][i] for kv in ("k", "v")},
             "cross_k": caches["cross_k"][i], "cross_v": caches["cross_v"][i]}
+
+
+def _dec_train_layer(cfg: ArchConfig, positions):
+    """One decoder layer of the training pass: the cross-attention keys
+    and values projected from the encoder output inside the layer (so
+    ``remat`` recomputes them), then ``_dec_body``'s three blocks."""
+    def body(x, p, enc_out):
+        b = x.shape[0]
+        kv = [(enc_out @ p[w].to(enc_out.dtype)).reshape(
+            b, -1, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+            for w in ("x_wk", "x_wv")]
+        x, _ = attn_block(p, x, cfg, mode="train", positions=positions)
+        xp = {k[2:]: v for k, v in p.items() if k.startswith("x_")}
+        x, _ = attn_block(xp, x, cfg, mode="train", kv_override=tuple(kv))
+        return dense_ffn_block(p, x)
+    return body
+
+
+def encdec_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """The training loss (float32 scalar) of ``batch["frames"]`` [B,
+    enc_seq, 1024] and ``batch["tokens"]`` [B, S]: the encoder, then the
+    decoder in "train" mode (causal self-attention with rotary,
+    cross-attention over the encoder output), the next-token
+    cross-entropy against ``unembed``."""
+    _check_supported(cfg, ("encdec",))
+    enc_out = _encode(params, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, tokens, cfg)
+    body = _dec_train_layer(
+        cfg, torch.arange(tokens.shape[1], device=x.device))
+    for p in _layers(params["dec_layers"]):
+        x = remat(cfg, body, x, p, enc_out)
+    x = rms_norm(x, params["ln_f"])
+    return next_token_loss(x, tokens, params["unembed"], cfg)
 
 
 def encdec_prefill(params, batch: dict, cfg: ArchConfig):

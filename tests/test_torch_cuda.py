@@ -509,3 +509,63 @@ def test_cuda_state_space_and_hybrid_match_cpu(hopper, arch):
             assert decode_ops.launches == per_step * 5
     ref = logits["cpu"]
     assert float((logits["cuda"] - ref).abs().max() / ref.abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_flash_backward_matches_plain_version(hopper):
+    """``chip_smoke.flash_bwd_sweep``: the forward's log-sum-exp and the
+    backward kernel against their plain versions over every mask, group
+    and head dim of the trainable families, each backward twice and equal
+    bit for bit."""
+    _, n_cases = _smoke().flash_bwd_sweep(torch, hopper)
+    assert n_cases > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_attention_autograd_gives_plain_gradients(hopper, dtype):
+    """A loss taken on the card through ``layers.chunked_attention`` has
+    gradients for q, k and v, through the backward kernel (counted), equal
+    to autograd's through the plain version on the same inputs; a call
+    without a gradient launches the forward alone."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.models import layers
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    q, k, v = (torch.randn(s, generator=g).to(hopper, dt)
+               for s in ((2, 6, 200, 64), (2, 2, 200, 64), (2, 2, 200, 64)))
+    r = torch.randn((2, 6, 200, 64), generator=g).to(hopper)
+    grads = {}
+    for name, fn in (("kernel", layers.chunked_attention),
+                     ("plain", flash_attention_ref)):
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        flash_ops.launches = flash_ops.bwd_launches = 0
+        out = fn(*ins, causal=True, window=150)
+        torch.sum(out.float() * r).backward()
+        grads[name] = [t.grad for t in ins]
+        if name == "kernel":
+            assert (flash_ops.launches, flash_ops.bwd_launches) == (1, 1)
+    tol = _smoke().BWD_TOL[dtype]
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        assert got is not None and got.dtype == want.dtype
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        assert err <= tol
+    flash_ops.launches = flash_ops.bwd_launches = 0
+    with torch.no_grad():
+        layers.chunked_attention(q, k, v, causal=True)
+    assert (flash_ops.launches, flash_ops.bwd_launches) == (1, 0)
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_training_matches_pins(hopper):
+    """Every reduced configuration's pinned training steps on the card
+    (``chip_smoke.run_train_pin``) against the reference's losses."""
+    import json
+    smoke = _smoke()
+    pins = json.loads(smoke.TRAIN_PINS.read_text())
+    from repro_torch.configs import list_archs
+    for arch in list_archs():
+        got = smoke.run_train_pin(torch, arch, "cuda")
+        smoke.hold_losses(arch, got["losses"], pins[arch]["losses"])

@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
-FORBIDDEN = ("jax", "repro", "jaxlib")
+FORBIDDEN = ("jax", "repro", "jaxlib", "ml_dtypes")
 
 
 def _imports(path: pathlib.Path) -> list[str]:
@@ -33,8 +33,14 @@ def test_port_files_exist():
     assert (ROOT / "src" / "repro_torch" / "csrc" / "window_agg.cu").exists()
     assert (ROOT / "src" / "repro_torch" / "csrc" / "flash_attn.cu").exists()
     assert (ROOT / "src" / "repro_torch" / "csrc" / "decode_attn.cu").exists()
+    assert (ROOT / "src" / "repro_torch" / "csrc"
+            / "flash_attn_bwd.cu").exists()
     for module in ("serve/kv_cache.py", "serve/engine.py", "models/moe.py",
-                   "configs/h2o_danube_1_8b.py", "configs/mixtral_8x7b.py"):
+                   "configs/h2o_danube_1_8b.py", "configs/mixtral_8x7b.py",
+                   "train/__init__.py", "train/optimizer.py",
+                   "train/grad_compress.py", "train/train_step.py",
+                   "train/checkpoint.py", "train/tree.py",
+                   "launch/train.py"):
         assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
@@ -103,6 +109,15 @@ def test_serve_without_device_raises_when_no_cuda(monkeypatch, arch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve(arch, requests=1, prompt_len=8, decode=1, verbose=False)
+
+
+def test_train_without_device_raises_when_no_cuda(monkeypatch):
+    """The training entry point resolves its device first: without one
+    given and no CUDA, ``train`` raises before it builds anything."""
+    from repro_torch.launch.train import train
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train("llama3.2-3b", steps=1, verbose=False)
 
 
 def test_decode_layer_on_the_card_never_takes_the_plain_mask():

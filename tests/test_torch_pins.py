@@ -23,6 +23,14 @@ Write the file from the reference with
 (a), ``JustinServeController.autoscale()`` under ds2, justin and threshold
 (``chip_smoke.run_serve_controller``), checked here for both packages and
 written with ``--write-serve`` (a few seconds).
+
+``tests/data/torch_train.json`` holds the reference's losses for phase 10
+(c): every reduced configuration's 3 training steps (AdamW, lr 1e-3) from
+the numpy inputs ``chip_smoke.train_pin_inputs`` makes, run by the
+reference's jitted ``make_train_step``; the port on the CPU (here) and on
+the card (``chip_smoke.run_train_pin``) must land within
+``chip_smoke.TRAIN_PIN_TOL`` of them.  Written with ``--write-train`` (about a
+minute).
 """
 import importlib.util
 import json
@@ -179,9 +187,78 @@ def test_serve_controller_reproduces_pin(package, policy):
         chip_smoke.serve_api(package), policy), SERVE_PINS[policy])
 
 
+# ------------------------------------------------- phase 10 (c): training
+def run_reference_train_pin(arch: str) -> dict:
+    """The reference's jitted ``make_train_step`` on ``arch``'s reduced
+    config for the pinned steps from ``chip_smoke.train_pin_inputs``
+    (parameters in the config's param dtype): {"losses": [...]}."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as jax_get_config
+    from repro.models import cpu_mesh_ctx
+    from repro.train.optimizer import AdamWConfig, init_opt_state
+    from repro.train.train_step import make_train_step
+    from repro_torch.configs import get_config
+    cfg = jax_get_config(arch).reduced()
+    np_params, batches = chip_smoke.train_pin_inputs(
+        get_config(arch).reduced())
+    params = jax.tree.map(lambda a: jnp.asarray(a, cfg.param_dtype),
+                          np_params)
+    ocfg = AdamWConfig(lr=chip_smoke.TRAIN_PIN["lr"],
+                       opt_dtype=cfg.opt_dtype)
+    opt = init_opt_state(params, ocfg)
+    step = jax.jit(make_train_step(cfg, cpu_mesh_ctx(), ocfg))
+    losses = []
+    for bt in batches:
+        params, opt, m = step(params, opt,
+                              {k: jnp.asarray(v) for k, v in bt.items()})
+        losses.append(float(m["loss"]))
+    return {"losses": losses}
+
+
+def write_train_pins() -> None:
+    from repro_torch.configs import list_archs
+    pins = {"_meta": {
+        "written_by": "PYTHONPATH=src python tests/test_torch_pins.py "
+                      "--write-train (the reference package, on the CPU)",
+        "train_pin": chip_smoke.TRAIN_PIN}}
+    for arch in list_archs():
+        pins[arch] = run_reference_train_pin(arch)
+        print(arch, pins[arch], flush=True)
+    chip_smoke.TRAIN_PINS.write_text(json.dumps(pins, indent=1) + "\n")
+
+
+TRAIN_PINS = json.loads(chip_smoke.TRAIN_PINS.read_text()) \
+    if chip_smoke.TRAIN_PINS.exists() else {}
+ARCHS = ["whisper-medium", "llama4-maverick-400b-a17b", "mixtral-8x7b",
+         "llama3.2-3b", "internlm2-20b", "h2o-danube-1.8b", "minitron-4b",
+         "internvl2-26b", "mamba2-130m", "recurrentgemma-2b"]
+
+
+def test_train_pin_file_covers_every_arch():
+    from repro_torch.configs import list_archs
+    assert sorted(list_archs()) == sorted(ARCHS)
+    assert set(TRAIN_PINS) == {"_meta", *ARCHS}
+    assert TRAIN_PINS["_meta"]["train_pin"] == chip_smoke.TRAIN_PIN
+
+
+def test_reference_reproduces_train_pin():
+    """The recipe the pin was written with still gives it (one
+    configuration: the reference's jit takes seconds each)."""
+    assert run_reference_train_pin("llama3.2-3b") == \
+        TRAIN_PINS["llama3.2-3b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_on_cpu_trains_to_pin(arch):
+    got = chip_smoke.run_train_pin(torch, arch, "cpu")
+    chip_smoke.hold_losses(arch, got["losses"], TRAIN_PINS[arch]["losses"])
+
+
 if __name__ == "__main__":
-    writers = {"--write": write_pins, "--write-serve": write_serve_pins}
+    writers = {"--write": write_pins, "--write-serve": write_serve_pins,
+               "--write-train": write_train_pins}
     if len(sys.argv) != 2 or sys.argv[1] not in writers:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_pins.py "
-                 "--write | --write-serve")
+                 "--write | --write-serve | --write-train")
     writers[sys.argv[1]]()

@@ -13,6 +13,7 @@ decodes a VLM at ``prompt_len + i``, inside the image-and-prompt prefix
 (ROADMAP, Reference caveats), and the port's ``serve`` decodes where its
 prefill stopped, which is checked here too.
 """
+import dataclasses
 import jax
 import numpy as np
 import pytest
@@ -108,8 +109,7 @@ def test_serve_decodes_where_the_prefill_stopped(monkeypatch):
         def decode(params, caches, tokens, t, cfg):
             seen.append((t, caches["dense0"]["k"].shape[-2]))
             return fns.decode(params, caches, tokens, t, cfg)
-        return fns.__class__(fns.param_shapes, fns.init, fns.prefill, decode,
-                             fns.cache_shapes)
+        return dataclasses.replace(fns, decode=decode)
     monkeypatch.setattr(serve_mod, "get_model", recording)
     res = serve_mod.serve(ARCH, requests=2, prompt_len=16, decode=3,
                           device="cpu", verbose=False)
