@@ -2382,7 +2382,14 @@ def flash_bwd_cases(torch, dev):
     chunk with and without the causal mask and with a window, whisper's
     cross shape (D 64), recurrentgemma's D 256 with 10 q-heads on one KV
     head, D 160 and 48, a window of 1, groups 1 to 10, and the training
-    path's [B, S, H, D] views; bf16 and f32."""
+    path's [B, S, H, D] views; bf16 and f32.  For the wgmma route (bf16, D
+    <= 128) also lengths ragged against its 64- and 128-row tiles (129,
+    191, 1,000), Sq above and below Skv, a chunk with a window and without
+    the causal mask, D 16, an MQA whose group ``bwd_plan`` cuts into
+    shares of one head, groups of 3 that it cuts into shares of 1 and 2
+    heads, run again walked whole by the ``shares`` argument (the last
+    item of a case: None for the plan's cut), groups of 2 that it walks
+    whole, and operands whose strides TMA cannot read (copied first)."""
     g = torch.Generator(device="cpu").manual_seed(60)
     for name, dt in (("float32", torch.float32),
                      ("bfloat16", torch.bfloat16)):
@@ -2403,20 +2410,37 @@ def flash_bwd_cases(torch, dev):
                 (1, 300, 1500, 4, 4, 64, False, None, None),
                 (1, 500, 500, 10, 1, 256, True, 128, None),
                 (1, 300, 300, 2, 2, 160, True, None, None),
-                (1, 300, 300, 2, 1, 48, True, 1, None)):
+                (1, 300, 300, 2, 1, 48, True, 1, None),
+                (1, 129, 129, 3, 1, 128, True, None, None),
+                (1, 191, 1000, 5, 5, 64, True, None, None),
+                (1, 1000, 191, 6, 1, 80, True, None, None),
+                (1, 191, 191, 6, 2, 48, True, 1, None),
+                (1, 1000, 1000, 3, 1, 16, True, 64, 128),
+                (1, 129, 191, 5, 1, 64, False, None, 64),
+                (1, 1024, 1024, 10, 1, 128, True, None, None),
+                (2, 1024, 1024, 24, 8, 128, True, None, None),
+                (4, 1100, 1100, 8, 4, 64, True, 300, None)):
             q = _randn(torch, g, (b, hq, sq, d), dev, dt)
             k = _randn(torch, g, (b, hk, skv, d), dev, dt)
             v = _randn(torch, g, (b, hk, skv, d), dev, dt)
-            yield (f"{name} Sq={sq} Skv={skv} D={d} {hq}:{hk} "
-                   f"causal={causal} window={window} chunk={chunk}", name,
-                   q, k, v, causal, window, chunk)
+            label = (f"{name} Sq={sq} Skv={skv} D={d} {hq}:{hk} "
+                     f"causal={causal} window={window} chunk={chunk}")
+            yield label, name, q, k, v, causal, window, chunk, None
+            if dt == torch.bfloat16 and (b, hq, hk, sq) == (2, 24, 8, 1024):
+                yield (f"{label} shares=1", name, q, k, v, causal, window,
+                       chunk, 1)
     dt = torch.bfloat16
     for s, d, hq, hk in ((700, 128, 6, 2), (300, 256, 10, 1)):
         q = _randn(torch, g, (2, s, hq, d), dev, dt).transpose(1, 2)
         k = _randn(torch, g, (2, s, hk, d), dev, dt).transpose(1, 2)
         v = _randn(torch, g, (2, s, hk, d), dev, dt).transpose(1, 2)
         yield (f"bfloat16 [B,S,H,D] views Sq=Skv={s} D={d} {hq}:{hk} causal",
-               "bfloat16", q, k, v, True, None, None)
+               "bfloat16", q, k, v, True, None, None, None)
+    # rows 136 bytes apart: no TMA map can read them (the wrapper copies)
+    q, k, v = (_randn(torch, g, (1, h, 300, 68), dev, dt)[..., :64]
+               for h in (4, 2, 2))
+    yield ("bfloat16 strided (not TMA-ready) Sq=Skv=300 D=64 4:2 causal",
+           "bfloat16", q, k, v, True, None, None, None)
 
 
 def bwd_err(torch, got, want, dtype: str, label: str) -> float:
@@ -2458,24 +2482,30 @@ def flash_bwd_sweep(torch, dev) -> tuple[dict, int]:
     and log-sum-exp, a random dO), and a second backward launch equal bit
     for bit.  Returns (worst error per dtype, cases run)."""
     from repro_torch.kernels.flash_attn.kernel import (flash_attention,
-                                                       flash_attention_bwd)
+                                                       flash_attention_bwd,
+                                                       tma_ready)
     from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
                                                     flash_attention_ref)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n_cases = 0
     g = torch.Generator(device="cpu").manual_seed(61)
-    for label, name, q, k, v, causal, window, chunk in flash_bwd_cases(
-            torch, dev):
+    for label, name, q, k, v, causal, window, chunk, shares in \
+            flash_bwd_cases(torch, dev):
         kw = dict(causal=causal, window=window, chunk_attn=chunk)
         out, lse = flash_attention(q, k, v, lse=True, **kw)
         want_o, want_lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
         attn_err(torch, out, want_o, name, label)
         lse_check(torch, lse, want_lse, label)
-        do = _randn(torch, g, tuple(out.shape), dev, out.dtype)
-        got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        b, hq, sq, d = out.shape
+        # dO as strided as q where q is (the padded columns are not read)
+        do = _randn(torch, g, (b, hq, sq, d + (0 if tma_ready(q) else 4)),
+                    dev, out.dtype)[..., :d]
+        got = flash_attention_bwd(q, k, v, out, do, lse, shares=shares,
+                                  **kw)
         want = flash_attention_bwd_ref(q, k, v, out, do, lse, **kw)
         worst[name] = max(worst[name], bwd_err(torch, got, want, name, label))
-        again = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        again = flash_attention_bwd(q, k, v, out, do, lse, shares=shares,
+                                    **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{label}: backward not repeatable")
         n_cases += 1
@@ -2501,11 +2531,14 @@ def flash_bwd_row(torch, q, k, v, label: str, *, causal: bool = True,
     ``scaled_dot_product_attention`` over KV heads repeated first) timed,
     and the operations bound of the five products over the attended
     pairs (bytes: q, k, v, o, dO and the log-sum-exp read, dq, dk and dv
-    written; the kernel's own scratch, Delta and a group's float32 dk/dv
-    shares, is not counted)."""
+    written; the kernel's own scratch, Delta and the shares' float32 dk/dv
+    partials, is not counted).  The row names ``bwd_plan``'s route, shares,
+    scratch and launches a call.  The operands are TMA-ready: the bare
+    launch is all the wrapper launches."""
     import ctypes
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attn.kernel import (flash_attention,
+    from repro_torch.kernels.flash_attn.kernel import (ROUTE_ID, bwd_plan,
+                                                       flash_attention,
                                                        flash_attention_bwd)
     from repro_torch.kernels.flash_attn.ref import (attention_mask,
                                                     flash_attention_bwd_ref)
@@ -2522,10 +2555,14 @@ def flash_bwd_row(torch, q, k, v, label: str, *, causal: bool = True,
     b, hq, sq, d = q.shape
     hk, skv = k.shape[1], k.shape[2]
     fn = _build.library().flash_attn_bwd_bf16
+    plan = bwd_plan(b, hq, hk, sq, skv, d, q.dtype, torch.cuda
+                    .get_device_properties(q.device).multi_processor_count,
+                    causal=causal, window=window)
     dq, dk, dv = got
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    part = (torch.empty((2, b, hq, skv, d), dtype=torch.float32,
-                        device=q.device) if hq != hk else None)
+    delta = torch.empty(plan.delta_elems, dtype=torch.float32,
+                        device=q.device)
+    part = (torch.empty(plan.part_elems, dtype=torch.float32,
+                        device=q.device) if plan.part_elems else None)
     strides = (ctypes.c_int64 * 24)(*(st for t in (q, k, v, out, do, dq, dk,
                                                    dv)
                                       for st in t.stride()[:3]))
@@ -2534,10 +2571,12 @@ def flash_bwd_row(torch, q, k, v, label: str, *, causal: bool = True,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
             None if part is None else part.data_ptr(), b, hq, hk, sq, skv, d,
-            strides, int(causal), window or 0, 0, stream)
+            strides, int(causal), window or 0, 0, ROUTE_ID[plan.route],
+            plan.shares, plan.delta_elems, plan.part_elems, stream)
 
     def launch():
         return fn(*args)
+    _build.check(launch(), "flash_attn_bwd_bf16")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ql = q.detach().requires_grad_(True)
     kl, vl = (t.repeat_interleave(hq // hk, dim=1).detach()
@@ -2566,16 +2605,44 @@ def flash_bwd_row(torch, q, k, v, label: str, *, causal: bool = True,
         "bound_flop": flops, "bound_bytes": nbytes,
         "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-        "launches_per_call": 3 if hq == hk else 4,
+        "bwd_route": plan.route, "shares": plan.shares,
+        "scratch_bytes": plan.scratch_bytes,
+        "launches_per_call": plan.launches,
+        "split_warm_ms": bwd_split(torch, launch),
     }
     return add_rates(res, flops, "TFLOP/s")
 
 
+def bwd_split(torch, launch, reps: int = 10) -> dict:
+    """Device ms a call of each of the backward's kernels (prep or delta,
+    dK/dV, the group sum, dQ), from torch.profiler over ``reps`` bare
+    launches back to back (warm L2)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        found = re.search(r"flash_bwd_\w+", e.key)
+        if e.device_type == DeviceType.CUDA and found:
+            name = found.group(0)
+            split[name] = split.get(name, 0.0) + (
+                e.self_device_time_total / 1e3 / reps)
+    return split
+
+
 def check_flash_bwd(torch, dev) -> dict:
     """Phase 10 (a): the sweep, then the row at llama3.2-3b's training
-    shape (the kernel line's main row) and at recurrentgemma-2b's (D 256,
-    10 q-heads on one KV head, window 2,048 binding over 4,096 tokens:
-    ``hybrid_shape``)."""
+    shape (the kernel line's main row), at h2o-danube-1.8b's (D 80, 32
+    q-heads on 8, window 4,096 binding over 6,144 tokens, its serving
+    prompt: ``window_shape``)
+    and at recurrentgemma-2b's (D 256, 10 q-heads on one KV head, window
+    2,048 binding over 4,096 tokens: ``hybrid_shape``)."""
     from repro_torch.configs import get_config
     worst, n_cases = flash_bwd_sweep(torch, dev)
     res = {
@@ -2589,6 +2656,8 @@ def check_flash_bwd(torch, dev) -> dict:
     }
     for key, arch, b, s, seed in ((None, ARCH, TRAIN["batch"], TRAIN["seq"],
                                    63),
+                                  ("window_shape", "h2o-danube-1.8b", 1, 6144,
+                                   65),
                                   ("hybrid_shape", HYBRID, 1, 4096, 64)):
         cfg = get_config(arch)
         q, k, v = train_attn_shape(torch, dev, cfg, b, s, seed)

@@ -21,82 +21,147 @@
 // Hq 24, Hk 8, S 2,048, D 128, causal) the five products take
 // 10 * B * Hq * D * (attended pairs) = 1.29e11 FLOP, 0.13 ms at the 989
 // TFLOP/s bf16 tensor-core peak, against 75 MB of q/k/v/o/dO/dq/dk/dv.
+// The two kernels below compute S and dP twice (7 products, 1.81e11
+// FLOP) so that no gradient needs atomics or a sum across blocks: every
+// sum runs in a fixed order, and a second backward repeats bit for bit.
 //
-// Design (simple and deterministic; wgmma/TMA is later work).  Three
-// launches (four with GQA), no atomics, so the results repeat bit for bit:
-//  1. delta: Delta = rowsum(dO * O) in float32, one warp a row;
-//  2. dkdv: one block a (b, q-head, tile of R keys of its KV head).  K and
-//     V stay in shared memory; the block walks every query tile that can
-//     see its keys (whole tiles outside the causal, window or chunk range
-//     are skipped), recomputes S^T = K Q^T and dP^T = V dO^T, forms P^T
-//     and dS^T in shared memory and accumulates dV += P^T dO and
-//     dK += dS^T Q in float32 registers.  With one q-head per KV head it
-//     writes dK and dV; with a group it writes its float32 share to a
-//     scratch buffer, and
-//     2b. group_sum adds the group's shares in head order.  (A block per
-//     KV head walking the whole group ran 64 blocks for recurrentgemma's
-//     MQA, half the card idle, and 3x the walk for llama's groups of 3);
-//  3. dq: one block a (b, q-head, tile of R query rows), Q and dO in
-//     shared memory, walking the KV tiles its rows see (tile_range, as the
-//     forward), recomputing S = Q K^T and dP = dO V^T, dS in shared memory,
-//     dQ += dS K in float32 registers.
-// Both walking kernels put the tile index in the grid's slowest dimension
-// so the longest walks (the causal mask's first KV tiles and last query
-// tiles) start first, and bf16 up to D 128 fits two blocks an SM (128
-// registers a thread; a block's 8 warps alone leave the tensor cores
-// waiting on the synchronous tile loads).
-// S and dP are computed twice (7 products instead of 5) so that no
-// gradient needs a sum across blocks.  Eight warps a block: in the score
-// products each warp owns 16 of the R keys (or rows) and R / (8 / (R /
-// 16)) of the other side, in the gradient products 16 rows and a share of
-// D's 8-column tiles.  bf16 products run on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, float32 accumulate), operands from shared
-// memory through ldmatrix (.trans where the operand is N-major); P and dS
-// are rounded to bf16 for the gradient products, as the forward rounds P.
-// float32 runs the same tiles and fragment layout on CUDA cores in full
-// f32 (tests; no training path takes it at full size).  R is 64, or 32
-// for float32 above D 128 (shared memory).
+// Two routes, chosen by the wrapper's plan (kernels/flash_attn/kernel.py:
+// bwd_plan) by dtype and D:
+//
+// wgmma (namespace wg; bf16, D <= 128: every trainable config's head dim
+// but recurrentgemma's 256), FlashAttention-3's backward without its
+// atomics.
+// Three or four launches:
+//  1. prep: Delta = rowsum(dO * O) and lse * log2(e), float32, into one
+//     [2, B * Hq, Sq_pad] scratch (Sq_pad = Sq rounded up to 128; the pad
+//     rows get lse +inf and Delta 0, so their P and dS are 0), 16-byte
+//     loads.  Folding it into the dq kernel's prologue (run first) and
+//     making its loads 16 bytes wide were each timed in turns against the
+//     same earlier build (kernel_ab.py on an H100, PERF.md §6), never
+//     against each other; the wide loads saved more, so it stays a launch
+//     of its own;
+//  2. dkdv: one block of three warpgroups a (b, KV head, share of its
+//     group, tile of 128 keys).  Warpgroup 0 is the producer: it gives up
+//     its registers (setmaxnreg), and one thread loads the K and V tile
+//     once, then keeps a ring of 64-row Q and dO tiles and their lse and
+//     Delta rows full, with TMA (cp.async.bulk.tensor, 128-byte swizzle,
+//     out-of-bounds rows zero-filled) behind full/empty mbarriers, walking
+//     the share's q-heads in head order and, for each, the query tiles
+//     that can see the block's keys.  Warpgroups 1 and 2 own 64 keys each:
+//     S^T = K Q^T and dP^T = V dO^T with wgmma from shared memory (both
+//     operands K-major), P^T and dS^T in registers on the accumulator's
+//     layout, packed to bf16 as the A operand of dV += P^T dO and
+//     dK += dS^T Q (wgmma with A from registers, B MN-major: the
+//     forward's P V form).  dK and dV stay in float32 registers for the
+//     whole walk (128 a thread at D 128), so a group is summed in
+//     registers: no scratch and no further launch.  Where the blocks'
+//     walks leave SMs of the card idle (an MQA, or a small causal grid
+//     whose late key tiles walk few query tiles), the plan cuts each
+//     group into the shares its model of the walks and of the partials'
+//     traffic finds fastest; each share then writes float32 partials and
+//  2b. group_sum adds them in share order;
+//  3. dq: one block of three warpgroups a (b, q-head, 128 query rows),
+//     the forward's structure plus one product: Q and dO loaded once, 64-
+//     key K and V tiles streamed through a TMA ring; S = Q K^T and
+//     dP = dO V^T from shared memory, dS in registers, dQ += dS K with A
+//     from registers and K MN-major.  dQ stays in registers and is
+//     scaled and written once.
+// Both walking kernels skip whole tiles outside the causal, window or
+// chunk range and run the per-element mask only on tiles that straddle an
+// edge (the diagonal, a window or chunk edge, the ragged end); llama4's
+// chunk is a template flag, so the unchunked launches carry none of its
+// divisions.  The longest walks are dispatched first (the first key tiles
+// and the last query tiles under the causal mask).  q, k, v, o and dO
+// must be TMA-ready (16-byte aligned bases and strides; the wrapper copies
+// one that is not): prep reads o and dO 16 bytes at a time.
+//
+// mma_sync (namespace ms; bf16 above D 128, float32 at any D): the first
+// design, on mma.sync.
+// Three launches (four with GQA): Delta; dkdv, one block a (b, q-head,
+// tile of R keys), K and V in shared memory, walking the query tiles that
+// see its keys with synchronous loads, P^T and dS^T through shared memory;
+// each q-head's float32 share of dK and dV to scratch where Hq > Hk, added
+// by group_sum in head order; dq, one block a (b, q-head, tile of R
+// query rows).  Eight warps a block, mma.sync m16n8k16 with ldmatrix
+// operands (bf16), or the same tiles and fragment layout on CUDA cores in
+// full f32 (tests; no training path takes it at full size).  R is 64, or
+// 32 for float32 above D 128 (shared memory).  P and dS are rounded to
+// bf16 for the gradient products on both bf16 routes, as the forward
+// rounds P.
 //
 // Takes exactly what the forward takes: bf16 and float32; D a multiple of
 // 16 up to 256; Hq % Hk == 0 (KV head h / (Hq / Hk)); causal, a sliding
 // window, llama4's chunk (floor division) or no mask; Sq != Skv with
 // query row i at position i + Skv - Sq.  Any (batch, head, seq) strides
 // with a contiguous last dimension.
+#include <climits>
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attn_wgmma.cuh"
+#include "hopper.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace attn;    // masks, wgmma forms, tensor maps
 
-struct Strides {
-  int64_t b, h, s;                // element strides; the last dim is unit
-};
-
-// ----------------------------------------------------- masks (as forward)
-__device__ __forceinline__ int chunk_start(int a, int c) {
-  const int q = a / c;
-  return (q - (a % c < 0)) * c;
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);
 }
 
-struct KeyRange {
-  int lo, hi;
-};
-
-__device__ __forceinline__ KeyRange key_range(int pos, int skv, int causal,
-                                              int window, int chunk) {
-  KeyRange r{0, skv};
-  if (causal) r.hi = min(r.hi, pos + 1);
-  if (window > 0) r.lo = max(r.lo, pos - window + 1);
-  if (chunk > 0) {
-    const int c = chunk_start(pos, chunk);
-    r.lo = max(r.lo, c);
-    r.hi = min(r.hi, c + chunk);
+// dK and dV from float32 partials [shares, 2, B, Hk, Skv, D] (dK scaled,
+// then dV): each element the sum of its shares in share order
+// (deterministic), written in the operands' dtype with their strides
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_group_sum(const float* part, int shares, void* dk, void* dv,
+                    Strides dks, Strides dvs, int hk, int skv, int d,
+                    int64_t n) {
+  const int64_t head = static_cast<int64_t>(skv) * d;
+  for (int64_t i = blockIdx.x * int64_t{256} + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * 256) {
+    const int c = static_cast<int>(i % d);
+    const int64_t row = (i / d) % skv;
+    const int64_t bk = i / head;                 // b * Hk + kvh
+    const int kvh = static_cast<int>(bk % hk);
+    const int b = static_cast<int>(bk / hk);
+    float sk = 0.f, sv = 0.f;
+    for (int s = 0; s < shares; ++s) {
+      sk += part[2 * s * n + i];
+      sv += part[(2 * s + 1) * n + i];
+    }
+    static_cast<T*>(dk)[b * dks.b + kvh * dks.h + row * dks.s + c] =
+        from_f<T>(sk);
+    static_cast<T*>(dv)[b * dvs.b + kvh * dvs.h + row * dvs.s + c] =
+        from_f<T>(sv);
   }
-  return r;
 }
+
+template <typename T>
+cudaError_t group_sum(const float* part, int shares, void* dk, void* dv,
+                      Strides dks, Strides dvs, int b, int hk, int skv,
+                      int d, cudaStream_t stream) {
+  const int64_t n = static_cast<int64_t>(b) * hk * skv * d;
+  const int64_t blocks = (n + 255) / 256;
+  flash_bwd_group_sum<T><<<static_cast<unsigned>(
+                               blocks < 4096 ? blocks : 4096),
+                           256, 0, stream>>>(part, shares, dk, dv, dks, dvs,
+                                             hk, skv, d, n);
+  return cudaGetLastError();
+}
+
+// ============================== mma_sync route (ms): the first design
+namespace ms {
 
 // ------------------------------------------------------------- geometry
 constexpr int kThreads = 256;
@@ -112,9 +177,6 @@ struct Geo {
   static constexpr int kPad = 16 / sizeof(T);    // 16 bytes a row
   static constexpr int LD = MD + kPad;           // Q/K/V/dO tile rows
   static constexpr int LDP = R + kPad;           // P / dS tile rows
-  // blocks an SM: two for bf16 up to D 128 (at most 128 registers a
-  // thread), one above (the D 256 accumulators) and for float32
-  static constexpr int kMinBlocks = (sizeof(T) == 2 && MD <= 128) ? 2 : 1;
   static constexpr size_t kSmemKV =              // dkdv: K V Q dO P dS
       (4 * size_t(R) * LD + 2 * size_t(R) * LDP) * sizeof(T)
       + 2 * R * sizeof(float);
@@ -137,24 +199,13 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  float* dkv_part;                // [2, B, Hq, Skv, D] when Hq > Hk, or null
+  float* dkv_part;     // [Hq / Hk, 2, B, Hk, Skv, D] when Hq > Hk, or null
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
   int b, hq, hk, sq, skv, d;
   int causal, window, chunk;      // window, chunk <= 0: none
   float scale, scale_log2;
   int vec;                        // 16-byte loads are aligned
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // rows [0, rows) of a [rows, d] matrix (row stride ``stride``) into shared
 // memory with row stride LD; rows from ``valid`` on are zero, so a padding
@@ -345,7 +396,7 @@ flash_bwd_delta(const Params p, float* delta) {
 
 // ----------------------------------------------------------------- dK dV
 template <typename T, int MD>
-__global__ void __launch_bounds__(kThreads, (Geo<T, MD>::kMinBlocks))
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv(const Params p) {
   using G = Geo<T, MD>;
   constexpr int R = G::R, LD = G::LD, LDP = G::LDP;
@@ -463,13 +514,14 @@ flash_bwd_dkdv(const Params p) {
   }
 
   // one q-head per KV head: the gradients themselves; a group: this
-  // q-head's share, float32, summed over the group by flash_bwd_group_sum
+  // q-head's share, float32, share h % group of the [group, 2, B, Hk, Skv,
+  // D] scratch, summed over the group by flash_bwd_group_sum
   T* dkg = static_cast<T*>(p.dk) + b * p.dks.b + kvh * p.dks.h;
   T* dvg = static_cast<T*>(p.dv) + b * p.dvs.b + kvh * p.dvs.h;
-  const int64_t part_n = static_cast<int64_t>(p.b) * p.hq * p.skv * p.d;
+  const int64_t part_n = static_cast<int64_t>(p.b) * p.hk * p.skv * p.d;
   float* pkg = p.dkv_part == nullptr ? nullptr
-               : p.dkv_part + (static_cast<int64_t>(b) * p.hq + h) * p.skv
-                                  * p.d;
+               : p.dkv_part + 2 * (h % (p.hq / p.hk)) * part_n
+                     + (static_cast<int64_t>(b) * p.hk + kvh) * p.skv * p.d;
 #pragma unroll
   for (int j = 0; j < NTD; ++j) {
     if (j < nt_d) {
@@ -492,38 +544,9 @@ flash_bwd_dkdv(const Params p) {
   }
 }
 
-// dK and dV of a group: each element the sum of its q-heads' shares in
-// head order (deterministic), written in the operands' dtype
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_group_sum(const Params p) {
-  const int group = p.hq / p.hk;
-  const int64_t n = static_cast<int64_t>(p.b) * p.hk * p.skv * p.d;
-  const int64_t part_n = static_cast<int64_t>(p.b) * p.hq * p.skv * p.d;
-  const int64_t head = static_cast<int64_t>(p.skv) * p.d;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int c = static_cast<int>(i % p.d);
-    const int64_t row = (i / p.d) % p.skv;
-    const int64_t bk = i / head;                 // b * Hk + kvh
-    const int kvh = static_cast<int>(bk % p.hk);
-    const int b = static_cast<int>(bk / p.hk);
-    const float* src = p.dkv_part + (bk * group) * head + row * p.d + c;
-    float sk = 0.f, sv = 0.f;
-    for (int g = 0; g < group; ++g) {
-      sk += src[g * head];
-      sv += src[part_n + g * head];
-    }
-    static_cast<T*>(p.dk)[b * p.dks.b + kvh * p.dks.h + row * p.dks.s + c] =
-        from_f<T>(sk);
-    static_cast<T*>(p.dv)[b * p.dvs.b + kvh * p.dvs.h + row * p.dvs.s + c] =
-        from_f<T>(sv);
-  }
-}
-
 // -------------------------------------------------------------------- dQ
 template <typename T, int MD>
-__global__ void __launch_bounds__(kThreads, (Geo<T, MD>::kMinBlocks))
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq(const Params p) {
   using G = Geo<T, MD>;
   constexpr int R = G::R, LD = G::LD, LDP = G::LDP;
@@ -660,12 +683,8 @@ int launch_md(const Params& p, float* delta, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.dkv_part != nullptr) {
-    const int64_t n = static_cast<int64_t>(p.b) * p.hk * p.skv * p.d;
-    const int64_t blocks = (n + kThreads - 1) / kThreads;
-    flash_bwd_group_sum<T><<<static_cast<unsigned>(
-                                 blocks < 4096 ? blocks : 4096),
-                             kThreads, 0, stream>>>(p);
-    err = cudaGetLastError();
+    err = group_sum<T>(p.dkv_part, p.hq / p.hk, p.dk, p.dv, p.dks, p.dvs,
+                       p.b, p.hk, p.skv, p.d, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
 
@@ -688,7 +707,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, float* dkv_part, int64_t b, int64_t hq,
            int64_t hk, int64_t sq, int64_t skv, int64_t d, const int64_t* st,
-           int64_t causal, int64_t window, int64_t chunk, void* stream) {
+           int64_t causal, int64_t window, int64_t chunk, int64_t shares,
+           int64_t delta_n, int64_t part_n, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -728,23 +748,758 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (hk <= 0 || hq % hk != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if ((hq != hk) != (dkv_part != nullptr) || b * hq >= (int64_t{1} << 31)
+  if ((hq != hk) != (dkv_part != nullptr) || shares != hq / hk
+      || delta_n < b * hq * sq
+      || part_n < (hq != hk ? 2 * b * hq * skv * d : 0)
+      || b * hq >= (int64_t{1} << 31)
       || (sq + 31) / 32 > 65535 || (skv + 31) / 32 > 65535) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 64) return launch_md<T, 64>(p, delta, s);
-  if (d <= 128) return launch_md<T, 128>(p, delta, s);
-  return launch_md<T, 256>(p, delta, s);
+  if constexpr (sizeof(T) == 2) {
+    if (d <= 128) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_md<T, 256>(p, delta, s);   // bf16 only above D 128
+  } else {
+    if (d <= 64) return launch_md<T, 64>(p, delta, s);
+    if (d <= 128) return launch_md<T, 128>(p, delta, s);
+    return launch_md<T, 256>(p, delta, s);
+  }
 }
+
+}  // namespace ms
+
+// ============================== wgmma route (wg): wgmma + TMA, bf16, D <= 128
+namespace wg {
+
+constexpr int kThreads = 384;         // producer + two consumer warpgroups
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kKeys = 128;            // dkdv: keys a block, 64 a consumer
+constexpr int kRows = 64;             // dkdv: query rows of a ring tile
+constexpr int kQRows = 128;           // dq: query rows a block, 64 a consumer
+constexpr int kKvKeys = 64;           // dq: keys of a ring tile
+constexpr int kStages = 3;            // depth of both kernels' rings
+constexpr int kPad = 128;             // Sq_pad: Sq rounded up to this
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Params {
+  const void* o;
+  const void* dout;
+  const float* lse;               // [B, Hq, Sq] contiguous
+  float* stats;                   // [2, B * Hq, sq_pad]: lse * log2 e, Delta
+  void* dq;
+  void* dk;
+  void* dv;
+  float* part;                    // [shares, 2, B, Hk, Skv, D], or null
+  Strides os, dos, dqs, dks, dvs;
+  int b, hq, hk, sq, skv, d, sq_pad;
+  int causal, window, chunk;      // window, chunk <= 0: none
+  int shares;                     // of each group (1: no partials)
+  float scale, scale_log2;
+  // for each tensor map, the dimension (1..3) that holds S, H and B,
+  // two bits each: dims 1..3 are ordered by stride on the host
+  int q_order, do_order, k_order, v_order;
+};
+
+// dkdv: the K and V tiles (NP panels of kKeys rows), a ring of Q and dO
+// tiles (NP panels of kRows rows) with their lse and Delta rows
+template <int NP>
+constexpr size_t dkdv_smem() {
+  return 1024                                        // room to align to 1 KB
+         + 2 * size_t(NP) * kKeys * 128              // K and V
+         + 2 * size_t(kStages) * NP * kRows * 128    // Q and dO ring
+         + size_t(kStages) * 2 * kRows * sizeof(float)
+         + 8 * (2 * kStages + 1);                    // mbarriers
+}
+// dq: Q and dO (NP panels of kQRows rows), a ring of K and V tiles
+template <int NP>
+constexpr size_t dq_smem() {
+  return 1024 + 2 * size_t(NP) * kQRows * 128
+         + 2 * size_t(kStages) * NP * kKvKeys * 128 + 8 * (2 * kStages + 1);
+}
+static_assert(dkdv_smem<2>() <= 232448, "dkdv tiles at D 128");
+static_assert(dq_smem<2>() <= 232448, "dq tiles at D 128");
+
+// The query positions [lo, hi) whose masks keep key kp: every mask is one
+// range of positions, and both ends only grow with kp
+struct PosRange {
+  int lo, hi;
+};
+
+__device__ __forceinline__ PosRange pos_range(int kp, int causal, int window,
+                                              int chunk) {
+  int64_t lo = INT_MIN, hi = INT_MAX;
+  if (causal) lo = kp;
+  if (window > 0) hi = int64_t{kp} + window < hi ? int64_t{kp} + window : hi;
+  if (chunk > 0) {
+    const int c = chunk_start(kp, chunk);
+    lo = c > lo ? c : lo;
+    hi = int64_t{c} + chunk < hi ? int64_t{c} + chunk : hi;
+  }
+  return {static_cast<int>(lo), static_cast<int>(hi)};
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// ------------------------------------------------------------------ prep
+// half a warp a row of [B * Hq, sq_pad], 8 columns a lane (16-byte
+// loads): lse * log2 e and Delta = rowsum(dO * O); a pad row gets +inf
+// and 0
+__global__ void __launch_bounds__(256) flash_bwd_prep(const Params p) {
+  const int64_t rows = static_cast<int64_t>(p.b) * p.hq * p.sq_pad;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 16 + threadIdx.x / 16;
+  const int l16 = threadIdx.x & 15;
+  const bool live = row < rows;
+  const int i = live ? static_cast<int>(row % p.sq_pad) : 0;
+  const int64_t bh = live ? row / p.sq_pad : 0;
+  const bool real = live && i < p.sq;
+  float s = 0.f;
+  const int c = 8 * l16;
+  if (real && c < p.d) {
+    const int h = static_cast<int>(bh % p.hq);
+    const int b = static_cast<int>(bh / p.hq);
+    const bf16* o = static_cast<const bf16*>(p.o) + b * p.os.b + h * p.os.h
+                    + i * p.os.s;
+    const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.dos.b
+                       + h * p.dos.h + i * p.dos.s;
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + c);
+    const uint4 gv = *reinterpret_cast<const uint4*>(dout + c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 of = __bfloat1622float2(o2[e]);
+      const float2 gf = __bfloat1622float2(g2[e]);
+      s = fmaf(of.x, gf.x, s);
+      s = fmaf(of.y, gf.y, s);
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  }
+  if (live && l16 == 0) {
+    p.stats[row] = real ? p.lse[bh * p.sq + i] * kLog2e : INFINITY;
+    p.stats[rows + row] = s;
+  }
+}
+
+// ----------------------------------------------------------------- dK dV
+// kChunk: whether p.chunk is set (only chunked launches carry its
+// divisions)
+template <int NP, bool kChunk>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap domap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, const Params p) {
+  constexpr int kKV = kKeys * 128;       // one panel of the K or V tile
+  constexpr int kTile = kRows * 128;     // one panel of a Q or dO tile
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1 KB: tiles start on 1 KB
+  unsigned char* Ks = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Vs = Ks + NP * kKV;
+  unsigned char* Qs = Vs + NP * kKV;
+  unsigned char* dOs = Qs + kStages * NP * kTile;
+  float* stat = reinterpret_cast<float*>(dOs + kStages * NP * kTile);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stat + kStages * 2 * kRows);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_bar = empty + kStages;
+
+  // the block: (b, KV head, share of its group), key tile; the tile index
+  // varies slowest, so the first key tiles (the longest walks under the
+  // causal mask) are dispatched first
+  const int share = blockIdx.x % p.shares;
+  const int bk = blockIdx.x / p.shares;
+  const int kvh = bk % p.hk, b = bk / p.hk;
+  const int group = p.hq / p.hk;
+  const int h_begin = kvh * group + share * group / p.shares;
+  const int h_end = kvh * group + (share + 1) * group / p.shares;
+  const int k0 = blockIdx.y * kKeys;
+  const int k_rows = min(kKeys, p.skv - k0);
+  const int chunk = kChunk ? p.chunk : 0;
+  const int shift = p.skv - p.sq;
+  // the query rows [r_lo, r_hi) whose masks can keep a key of the tile,
+  // walked in tiles of kRows for every q-head of the share
+  const PosRange first = pos_range(k0, p.causal, p.window, chunk);
+  const PosRange last = pos_range(k0 + k_rows - 1, p.causal, p.window,
+                                  chunk);
+  int64_t r_lo = int64_t{first.lo} - shift, r_hi = int64_t{last.hi} - shift;
+  r_lo = r_lo > 0 ? r_lo : 0;
+  r_hi = r_hi < p.sq ? r_hi : p.sq;
+  const int qt_begin = static_cast<int>(r_lo / kRows);
+  const int n_qt = r_hi > r_lo
+                       ? static_cast<int>((r_hi + kRows - 1) / kRows) - qt_begin
+                       : 0;
+  const int n_tiles = (h_end - h_begin) * n_qt;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 8);     // one arrival per consumer warp
+    }
+    hopper::mbar_init(kv_bar, 1);
+    hopper::mbar_init_fence();
+    hopper::fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------------------------------------------- producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(kv_bar, 2 * NP * kKV);
+      for (int pn = 0; pn < NP; ++pn) {
+        load_box(Ks + pn * kKV, &kmap, p.k_order, pn * kPanel, k0, kvh, b,
+                 kv_bar);
+        load_box(Vs + pn * kKV, &vmap, p.v_order, pn * kPanel, k0, kvh, b,
+                 kv_bar);
+      }
+      const int64_t plane = static_cast<int64_t>(p.b) * p.hq * p.sq_pad;
+      int h = h_begin, qt = qt_begin;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        hopper::mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[st],
+                                      2 * NP * kTile + 2 * kRows * 4);
+        for (int pn = 0; pn < NP; ++pn) {
+          load_box(Qs + (st * NP + pn) * kTile, &qmap, p.q_order,
+                   pn * kPanel, qt * kRows, h, b, &full[st]);
+          load_box(dOs + (st * NP + pn) * kTile, &domap, p.do_order,
+                   pn * kPanel, qt * kRows, h, b, &full[st]);
+        }
+        const float* src = p.stats
+                           + (static_cast<int64_t>(b) * p.hq + h) * p.sq_pad
+                           + qt * kRows;
+        hopper::bulk_load(stat + st * 2 * kRows, src, kRows * 4, &full[st]);
+        hopper::bulk_load(stat + st * 2 * kRows + kRows, src + plane,
+                          kRows * 4, &full[st]);
+        if (++qt == qt_begin + n_qt) {
+          qt = qt_begin;
+          ++h;
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumers
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128 - 1;       // 64-key half of the tile
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  // this thread's two keys (rows of the accumulator layout), and its
+  // query rows 8 j + col + {0, 1} of every 8-row chunk j
+  const int kw0 = k0 + wg * 64;
+  const int ka = kw0 + warp * 16 + lane / 4, kb = ka + 8;
+  const int col = 2 * (lane & 3);
+  const PosRange ra = pos_range(ka, p.causal, p.window, chunk);
+  const PosRange rb = pos_range(kb, p.causal, p.window, chunk);
+  // a query tile whose positions every key of the warpgroup keeps, within
+  // the keys that exist, runs no mask
+  const int wlo = pos_range(kw0 + 63, p.causal, p.window, chunk).lo;
+  const int whi = pos_range(kw0, p.causal, p.window, chunk).hi;
+  const bool keys_in = kw0 + 64 <= p.skv;
+  const float sl2 = p.scale_log2;
+
+  float dk[NP * 32], dv[NP * 32], s[32], dp[32];
+  zero(dk);
+  zero(dv);
+  zero(s);
+  zero(dp);
+  uint32_t pt[16], dst[16];
+
+  hopper::mbar_wait(kv_bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    const int p0 = (qt_begin + i % n_qt) * kRows + shift;  // first position
+    hopper::mbar_wait(&full[st], (i / kStages) & 1);
+
+    // S^T = K Q^T, then dP^T = V dO^T: two groups, over NP panels of D
+    hopper::fence_operand(s);
+    hopper::fence_operand(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk) {
+      const uint64_t da = hopper::smem_desc_sw128(
+          Ks + (kk / 4) * kKV + wg * 64 * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = hopper::smem_desc_sw128(
+          Qs + (st * NP + kk / 4) * kTile + (kk % 4) * 32, 16, 1024);
+      wgmma_ss_m64n64(s, da, db, kk > 0);
+    }
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk) {
+      const uint64_t da = hopper::smem_desc_sw128(
+          Vs + (kk / 4) * kKV + wg * 64 * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = hopper::smem_desc_sw128(
+          dOs + (st * NP + kk / 4) * kTile + (kk % 4) * 32, 16, 1024);
+      wgmma_ss_m64n64(dp, da, db, kk > 0);
+    }
+    hopper::wgmma_commit();
+
+    const float* lse2 = stat + st * 2 * kRows;
+    const float* delta = lse2 + kRows;
+    const bool edge = !(keys_in && p0 >= wlo && p0 + kRows <= whi);
+    hopper::wgmma_wait<1>();                    // S^T is in
+    hopper::fence_operand(s);
+    // P^T = exp2(S^T scale log2 e - lse log2 e), masked on edge tiles; a
+    // pad row's lse is +inf, so its P is 0
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * j + col + e;
+        const float l = lse2[r];
+        float pa = ex2(fmaf(s[4 * j + e], sl2, -l));
+        float pb = ex2(fmaf(s[4 * j + 2 + e], sl2, -l));
+        if (edge) {
+          const int pos = p0 + r;
+          if (!(pos >= ra.lo && pos < ra.hi && ka < p.skv)) pa = 0.f;
+          if (!(pos >= rb.lo && pos < rb.hi && kb < p.skv)) pb = 0.f;
+        }
+        s[4 * j + e] = pa;
+        s[4 * j + 2 + e] = pb;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      pt[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      pt[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
+    // dV += P^T dO over the tile's 64 rows (dO MN-major)
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      const uint64_t db = hopper::smem_desc_sw128(
+          dOs + st * NP * kTile + kk * 16 * 128, kTile, 1024);
+      if constexpr (NP == 1) {
+        wgmma_rs_m64n64<0>(dv, pt + 4 * kk, db);
+      } else {
+        wgmma_rs_m64n128<0>(dv, pt + 4 * kk, db);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();                    // dP^T is in
+    hopper::fence_operand(dp);
+    // dS^T = P^T (dP^T - Delta), while dV runs
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dl = delta[8 * j + col + e];
+        s[4 * j + e] *= dp[4 * j + e] - dl;
+        s[4 * j + 2 + e] *= dp[4 * j + 2 + e] - dl;
+      }
+      dst[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      dst[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
+    // dK += dS^T Q (Q MN-major)
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      const uint64_t db = hopper::smem_desc_sw128(
+          Qs + st * NP * kTile + kk * 16 * 128, kTile, 1024);
+      if constexpr (NP == 1) {
+        wgmma_rs_m64n64<0>(dk, dst + 4 * kk, db);
+      } else {
+        wgmma_rs_m64n128<0>(dk, dst + 4 * kk, db);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(dv);
+    hopper::fence_operand(dk);
+    hopper::fence_operand(pt);
+    hopper::fence_operand(dst);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+  // epilogue: dK * scale and dV, bf16 to the gradients, or float32 to the
+  // share's partials
+  const float sc = p.scale;
+  if (p.part == nullptr) {
+    bf16* dkg = static_cast<bf16*>(p.dk) + b * p.dks.b + kvh * p.dks.h;
+    bf16* dvg = static_cast<bf16*>(p.dv) + b * p.dvs.b + kvh * p.dvs.h;
+#pragma unroll
+    for (int j = 0; j < NP * 8; ++j) {
+      const int c = 8 * j + col;
+      if (c < p.d && ka < p.skv) {
+        *reinterpret_cast<__nv_bfloat162*>(dkg + ka * p.dks.s + c) =
+            __floats2bfloat162_rn(dk[4 * j] * sc, dk[4 * j + 1] * sc);
+        *reinterpret_cast<__nv_bfloat162*>(dvg + ka * p.dvs.s + c) =
+            __floats2bfloat162_rn(dv[4 * j], dv[4 * j + 1]);
+      }
+      if (c < p.d && kb < p.skv) {
+        *reinterpret_cast<__nv_bfloat162*>(dkg + kb * p.dks.s + c) =
+            __floats2bfloat162_rn(dk[4 * j + 2] * sc, dk[4 * j + 3] * sc);
+        *reinterpret_cast<__nv_bfloat162*>(dvg + kb * p.dvs.s + c) =
+            __floats2bfloat162_rn(dv[4 * j + 2], dv[4 * j + 3]);
+      }
+    }
+  } else {
+    const int64_t n = static_cast<int64_t>(p.b) * p.hk * p.skv * p.d;
+    float* pk = p.part + 2 * share * n
+                + (static_cast<int64_t>(b) * p.hk + kvh) * p.skv * p.d;
+    float* pv = pk + n;
+#pragma unroll
+    for (int j = 0; j < NP * 8; ++j) {
+      const int c = 8 * j + col;
+      if (c < p.d && ka < p.skv) {
+        const int64_t at = static_cast<int64_t>(ka) * p.d + c;
+        *reinterpret_cast<float2*>(pk + at) =
+            make_float2(dk[4 * j] * sc, dk[4 * j + 1] * sc);
+        *reinterpret_cast<float2*>(pv + at) =
+            make_float2(dv[4 * j], dv[4 * j + 1]);
+      }
+      if (c < p.d && kb < p.skv) {
+        const int64_t at = static_cast<int64_t>(kb) * p.d + c;
+        *reinterpret_cast<float2*>(pk + at) =
+            make_float2(dk[4 * j + 2] * sc, dk[4 * j + 3] * sc);
+        *reinterpret_cast<float2*>(pv + at) =
+            make_float2(dv[4 * j + 2], dv[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// -------------------------------------------------------------------- dQ
+template <int NP, bool kChunk>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wg(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap domap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, const Params p) {
+  constexpr int kQT = kQRows * 128;      // one panel of Q or dO
+  constexpr int kKT = kKvKeys * 128;     // one panel of a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* dOs = Qs + NP * kQT;
+  unsigned char* Ks = dOs + NP * kQT;
+  unsigned char* Vs = Ks + kStages * NP * kKT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + kStages * NP * kKT);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_bar = empty + kStages;
+
+  // the last query tiles, the longest walks under the causal mask, are
+  // dispatched first: the tile index varies slowest
+  const int n_qt = (p.sq + kQRows - 1) / kQRows;
+  const int h = blockIdx.x % p.hq, b = blockIdx.x / p.hq;
+  const int kvh = h / (p.hq / p.hk);
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kQRows;
+  const int q_rows = min(kQRows, p.sq - q0);
+  const int chunk = kChunk ? p.chunk : 0;
+  const TileRange tr = tile_range(q0, q_rows, p.sq, p.skv, p.causal,
+                                  p.window, chunk, kKvKeys);
+  const int n_tiles = tr.t_end - tr.t_begin;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 8);     // one arrival per consumer warp
+    }
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_init_fence();
+    hopper::fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------------------------------------------- producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(q_bar, 2 * NP * kQT);
+      for (int pn = 0; pn < NP; ++pn) {
+        load_box(Qs + pn * kQT, &qmap, p.q_order, pn * kPanel, q0, h, b,
+                 q_bar);
+        load_box(dOs + pn * kQT, &domap, p.do_order, pn * kPanel, q0, h, b,
+                 q_bar);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const int k0 = (tr.t_begin + i) * kKvKeys;
+        hopper::mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[st], 2 * NP * kKT);
+        for (int pn = 0; pn < NP; ++pn) {
+          load_box(Ks + (st * NP + pn) * kKT, &kmap, p.k_order, pn * kPanel,
+                   k0, kvh, b, &full[st]);
+          load_box(Vs + (st * NP + pn) * kKT, &vmap, p.v_order, pn * kPanel,
+                   k0, kvh, b, &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumers
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  const int half = threadIdx.x / 128 - 1;     // 64-row half of the tile
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  // this thread's two rows of the accumulator layout, and its keys
+  // 8 j + col + {0, 1} of every 8-key chunk j
+  const int row0 = half * 64 + warp * 16 + lane / 4, row1 = row0 + 8;
+  const int col = 2 * (lane & 3);
+  const int shift = p.skv - p.sq;
+  const KeyRange keys0 = key_range(q0 + row0 + shift, p.skv, p.causal,
+                                   p.window, chunk);
+  const KeyRange keys1 = key_range(q0 + row1 + shift, p.skv, p.causal,
+                                   p.window, chunk);
+  // the keys every row of this warpgroup keeps: a tile within them runs
+  // no mask
+  const int wq = q0 + half * 64 + shift;
+  const int lo_last = key_range(wq + 63, p.skv, p.causal, p.window,
+                                chunk).lo;
+  const int hi_first = key_range(wq, p.skv, p.causal, p.window, chunk).hi;
+  // the rows' lse * log2 e and Delta (a pad row: +inf and 0)
+  const float* rows = p.stats + (static_cast<int64_t>(b) * p.hq + h)
+                                    * p.sq_pad + q0;
+  const int64_t plane = static_cast<int64_t>(p.b) * p.hq * p.sq_pad;
+  const float l0 = rows[row0], l1 = rows[row1];
+  const float d0 = rows[plane + row0], d1 = rows[plane + row1];
+  const float sl2 = p.scale_log2;
+
+  float dq[NP * 32], s[32], dp[32];
+  zero(dq);
+  zero(s);
+  zero(dp);
+  uint32_t dsa[16];
+
+  hopper::mbar_wait(q_bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    const int k0 = (tr.t_begin + i) * kKvKeys;
+    hopper::mbar_wait(&full[st], (i / kStages) & 1);
+
+    // S = Q K^T, then dP = dO V^T: two groups, over NP panels of D
+    hopper::fence_operand(s);
+    hopper::fence_operand(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk) {
+      const uint64_t da = hopper::smem_desc_sw128(
+          Qs + (kk / 4) * kQT + half * 64 * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = hopper::smem_desc_sw128(
+          Ks + (st * NP + kk / 4) * kKT + (kk % 4) * 32, 16, 1024);
+      wgmma_ss_m64n64(s, da, db, kk > 0);
+    }
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk) {
+      const uint64_t da = hopper::smem_desc_sw128(
+          dOs + (kk / 4) * kQT + half * 64 * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = hopper::smem_desc_sw128(
+          Vs + (st * NP + kk / 4) * kKT + (kk % 4) * 32, 16, 1024);
+      wgmma_ss_m64n64(dp, da, db, kk > 0);
+    }
+    hopper::wgmma_commit();
+
+    const bool edge = !(k0 >= lo_last && k0 + kKvKeys <= hi_first);
+    hopper::wgmma_wait<1>();                    // S is in
+    hopper::fence_operand(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p0 = ex2(fmaf(s[4 * j + e], sl2, -l0));
+        float p1 = ex2(fmaf(s[4 * j + 2 + e], sl2, -l1));
+        if (edge) {
+          const int kp = k0 + 8 * j + col + e;
+          if (!(kp >= keys0.lo && kp < keys0.hi)) p0 = 0.f;
+          if (!(kp >= keys1.lo && kp < keys1.hi)) p1 = 0.f;
+        }
+        s[4 * j + e] = p0;
+        s[4 * j + 2 + e] = p1;
+      }
+    }
+    hopper::wgmma_wait<0>();                    // dP is in
+    hopper::fence_operand(dp);
+    // dS = P (dP - Delta), packed as the A operand of dS K
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      dsa[2 * j] = pack_bf16(s[4 * j] * (dp[4 * j] - d0),
+                             s[4 * j + 1] * (dp[4 * j + 1] - d0));
+      dsa[2 * j + 1] = pack_bf16(s[4 * j + 2] * (dp[4 * j + 2] - d1),
+                                 s[4 * j + 3] * (dp[4 * j + 3] - d1));
+    }
+    // dQ += dS K over the tile's 64 keys (K MN-major)
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKvKeys / 16; ++kk) {
+      const uint64_t db = hopper::smem_desc_sw128(
+          Ks + st * NP * kKT + kk * 16 * 128, kKT, 1024);
+      if constexpr (NP == 1) {
+        wgmma_rs_m64n64<0>(dq, dsa + 4 * kk, db);
+      } else {
+        wgmma_rs_m64n128<0>(dq, dsa + 4 * kk, db);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(dq);
+    hopper::fence_operand(dsa);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+  // epilogue: dQ * scale -> bf16 -> global
+  const float sc = p.scale;
+  bf16* dqg = static_cast<bf16*>(p.dq) + b * p.dqs.b + h * p.dqs.h;
+  bf16* out0 = dqg + static_cast<int64_t>(q0 + row0) * p.dqs.s;
+  bf16* out1 = dqg + static_cast<int64_t>(q0 + row1) * p.dqs.s;
+#pragma unroll
+  for (int j = 0; j < NP * 8; ++j) {
+    const int c = 8 * j + col;
+    if (c < p.d && row0 < q_rows) {
+      *reinterpret_cast<__nv_bfloat162*>(out0 + c) =
+          __floats2bfloat162_rn(dq[4 * j] * sc, dq[4 * j + 1] * sc);
+    }
+    if (c < p.d && row1 < q_rows) {
+      *reinterpret_cast<__nv_bfloat162*>(out1 + c) =
+          __floats2bfloat162_rn(dq[4 * j + 2] * sc, dq[4 * j + 3] * sc);
+    }
+  }
+}
+
+// --------------------------------------------------------------- launch
+// maps: Q, dO (box kRows), K, V (box kKeys) for dkdv; Q, dO (box
+// kQRows), K, V (box kKvKeys) for dq
+template <int NP, bool kChunk>
+int launch_np(const CUtensorMap (&kv)[4], const CUtensorMap (&qm)[4],
+              const Params& p, cudaStream_t stream) {
+  constexpr size_t smem_kv = dkdv_smem<NP>(), smem_q = dq_smem<NP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wg<NP, kChunk>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_kv));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_kv(static_cast<unsigned>(p.b * p.hk * p.shares),
+                     static_cast<unsigned>((p.skv + kKeys - 1) / kKeys));
+  flash_bwd_dkdv_wg<NP, kChunk><<<grid_kv, kThreads, smem_kv, stream>>>(
+      kv[0], kv[1], kv[2], kv[3], p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.part != nullptr) {
+    err = group_sum<bf16>(p.part, p.shares, p.dk, p.dv, p.dks, p.dvs, p.b,
+                          p.hk, p.skv, p.d, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = cudaFuncSetAttribute(
+      flash_bwd_dq_wg<NP, kChunk>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_q));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(static_cast<unsigned>(p.b * p.hq),
+                    static_cast<unsigned>((p.sq + kQRows - 1) / kQRows));
+  flash_bwd_dq_wg<NP, kChunk><<<grid_q, kThreads, smem_q, stream>>>(
+      qm[0], qm[1], qm[2], qm[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* stats, void* dq,
+           void* dk, void* dv, float* part, int64_t b, int64_t hq, int64_t hk,
+           int64_t sq, int64_t skv, int64_t d, const int64_t* st,
+           int64_t causal, int64_t window, int64_t chunk, int64_t shares,
+           int64_t stats_n, int64_t part_n, void* stream) {
+  if (d % 16 != 0 || d > 2 * kPanel || hk <= 0 || hq % hk != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t sq_pad = (sq + kPad - 1) / kPad * kPad;
+  if (shares < 1 || shares > hq / hk || (shares > 1) != (part != nullptr)
+      || stats_n < 2 * b * hq * sq_pad
+      || part_n < (shares > 1 ? shares * 2 * b * hk * skv * d : 0)
+      || b * hq * sq_pad / 8 >= (int64_t{1} << 31)
+      || b * hk * shares >= (int64_t{1} << 31)
+      || (sq + kQRows - 1) / kQRows > 65535
+      || (skv + kKeys - 1) / kKeys > 65535) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  Params p;
+  p.o = o;
+  p.dout = dout;
+  p.lse = lse;
+  p.stats = stats;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.part = part;
+  p.os = {st[9], st[10], st[11]};
+  p.dos = {st[12], st[13], st[14]};
+  p.dqs = {st[15], st[16], st[17]};
+  p.dks = {st[18], st[19], st[20]};
+  p.dvs = {st[21], st[22], st[23]};
+  p.b = static_cast<int>(b);
+  p.hq = static_cast<int>(hq);
+  p.hk = static_cast<int>(hk);
+  p.sq = static_cast<int>(sq);
+  p.skv = static_cast<int>(skv);
+  p.d = static_cast<int>(d);
+  p.sq_pad = static_cast<int>(sq_pad);
+  p.causal = causal != 0;
+  p.window = static_cast<int>(window);
+  p.chunk = static_cast<int>(chunk);
+  p.shares = static_cast<int>(shares);
+  const double scale = std::pow(static_cast<double>(d), -0.5);
+  p.scale = static_cast<float>(scale);
+  p.scale_log2 = static_cast<float>(scale * 1.4426950408889634);
+
+  CUtensorMap kv[4], qm[4];
+  int err = encode(&kv[0], q, b, hq, sq, d, st, kRows, &p.q_order);
+  if (err == 0) err = encode(&kv[1], dout, b, hq, sq, d, st + 12, kRows,
+                             &p.do_order);
+  if (err == 0) err = encode(&kv[2], k, b, hk, skv, d, st + 3, kKeys,
+                             &p.k_order);
+  if (err == 0) err = encode(&kv[3], v, b, hk, skv, d, st + 6, kKeys,
+                             &p.v_order);
+  // the same operands with the dq kernel's boxes: the orders do not change
+  int unused;
+  if (err == 0) err = encode(&qm[0], q, b, hq, sq, d, st, kQRows, &unused);
+  if (err == 0) err = encode(&qm[1], dout, b, hq, sq, d, st + 12, kQRows,
+                             &unused);
+  if (err == 0) err = encode(&qm[2], k, b, hk, skv, d, st + 3, kKvKeys,
+                             &unused);
+  if (err == 0) err = encode(&qm[3], v, b, hk, skv, d, st + 6, kKvKeys,
+                             &unused);
+  if (err != 0) return err;
+
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t rows = b * hq * sq_pad;
+  flash_bwd_prep<<<static_cast<unsigned>((rows + 15) / 16), 256, 0, s>>>(p);
+  const cudaError_t perr = cudaGetLastError();
+  if (perr != cudaSuccess) return static_cast<int>(perr);
+  if (d <= kPanel) {
+    return p.chunk > 0 ? launch_np<1, true>(kv, qm, p, s)
+                       : launch_np<1, false>(kv, qm, p, s);
+  }
+  return p.chunk > 0 ? launch_np<2, true>(kv, qm, p, s)
+                     : launch_np<2, false>(kv, qm, p, s);
+}
+
+}  // namespace wg
 
 }  // namespace
 
 // strides: 24 int64 element strides, (batch, head, seq) of q, k, v, o, dO,
-// dq, dk, dv; lse float32 [B, Hq, Sq] contiguous (the forward's), delta
-// float32 [B, Hq, Sq] scratch; dkv_part float32 [2, B, Hq, Skv, D] scratch
-// when Hq > Hk, null when Hq == Hk; window and chunk: 0 for none.  dq, dk,
-// dv are written whole.  Returns 0 or a CUDA error code.
+// dq, dk, dv; lse float32 [B, Hq, Sq] contiguous (the forward's); window
+// and chunk: 0 for none; dq, dk, dv are written whole.  The route, the
+// scratch and ``shares`` come from kernels/flash_attn/kernel.py:bwd_plan,
+// which alone picks the route; delta_n and part_n are the elements of
+// the two scratch buffers, and a launch that would write past either
+// returns an error:
+//  - route 1, wgmma (bf16, D <= 128): delta float32 [2, B * Hq, Sq_pad],
+//    Sq_pad = Sq rounded up to 128; shares: how many parts each group of
+//    q-heads is cut into, 1 <= shares <= Hq / Hk, with dkv_part float32
+//    [shares, 2, B, Hk, Skv, D] when shares > 1, null when 1;
+//  - route 0, mma_sync (bf16 above D 128, float32): delta float32 [B, Hq,
+//    Sq]; shares = Hq / Hk, with dkv_part float32 [Hq / Hk, 2, B, Hk,
+//    Skv, D] when Hq > Hk.
+// Returns 0, a CUDA error code (cudaErrorInvalidValue for a route that
+// does not take the dtype or D), or (route wgmma) -1 when
+// cuTensorMapEncodeTiled is not found and -2 when it refuses an operand.
 extern "C" int flash_attn_bwd_bf16(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
@@ -754,10 +1509,19 @@ extern "C" int flash_attn_bwd_bf16(const void* q, const void* k,
                                    int64_t sq, int64_t skv, int64_t d,
                                    const int64_t* strides, int64_t causal,
                                    int64_t window, int64_t chunk,
+                                   int64_t route, int64_t shares,
+                                   int64_t delta_n, int64_t part_n,
                                    void* stream) {
-  return launch<bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv, dkv_part, b,
+  if (route == 1) {
+    return wg::launch(q, k, v, o, dout, lse, delta, dq, dk, dv, dkv_part, b,
                       hq, hk, sq, skv, d, strides, causal, window, chunk,
-                      stream);
+                      shares, delta_n, part_n, stream);
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return ms::launch<attn::bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                dkv_part, b, hq, hk, sq, skv, d, strides,
+                                causal, window, chunk, shares, delta_n,
+                                part_n, stream);
 }
 
 extern "C" int flash_attn_bwd_f32(const void* q, const void* k,
@@ -769,8 +1533,11 @@ extern "C" int flash_attn_bwd_f32(const void* q, const void* k,
                                   int64_t sq, int64_t skv, int64_t d,
                                   const int64_t* strides, int64_t causal,
                                   int64_t window, int64_t chunk,
+                                  int64_t route, int64_t shares,
+                                  int64_t delta_n, int64_t part_n,
                                   void* stream) {
-  return launch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, dkv_part,
-                       b, hq, hk, sq, skv, d, strides, causal, window, chunk,
-                       stream);
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return ms::launch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                           dkv_part, b, hq, hk, sq, skv, d, strides, causal,
+                           window, chunk, shares, delta_n, part_n, stream);
 }

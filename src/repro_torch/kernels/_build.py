@@ -48,9 +48,12 @@ _SIGNATURES = {
     "flash_attn_f32": ([_P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _S, _L,
                         _L, _L, _P], _I),
     # q, k, v, o, dout, lse, delta, dq, dk, dv, dkv_part (or null), b, hq,
-    # hk, sq, skv, d, strides[24], causal, window, chunk, stream
-    "flash_attn_bwd_bf16": ([_P] * 11 + [_L] * 6 + [_S, _L, _L, _L, _P], _I),
-    "flash_attn_bwd_f32": ([_P] * 11 + [_L] * 6 + [_S, _L, _L, _L, _P], _I),
+    # hk, sq, skv, d, strides[24], causal, window, chunk, route, shares,
+    # delta elements, dkv_part elements, stream (flash_attn.kernel.bwd_plan)
+    "flash_attn_bwd_bf16": ([_P] * 11 + [_L] * 6 + [_S] + [_L] * 7 + [_P],
+                            _I),
+    "flash_attn_bwd_f32": ([_P] * 11 + [_L] * 6 + [_S] + [_L] * 7 + [_P],
+                           _I),
     # q, k, v, valid_len, lo, out, part_m, part_l, part_acc, tickets, b,
     # hq, hk, s, d, strides[10], chunk, n_splits, n_sub, stream
     "decode_attn_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
@@ -101,10 +104,11 @@ def _digest(srcs: list[pathlib.Path]) -> str:
 
 def _ptxas_lines(text: str) -> list[str]:
     """The ``ptxas -v`` lines of an nvcc log: per kernel, its registers,
-    shared memory, stack frame and spill stores/loads."""
+    shared memory, stack frame and spill stores/loads, and any warning
+    (C7513: wgmma serialised)."""
     return [line.strip() for line in text.splitlines()
             if line.lstrip().startswith("ptxas info")
-            or "bytes spill stores" in line]
+            or "bytes spill stores" in line or "warning" in line]
 
 
 def build() -> pathlib.Path:

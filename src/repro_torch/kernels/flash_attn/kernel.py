@@ -1,9 +1,13 @@
 """ctypes bindings of the CUDA flash-attention kernels: the forward
 (csrc/flash_attn.cu), optionally with the rows' log-sum-exp, and its
-backward (csrc/flash_attn_bwd.cu)."""
+backward (csrc/flash_attn_bwd.cu) with the plan that picks its route,
+shares and scratch (``bwd_plan``)."""
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
+from typing import NamedTuple
 
 import torch
 
@@ -14,6 +18,15 @@ _BWD = {torch.bfloat16: "flash_attn_bwd_bf16",
         torch.float32: "flash_attn_bwd_f32"}
 MAX_D = 256
 TMA_ALIGN = 16         # bytes: TMA's base and stride alignment
+WGMMA_MAX_D = 128      # the bf16 wgmma backward's largest head dim
+# The wgmma dK/dV kernel's cost on an H100, fitted to kernel_ab.py's rows
+# that time each cut of a group into shares (PERF.md section 6): one step
+# of a block (64 query rows of one q-head against its 128 keys at D 128)
+# on one SM, and the rate at which the shares' float32 partials are
+# written and read back by the group sum
+BWD_STEP_S = 1.7e-6
+BWD_PART_BYTES_PER_S = 2.5e12
+ROUTE_ID = {"mma_sync": 0, "wgmma": 1}   # the C entry point's route codes
 
 
 def tma_ready(t: torch.Tensor) -> bool:
@@ -104,16 +117,145 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse_out) if lse else out
 
 
+class BwdPlan(NamedTuple):
+    """How ``flash_attention_bwd`` runs a shape: its route, the tiles of
+    its dK/dV and dQ blocks, how many shares each group of q-heads is cut
+    into (each writing float32 partials that one more launch adds in share
+    order), its float32 scratch and its kernel launches."""
+    route: str          # "wgmma" (bf16, D <= 128) or "mma_sync"
+    key_tile: int       # keys of a dK/dV block
+    row_tile: int       # query rows of a dQ block
+    shares: int         # parts of each group summed by the group-sum launch
+    delta_elems: int    # float32: Delta (wgmma: and lse * log2 e), padded
+    part_elems: int     # float32: the shares' dK/dV partials, or 0
+    scratch_bytes: int
+    launches: int
+
+
+def dkdv_walks(sq: int, skv: int, causal: bool = True,
+               window: int | None = None,
+               chunk: int | None = None) -> list[int]:
+    """The 64-row query tiles a wgmma dK/dV block walks for each q-head,
+    one count per 128-key tile: the rows whose masks can keep one of the
+    tile's keys, bounded as the kernel bounds them (flash_attn_bwd.cu:
+    pos_range; row i at position i + skv - sq)."""
+    def rows(kp):           # query positions [lo, hi) that can keep key kp
+        lo, hi = (kp if causal else -(1 << 62)), 1 << 62
+        if window:
+            hi = min(hi, kp + window)
+        if chunk:
+            c = kp // chunk * chunk
+            lo, hi = max(lo, c), min(hi, c + chunk)
+        return lo, hi
+    shift = skv - sq
+    walks = []
+    for k0 in range(0, skv, 128):
+        r_lo = max(rows(k0)[0] - shift, 0)
+        r_hi = min(rows(min(k0 + 128, skv) - 1)[1] - shift, sq)
+        walks.append(-(-r_hi // 64) - r_lo // 64 if r_hi > r_lo else 0)
+    return walks
+
+
+def dkdv_span(b: int, hk: int, group: int, shares: int, walks: list[int],
+              sms: int) -> int:
+    """Steps until the last wgmma dK/dV block ends when each group is cut
+    into ``shares``: the blocks, each walking its share's q-heads over its
+    key tile's ``walks``, dispatched in grid order (key tile slowest, then
+    (b, KV head), then share) each to the SM that frees first."""
+    heads = [(i + 1) * group // shares - i * group // shares
+             for i in range(shares)]
+    free = [0] * sms
+    for w in walks:
+        for _ in range(b * hk):
+            for h in heads:
+                heapq.heapreplace(free, free[0] + h * w)
+    return max(free)
+
+
+def _fastest_cut(b: int, hk: int, group: int, skv: int, d: int, sms: int,
+                 walks: list[int]) -> int:
+    """The cut of each group into shares with the least modelled dK/dV
+    time (``bwd_plan``), the fewest shares among equals.  A cut whose
+    partials alone, over the span no cut can beat (every step spread
+    evenly over the SMs), already take longer than the best so far is not
+    simulated, nor is any larger one (its partials are larger still)."""
+    step = BWD_STEP_S * d / 128
+    floor = b * hk * group * sum(walks) / sms * step
+    best, best_s = float("inf"), 1
+    for s in range(1, group + 1):
+        part = 8 * s * 2 * b * hk * skv * d / BWD_PART_BYTES_PER_S \
+            if s > 1 else 0.0
+        if floor + part >= best:
+            break
+        t = dkdv_span(b, hk, group, s, walks, sms) * step + part
+        if t < best:
+            best, best_s = t, s
+    return best_s
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(b: int, hq: int, hk: int, sq: int, skv: int, d: int,
+             dtype, sms: int, *, causal: bool = True,
+             window: int | None = None, chunk: int | None = None,
+             shares: int | None = None) -> BwdPlan:
+    """The backward's plan for q [b, hq, sq, d] and k/v [b, hk, skv, d]
+    under the mask on a card of ``sms`` streaming multiprocessors.
+
+    bf16 up to D 128 takes the wgmma route: a dK/dV block (an SM holds
+    one) per (b, KV head, share of its group, 128 keys) walks its share's
+    q-heads in registers.  ``shares`` None picks the cut s whose dK/dV
+    time is least: the span of the blocks' walks on the card
+    (``dkdv_span``, ``BWD_STEP_S`` a step) plus, for s > 1, the float32
+    partials [s, 2, b, hk, skv, d] written and summed
+    (``BWD_PART_BYTES_PER_S``); the fewest shares among equals.  A grid
+    that fills the card keeps each group whole (no scratch); an MQA, or a
+    causal grid whose short walks leave SMs idle, is cut, and one more
+    launch sums the partials in share order.  The prep launch writes lse
+    * log2 e and Delta to [2, b * hq, sq_pad], sq_pad = sq rounded up to
+    128.  Launches: prep, dK/dV, dQ, and the sum where shares > 1.  bf16
+    above D 128 and float32 take the mma_sync route: a block per q-head
+    (64 keys or rows; 32 for float32 above D 128), each q-head's float32
+    share of a group to [group, 2, b, hk, skv, d], summed by a fourth
+    launch; ``shares`` must then be None."""
+    group = hq // hk
+    if dtype == torch.bfloat16 and d <= WGMMA_MAX_D:
+        if shares is None:
+            shares = _fastest_cut(b, hk, group, skv, d, sms, dkdv_walks(
+                sq, skv, causal, window, chunk))
+        elif not 1 <= shares <= group:
+            raise ValueError(f"shares {shares}: a group of {group} q-heads "
+                             f"is cut into 1 to {group}")
+        delta = 2 * b * hq * (-(-sq // 128) * 128)
+        part = shares * 2 * b * hk * skv * d if shares > 1 else 0
+        return BwdPlan("wgmma", 128, 128, shares, delta, part,
+                       4 * (delta + part), 3 + (shares > 1))
+    if shares is not None:
+        raise ValueError("shares is the wgmma route's (bf16, D <= "
+                         f"{WGMMA_MAX_D}): {dtype} at D {d} is not")
+    tile = 32 if dtype == torch.float32 and d > 128 else 64
+    delta = b * hq * sq
+    part = 2 * b * hq * skv * d if group > 1 else 0
+    return BwdPlan("mma_sync", tile, tile, group, delta, part,
+                   4 * (delta + part), 3 + (group > 1))
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         *, causal: bool = True, window: int | None = None,
-                        chunk_attn: int | None = None):
+                        chunk_attn: int | None = None,
+                        shares: int | None = None):
     """Launch the backward on CUDA tensors: q, o (the forward's output), do
     (its gradient) [B, Hq, Sq, D], k/v [B, Hk, Skv, D] of one dtype, lse
     float32 [B, Hq, Sq] from ``flash_attention(..., lse=True)`` with the
     same mask.  Any strides with a contiguous last dimension.  Returns
     (dq, dk, dv), each with its operand's shape and dtype (dk and dv
-    summed over each KV head's group); deterministic, no atomics.  Raises
+    summed over each KV head's group); deterministic, no atomics.  The
+    launches, route and scratch follow ``bwd_plan`` for the card q is on
+    (``shares`` overrides its cut of a group on the wgmma route, for
+    timing one cut against another); the wgmma route reads
+    q, k, v and do through TMA tensor maps and o and do 16 bytes at a
+    time, so an operand that is not ``tma_ready`` is first copied to a
+    contiguous tensor (its gradient then has the copy's layout).  Raises
     on anything the kernel does not take."""
     _check(q, k, v, window, chunk_attn, more=(o, do))
     b, hq, sq, d = q.shape
@@ -122,11 +264,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"lse must be contiguous float32 {(b, hq, sq)} on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    plan = bwd_plan(b, hq, hk, sq, skv, d, q.dtype,
+                    torch.cuda.get_device_properties(
+                        q.device).multi_processor_count, causal=bool(causal),
+                    window=window, chunk=chunk_attn, shares=shares)
+    if plan.route == "wgmma":
+        q, k, v, o, do = (t if tma_ready(t) else t.clone(
+            memory_format=torch.contiguous_format) for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    # each q-head's float32 share of dk and dv, summed over its group
-    part = (torch.empty((2, b, hq, skv, d), dtype=torch.float32,
-                        device=q.device) if hq != hk else None)
+    delta = torch.empty(plan.delta_elems, dtype=torch.float32,
+                        device=q.device)
+    part = (torch.empty(plan.part_elems, dtype=torch.float32,
+                        device=q.device) if plan.part_elems else None)
     strides = (ctypes.c_int64 * 24)(*(st for t in (q, k, v, o, do, dq, dk, dv)
                                       for st in t.stride()[:3]))
     name = _BWD[q.dtype]
@@ -137,6 +286,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
             None if part is None else part.data_ptr(), b, hq, hk, sq, skv, d,
-            strides, int(causal), window or 0, chunk_attn or 0, stream)
+            strides, int(causal), window or 0, chunk_attn or 0,
+            ROUTE_ID[plan.route], plan.shares, plan.delta_elems,
+            plan.part_elems, stream)
     _build.check(err, name)
     return dq, dk, dv

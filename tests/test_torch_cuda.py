@@ -569,3 +569,92 @@ def test_cuda_reduced_training_matches_pins(hopper):
     for arch in list_archs():
         got = smoke.run_train_pin(torch, arch, "cuda")
         smoke.hold_losses(arch, got["losses"], pins[arch]["losses"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hk,s,d,window", [(2, 6, 2, 300, 128, None),
+                                                (1, 8, 2, 700, 80, 256)])
+def test_cuda_wgmma_backward_through_autograd(hopper, b, hq, hk, s, d,
+                                              window):
+    """bf16 at D 128 with GQA and at D 80 under a window (the wgmma route
+    of ``bwd_plan``): autograd through ``ops.attention`` gives the plain
+    version's gradients within ``BWD_TOL``, a second backward gives the
+    same bits, and each backward is one counted call."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.flash_attn.kernel import bwd_plan
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    sms = torch.cuda.get_device_properties(hopper).multi_processor_count
+    assert bwd_plan(b, hq, hk, s, s, d, torch.bfloat16, sms).route == "wgmma"
+    g = torch.Generator(device="cpu").manual_seed(21)
+    q, k, v = (torch.randn(shape, generator=g).to(hopper, torch.bfloat16)
+               for shape in ((b, hq, s, d), (b, hk, s, d), (b, hk, s, d)))
+    r = torch.randn((b, hq, s, d), generator=g).to(hopper)
+    runs = []
+    for fn in (flash_ops.attention, flash_ops.attention,
+               flash_attention_ref):
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        flash_ops.bwd_launches = 0
+        out = fn(*ins, causal=True, window=window)
+        torch.sum(out.float() * r).backward()
+        runs.append([t.grad for t in ins])
+        if fn is flash_ops.attention:
+            assert flash_ops.bwd_launches == 1
+    kernel, again, plain = runs
+    tol = _smoke().BWD_TOL["bfloat16"]
+    for got, rep, want in zip(kernel, again, plain):
+        assert torch.equal(got, rep)
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        assert err <= tol
+
+
+@pytest.mark.gpu
+def test_cuda_backward_entry_refuses_a_plan_it_does_not_fit(hopper):
+    """The C entry points run the route the plan names and check its
+    scratch: a Delta buffer one element short, a part buffer one short, a
+    route that does not take the dtype or D, and an unknown route each
+    return an error before any launch; the plan's own sizes succeed."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn.kernel import ROUTE_ID, bwd_plan
+    b, hq, hk, s, d = 1, 4, 1, 200, 64
+    sms = torch.cuda.get_device_properties(hopper).multi_processor_count
+    g = torch.Generator(device="cpu").manual_seed(22)
+
+    def call(dtype, route, shares, delta_n, part_n):
+        q, o, do = (torch.randn((b, hq, s, d), generator=g).to(hopper, dtype)
+                    for _ in range(3))
+        k, v = (torch.randn((b, hk, s, d), generator=g).to(hopper, dtype)
+                for _ in range(2))
+        lse = torch.zeros((b, hq, s), device=hopper)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty(max(delta_n, 1), device=hopper)
+        part = torch.empty(part_n, device=hopper) if part_n else None
+        strides = (ctypes.c_int64 * 24)(*(st for t in (q, k, v, o, do, dq,
+                                                       dk, dv)
+                                          for st in t.stride()[:3]))
+        name = ("flash_attn_bwd_bf16" if dtype == torch.bfloat16
+                else "flash_attn_bwd_f32")
+        err = getattr(_build.library(), name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), b, hq, hk, s, s, d,
+            strides, 1, 0, 0, route, shares, delta_n, part_n,
+            torch.cuda.current_stream(hopper).cuda_stream)
+        torch.cuda.synchronize(hopper)
+        return err
+
+    wg = bwd_plan(b, hq, hk, s, s, d, torch.bfloat16, sms, shares=2)
+    ms = bwd_plan(b, hq, hk, s, s, d, torch.float32, sms)
+    bf16, f32 = torch.bfloat16, torch.float32
+    wgmma, mma_sync = ROUTE_ID["wgmma"], ROUTE_ID["mma_sync"]
+    assert call(bf16, wgmma, 2, wg.delta_elems, wg.part_elems) == 0
+    assert call(f32, mma_sync, hq, ms.delta_elems, ms.part_elems) == 0
+    assert call(bf16, wgmma, 2, wg.delta_elems - 1, wg.part_elems) != 0
+    assert call(bf16, wgmma, 2, wg.delta_elems, wg.part_elems - 1) != 0
+    assert call(f32, mma_sync, hq, ms.delta_elems - 1, ms.part_elems) != 0
+    assert call(f32, mma_sync, hq, ms.delta_elems, ms.part_elems - 1) != 0
+    assert call(bf16, mma_sync, hq, ms.delta_elems, ms.part_elems) != 0
+    assert call(f32, wgmma, 2, wg.delta_elems, wg.part_elems) != 0
+    assert call(bf16, 2, 2, wg.delta_elems, wg.part_elems) != 0

@@ -12,7 +12,9 @@ positions otherwise), suffix alignment only under the causal mask (the
 reference shifts positions only there) and no row without a key (the
 reference averages every key there, the port gives zeros).  Inputs come
 from numpy with a seed; float32 throughout, tolerance 1e-5 of max|ref|
-(the same products summed in another order)."""
+(the same products summed in another order).  ``bwd_plan`` (the kernel's
+route, shares, scratch and launches) is checked at every config's
+training shape and the card sweep's shapes."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.models.layers import chunked_attention  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.kernels.flash_attn import ops  # noqa: E402
+from repro_torch.kernels.flash_attn.kernel import (  # noqa: E402
+    BWD_PART_BYTES_PER_S, BWD_STEP_S, BwdPlan, bwd_plan, dkdv_span,
+    dkdv_walks)
+
+SMS = 132       # streaming multiprocessors of an H100 SXM
 from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
     LSE_EMPTY, attention_mask, flash_attention_bwd_ref, flash_attention_ref)
 
@@ -205,3 +213,187 @@ def test_cuda_tensor_that_requires_grad_takes_the_autograd_function(
     with torch.no_grad():
         assert ops.attention(t, t, t) == "forward alone"
     assert calls == ["function", "forward"]
+
+
+# --------------------------------------------------------------- bwd_plan
+# the training attention of every config with attention: 2 x 2,048 tokens
+# (chip_smoke's phase 10 (b) batch), q-heads, KV heads and head dim
+TRAIN_SHAPES = {}
+for _arch in list_archs():
+    _cfg = get_config(_arch)
+    if _cfg.num_heads:
+        TRAIN_SHAPES[_arch] = (2, _cfg.num_heads, _cfg.num_kv_heads, 2048,
+                               2048, _cfg.head_dim)
+# chip_smoke.flash_bwd_cases' wgmma-route shapes (b, hq, hk, sq, skv, d)
+SWEEP_SHAPES = [(2, 4, 2, 64, 64, 16), (1, 8, 2, 300, 300, 128),
+                (1, 3, 1, 513, 513, 64), (1, 4, 4, 513, 300, 128),
+                (1, 6, 1, 200, 700, 128), (1, 4, 1, 700, 700, 80),
+                (1, 2, 1, 300, 300, 48), (1, 3, 1, 129, 129, 128),
+                (1, 5, 5, 191, 1000, 64), (1, 6, 1, 1000, 191, 80),
+                (1, 10, 1, 1024, 1024, 128), (2, 24, 8, 1024, 1024, 128),
+                (4, 8, 4, 1100, 1100, 64)]
+
+
+def _check_plan(plan, b, hq, hk, sq, skv, d):
+    """What holds for every plan: shares cut a group, partials exactly
+    where there is more than one share, the scratch is their bytes, and
+    one launch more sums them."""
+    group = hq // hk
+    assert 1 <= plan.shares <= group
+    has_part = plan.shares > 1 if plan.route == "wgmma" else group > 1
+    assert (plan.part_elems > 0) == has_part
+    assert plan.scratch_bytes == 4 * (plan.delta_elems + plan.part_elems)
+    assert plan.launches == 3 + has_part
+
+
+@pytest.mark.parametrize("arch", sorted(TRAIN_SHAPES))
+def test_bwd_plan_routes_every_training_shape_by_dtype_and_head_dim(arch):
+    """bf16 up to D 128 takes the wgmma route, bf16 above it (recurrent-
+    gemma's D 256) and float32 at any D the mma_sync route; a wgmma dK/dV
+    grid of at least 132 blocks keeps each group whole (one share, no
+    partials, three launches)."""
+    b, hq, hk, sq, skv, d = TRAIN_SHAPES[arch]
+    plan = bwd_plan(b, hq, hk, sq, skv, d, torch.bfloat16, SMS)
+    _check_plan(plan, b, hq, hk, sq, skv, d)
+    assert plan.route == ("wgmma" if d <= 128 else "mma_sync")
+    if plan.route == "wgmma":
+        assert plan.delta_elems == 2 * b * hq * 2048
+        if b * hk * 16 >= 132:
+            assert (plan.shares, plan.part_elems, plan.launches) == (1, 0, 3)
+    f32 = bwd_plan(b, hq, hk, sq, skv, d, torch.float32, SMS)
+    _check_plan(f32, b, hq, hk, sq, skv, d)
+    assert (f32.route, f32.shares) == ("mma_sync", hq // hk)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mixtral-8x7b",
+                                  "internvl2-26b"])
+def test_bwd_plan_full_grid_needs_no_group_scratch(arch):
+    """At llama's, mixtral's and internvl2's training shapes the grid is
+    2 x 8 x 16 = 256 blocks: each walks its whole group in registers."""
+    b, hq, hk, sq, skv, d = TRAIN_SHAPES[arch]
+    plan = bwd_plan(b, hq, hk, sq, skv, d, torch.bfloat16, SMS)
+    assert plan == BwdPlan("wgmma", 128, 128, 1, 2 * b * hq * 2048, 0,
+                           4 * 2 * b * hq * 2048, 3)
+
+
+def test_bwd_plan_splits_an_mqa_that_leaves_the_card_idle():
+    """One KV head over 1,024 keys is 8 blocks: the group of 10 is cut
+    into 10 shares (80 blocks walking one head each, against 8 walking
+    ten), whose float32 partials take 10 x 2 x 1,024 x 128 floats; four
+    launches.  llama3.2-3b's heads at batch 1 are 128 blocks: under the
+    causal mask their walks run from 32 tiles down to 2, so one head a
+    block (3 shares) ends sooner; without the mask every walk is 32 tiles
+    and the group stays whole."""
+    plan = bwd_plan(1, 10, 1, 1024, 1024, 128, torch.bfloat16, SMS)
+    assert plan == BwdPlan("wgmma", 128, 128, 10, 2 * 10 * 1024,
+                           10 * 2 * 1024 * 128,
+                           4 * (2 * 10 * 1024 + 10 * 2 * 1024 * 128), 4)
+    assert plan.scratch_bytes == 10_567_680
+    plan = bwd_plan(1, 24, 8, 2048, 2048, 128, torch.bfloat16, SMS)
+    assert (plan.shares, plan.part_elems, plan.launches) == (
+        3, 3 * 2 * 8 * 2048 * 128, 4)
+    plan = bwd_plan(1, 24, 8, 2048, 2048, 128, torch.bfloat16, SMS,
+                    causal=False)
+    assert (plan.shares, plan.part_elems, plan.launches) == (1, 0, 3)
+
+
+def _modelled_us(b, hq, hk, sq, skv, d, s, sms, **mask):
+    """The plan's model of the dK/dV time of cut s, without its pruning."""
+    walks = dkdv_walks(sq, skv, **mask)
+    part = 16 * s * b * hk * skv * d if s > 1 else 0
+    return 1e6 * (dkdv_span(b, hk, hq // hk, s, walks, sms) * BWD_STEP_S
+                  * d / 128 + part / BWD_PART_BYTES_PER_S)
+
+
+@pytest.mark.parametrize("shape,sms,mask,shares", [
+    ((2, 24, 8, 2048, 2048, 128), 132, {}, 1),      # llama's training
+    ((1, 24, 8, 2048, 2048, 128), 132, {}, 3),      # causal, 128 blocks
+    ((1, 24, 8, 2048, 2048, 128), 132, {"causal": False}, 1),
+    ((1, 10, 1, 4096, 4096, 128), 132, {}, 10),
+    ((1, 10, 1, 1024, 1024, 128), 16, {}, 4),       # a 16-SM card
+    ((2, 4, 2, 64, 64, 16), 132, {}, 2),            # the reduced configs
+    ((1, 3, 1, 129, 129, 128), 132, {}, 3),
+    ((1, 32, 8, 6144, 6144, 80), 132, {"window": 4096}, 1),     # h2o
+    ((2, 40, 8, 10240, 10240, 128), 132, {"chunk": 8192}, 1),   # llama4
+    ((8, 16, 16, 1500, 1500, 64), 132, {"causal": False}, 1),   # whisper
+])
+def test_bwd_plan_picks_the_cut_of_least_modelled_time(shape, sms, mask,
+                                                      shares):
+    """The plan's share count is the one whose modelled dK/dV time (the
+    blocks' span on the card plus the partials' traffic) is least, the
+    fewest shares among equals, found without simulating every cut; it
+    follows the card's SM count and the mask."""
+    plan = bwd_plan(*shape, torch.bfloat16, sms, **mask)
+    _check_plan(plan, *shape)
+    assert plan.shares == shares
+    group = shape[1] // shape[2]
+    times = [_modelled_us(*shape, s, sms, **mask) for s in range(1, group + 1)]
+    assert times[shares - 1] == min(times)
+    assert all(t > min(times) for t in times[:shares - 1])
+
+
+@pytest.mark.parametrize("sq,skv,causal,window,chunk", [
+    (2048, 2048, True, None, None), (300, 300, False, None, None),
+    (700, 700, True, 256, None), (1000, 1000, True, None, 300),
+    (513, 513, False, None, 100), (600, 600, True, 200, 256),
+    (200, 700, True, None, None), (1000, 191, True, None, None),
+    (300, 300, True, 1, None), (1000, 1000, True, 64, 128),
+    (129, 191, False, None, 64), (1100, 1100, True, 300, None)])
+def test_dkdv_walks_count_the_query_tiles_the_mask_keeps(sq, skv, causal,
+                                                         window, chunk):
+    """Each 128-key tile's walk is the number of 64-row query tiles with a
+    row that keeps one of its keys under the plain mask."""
+    mask = attention_mask(sq, skv, "cpu", causal=causal, window=window,
+                          chunk_attn=chunk)
+    want = [sum(bool(mask[r:r + 64, k0:k0 + 128].any())
+                for r in range(0, sq, 64)) for k0 in range(0, skv, 128)]
+    assert dkdv_walks(sq, skv, causal, window, chunk) == want
+    if causal and window is None and chunk is None and sq == skv:
+        assert want == [sq // 64 - 2 * t for t in range(skv // 128)]
+
+
+def test_dkdv_span_dispatches_blocks_in_grid_order():
+    """Blocks go in grid order, key tile slowest, each to the SM that
+    frees first: a group of 4 on two SMs over walks of 5 and 3 tiles ends
+    at 20 steps whole (one SM takes 4 x 5, the other 4 x 3) and at 16 in
+    two shares of 2 heads (10, 10, then 6 on each); uneven shares of a
+    group of 3 take 1 and 2 heads."""
+    assert dkdv_span(1, 1, 4, 1, [5, 3], 2) == 20
+    assert dkdv_span(1, 1, 4, 2, [5, 3], 2) == 16
+    assert dkdv_span(1, 1, 3, 2, [4], 2) == 8
+    assert dkdv_span(2, 1, 3, 3, [4], 2) == 12
+
+
+def test_bwd_plan_takes_a_cut_it_is_given():
+    """``shares`` overrides the cut on the wgmma route (1 to the group,
+    with partials above 1) and is refused out of that range and on the
+    mma_sync route, whose groups are always cut per q-head."""
+    plan = bwd_plan(2, 24, 8, 1024, 1024, 128, torch.bfloat16, SMS,
+                    shares=2)
+    assert (plan.shares, plan.part_elems, plan.launches) == (
+        2, 2 * 2 * 2 * 8 * 1024 * 128, 4)
+    _check_plan(plan, 2, 24, 8, 1024, 1024, 128)
+    assert bwd_plan(1, 10, 1, 1024, 1024, 128, torch.bfloat16, SMS,
+                    shares=1) == BwdPlan("wgmma", 128, 128, 1, 2 * 10 * 1024,
+                                         0, 4 * 2 * 10 * 1024, 3)
+    for shares in (0, 4):
+        with pytest.raises(ValueError, match="shares"):
+            bwd_plan(2, 24, 8, 1024, 1024, 128, torch.bfloat16, SMS,
+                     shares=shares)
+    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 256)):
+        with pytest.raises(ValueError, match="wgmma route"):
+            bwd_plan(1, 10, 1, 1024, 1024, d, dtype, SMS, shares=1)
+
+
+@pytest.mark.parametrize("shape", SWEEP_SHAPES,
+                         ids=[str(s) for s in SWEEP_SHAPES])
+def test_bwd_plan_sweep_shapes(shape):
+    """The sweep's wgmma cases: Sq rounded up to 128 for the padded lse
+    and Delta rows, and the plan's invariants."""
+    b, hq, hk, sq, skv, d = shape
+    plan = bwd_plan(b, hq, hk, sq, skv, d, torch.bfloat16, SMS)
+    assert plan.route == "wgmma"
+    assert plan.delta_elems == 2 * b * hq * (-(-sq // 128) * 128)
+    _check_plan(plan, *shape)
+    if plan.shares > 1:
+        assert plan.part_elems == plan.shares * 2 * b * hk * skv * d
