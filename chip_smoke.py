@@ -93,7 +93,23 @@ Phases, each printing JSON lines:
    against the same layer in float32 on the plain attention (< 0.03);
    (c) every reduced family's 3 training steps against the reference's
    losses in ``tests/data/torch_train.json``, and a ``fail_at`` restart
-   through a checkpoint at reduced size.
+   through a checkpoint at reduced size;
+11. dry-run — (a) ``launch.elastic.derive_mesh`` over the card (1x1 over
+   cuda:0) and ``elastic_restart_plan(512, 500)``; (b) every arch x
+   applicable shape lowered by ``launch.dryrun`` on the 16x16 and 2x16x16
+   meshes (the meta-device trace's flops) and on the card's 1x1 mesh, each
+   cell's per-device argument and output bytes equal to the reference's
+   (``tests/data/torch_specs.json``) and held against the card's memory;
+   (c) the decode cells whose arguments fit one card (h2o-danube-1.8b,
+   recurrentgemma-2b and mamba2-130m at ``decode_32k``, 128 x 32,768, and
+   ``long_500k``, 1 x 524,288) run on the card through
+   ``dryrun.execute_cell``: first the decode kernel at the cell's own
+   shape against its plain version (and bit-equal run again), then the
+   bytes asked of the allocator equal the dry-run's argument bytes, each
+   serve step at ``t = seq_len - 1`` launches ``decode_attention`` once
+   per attention layer (24 / 8 / 0), finite logits, the peak memory and
+   the median wall ms of five warm steps; (b) runs after (c), so that its
+   worker processes do not share the host with the timed steps.
 
 Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
 spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
@@ -134,8 +150,10 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "golden_autoscale.json"
 OUT = ROOT / "chiprun_out"
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
-BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores (data sheet)
+sys.path.insert(0, str(ROOT / "src"))
+# the H100 SXM's data-sheet rates, one source for the port
+from repro_torch.launch.mesh import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOP_PER_S)
 F32_TOL = dict(rtol=1e-5, atol=1e-4)   # atomic f32 sums, order varies
 # attention, checked per output vector (one (b, head, query) row over D):
 # max|got - want| <= rel * max|want| + atol.  f32 sums differ from the
@@ -2983,6 +3001,166 @@ def train_phase(torch, dev: str) -> dict:
     return totals
 
 
+# ----------------------------------------------------------------- dry-run
+# Phase 11 holds the dry-run (``repro_torch.launch.dryrun``) against the
+# card.  (a) The card's own mesh, ``derive_mesh`` over its devices (1x1
+# over cuda:0), and the restart plan for 500 of 512 devices.  (c) The
+# cells whose arguments fit one card and whose step fits beside them
+# (``dryrun.execute_cell``): the decode kernel first at the cell's own
+# shape against its plain version, then the bytes asked of the allocator
+# equal the dry-run's argument bytes, each attention kernel launches once
+# per attention layer, the logits are finite; the steps' peak memory (what
+# the reference's ``peak_memory_in_bytes`` would state) and median wall
+# ms.  (b) Then the whole sweep: every arch x applicable shape lowered on
+# the 16x16 and 2x16x16 meshes (traced on the meta device in worker
+# processes, its flops counted) and on the card's 1x1 mesh, each cell's
+# per-device argument and output bytes held against the reference's
+# (``tests/data/torch_specs.json``) and against the card's memory.
+SPEC_PINS = ROOT / "tests" / "data" / "torch_specs.json"
+EXECUTED = (("h2o-danube-1.8b", "decode_32k"),
+            ("h2o-danube-1.8b", "long_500k"),
+            ("recurrentgemma-2b", "decode_32k"),
+            ("recurrentgemma-2b", "long_500k"),
+            ("mamba2-130m", "decode_32k"), ("mamba2-130m", "long_500k"))
+
+
+def cell_decode_row(torch, cfg, shape, seed: int) -> dict | None:
+    """The decode kernel at a decode cell's own shape: one layer's q
+    [B, Hq, D] bf16 against a [B, Hk, S, D] bf16 cache of the cell's ring
+    slots (the shape of its abstract cache), every row over the slot range
+    the position mask leaves at ``t = seq_len - 1``
+    (``layers.decode_slot_range``), held against its plain version at the
+    bf16 tolerance and timed (``decode_row``), then run again and held
+    bit-equal.  None for a cell with no attention cache."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attention
+    from repro_torch.models.layers import decode_slot_range, slot_bounds
+    from repro_torch.models.model import abstract_cache
+    from repro_torch.models.sharding import cpu_mesh_ctx
+    from repro_torch.train.tree import leaves
+    kv = [s.shape[-4:] for p, s in leaves(abstract_cache(
+        cfg, shape, cpu_mesh_ctx())) if p.endswith("['k']")]
+    if not kv:
+        return None
+    b, hk, s, d = kv[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(sh, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+               for sh in ((b, cfg.num_heads, d), (b, hk, s, d),
+                          (b, hk, s, d)))
+    t = shape.seq_len - 1
+    lo, hi = decode_slot_range(t, s, cfg.window, cfg.chunk_attn)
+    label = f"decode {cfg.name} {shape.name} shape"
+    row = {"shape": f"{cfg.name} {shape.name} decode, window {cfg.window}, "
+                    f"at t={t}: q [{b}, {cfg.num_heads}, {d}] bf16, caches "
+                    f"[{b}, {hk}, {s}, {d}], slots [{lo}, {hi}) on every row",
+           **decode_row(torch, q, k, v, lo, hi, label)}
+    bounds = slot_bounds(q.device, b, lo, hi)
+    first = decode_attention(q, k, v, bounds[1], bounds[0], hi - lo)
+    if not torch.equal(decode_attention(q, k, v, bounds[1], bounds[0],
+                                        hi - lo), first):
+        raise AssertionError(f"decode_attention not repeatable: {label}")
+    del q, k, v, first
+    torch.cuda.empty_cache()
+    return row
+
+
+def executed_cells(torch, dryrun, pins: dict, card: int,
+                   name_power: str) -> dict:
+    """Phase 11 (c): each cell of ``EXECUTED``, its decode kernel checked
+    at its shape, then run on the card (a warm-up step and
+    ``dryrun.EXECUTE_STEPS`` timed ones), its launches counted from 0
+    over all of them."""
+    from repro_torch.configs import get_config, get_shape
+    totals = {"flash_attention": 0, "decode_attention": 0}
+    for i, (arch, sh) in enumerate(EXECUTED):
+        cfg, shape = get_config(arch), get_shape(sh)
+        per_prefill, per_step = attn_launches(cfg)
+        want = {"flash_attention": per_prefill, "decode_attention": 0} \
+            if shape.kind == "prefill" else \
+            {"flash_attention": 0, "decode_attention": per_step}
+        kernel = None if shape.kind == "prefill" else \
+            cell_decode_row(torch, cfg, shape, seed=61 + i)
+        if (kernel is None) != (per_step == 0):
+            raise AssertionError(f"{arch} x {sh}: an attention cache "
+                                 f"{kernel is not None}, attention layers "
+                                 f"{per_step}")
+        reset_counts(torch)
+        rec = dryrun.execute_cell(cfg, shape)
+        n_steps = 1 + dryrun.EXECUTE_STEPS
+        launches = attn_counts()
+        if rec["launches"] != want or launches != {
+                k: n_steps * n for k, n in want.items()}:
+            raise AssertionError(f"{arch} x {sh} launched {launches} in "
+                                 f"{n_steps} steps (reported "
+                                 f"{rec['launches']} a step), want {want} "
+                                 f"a step")
+        if rec["peak_bytes"] > card:
+            raise AssertionError(f"{arch} x {sh} peaked past the card")
+        emit({"phase": "dryrun_executed", **rec, "decode_kernel": kernel,
+              "reference_argument_bytes": pins[arch]["bytes"]["1x1"][sh][0],
+              "card_bytes": card, "nvidia_smi": name_power})
+        for k, n in launches.items():
+            totals[k] += n
+    reset_counts(torch)
+    return totals
+
+
+def dryrun_phase(torch, name_power: str) -> dict:
+    """Phase 11.  Returns the attention kernels' launch totals of (c)."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.elastic import derive_mesh, elastic_restart_plan
+    t_phase = time.perf_counter()
+    mctx = derive_mesh(torch.cuda.device_count())
+    devices = [str(d) for d in mctx.mesh.devices.flat]
+    if mctx.mesh.shape != {"data": 1, "model": 1} or devices != ["cuda:0"]:
+        raise AssertionError(f"the card's mesh is {mctx.mesh} over "
+                             f"{devices}, not 1x1 over cuda:0")
+    emit({"phase": "dryrun_mesh", "mesh": mctx.mesh.shape,
+          "devices": devices,
+          "restart_plan_512_500": elastic_restart_plan(512, 500),
+          "nvidia_smi": name_power})
+
+    pins = json.loads(SPEC_PINS.read_text())
+    card = torch.cuda.get_device_properties(0).total_memory
+    cells = dryrun.all_cells()
+    # the executed cells' steps are timed before the sweep's worker
+    # processes take the host's cores
+    totals = executed_cells(torch, dryrun, pins, card, name_power)
+    t0 = time.perf_counter()
+    records = dryrun.sweep(cells, (False, True), verbose=False)
+    sweep_s = time.perf_counter() - t0
+    failed = [(r["arch"], r["shape"], r["mesh"], r["error"])
+              for r in records if not r["ok"]]
+    if failed:
+        raise AssertionError(f"cells that did not lower: {failed}")
+    by = {(r["arch"], r["shape"], r["mesh"]): r for r in records}
+    for arch, sh in cells:
+        cfg, shape = get_config(arch), get_shape(sh)
+        mem = dryrun.lower_cell(cfg, shape, mctx)[0].memory_analysis()
+        per = {"1x1": [mem.argument_size_in_bytes, mem.output_size_in_bytes]}
+        for mesh in ("16x16", "2x16x16"):
+            rec = by[arch, sh, mesh]
+            per[mesh] = [rec["argument_bytes"], rec["output_bytes"]]
+        for mesh, got in per.items():
+            if got != pins[arch]["bytes"][mesh][sh]:
+                raise AssertionError(
+                    f"{arch} x {sh} on {mesh}: {got} bytes, the "
+                    f"reference's trees {pins[arch]['bytes'][mesh][sh]}")
+        rec = by[arch, sh, "16x16"]
+        emit({"phase": "dryrun_cell", "arch": arch, "shape": sh,
+              "step": rec["step"], "bytes_per_device": per,
+              "arguments_fit": {m: b[0] <= card for m, b in per.items()},
+              "flops": rec["flops"], "attention_flops":
+              rec["attention_flops"], "trace_s": rec["compile_s"],
+              "nvidia_smi": name_power})
+
+    emit({"phase": "dryrun_done", "seconds": time.perf_counter() - t_phase,
+          "sweep_s": sweep_s, "cells": len(cells), "launches": totals,
+          "nvidia_smi": name_power})
+    return totals
+
+
 PROFILES = ("episode", "serve", "fleet", "decode", "train")
 
 
@@ -3004,7 +3182,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     # float32 products in full f32 (the plain versions and the logits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3124,6 +3301,12 @@ def main(argv=None) -> int:
         profile_train(torch, dev)
         gc.collect()
         torch.cuda.empty_cache()
+
+    # 11. the dry-run: the card's mesh, every cell lowered, the cells that
+    # fit one card run once
+    for k, n in dryrun_phase(torch, name_power).items():
+        totals[k] += n
+    torch.cuda.empty_cache()
 
     for row in rows:
         row["launches"] = totals[row["name"]]

@@ -2,15 +2,36 @@
 
 CUDA tensors go through the hand-written kernel, CPU tensors through the
 plain PyTorch version; there is no other path and no fallback.
-``launches`` counts kernel launches (reset it to 0 to count a run)."""
+``launches`` counts kernel launches (reset it to 0 to count a run).  A
+meta-device call (the dry-run's trace) runs nothing: it goes through the
+operator ``repro_torch::decode_meta``, which gives the output's shape and
+whose formula, registered with ``torch.utils.flop_counter``, counts the
+operations of its ``span`` slots a row (2 products, 2 operations a
+multiply-add)."""
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.decode_attn.kernel import decode_attention
 from repro_torch.kernels.decode_attn.ref import decode_attention_ref
 
 launches = 0
+
+torch.library.define("repro_torch::decode_meta",
+                     "(Tensor q, Tensor k_cache, Tensor v_cache, int span) "
+                     "-> Tensor")
+
+
+@torch.library.impl("repro_torch::decode_meta", "Meta")
+def decode_meta(q, k_cache, v_cache, span):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_meta)
+def _decode_flops(q_shape, k_shape, v_shape, span, *args, **kwargs) -> int:
+    b, hq, d = q_shape
+    return 4 * b * hq * d * span
 
 
 def decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -33,5 +54,10 @@ def decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         out = decode_attention(q, k_cache, v_cache, valid_len, lo, span)
         launches += 1
         return out
+    if q.is_meta:
+        if span is None:
+            raise ValueError("a meta-device call counts its span: pass it")
+        return torch.ops.repro_torch.decode_meta(q, k_cache, v_cache,
+                                                 span)
     return decode_attention_ref(q, k_cache, v_cache, valid_len,
                                 0 if lo is None else lo)

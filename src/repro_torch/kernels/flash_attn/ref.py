@@ -29,6 +29,26 @@ def attention_mask(sq: int, skv: int, device, *, causal: bool = True,
     return mask
 
 
+def attended_keys(sq: int, skv: int, *, causal: bool = True,
+                  window: int | None = None,
+                  chunk_attn: int | None = None) -> int:
+    """The keys ``attention_mask`` keeps, summed over its rows, without
+    building it: the count an attention call's operations scale with."""
+    qpos = torch.arange(skv - sq, skv)
+    lo = torch.zeros_like(qpos)
+    hi = torch.full_like(qpos, skv)
+    if causal:
+        hi = torch.minimum(hi, qpos + 1)
+    if window is not None:
+        lo = torch.maximum(lo, qpos - window + 1)
+    if chunk_attn is not None:
+        start = torch.div(qpos, chunk_attn, rounding_mode="floor") \
+            * chunk_attn
+        lo = torch.maximum(lo, start)
+        hi = torch.minimum(hi, start + chunk_attn)
+    return int((hi - lo).clamp_min(0).sum())
+
+
 def _repeat_kv(t: torch.Tensor, hq: int) -> torch.Tensor:
     hk = t.shape[1]
     return t if hk == hq else t.repeat_interleave(hq // hk, dim=1)

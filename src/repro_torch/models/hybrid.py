@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import causal_conv1d, conv1d_step, rms_norm
+from repro_torch.models.sharding import MeshCtx, P
 from repro_torch.models.ssm import _conv_state
 
 _LRU_C = 8.0
@@ -116,6 +117,15 @@ def _rec_shapes(cfg: ArchConfig, n: int) -> dict:
             | tfm._dense_ffn_shapes(cfg, n))
 
 
+def _rec_specs(dp) -> dict:
+    return ({"ln1": P(None, None), "wx": P(None, dp, "model"),
+             "wy": P(None, dp, "model"),
+             "conv_w": P(None, "model", None), "conv_b": P(None, "model"),
+             "lam": P(None, "model"), "wa": P(None, "model", None),
+             "wi": P(None, "model", None), "wo": P(None, "model", dp)}
+            | tfm._dense_ffn_specs(dp))
+
+
 def _pattern_counts(cfg: ArchConfig) -> tuple[int, int]:
     """(full groups, leftover leading-pattern layers)."""
     plen = len(cfg.block_pattern)
@@ -135,6 +145,23 @@ def hybrid_param_shapes(cfg: ArchConfig) -> dict:
     for j in range(tail):
         kind = cfg.block_pattern[j]
         out[f"tail{j}_{kind}"] = shapes(kind, 1)
+    return out
+
+
+def hybrid_param_specs(cfg: ArchConfig, mctx: MeshCtx) -> dict:
+    dp = mctx.dp if cfg.fsdp else None
+    _, tail = _pattern_counts(cfg)
+
+    def specs(kind: str) -> dict:
+        return (_rec_specs(dp) if kind == "rec"
+                else tfm._attn_specs(dp) | tfm._dense_ffn_specs(dp))
+
+    out = {"embed": P("model", None), "ln_f": P(None),
+           "groups": {f"{idx}_{kind}": specs(kind)
+                      for idx, kind in enumerate(cfg.block_pattern)}}
+    for j in range(tail):
+        kind = cfg.block_pattern[j]
+        out[f"tail{j}_{kind}"] = specs(kind)
     return out
 
 
@@ -169,6 +196,28 @@ def hybrid_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
     """The reference's decode cache tree: a ring of min(window, seq_len)
     slots per attention layer."""
     return _cache_tree(cfg, batch, min(cfg.window, seq_len))
+
+
+def hybrid_cache_specs(cfg: ArchConfig, mctx: MeshCtx,
+                       seq_len: int = 0) -> dict:
+    dp = mctx.dp
+    r_ax = "model" if cfg.lru_width % mctx.tp_size == 0 else None
+    n_slots = min(cfg.window, seq_len) if seq_len else cfg.window
+    _, tail = _pattern_counts(cfg)
+
+    def specs(kind: str, lead_dims: int) -> dict:
+        lead = (None,) * lead_dims
+        if kind == "rec":
+            return {"conv": P(*lead, dp, None, r_ax), "h": P(*lead, dp, r_ax)}
+        kv = tfm.kv_spec(cfg, mctx, n_slots, lead_dims=lead_dims)
+        return {"k": kv, "v": kv}
+
+    out = {"groups": {f"{idx}_{kind}": specs(kind, 1)
+                      for idx, kind in enumerate(cfg.block_pattern)}}
+    for j in range(tail):
+        kind = cfg.block_pattern[j]
+        out[f"tail{j}_{kind}"] = specs(kind, 0)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -152,8 +152,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     CUDA tensor the mask must be one slot range per row, known from ints
     (``kv_positions`` None, ``t`` an int; ``decode_slot_range``), and the
     kernel reads only that range (``slot_bounds``, its split plan cut from
-    the ints); anything else raises there."""
-    if q.is_cuda:
+    the ints); anything else raises there.  A meta tensor (the dry-run's
+    trace) takes the card's route."""
+    if q.is_cuda or q.is_meta:
         if kv_positions is not None or not isinstance(t, int):
             raise NotImplementedError(
                 "decode_attention on the card takes the ring cache's own "

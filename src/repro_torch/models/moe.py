@@ -5,8 +5,8 @@ Port of ``repro.models.moe``.  The reference runs the block under
 (``moe_shard="expert"``), or every expert on every shard with its hidden
 dim split (``"ffn"``), or both over two axes (``"2d"``, ``moe_ffn_2d``),
 each combined with a ``psum``.  On one device every mode computes the same
-function, so the port has one body; ``moe_ffn_2d`` and the parameter
-specs wait for ``launch/mesh.py`` (ROADMAP queue 1).
+function, so the port has one body; ``moe_param_specs`` gives each mode's
+layout, and ``moe_ffn_2d`` waits for a mesh of more than one card.
 
 Routing is the reference's, step for step: router logits and softmax in
 float32, the top ``k`` experts per token (the lower expert index first on
@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import P
 
 dropped: torch.Tensor | None = None
 
@@ -121,3 +122,27 @@ def moe_param_shapes(cfg: ArchConfig, n_layers: int) -> dict:
         shapes |= {"sh_wg": (n_layers, d, f), "sh_wu": (n_layers, d, f),
                    "sh_wo": (n_layers, f, d)}
     return shapes
+
+
+def moe_param_specs(cfg: ArchConfig, dp=("data",)) -> dict:
+    """PartitionSpecs for stacked MoE params (leading layer dim unsharded).
+
+    EP mode shards experts over ``model`` and FSDP-shards the d_model dim
+    over ``dp``; "ffn" splits the hidden dim over ``model``; "2d" puts the
+    experts over ``model`` and the hidden dim over ``dp`` (the
+    reference's layouts)."""
+    if cfg.moe_shard == "2d":
+        w = P(None, "model", None, dp)
+        wo = P(None, "model", dp, None)
+    elif cfg.moe_shard == "expert":
+        w = P(None, "model", dp, None)
+        wo = P(None, "model", None, dp)
+    else:
+        w = P(None, None, dp, "model")
+        wo = P(None, None, "model", dp)
+    specs = {"router": P(None, None, None), "wg": w, "wu": w, "wo": wo}
+    if cfg.shared_expert:
+        specs |= {"sh_wg": P(None, dp, "model"),
+                  "sh_wu": P(None, dp, "model"),
+                  "sh_wo": P(None, "model", dp)}
+    return specs

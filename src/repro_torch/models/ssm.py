@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import causal_conv1d, conv1d_step, rms_norm
+from repro_torch.models.sharding import MeshCtx, P
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -182,6 +183,22 @@ def ssm_param_shapes(cfg: ArchConfig) -> dict:
     return {"embed": (cfg.padded_vocab, d), "ln_f": (d,), "layers": layers}
 
 
+def ssm_param_specs(cfg: ArchConfig, mctx: MeshCtx) -> dict:
+    dp = mctx.dp if cfg.fsdp else None
+    layers = {
+        "ln": P(None, None),
+        "wz": P(None, dp, "model"),
+        "wxbc": P(None, dp, "model"),
+        "wdt": P(None, dp, None),            # nheads may not divide the axis
+        "conv_w": P(None, "model", None),
+        "conv_b": P(None, "model"),
+        "A_log": P(None, None), "D": P(None, None), "dt_bias": P(None, None),
+        "ssm_ln": P(None, "model"),
+        "out_proj": P(None, "model", dp),
+    }
+    return {"embed": P("model", None), "ln_f": P(None), "layers": layers}
+
+
 def init_ssm_params(cfg: ArchConfig, generator: torch.Generator,
                     device=None, dtype: torch.dtype | None = None) -> dict:
     """The SSM tree, drawn as ``transformer._init_from_shapes`` draws."""
@@ -195,6 +212,18 @@ def ssm_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
     return {"conv": (n, batch, cfg.conv_width - 1, conv_dim),
             "state": (n, batch, cfg.ssm_nheads, cfg.ssm_headdim,
                       cfg.ssm_state)}
+
+
+def ssm_cache_specs(cfg: ArchConfig, mctx: MeshCtx, seq_len: int = 0
+                    ) -> dict:
+    dp = mctx.dp
+    tp = mctx.tp_size
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    conv_spec = P(None, dp, None, "model") if conv_dim % tp == 0 \
+        else P(None, dp, None, None)
+    state_spec = P(None, dp, None, None, "model") \
+        if cfg.ssm_state % tp == 0 else P(None, dp, None, None, None)
+    return {"conv": conv_spec, "state": state_spec}
 
 
 def _train_layer(cfg: ArchConfig):

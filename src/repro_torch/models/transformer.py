@@ -66,7 +66,8 @@ from repro_torch.models.layers import (chunked_attention,
                                        chunked_softmax_xent, decode_attention,
                                        rms_norm, rotary, sinusoid_positions,
                                        swiglu)
-from repro_torch.models.moe import moe_ffn, moe_param_shapes
+from repro_torch.models.moe import moe_ffn, moe_param_shapes, moe_param_specs
+from repro_torch.models.sharding import MeshCtx, P
 
 VIT_STUB_DIM = 1024     # the VLM/audio frontend stubs emit this width
 
@@ -241,6 +242,38 @@ def decoder_param_shapes(cfg: ArchConfig) -> dict:
     return shapes
 
 
+def _attn_specs(dp) -> dict:
+    return {"ln1": P(None, None),
+            "wq": P(None, dp, "model"), "wk": P(None, dp, "model"),
+            "wv": P(None, dp, "model"), "wo": P(None, "model", dp)}
+
+
+def _dense_ffn_specs(dp) -> dict:
+    return {"ln2": P(None, None), "wg": P(None, dp, "model"),
+            "wu": P(None, dp, "model"), "wd": P(None, "model", dp)}
+
+
+def decoder_param_specs(cfg: ArchConfig, mctx: MeshCtx) -> dict:
+    """The reference's layout of the decoder's tree: layer matrices over
+    ``model`` and FSDP over the data axes (``cfg.fsdp``), the embedding's
+    vocab rows over ``model``."""
+    dp = mctx.dp if cfg.fsdp else None
+    layers: dict = {}
+    for name in _layer_group_shapes(cfg):
+        if name.startswith("dense"):
+            layers[name] = _attn_specs(dp) | _dense_ffn_specs(dp)
+        else:
+            layers[name] = _attn_specs(dp) | {
+                "ln2": P(None, None), "moe": moe_param_specs(cfg, dp)}
+    specs: dict = {"embed": P("model", None), "ln_f": P(None),
+                   "layers": layers}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(None, "model")
+    if cfg.family == "vlm":
+        specs["img_proj"] = P(None, None)
+    return specs
+
+
 def encdec_param_shapes(cfg: ArchConfig) -> dict:
     """The reference's enc-dec tree: stacked encoder layers (attention and
     SwiGLU FFN) and decoder layers (self-attention, cross-attention under
@@ -257,6 +290,18 @@ def encdec_param_shapes(cfg: ArchConfig) -> dict:
             "enc_layers": enc, "dec_layers": dec,
             "ln_enc": (d,), "ln_f": (d,),
             "unembed": (d, cfg.padded_vocab)}
+
+
+def encdec_param_specs(cfg: ArchConfig, mctx: MeshCtx) -> dict:
+    dp = mctx.dp if cfg.fsdp else None
+    enc = _attn_specs(dp) | _dense_ffn_specs(dp)
+    dec = (_attn_specs(dp)
+           | {f"x_{k}": v for k, v in _attn_specs(dp).items()}
+           | _dense_ffn_specs(dp))
+    return {"embed": P("model", None), "frame_proj": P(None, None),
+            "enc_layers": enc, "dec_layers": dec,
+            "ln_enc": P(None), "ln_f": P(None),
+            "unembed": P(None, "model")}
 
 
 def _leaves(tree: dict, prefix: tuple = ()):
@@ -290,6 +335,16 @@ def init_encdec_params(cfg: ArchConfig, generator: torch.Generator,
                              device, dtype)
 
 
+def leaf_dtype(name: str, cfg: ArchConfig,
+               dtype: torch.dtype | None = None) -> torch.dtype:
+    """The dtype the init holds leaf ``name`` in: ``dtype`` for the
+    ``MATRICES`` leaves when it is given, else the config's
+    ``param_dtype``."""
+    if dtype is not None and name in MATRICES:
+        return dtype
+    return getattr(torch, cfg.param_dtype)
+
+
 def _init_from_shapes(shapes: dict, cfg: ArchConfig,
                       generator: torch.Generator, device, dtype) -> dict:
     """The reference's initialisation: every leaf of two or more
@@ -304,10 +359,9 @@ def _init_from_shapes(shapes: dict, cfg: ArchConfig,
     ``cast_params`` makes from the float32 one, bit for bit, at the peak
     memory of the cast tree."""
     device = generator.device if device is None else device
-    pdt = getattr(torch, cfg.param_dtype)
     params: dict = {}
     for path, shape in _leaves(shapes):
-        ldt = dtype if dtype is not None and path[-1] in MATRICES else pdt
+        ldt = leaf_dtype(path[-1], cfg, dtype)
         if len(shape) == 1:
             _set(params, path, torch.ones(shape, dtype=ldt, device=device))
             continue
@@ -337,14 +391,40 @@ def cast_params(params: dict, cfg: ArchConfig) -> dict:
 # Entry points
 # ---------------------------------------------------------------------------
 
-def decoder_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
-    """KV-cache tree shapes matching the stacked layer groups: a ring of
-    ``kv_cache_len`` slots per layer (the reference's)."""
-    _check_supported(cfg)
-    n_slots = kv_cache_len(cfg, seq_len)
+def kv_shapes(cfg: ArchConfig, batch: int, n_slots: int) -> dict:
+    """KV-cache tree shapes matching the stacked layer groups, ``n_slots``
+    slots per layer."""
     return {name: {kv: (shapes["ln1"][0], batch, cfg.num_kv_heads, n_slots,
                         cfg.head_dim) for kv in ("k", "v")}
             for name, shapes in _layer_group_shapes(cfg).items()}
+
+
+def decoder_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """The decode cache: a ring of ``kv_cache_len`` slots per layer (the
+    reference's)."""
+    _check_supported(cfg)
+    return kv_shapes(cfg, batch, kv_cache_len(cfg, seq_len))
+
+
+def kv_spec(cfg: ArchConfig, mctx: MeshCtx, n_slots: int,
+            lead_dims: int = 1) -> P:
+    """Pick the model-axis placement for a KV cache [*, B, K, S, Dh]:
+    shard heads when they divide the axis, else the slot (sequence) dim —
+    split-KV decode, FlashDecoding-style."""
+    lead = (None,) * lead_dims
+    tp = mctx.tp_size
+    if cfg.num_kv_heads % tp == 0:
+        return P(*lead, mctx.dp, "model", None, None)
+    if n_slots % tp == 0:
+        return P(*lead, mctx.dp, None, "model", None)
+    return P(*lead, mctx.dp, None, None, None)
+
+
+def decoder_cache_specs(cfg: ArchConfig, mctx: MeshCtx,
+                        seq_len: int = 0) -> dict:
+    n_slots = kv_cache_len(cfg, seq_len) if seq_len else 0
+    spec = kv_spec(cfg, mctx, n_slots)
+    return {name: {"k": spec, "v": spec} for name in _layer_group_shapes(cfg)}
 
 
 def _embed_tokens(params, tokens: torch.Tensor, cfg: ArchConfig):
@@ -377,15 +457,47 @@ def _index(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def _layers(tree: dict) -> list[dict]:
-    """A stacked tree [L, ...] as L per-layer trees of views, each leaf
-    split once (``torch.unbind``: under autograd one stacking backward per
-    leaf, where indexing layer by layer would add each layer's gradient
-    into a zero tensor of the whole leaf)."""
-    flat = {k: _layers(v) if isinstance(v, dict) else v.unbind(0)
-            for k, v in tree.items()}
-    n = len(next(iter(flat.values())))
-    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+def _layers(tree) -> list:
+    """A stacked tree [L, ...] (dicts and tuples of tensors) as L
+    per-layer trees of views, each leaf split once (``torch.unbind``:
+    under autograd one stacking backward per leaf, where indexing layer by
+    layer would add each layer's gradient into a zero tensor of the whole
+    leaf)."""
+    if isinstance(tree, dict):
+        flat = {k: _layers(v) for k, v in tree.items()}
+        n = len(next(iter(flat.values())))
+        return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+    if isinstance(tree, tuple):
+        parts = [_layers(v) for v in tree]
+        return [tuple(p[i] for p in parts) for i in range(len(parts[0]))]
+    return list(tree.unbind(0))
+
+
+def _stack(trees: list):
+    """Per-layer trees stacked leaf by leaf on a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_stack([t[i] for t in trees]) for i in range(len(first)))
+    return torch.stack(trees)
+
+
+def scan_or_unroll(cfg: ArchConfig, fn, x, xs):
+    """The reference's ``lax.scan`` of ``fn`` over the leading axis of the
+    tree ``xs``, or its unrolled loop (``cfg.scan_layers`` False, which
+    the reference's roofline accounting lowers).  The port has no scan,
+    so both are this loop: ``x, y = fn(x, xs_i)`` layer by layer over
+    views of ``xs`` (``_layers``; a write into a view writes ``xs``).
+    Returns x and the ys stacked on a new leading axis, or None when
+    ``fn`` returns None."""
+    ys = []
+    for xs_i in _layers(xs):
+        x, y = fn(x, xs_i)
+        ys.append(y)
+    if ys and ys[0] is not None:
+        return x, _stack(ys)
+    return x, None
 
 
 def remat(cfg: ArchConfig, fn, *args):
@@ -486,10 +598,7 @@ def decoder_prefill(params, batch: dict, cfg: ArchConfig):
     x = _prepend_images(params, _embed_tokens(params, batch["tokens"], cfg),
                         batch, cfg)
     b, s, _ = x.shape
-    caches = {name: {kv: torch.empty((shapes["ln1"][0], b, cfg.num_kv_heads,
-                                      s, cfg.head_dim), dtype=x.dtype,
-                                     device=x.device) for kv in ("k", "v")}
-              for name, shapes in _layer_group_shapes(cfg).items()}
+    caches = _alloc(kv_shapes(cfg, b, s), x)
     positions = torch.arange(s, device=x.device)
     x = _run_stack(params, x, cfg, "prefill", positions, caches)
     x = rms_norm(x[:, -1], params["ln_f"])
@@ -524,6 +633,14 @@ def encdec_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
     return {"self": {"k": kv, "v": kv}, "cross_k": xkv, "cross_v": xkv}
 
 
+def encdec_cache_specs(cfg: ArchConfig, mctx: MeshCtx,
+                       seq_len: int = 0) -> dict:
+    spec = kv_spec(cfg, mctx, seq_len)
+    xspec = kv_spec(cfg, mctx, cfg.enc_seq)
+    return {"self": {"k": spec, "v": spec}, "cross_k": xspec,
+            "cross_v": xspec}
+
+
 def _enc_layer(cfg: ArchConfig):
     def body(x, p):
         x, _ = attn_block(p, x, cfg, mode="train", use_rotary=False,
@@ -541,8 +658,8 @@ def _encode(params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = x + sinusoid_positions(x.shape[1], cfg.d_model,
                                x.device).to(dt)[None]
     body = _enc_layer(cfg)
-    for p in _layers(params["enc_layers"]):
-        x = remat(cfg, body, x, p)
+    x, _ = scan_or_unroll(cfg, lambda c, p: (remat(cfg, body, c, p), None),
+                          x, params["enc_layers"])
     return rms_norm(x, params["ln_enc"])
 
 
@@ -557,11 +674,6 @@ def _dec_body(p, x: torch.Tensor, cfg: ArchConfig, mode: str, positions,
     x, _ = attn_block(xp, x, cfg, mode=mode,
                       kv_override=(cache["cross_k"], cache["cross_v"]))
     return dense_ffn_block(p, x)
-
-
-def _layer_cache(caches: dict, i: int) -> dict:
-    return {"self": {kv: caches["self"][kv][i] for kv in ("k", "v")},
-            "cross_k": caches["cross_k"][i], "cross_v": caches["cross_v"][i]}
 
 
 def _dec_train_layer(cfg: ArchConfig, positions):
@@ -592,8 +704,9 @@ def encdec_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     x = _embed_tokens(params, tokens, cfg)
     body = _dec_train_layer(
         cfg, torch.arange(tokens.shape[1], device=x.device))
-    for p in _layers(params["dec_layers"]):
-        x = remat(cfg, body, x, p, enc_out)
+    x, _ = scan_or_unroll(
+        cfg, lambda c, p: (remat(cfg, body, c, p, enc_out), None), x,
+        params["dec_layers"])
     x = rms_norm(x, params["ln_f"])
     return next_token_loss(x, tokens, params["unembed"], cfg)
 
@@ -608,23 +721,17 @@ def encdec_prefill(params, batch: dict, cfg: ArchConfig):
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
-    shapes = encdec_cache_shapes(cfg, b, s)
-    caches = {"self": {kv: torch.empty(shape, dtype=x.dtype,
-                                       device=x.device)
-                       for kv, shape in shapes["self"].items()},
-              "cross_k": torch.empty(shapes["cross_k"], dtype=x.dtype,
-                                     device=x.device),
-              "cross_v": torch.empty(shapes["cross_v"], dtype=x.dtype,
-                                     device=x.device)}
+    caches = _alloc(encdec_cache_shapes(cfg, b, s), x)
     positions = torch.arange(s, device=x.device)
-    layers = params["dec_layers"]
-    for i in range(cfg.num_layers):
-        p = _index(layers, i)
-        lc = _layer_cache(caches, i)
+
+    def layer(x, xs):
+        p, lc = xs
         for w, c in (("x_wk", lc["cross_k"]), ("x_wv", lc["cross_v"])):
             c.copy_((enc_out @ p[w].to(x.dtype)).reshape(
                 b, -1, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2))
-        x = _dec_body(p, x, cfg, "prefill", positions, lc)
+        return _dec_body(p, x, cfg, "prefill", positions, lc), None
+
+    x, _ = scan_or_unroll(cfg, layer, x, (params["dec_layers"], caches))
     x = rms_norm(x[:, -1], params["ln_f"])
     return _logits(params, x, cfg), caches
 
@@ -638,9 +745,10 @@ def encdec_decode_step(params, caches, tokens: torch.Tensor, t: int,
     _check_supported(cfg, ("encdec",))
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(t, t + 1, device=x.device)
-    layers = params["dec_layers"]
-    for i in range(cfg.num_layers):
-        x = _dec_body(_index(layers, i), x, cfg, "decode", positions,
-                      _layer_cache(caches, i), t=t)
+    def layer(x, xs):
+        p, lc = xs
+        return _dec_body(p, x, cfg, "decode", positions, lc, t=t), None
+
+    x, _ = scan_or_unroll(cfg, layer, x, (params["dec_layers"], caches))
     x = rms_norm(x[:, -1], params["ln_f"])
     return _logits(params, x, cfg), caches

@@ -10,8 +10,12 @@ here the parameters and the moments are updated in place (at
 llama3.2-3b's 3.2 B parameters a second copy of them and their float32
 moments would not fit the card), in slices of at most ``SLICE`` elements
 so that the float32 temporaries stay small.  The elementwise arithmetic
-is the same whatever the slicing.  ``opt_state_specs`` (the moments'
-sharding) waits for the port's ``models/sharding.py``.
+is the same whatever the slicing, so on the meta device (the dry-run's
+trace, which holds no memory) a leaf is one slice: in ``SLICE`` slices
+the trace of llama4-maverick's ``train_4k`` cell took 36.0 s on one CPU
+thread against 9.8 s, and the whole sweep must stay near a minute
+(``launch/dryrun.py``).  The moments are
+sharded as their parameters are (``opt_state_specs``).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.models.sharding import P
 from repro_torch.train.tree import leaves, tree_map
 
 SLICE = 1 << 26          # elements updated at once (256 MB of float32)
@@ -45,6 +50,10 @@ def init_opt_state(params, ocfg: AdamWConfig) -> dict:
             "v": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
                                                 device=p.device), params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def opt_state_specs(param_specs) -> dict:
+    return {"m": param_specs, "v": param_specs, "step": P()}
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -94,8 +103,9 @@ def adamw_update(params, grads, opt_state: dict, ocfg: AdamWConfig):
                ((pf, p), (mf, m), (vf, v))):
             raise ValueError(f"{path}: parameters and moments are updated "
                              f"in place and must be contiguous")
-        for i in range(0, pf.numel(), SLICE):
-            s = slice(i, i + SLICE)
+        n = pf.numel() if p.is_meta else SLICE
+        for i in range(0, pf.numel(), n):
+            s = slice(i, i + n)
             _update(pf[s], gf[s], mf[s], vf[s], clip, step_f, ocfg,
                     p.dim() >= 2)
     return params, {"m": opt_state["m"], "v": opt_state["v"],

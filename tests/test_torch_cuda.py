@@ -658,3 +658,53 @@ def test_cuda_backward_entry_refuses_a_plan_it_does_not_fit(hopper):
     assert call(bf16, mma_sync, hq, ms.delta_elems, ms.part_elems) != 0
     assert call(f32, wgmma, 2, wg.delta_elems, wg.part_elems) != 0
     assert call(bf16, 2, 2, wg.delta_elems, wg.part_elems) != 0
+
+
+@pytest.mark.gpu
+def test_cuda_derive_mesh_is_the_card(hopper):
+    from repro_torch.launch.elastic import derive_mesh
+    mctx = derive_mesh(1)
+    assert mctx.mesh.shape == {"data": 1, "model": 1}
+    assert mctx.mesh.devices[0, 0] == torch.device("cuda", 0)
+    assert (mctx.dp_size, mctx.tp_size) == (1, 1)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_cell_allocates_the_dry_run_bytes(hopper):
+    """mamba2-130m's decode_32k on the card: the bytes asked of the
+    allocator for its arguments equal ``memory_analysis()``'s, and one
+    serve step gives finite logits with no attention kernel."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.elastic import derive_mesh
+    cfg, shape = get_config("mamba2-130m"), get_shape("decode_32k")
+    lowered, _ = dryrun.lower_cell(cfg, shape, derive_mesh(1))
+    rec = dryrun.execute_cell(cfg, shape)
+    assert rec["requested_bytes"] == rec["argument_bytes"] \
+        == lowered.memory_analysis().argument_size_in_bytes
+    assert rec["launches"] == {"flash_attention": 0, "decode_attention": 0}
+    assert 0 < rec["peak_bytes"] < torch.cuda.get_device_properties(
+        0).total_memory
+
+
+@pytest.mark.gpu
+def test_cuda_meta_trace_launches_no_kernel(hopper):
+    """The dry-run's trace of a training and a decode step (attention,
+    its gradient, the in-place AdamW, all on the meta device) leaves every
+    kernel's launch count as it was."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops as decode_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.elastic import derive_mesh
+    from repro_torch.models.config import ShapeConfig
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    before = (flash_ops.launches, flash_ops.bwd_launches,
+              decode_ops.launches)
+    for shape in (ShapeConfig("gpu-t", "train", 48, 2),
+                  ShapeConfig("gpu-d", "decode", 48, 2)):
+        cost = dryrun.lower_cell(cfg, shape, derive_mesh(1))[0] \
+            .cost_analysis()
+        assert cost["attention_flops"] > 0
+    assert (flash_ops.launches, flash_ops.bwd_launches,
+            decode_ops.launches) == before

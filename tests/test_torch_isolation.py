@@ -40,7 +40,8 @@ def test_port_files_exist():
                    "train/__init__.py", "train/optimizer.py",
                    "train/grad_compress.py", "train/train_step.py",
                    "train/checkpoint.py", "train/tree.py",
-                   "launch/train.py"):
+                   "launch/train.py", "models/sharding.py", "launch/mesh.py",
+                   "launch/elastic.py", "launch/dryrun.py"):
         assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
@@ -118,6 +119,17 @@ def test_train_without_device_raises_when_no_cuda(monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
         train("llama3.2-3b", steps=1, verbose=False)
+
+
+def test_derive_mesh_without_devices_raises_when_no_cuda(monkeypatch):
+    """The card's mesh comes from its CUDA devices: without devices given
+    and no CUDA, ``derive_mesh`` raises; given devices, it lays them out."""
+    from repro_torch.launch.elastic import derive_mesh
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        derive_mesh(1)
+    mctx = derive_mesh(1, devices=[torch.device("cpu")])
+    assert mctx.mesh.shape == {"data": 1, "model": 1}
 
 
 def test_decode_layer_on_the_card_never_takes_the_plain_mask():

@@ -34,6 +34,7 @@ minute).
 """
 import importlib.util
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -255,10 +256,187 @@ def test_port_on_cpu_trains_to_pin(arch):
     chip_smoke.hold_losses(arch, got["losses"], TRAIN_PINS[arch]["losses"])
 
 
+# --------------------------------- specs and bytes on the production meshes
+# The reference builds its 16x16 and 2x16x16 meshes only over 256 / 512
+# devices, which JAX forces on the host only before it starts: so one
+# subprocess computes, for each architecture, every param, optimizer-state,
+# cache (at each applicable shape's seq_len and batch, with the dp axes
+# dropped where the batch does not divide them) and batch spec with its
+# per-device shard shape on both meshes, and each cell's per-device
+# argument and output bytes on 1x1, 16x16 and 2x16x16 (the sums over the
+# reference's trees: the outputs' shapes from ``jax.eval_shape`` of its
+# prefill and decode steps; a train step returns the donated parameters and
+# moments and two float32 scalars, the reference dry-run's out_shardings).
+SPEC_MESHES = ("16x16", "2x16x16")
+BYTE_MESHES = ("1x1",) + SPEC_MESHES
+# one configuration per family, regenerated in tier-1
+SPEC_FAMILIES = ("h2o-danube-1.8b", "mixtral-8x7b", "internvl2-26b",
+                 "whisper-medium", "mamba2-130m", "recurrentgemma-2b")
+_SPEC_SCRIPT = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
+import json, math, sys
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import Mesh, PartitionSpec as P
+from repro.configs import applicable_shapes, get_config, get_shape
+from repro.launch.mesh import make_production_mesh
+from repro.models.model import (abstract_batch, abstract_cache,
+                                abstract_params, batch_specs, drop_dp_axes,
+                                get_model)
+from repro.models.sharding import MeshCtx
+from repro.train.optimizer import opt_state_specs
+from repro.train.train_step import make_prefill_step, make_serve_step
+
+MESHES = {"1x1": MeshCtx(Mesh(np.array([[jax.devices()[0]]]),
+                              ("data", "model"))),
+          "16x16": MeshCtx(make_production_mesh()),
+          "2x16x16": MeshCtx(make_production_mesh(multi_pod=True))}
+is_spec = lambda x: isinstance(x, P)
+
+
+def enc(spec):
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def flat(tree, leaf=is_spec):
+    return {jax.tree_util.keystr(p): v for p, v in
+            jax.tree_util.tree_flatten_with_path(tree, is_leaf=leaf)[0]}
+
+
+def laid_out(shapes, specs, mctx):
+    sh = flat(shapes, lambda x: hasattr(x, "shape"))
+    return {k: [enc(sp), list(mctx.sharding(sp).shard_shape(sh[k].shape))]
+            for k, sp in flat(specs).items()}
+
+
+def nbytes(shapes, specs, mctx):
+    sh = flat(shapes, lambda x: hasattr(x, "shape"))
+    return sum(math.prod(mctx.sharding(sp).shard_shape(sh[k].shape))
+               * jnp.dtype(sh[k].dtype).itemsize
+               for k, sp in flat(specs).items())
+
+
+def cell_trees(cfg, shape):
+    # (arguments, outputs): the step's abstract trees, unsharded
+    params = abstract_params(cfg)
+    batch = abstract_batch(cfg, shape)
+    if shape.kind == "train":
+        opt = {"m": jax.tree.map(
+                   lambda a: jax.ShapeDtypeStruct(a.shape, cfg.opt_dtype),
+                   params), "step": jax.ShapeDtypeStruct((), jnp.int32)}
+        opt["v"] = opt["m"]
+        scalars = {"loss": jax.ShapeDtypeStruct((), jnp.float32),
+                   "grad_norm": jax.ShapeDtypeStruct((), jnp.float32)}
+        return (params, opt, batch), (params, opt, scalars)
+    mctx = MESHES["1x1"]
+    if shape.kind == "prefill":
+        return (params, batch), jax.eval_shape(
+            make_prefill_step(cfg, mctx), params, batch)
+    caches = abstract_cache(cfg, shape)
+    return (params, caches, batch), jax.eval_shape(
+        make_serve_step(cfg, mctx), params, caches, batch["tokens"],
+        jax.ShapeDtypeStruct((), jnp.int32))
+
+
+def cell_bytes(cfg, shape, trees, mctx):
+    # per-device [argument, output] bytes of one cell on mctx
+    model = get_model(cfg)
+    pspecs = model.param_specs(cfg, mctx)
+    bspecs = batch_specs(cfg, shape, mctx)
+    (args, outs) = trees
+    if shape.kind == "train":
+        ospecs = opt_state_specs(pspecs)
+        mspecs = {"loss": P(), "grad_norm": P()}
+        return [nbytes(args, (pspecs, ospecs, bspecs), mctx),
+                nbytes(outs, (pspecs, ospecs, mspecs), mctx)]
+    dp_ok = shape.global_batch % mctx.dp_size == 0
+    cspecs = model.cache_specs(cfg, mctx, shape.seq_len)
+    if not dp_ok:
+        cspecs = drop_dp_axes(cspecs, mctx)
+    lspec = P(mctx.dp if dp_ok else None, "model")
+    in_specs = (pspecs, bspecs) if shape.kind == "prefill" \
+        else (pspecs, cspecs, bspecs)
+    return [nbytes(args, in_specs, mctx),
+            nbytes(outs, (lspec, cspecs), mctx)]
+
+
+def arch_pins(arch):
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    shapes = applicable_shapes(cfg)
+    out = {"bytes": {m: {} for m in MESHES}}
+    for name in ("16x16", "2x16x16"):
+        mctx = MESHES[name]
+        params = abstract_params(cfg)
+        pspecs = model.param_specs(cfg, mctx)
+        opt = {"m": params, "v": params,
+               "step": jax.ShapeDtypeStruct((), jnp.int32)}
+        rec = {"params": laid_out(params, pspecs, mctx),
+               "opt": laid_out(opt, opt_state_specs(pspecs), mctx),
+               "cache": {}, "batch": {}}
+        for sh in shapes:
+            shape = get_shape(sh)
+            cspecs = model.cache_specs(cfg, mctx, shape.seq_len)
+            if shape.global_batch % mctx.dp_size:
+                cspecs = drop_dp_axes(cspecs, mctx)
+            rec["cache"][sh] = laid_out(
+                abstract_cache(cfg, shape), cspecs, mctx)
+            rec["batch"][sh] = laid_out(
+                abstract_batch(cfg, shape), batch_specs(cfg, shape, mctx),
+                mctx)
+        out[name] = rec
+    for sh in shapes:
+        trees = cell_trees(cfg, get_shape(sh))
+        for name, mctx in MESHES.items():
+            out["bytes"][name][sh] = cell_bytes(cfg, get_shape(sh), trees,
+                                                mctx)
+    return out
+
+
+print(json.dumps({arch: arch_pins(arch) for arch in sys.argv[1:]}))
+"""
+
+
+def spec_pins(archs) -> dict:
+    """The reference's layouts and cell bytes of ``archs``, from one
+    subprocess with 512 forced host devices."""
+    out = subprocess.run([sys.executable, "-c", _SPEC_SCRIPT, *archs],
+                         capture_output=True, text=True, timeout=900,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": "src",
+                                        "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout)
+
+
+def write_spec_pins() -> None:
+    from repro_torch.configs import list_archs
+    pins = {"_meta": {
+        "written_by": "PYTHONPATH=src python tests/test_torch_pins.py "
+                      "--write-specs (the reference package, on the CPU, "
+                      "512 forced host devices)",
+        "meshes": list(SPEC_MESHES), "byte_meshes": list(BYTE_MESHES)},
+        **spec_pins(list_archs())}
+    SPEC_PINS.write_text(json.dumps(pins, separators=(",", ":")) + "\n")
+
+
+SPEC_PINS = ROOT / "tests" / "data" / "torch_specs.json"
+
+
+def test_reference_reproduces_spec_pins():
+    """One configuration per family, regenerated, equals the file."""
+    pins = json.loads(SPEC_PINS.read_text())
+    got = spec_pins(SPEC_FAMILIES)
+    for arch in SPEC_FAMILIES:
+        assert got[arch] == pins[arch], arch
+
+
 if __name__ == "__main__":
     writers = {"--write": write_pins, "--write-serve": write_serve_pins,
-               "--write-train": write_train_pins}
+               "--write-train": write_train_pins,
+               "--write-specs": write_spec_pins}
     if len(sys.argv) != 2 or sys.argv[1] not in writers:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_pins.py "
-                 "--write | --write-serve | --write-train")
+                 "--write | --write-serve | --write-train | --write-specs")
     writers[sys.argv[1]]()
