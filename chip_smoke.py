@@ -109,7 +109,14 @@ Phases, each printing JSON lines:
    serve step at ``t = seq_len - 1`` launches ``decode_attention`` once
    per attention layer (24 / 8 / 0), finite logits, the peak memory and
    the median wall ms of five warm steps; (b) runs after (c), so that its
-   worker processes do not share the host with the timed steps.
+   worker processes do not share the host with the timed steps;
+12. legacy store — (a) the four golden episodes under
+   ``state.lsm.set_store_impl("legacy")`` (the frozen pre-columnar store
+   and its lexsort installer), decision-identical, ``sorted_probe``
+   launched and ``window_agg`` never; (b) the store A/B: q8_justin under
+   the legacy and the columnar store, one round, each episode in a fresh
+   interpreter, the minimum per store and their ratio beside
+   the card's name and power limit.
 
 Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
 spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
@@ -340,6 +347,20 @@ def probe_cases(torch, dev):
             qs = qs[torch.randperm(len(qs), generator=g)]
             cases.append((f"{dt}:unsorted N={len(qs)} T={len(tab)}",
                           tab.to(dev), qs.to(dev)))
+    # int64 only: runs of repeats, as the legacy store's CLOCK rounds
+    # probe their sorted set ids against themselves (state/legacy.py
+    # ``_cache_apply``'s rank), at >= 4,096 queries so the plan takes the
+    # splitter-indexed route: short runs probed by the table itself, and
+    # runs longer than a splitter interval probed by present and absent ids
+    short = torch.sort(torch.randint(0, 20_000, (120_000,),
+                                     generator=g)).values
+    cases.append(("int64:runs of repeats T=120000 N=120000 (itself)",
+                  short.to(dev), short.to(dev)))
+    long_ = torch.sort(torch.randint(0, 50, (100_003,), generator=g) * 3
+                       ).values
+    lq = torch.randint(-2, 153, (6_000,), generator=g)
+    cases.append(("int64:long runs of repeats T=100003 N=6000",
+                  long_.to(dev), lq.to(dev)))
     # int64 only: high-bit keys and the packed (i << 45) | key memtable probe
     high = torch.unique(torch.randint(1 << 40, 1 << 62, (50_001,),
                                       generator=g) * 2 + 1)
@@ -438,23 +459,23 @@ def probe_sites(torch, dev):
     uq = _sorted_keys(torch, g, 465, top)
     keys = torch.cat([uq, uq[torch.randint(0, 465, (1,), generator=g)]])
     keys = keys[torch.randperm(len(keys), generator=g)]
-    sites.append(("state/lsm.py:502 inverse map", uq, keys, False))
+    sites.append(("lsm.get_batch inverse map", uq, keys, False))
     # the packed source-major memtable probe: 3 runs, 943 keys each
     runs = [_sorted_keys(torch, g, n, top) for n in (13_709, 13_709, 13_708)]
     packed = torch.cat([(i << 45) + r for i, r in enumerate(runs)])
     uq = _some_present(torch, g, runs[0], 943, top)
     qq = ((torch.arange(3)[:, None] << 45) + uq[None, :]).reshape(-1)
-    sites.append(("state/lsm.py:523 packed memtable probe", packed, qq,
+    sites.append(("lsm.get_batch packed memtable probe", packed, qq,
                   True))
     run = _sorted_keys(torch, g, 266_800, top)
-    sites.append(("state/lsm.py:305 _probe_run", run,
+    sites.append(("lsm._probe_run", run,
                   _some_present(torch, g, run, 276, top), True))
     newer = _sorted_keys(torch, g, 8_081, top)
-    sites.append(("state/lsm.py:108 merge_delta_runs", newer,
+    sites.append(("lsm.merge_delta_runs", newer,
                   _some_present(torch, g, newer, 12_504, top), True))
     # partition bounds: sorted partition ids of 60,000 rows, 4 edges
     part = torch.randint(0, 3, (60_000,), generator=g).sort().values
-    sites.append(("streaming/engine.py:67 _partition_bounds", part,
+    sites.append(("engine._partition_bounds", part,
                   torch.arange(4), True))
     return [(s, t.to(dev), q.to(dev), srt) for s, t, q, srt in sites]
 
@@ -679,7 +700,7 @@ def check_agg(torch, dev) -> dict:
     worst, n_cases = agg_sweep(torch, dev)
     sites = []
     main_shape = agg_main_shape(torch, dev)
-    for name, (gids, w, s) in (("state/lsm.py:382 _collapse (median)",
+    for name, (gids, w, s) in (("lsm._collapse (median)",
                                 agg_site(torch, dev)),
                                ("main shape", main_shape)):
         sums, counts = window_agg(gids, w, s)
@@ -3161,6 +3182,115 @@ def dryrun_phase(torch, name_power: str) -> dict:
     return totals
 
 
+# ------------------------------------------------------------ legacy store
+# Phase 12 runs the frozen pre-columnar store (``state/legacy.py``, the A/B
+# baseline of the columnar store) on the card.  (a) The four golden
+# episodes under ``set_store_impl("legacy")``: decision-identical, every
+# probe through ``sorted_probe``, ``window_agg`` never launched (the
+# legacy store has no segment sum, so a launch would mean the columnar
+# store ran).  (b) The store A/B: q8_justin under each store, alternating,
+# ``AB_ROUNDS`` rounds, each episode in a fresh interpreter (allocator
+# state left by one episode slows the next in one process), the minimum
+# per store and their ratio.
+# one round: two rounds took phase 12 to 175 s on an H100 (a development
+# run); each fresh interpreter costs ~11 s of start-up besides its episode
+AB_ROUNDS = 1
+AB_EPISODE = "q8_justin"
+
+
+def timed_episode(torch, key: str, golden: dict, dev: str
+                  ) -> tuple[float, dict, dict]:
+    """(wall s, ``run_episode``'s result, store-kernel launches) of one
+    golden episode, the launch counts reset just before it."""
+    from repro_torch.kernels.sorted_probe import ops as probe_ops
+    from repro_torch.kernels.window_agg import ops as agg_ops
+    probe_ops.launches = 0
+    agg_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_episode(key, golden, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, res, {"sorted_probe": probe_ops.launches,
+                       "window_agg": agg_ops.launches}
+
+
+def ab_child(key: str, store: str) -> int:
+    """``--ab-episode KEY --store STORE``: one golden episode on the card
+    under ``store``, its wall seconds and launches as one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+    from repro_torch.state import lsm
+    _build.library()
+    lsm.set_store_impl(store)
+    wall, res, launches = timed_episode(
+        torch, key, json.loads(GOLDEN.read_text()), "cuda")
+    emit({"episode": key, "store": store, "wall_s": wall,
+          "launches": launches, "steps": res["steps"]})
+    return 0
+
+
+def ab_episode(key: str, store: str) -> dict:
+    """One ``ab_child`` run in a fresh interpreter."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--ab-episode", key,
+         "--store", store], capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f"{key} under the {store} store failed: "
+                             f"{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def legacy_phase(torch, golden: dict, dev: str, name_power: str) -> dict:
+    """Phase 12.  Returns the store kernels' launch totals of (a)."""
+    from repro_torch.state import lsm
+    t_phase = time.perf_counter()
+    totals = {"sorted_probe": 0, "window_agg": 0}
+    # (a) the golden episodes under the legacy store
+    lsm.set_store_impl("legacy")
+    try:
+        for key in ("q11_justin", "q8_justin", "q11_ds2", "q8_ds2"):
+            wall, res, launches = timed_episode(torch, key, golden, dev)
+            emit({"phase": "legacy_episode", "episode": key,
+                  "wall_s": wall, "decisions_match_golden": True,
+                  "launches": launches, **res})
+            if launches["sorted_probe"] == 0:
+                raise AssertionError(f"{key} under the legacy store never "
+                                     f"launched sorted_probe")
+            if launches["window_agg"]:
+                raise AssertionError(
+                    f"{key} under the legacy store launched window_agg "
+                    f"{launches['window_agg']} times: the columnar store ran")
+            totals["sorted_probe"] += launches["sorted_probe"]
+    finally:
+        lsm.set_store_impl("columnar")
+    t_ab = time.perf_counter()
+
+    # (b) the store A/B, each episode in a fresh interpreter
+    walls = {"legacy": [], "columnar": []}
+    for _ in range(AB_ROUNDS):
+        for store in ("legacy", "columnar"):
+            rec = ab_episode(AB_EPISODE, store)
+            if store == "legacy" and rec["launches"]["window_agg"]:
+                raise AssertionError(f"the legacy A/B episode launched "
+                                     f"window_agg: {rec}")
+            walls[store].append(rec["wall_s"])
+            emit({"phase": "store_ab_episode", **rec,
+                  "nvidia_smi": name_power})
+    best = {k: min(v) for k, v in walls.items()}
+    emit({"phase": "store_ab", "episode": AB_EPISODE, "rounds": AB_ROUNDS,
+          "wall_s": walls, "min_s": best,
+          "legacy_over_columnar": best["legacy"] / best["columnar"],
+          "seconds": time.perf_counter() - t_ab, "nvidia_smi": name_power})
+
+    emit({"phase": "legacy_done", "seconds": time.perf_counter() - t_phase,
+          "launches": totals, "nvidia_smi": name_power})
+    return totals
+
+
 PROFILES = ("episode", "serve", "fleet", "decode", "train")
 
 
@@ -3173,7 +3303,11 @@ def main(argv=None) -> int:
                          "models of phases 5, 7 and 9 (decode) and a "
                          "llama3.2-3b training step (train) into "
                          "chiprun_out/")
+    ap.add_argument("--ab-episode", help=argparse.SUPPRESS)
+    ap.add_argument("--store", default="columnar", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ab_episode:
+        return ab_child(args.ab_episode, args.store)
     profile = set(PROFILES) if args.profile == [] else set(
         args.profile or ())
 
@@ -3212,21 +3346,11 @@ def main(argv=None) -> int:
     emit({"kernels": [r["name"] for r in rows]})
 
     # 4. golden episodes on the card
-    from repro_torch.kernels.sorted_probe import ops as probe_ops
-    from repro_torch.kernels.window_agg import ops as agg_ops
     totals = {"sorted_probe": 0, "window_agg": 0}
     walls = {}
     for key in ("q11_justin", "q8_justin", "q11_ds2", "q8_ds2"):
-        probe_ops.launches = 0
-        agg_ops.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run_episode(key, golden, dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall, res, launches = timed_episode(torch, key, golden, dev)
         walls[key] = wall
-        launches = {"sorted_probe": probe_ops.launches,
-                    "window_agg": agg_ops.launches}
         emit({"phase": "episode", "episode": key, "wall_s": wall,
               "decisions_match_golden": True, "launches": launches, **res})
         for k, n in launches.items():
@@ -3305,6 +3429,11 @@ def main(argv=None) -> int:
     # 11. the dry-run: the card's mesh, every cell lowered, the cells that
     # fit one card run once
     for k, n in dryrun_phase(torch, name_power).items():
+        totals[k] += n
+    torch.cuda.empty_cache()
+
+    # 12. the legacy store: golden episodes, the store A/B, the plain route
+    for k, n in legacy_phase(torch, golden, dev, name_power).items():
         totals[k] += n
     torch.cuda.empty_cache()
 

@@ -109,7 +109,7 @@ def probe_rows(torch, base, cur, dev) -> list:
     g = torch.Generator(device="cpu").manual_seed(14)
     uq = torch.unique(torch.randint(0, 1 << 45, (4_800,), generator=g))
     keys = uq[torch.randint(0, len(uq), (4_900,), generator=g)]
-    shapes.append(("state/lsm.py:502 inverse map, largest", uq.to(dev),
+    shapes.append(("lsm.get_batch inverse map, largest", uq.to(dev),
                    keys.to(dev), False))
     rows = []
     for label, table, q, srt in shapes:
@@ -137,7 +137,7 @@ def agg_rows(torch, base, cur, dev) -> list:
     from repro_torch.kernels.window_agg.ref import window_agg_ref
     rows = []
     for label, (gids, w, s) in (("main shape", cs.agg_main_shape(torch, dev)),
-                                ("state/lsm.py:382 _collapse (median)",
+                                ("lsm._collapse (median)",
                                  cs.agg_site(torch, dev))):
         want = window_agg_ref(gids, w, s)
         variants = {"base": lambda a=(gids, w, s): base(*a),

@@ -18,6 +18,8 @@ goes through the hand-written ``sorted_probe`` kernel — the level probes,
 the per-run memtable fallback and the packed source-major memtable probe
 — and every weight segment sum through ``window_agg``; on the CPU both
 run their plain PyTorch versions.  Weight sums stay int64 end to end.
+``make_store`` builds the store ``set_store_impl`` selects: this
+one, or the frozen pre-columnar ``state.legacy.LegacyLSMStore``.
 
 Host arithmetic (every metric charge, θ and τ inputs) stays Python
 float64/int in the reference's order.  Where the reference relies on
@@ -75,6 +77,14 @@ def _clock_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
     return t
 
 
+def stable_argsort_keys(a: torch.Tensor) -> torch.Tensor:
+    """Stable argsort of an int64 key tensor.  The reference radix-sorts
+    non-negative keys below 2^32 in two 16-bit passes, a numpy speed-up
+    whose permutation equals the stable sort's; so this is the stable
+    sort."""
+    return torch.sort(a, stable=True).indices
+
+
 def _nz(mask: torch.Tensor) -> torch.Tensor:
     """Indices where ``mask`` holds (``np.flatnonzero``)."""
     return torch.nonzero(mask).reshape(-1)
@@ -120,16 +130,24 @@ def merge_delta_runs(k1: torch.Tensor, w1: torch.Tensor, v1: torch.Tensor,
     out_w = torch.empty(n1 + n2, dtype=w1.dtype, device=dev)
     out_v = torch.empty((n1 + n2,) + tuple(v1.shape[1:]), dtype=v1.dtype,
                         device=dev)
-    # both interleave maps fall out of the one probe above: the surviving
-    # k2 sit strictly between k1 entries, so the k2 slot is its rank plus
-    # its insert position, and the k1 slot shifts by the count of k2
-    # inserted at or before it (a bincount running sum)
-    i2 = torch.arange(n2, device=dev) + pos
-    cum = torch.cumsum(torch.bincount(pos, minlength=n1 + 1), 0)
-    i1 = torch.arange(n1, device=dev) + cum[:n1]
+    i1, i2 = _interleave_slots(pos, n1)
     out_k[i1], out_w[i1], out_v[i1] = k1, w1, v1
     out_k[i2], out_w[i2], out_v[i2] = k2, w2, v2
     return out_k, out_w, out_v
+
+
+def _interleave_slots(pos: torch.Tensor, n1: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Output slots of merging a sorted run of ``n1`` keys with sorted
+    keys none of which it holds, given their insertion points ``pos``
+    into it (one probe gives both maps): such a key lands at its rank
+    plus its insertion point, and a run key shifts by the count of keys
+    inserted at or before it (a bincount running sum)."""
+    dev = pos.device
+    i2 = torch.arange(len(pos), device=dev) + pos
+    cum = torch.cumsum(torch.bincount(pos, minlength=n1 + 1), 0)
+    i1 = torch.arange(n1, device=dev) + cum[:n1]
+    return i1, i2
 
 
 @dataclass
@@ -937,6 +955,31 @@ class LSMStore:
         return store
 
 
+# ------------------------------------------------------------- store factory
+# The engine and operators build state through here, so the frozen
+# pre-columnar store (``repro_torch.state.legacy``) can be swapped in
+# in-process and the two compared like for like.
+_ACTIVE_STORE_IMPL = "columnar"
+
+
+def set_store_impl(name: str) -> None:
+    global _ACTIVE_STORE_IMPL
+    if name not in ("columnar", "legacy"):
+        raise ValueError(f"unknown store impl {name!r}")
+    _ACTIVE_STORE_IMPL = name
+
+
+def get_store_impl() -> str:
+    return _ACTIVE_STORE_IMPL
+
+
+def store_class(name: str | None = None):
+    if (name or _ACTIVE_STORE_IMPL) == "columnar":
+        return LSMStore
+    from repro_torch.state.legacy import LegacyLSMStore
+    return LegacyLSMStore
+
+
 def make_store(memory_mb: float, **kw) -> LSMStore:
     """The engine and operators build state through here."""
-    return LSMStore(memory_mb, **kw)
+    return store_class()(memory_mb, **kw)

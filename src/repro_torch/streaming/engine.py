@@ -30,6 +30,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels.sorted_probe.ops import probe
+from repro_torch.state.lsm import get_store_impl, stable_argsort_keys
 from repro_torch.streaming.events import EventBatch, hash_partition
 from repro_torch.streaming.graph import Dataflow
 from repro_torch.streaming.operators import (JoinOp, Operator, SourceOp,
@@ -175,7 +176,12 @@ class StreamEngine:
         task gets its merged partition as one installed run plus a cache
         prewarm over the partition in original arrival order (per-source
         ascending positions, sources in order), so the shared rng draws
-        exactly as the reference's."""
+        exactly as the reference's.  Under the legacy store
+        (``state.lsm.set_store_impl("legacy")``) the pre-columnar
+        installer runs instead."""
+        if get_store_impl() == "legacy":
+            self._install_partitions_lexsort(name, sources)
+            return
         node = self.flow.nodes[name]
         p = len(self.tasks[name])
         dev = self.device
@@ -216,10 +222,38 @@ class StreamEngine:
                 wk, wv = mk, mv
                 if len(mk) > 1 and (len(dk[i]) > 1
                                     or bool((mk[1:] < mk[:-1]).any())):
-                    o = torch.sort(mk, stable=True).indices
+                    o = stable_argsort_keys(mk)
                     mk, mw, mv = mk[o], mw[o], mv[o]
                 tr.state.install_run(mk, mv, mw)
                 tr.state.prewarm_cache(wk, wv, self.rng)
+            tr.state.metrics.reset()
+
+    def _install_partitions_lexsort(self, name: str,
+                                    sources: list[dict]) -> None:
+        """The pre-columnar installer (the reference's one global
+        ``np.lexsort((keys, part))``), run with the frozen legacy store so
+        the two backends are compared like for like (store and install
+        path together).  The lexsort is a stable sort by key, then a
+        stable sort by partition; each task's run is installed without
+        weights and its cache prewarmed over the run in original order."""
+        node = self.flow.nodes[name]
+        dev = self.device
+        keys = torch.cat([torch.as_tensor(s["keys"], dtype=torch.int64,
+                                          device=dev) for s in sources])
+        vals = torch.cat([torch.as_tensor(s["vals"], dtype=torch.int32,
+                                          device=dev) for s in sources])
+        p = len(self.tasks[name])
+        part = hash_partition(state_partition_keys(node.op, keys), p)
+        by_key = stable_argsort_keys(keys)
+        order, bounds = _partition_bounds(part[by_key], p)
+        srt = by_key[order]                      # by partition, then key
+        for i in range(p):
+            tr = self.tasks[name][i]
+            if bounds[i + 1] > bounds[i]:
+                run = srt[bounds[i]:bounds[i + 1]]
+                tr.state.install_run(keys[run], vals[run])
+                sl = torch.sort(run).values      # original order
+                tr.state.prewarm_cache(keys[sl], vals[sl], self.rng)
             tr.state.metrics.reset()
 
     # ------------------------------------------------------------ snapshots

@@ -287,14 +287,19 @@ class JoinOp(Operator):
                 continue
             sub = batch.select(mask)
             d = state.put_batch(self._skey(sub.key, sub.ts, mine), sub.value)
-            # probe keys are the put keys shifted by a constant (the side
-            # bit is below the window bits), so the put batch's delta
-            # decomposition doubles as the probe's sorted-unique hint
-            shift = (other - mine) * ((1 << 16) if self.window_s is not None
-                                      else 1)
-            vals, found = state.get_batch(
-                self._skey(sub.key, sub.ts, other),
-                uhint=(d[0] + shift, d[1]))
+            if d is not None:
+                # probe keys are the put keys shifted by a constant (the
+                # side bit is below the window bits), so the put batch's
+                # delta decomposition doubles as the probe's sorted-unique
+                # hint; the legacy store returns no decomposition
+                shift = (other - mine) * ((1 << 16) if self.window_s
+                                          is not None else 1)
+                vals, found = state.get_batch(
+                    self._skey(sub.key, sub.ts, other),
+                    uhint=(d[0] + shift, d[1]))
+            else:
+                vals, found = state.get_batch(
+                    self._skey(sub.key, sub.ts, other))
             if bool(found.any()):
                 joined = sub.select(found)
                 out.append(EventBatch(joined.key, vals[found], joined.ts,

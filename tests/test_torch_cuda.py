@@ -125,6 +125,16 @@ def test_cuda_store_matches_reference_in_lockstep(hopper, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(4))
+def test_cuda_legacy_store_matches_reference_in_lockstep(hopper, seed):
+    """The legacy store on the card (every probe through the kernel)
+    against the reference's legacy store, op for op: values, found
+    masks, metrics, items and the CLOCK arrays."""
+    from test_torch_legacy import run_lockstep
+    run_lockstep(seed, device="cuda")
+
+
+@pytest.mark.gpu
 def test_cuda_golden_episode(hopper):
     from repro_torch.kernels.sorted_probe import ops as probe_ops
     from repro_torch.kernels.window_agg import ops as agg_ops

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and neither
-``chip_smoke.py`` nor ``kernel_ab.py`` imports JAX or the JAX package
-``repro``, the entry points refuse to run on the CPU unless asked to, and
+``chip_smoke.py``, ``kernel_ab.py`` nor ``store_census.py`` imports JAX
+or the JAX package ``repro``, the entry points refuse to run on the CPU unless asked to, and
 ``kernel_ab.py`` binds another tree's kernel wrappers to that tree's own
 build."""
 import ast
@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
+       ROOT / "store_census.py"]
 FORBIDDEN = ("jax", "repro", "jaxlib", "ml_dtypes")
 
 
@@ -41,7 +42,8 @@ def test_port_files_exist():
                    "train/grad_compress.py", "train/train_step.py",
                    "train/checkpoint.py", "train/tree.py",
                    "launch/train.py", "models/sharding.py", "launch/mesh.py",
-                   "launch/elastic.py", "launch/dryrun.py"):
+                   "launch/elastic.py", "launch/dryrun.py",
+                   "state/legacy.py"):
         assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
@@ -71,6 +73,22 @@ def test_store_without_device_raises_when_no_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         LSMStore(4.0)
     assert LSMStore(4.0, device="cpu").device.type == "cpu"
+
+
+def test_legacy_store_without_device_raises_when_no_cuda(monkeypatch):
+    """The legacy store resolves its device as the columnar one does,
+    also when ``make_store`` builds it under the legacy switch."""
+    from repro_torch.state import lsm
+    from repro_torch.state.legacy import LegacyLSMStore
+    _no_cuda(monkeypatch)
+    monkeypatch.setattr(lsm, "_ACTIVE_STORE_IMPL", "columnar")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LegacyLSMStore(1.0)
+    lsm.set_store_impl("legacy")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lsm.make_store(1.0)
+    s = lsm.make_store(1.0, device="cpu")
+    assert type(s) is LegacyLSMStore and s.device.type == "cpu"
 
 
 def _scenario_entry_points():

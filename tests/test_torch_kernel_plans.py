@@ -48,11 +48,11 @@ def test_probe_plan_route(n, t):
 
 def test_probe_plan_at_the_census_shapes():
     # (N, T) medians of a q8_justin episode's five call sites
-    assert probe_plan(466, 465) == (32, 59)             # lsm.py:502
-    assert probe_plan(2_829, 41_126) == (32, 354)       # lsm.py:523
-    assert probe_plan(276, 266_800) == (32, 35)         # lsm.py:305
-    assert probe_plan(12_504, 8_081) == (1, 49)         # lsm.py:108
-    assert probe_plan(4, 60_000) == (32, 1)             # engine.py:67
+    assert probe_plan(466, 465) == (32, 59)             # inverse map
+    assert probe_plan(2_829, 41_126) == (32, 354)       # packed memtable
+    assert probe_plan(276, 266_800) == (32, 35)         # lsm._probe_run
+    assert probe_plan(12_504, 8_081) == (1, 49)         # merge_delta_runs
+    assert probe_plan(4, 60_000) == (32, 1)             # _partition_bounds
     # the main shape: 65,536 queries into 2.4 M entries
     assert probe_plan(65_536, 2_400_000) == (1, 256)
     assert probe_plan(5, 0) == (32, 1)                  # empty table
