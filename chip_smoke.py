@@ -116,7 +116,23 @@ Phases, each printing JSON lines:
    launched and ``window_agg`` never; (b) the store A/B: q8_justin under
    the legacy and the columnar store, one round, each episode in a fresh
    interpreter, the minimum per store and their ratio beside
-   the card's name and power limit.
+   the card's name and power limit;
+13. the MoE block across ranks — 8 ranks spawned on the one card
+   (``launch.mesh.run_ranks``: a gloo process group, every rank on
+   cuda:0, the collectives through host memory): (a) every case of
+   ``tests/torch_mesh_cases.py`` (``moe_ffn`` in the "expert", "ffn" and
+   "2d" modes on 2x4 and 2x2x2 meshes, the reduced llama4 and mixtral
+   decoders' prefill and decode on 2x4, float32) against the reference's
+   8-device answers (``tests/data/torch_mesh.json``) within 2e-5, on
+   every rank; (b) mixtral-8x7b at full width with 4 of its 32 layers,
+   bf16, on a 2x4 mesh in each mode, each rank holding only its blocks of
+   the expert weights: 8 prompts of 512 tokens and 16 decode steps fed
+   the greedy tokens of the same layers served 1x1 in this process;
+   "2d" held to the 1x1 logits and "expert" to "ffn" (< 0.03), the first
+   MoE layer alone on one shared input the same way (< 2e-2) with its
+   flipped routes, each rank's attention launches (reset just before,
+   one flash launch per layer and one decode launch per layer a step),
+   prefill s, decode ms a step, collectives a step and memory per mode.
 
 Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
 spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
@@ -133,8 +149,9 @@ h2o-danube-1.8b's (``window_shape`` in its lines), mixtral-8x7b's
 (``moe_shape``), llama4-maverick's (``chunk_shape``; the flash row also
 times the same launch without the chunk, ``unchunked_ms``),
 internvl2-26b's (``vlm_shape``), whisper-medium's (``encoder_shape``,
-``cross_shape``, ``encdec_self_shape``) and recurrentgemma-2b's
-(``hybrid_shape``).
+``cross_shape``, ``encdec_self_shape``), recurrentgemma-2b's
+(``hybrid_shape``) and mixtral-8x7b's as phase 13 (b) serves it on each
+of its ranks (``mesh_shape``: 8 x 512 prompts, 528 decode slots).
 
 Any mismatch or exception exits non-zero; only after every phase passed
 are the kernel table, the ``nvidia-smi`` line and the final
@@ -176,7 +193,7 @@ SERVE = dict(requests=8, prompt_len=2048, decode=128)
 # the attention kernels' rows at the other served models' shapes (phase 3)
 SHAPE_KEYS = ("window_shape", "moe_shape", "chunk_shape", "vlm_shape",
               "encoder_shape", "cross_shape", "encdec_self_shape",
-              "hybrid_shape")
+              "hybrid_shape", "mesh_shape")
 
 
 def emit(obj: dict) -> None:
@@ -1099,7 +1116,8 @@ def check_flash(torch, dev) -> dict:
     llama3.2-3b (phase 5), h2o-danube-1.8b with its window binding and
     mixtral-8x7b, whose window is longer than its prompts (phase 7),
     recurrentgemma-2b's local attention (phase 9: head dim 256, 10 q-heads
-    on one KV head, its 2,048 window binding over 4,096 positions), and
+    on one KV head, its 2,048 window binding over 4,096 positions),
+    mixtral-8x7b as each rank of phase 13 (b) prefills it (8 x 512), and
     the shapes of phase 8 (``flash_slice7_shapes``)."""
     from repro_torch.configs import get_config
     worst, n_cases = flash_sweep(torch, dev)
@@ -1114,7 +1132,8 @@ def check_flash(torch, dev) -> dict:
             ("window_shape", "h2o-danube-1.8b", SERVE_7["h2o-danube-1.8b"],
              35),
             ("moe_shape", "mixtral-8x7b", SERVE_7["mixtral-8x7b"], 36),
-            ("hybrid_shape", HYBRID, SERVE_9[HYBRID], 52)):
+            ("hybrid_shape", HYBRID, SERVE_9[HYBRID], 52),
+            ("mesh_shape", "mixtral-8x7b", MESH_SERVE, 54)):
         q, k, v, window = flash_shape(torch, dev, get_config(arch), sv, seed)
         b, hq, s, d = q.shape
         hk = k.shape[1]
@@ -1392,7 +1411,8 @@ def check_decode(torch, dev) -> dict:
     medium's self-attention and its cross-attention over 1,500 frames
     (phase 8), and recurrentgemma-2b's windowed span of 2,048 slots at
     head dim 256 with 10 q-heads on one KV head (phase 9: three
-    sub-groups)."""
+    sub-groups), and mixtral-8x7b at each rank's last decode step of
+    phase 13 (b) (528 slots)."""
     from repro_torch.configs import get_config
     worst, n_cases = decode_sweep(torch, dev)
     res = {
@@ -1410,7 +1430,8 @@ def check_decode(torch, dev) -> dict:
             ("vlm_shape", "internvl2-26b", SERVE_8["internvl2-26b"], 47),
             ("encdec_self_shape", WHISPER, SERVE_8[WHISPER], 48),
             ("cross_shape", WHISPER, SERVE_8[WHISPER], 49),
-            ("hybrid_shape", HYBRID, SERVE_9[HYBRID], 53)):
+            ("hybrid_shape", HYBRID, SERVE_9[HYBRID], 53),
+            ("mesh_shape", "mixtral-8x7b", MESH_SERVE, 55)):
         cfg = get_config(arch)
         q, k, v, lo, hi = decode_shape(torch, dev, cfg, sv, seed,
                                        cross=key == "cross_shape")
@@ -3291,6 +3312,366 @@ def legacy_phase(torch, golden: dict, dev: str, name_power: str) -> dict:
     return totals
 
 
+# ------------------------------------------------- the MoE block across ranks
+# Phase 13 runs the MoE block across 8 ranks that share the one card: a
+# gloo process group (``launch.mesh.run_ranks``), every rank on cuda:0
+# with its own CUDA context; the compute stays on the card and the
+# collectives go through host memory, so their times say nothing of
+# NVLink.  Phase 3 holds both attention kernels against their plain
+# versions at (b)'s shapes (``mesh_shape``).  (a) The pins: every case of ``tests/torch_mesh_cases.py``
+# (float32, reduced) on the ranks against the reference's answers on 8
+# devices (``tests/data/torch_mesh.json``) within ``MESH_PIN_TOL``, the
+# CPU test's bound.  (b) Full width: mixtral-8x7b at its published widths
+# with 4 of its 32 layers, bf16, on a 2x4 mesh in each of the three modes:
+# 8 prompts of 512 tokens, then 16 decode steps fed the greedy tokens of
+# the same 4 layers served 1x1 in this process (the reference path).
+# "2d" computes the one-device function and is held to the 1x1 logits;
+# "expert" and "ffn" route per dp shard and are held to each other; and
+# the first layer's MoE block alone, on one input shared bit for bit, is
+# held the same way (no upstream rounding can flip a route there), with
+# the flipped routes reported.
+MESH_WORLD = 8
+MESH_PIN_TOL = 2e-5
+MESH_SHAPE = (2, 4)
+MESH_SERVE = dict(arch="mixtral-8x7b", layers=4, requests=8,
+                  prompt_len=512, decode=16, seed=0, reduced=False)
+MESH_REL = 0.03                    # logits, PERF.md section 2
+MESH_LAYER_REL = 2e-2              # the first layer's MoE output
+MESH_MODES = ("expert", "ffn", "2d")
+
+
+def mesh_cfg(sv: dict, mode: str | None = None):
+    """(b)'s configuration: ``sv["arch"]`` cut to ``sv["layers"]`` layers
+    (its reduced form when ``sv["reduced"]``: the CPU rehearsal), in
+    ``mode`` when given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(sv["arch"])
+    if sv["reduced"]:
+        cfg = cfg.reduced()
+    cfg = cfg.replace(num_layers=sv["layers"])
+    return cfg if mode is None else cfg.replace(moe_shard=mode)
+
+
+def mesh_sync(torch, dev: str) -> None:
+    if dev != "cpu":
+        torch.cuda.synchronize()
+
+
+def mesh_layer_input(torch, cfg, sv: dict, dev: str):
+    """The first MoE layer's input of (b): ``rms_norm`` of N(0, 1) hidden
+    states [B, S, d] drawn from seed 7 on the card, in bf16 (the same
+    bits in every process)."""
+    from repro_torch.models.layers import rms_norm
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((sv["requests"], sv["prompt_len"], cfg.d_model),
+                    generator=g, device=dev)
+    return rms_norm(x.to(torch.bfloat16), torch.ones(cfg.d_model,
+                                                     device=dev))
+
+
+def mesh_routes(torch, moe, xf, router, k: int):
+    """The experts ``_route_local`` selects for the tokens xf [N, d]: the
+    same float32 product, softmax and top-k, on the same shapes."""
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)
+    return moe.top_k(probs, k)[1]
+
+
+def mesh_reference(torch, sv: dict, dev: str) -> dict:
+    """(b)'s reference path: the 4 layers served 1x1 in this process, the
+    weights drawn as every rank draws them (``init_params``, seed 0; the
+    ranks keep only their blocks).  Prefill, 16 greedy steps (the tokens
+    fed are the argmax of the step before), the first MoE layer on
+    ``mesh_layer_input`` and its routes.  On the host as numpy."""
+    import numpy as np
+    from repro_torch.launch.serve import init_params, pad_kv
+    from repro_torch.models import get_model, moe
+    cfg = mesh_cfg(sv)
+    model = get_model(cfg)
+    params = init_params(cfg, torch.device(dev), sv["seed"])
+    toks = torch.as_tensor(np.random.default_rng(sv["seed"]).integers(
+        0, cfg.vocab_size, (sv["requests"], sv["prompt_len"])), device=dev)
+    h = mesh_layer_input(torch, cfg, sv, dev)
+    p0 = {k: v[0] for k, v in params["layers"]["moe"]["moe"].items()}
+    y0 = moe.moe_ffn(p0, h, cfg)
+    sel = mesh_routes(torch, moe, h.reshape(-1, cfg.d_model), p0["router"],
+                      cfg.top_k)
+    moe.dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    times = {}
+    try:
+        with torch.no_grad():
+            mesh_sync(torch, dev)
+            t0 = time.perf_counter()
+            logits, caches = model.prefill(params, {"tokens": toks}, cfg)
+            mesh_sync(torch, dev)
+            times["prefill_s"] = time.perf_counter() - t0
+            out = [logits]
+            fed = [logits.argmax(-1)]
+            caches = pad_kv(caches, sv["decode"])
+            t0 = time.perf_counter()
+            for i in range(sv["decode"]):
+                logits, caches = model.decode(params, caches,
+                                              fed[-1][:, None],
+                                              sv["prompt_len"] + i, cfg)
+                out.append(logits)
+                fed.append(logits.argmax(-1))
+            mesh_sync(torch, dev)
+            times["decode_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                           / sv["decode"])
+        dropped = int(moe.dropped)
+    finally:
+        moe.dropped = None
+    res = {"tokens": torch.cat([toks, torch.stack(fed[:-1], 1)], 1),
+           "logits": torch.stack(out), "layer0": y0, "routes": sel}
+    res = {k: v.cpu().numpy() if v.dtype != torch.bfloat16
+           else v.float().cpu().numpy() for k, v in res.items()}
+    del params, caches
+    return res | {"dropped": dropped, **times}
+
+
+def mesh_serve_mode(torch, mctx, sv: dict, mode: str, tokens,
+                    dev: str) -> dict:
+    """One mode of (b) on this rank: the blocks of the weights every rank
+    draws, the first MoE layer alone, then the prefill and the decode
+    steps fed ``tokens`` [B, prompt + decode], timed between barriers on
+    the host clock, with this rank's attention launches, collectives,
+    drops and memory."""
+    import torch.distributed as dist
+    from repro_torch.kernels.decode_attn import ops as decode_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch.serve import pad_kv
+    from repro_torch.models import get_model, moe
+    from repro_torch.models.convert import moe_shardings
+    from repro_torch.models.sharding import P
+    cfg = mesh_cfg(sv, mode)
+    model = get_model(cfg)
+    mesh = mctx.mesh
+    card = dev != "cpu"
+    b, p_len = sv["requests"], sv["prompt_len"]
+    toks = torch.as_tensor(tokens, device=dev)
+    blocks = moe_shardings(model.param_shapes(cfg), cfg, mctx, b)
+    params = model.init(cfg, torch.Generator(dev).manual_seed(sv["seed"]),
+                        dtype=getattr(torch, cfg.compute_dtype),
+                        blocks=blocks)
+    res = {"mode": mode}
+    h = mesh_layer_input(torch, cfg, sv, dev)
+    p0 = {k: v[0] for k, v in params["layers"]["moe"]["moe"].items()}
+    y0 = moe.moe_ffn(p0, h, cfg, mctx)
+    # the tokens this rank routes: all of them in "2d", its dp shard else
+    routed = h if mode == "2d" else mctx.sharding(P(mctx.dp)).block(h)
+    res["routes"] = mesh_routes(torch, moe, routed.reshape(-1, cfg.d_model),
+                                p0["router"], cfg.top_k).cpu().numpy()
+    res["routes_dp_row"] = mesh.axis_index(mctx.dp)
+    del h
+
+    flash_ops.launches = decode_ops.launches = 0
+    moe.dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    mesh.collectives.update(calls=0, bytes=0)
+    with torch.no_grad():
+        dist.barrier()
+        mesh_sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, {"tokens": toks[:, :p_len]},
+                                       cfg, mctx)
+        mesh_sync(torch, dev)
+        res["prefill_s"] = time.perf_counter() - t0
+        res["prefill_collectives"] = dict(mesh.collectives)
+        dist.barrier()
+        if card:
+            free, total = torch.cuda.mem_get_info()
+            res["device_used_gb"] = (total - free) / 1e9
+        out = [logits]
+        caches = pad_kv(caches, sv["decode"])
+        mesh.collectives.update(calls=0, bytes=0)
+        dist.barrier()
+        mesh_sync(torch, dev)
+        t0 = time.perf_counter()
+        for i in range(sv["decode"]):
+            t = p_len + i
+            logits, caches = model.decode(params, caches, toks[:, t:t + 1],
+                                          t, cfg, mctx)
+            out.append(logits)
+        mesh_sync(torch, dev)
+        res["decode_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                     / sv["decode"])
+    res["decode_collectives_per_step"] = {
+        k: v / sv["decode"] for k, v in mesh.collectives.items()}
+    res["launches"] = {"flash_attention": flash_ops.launches,
+                       "decode_attention": decode_ops.launches}
+    res["dropped"] = int(moe.dropped)
+    moe.dropped = None
+    if card:
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    logits = torch.stack(out)
+    res["logits_sum"] = float(logits.double().sum())
+    if dist.get_rank() == 0:
+        res["logits"] = logits.cpu().numpy()
+        res["layer0"] = y0.float().cpu().numpy()
+    del params, caches, out, logits, y0
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def mesh_rank(rank: int, sv: dict, tokens, dev: str) -> dict:
+    """Phase 13 on one rank of the 8 (on the card, all on cuda:0): (a) the
+    pinned cases, then (b) each mode at ``sv``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch_mesh_cases as cases
+    from repro_torch.launch.mesh import rank_mesh_ctx
+    t0 = time.perf_counter()
+    pins = cases.rank_cases(rank, dev)
+    pins_s = time.perf_counter() - t0
+    mctx = rank_mesh_ctx(MESH_SHAPE, device=dev)
+    return {"pins": pins, "pins_s": pins_s,
+            "modes": [mesh_serve_mode(torch, mctx, sv, mode, tokens, dev)
+                      for mode in MESH_MODES]}
+
+
+def mesh_rel(got, want) -> float:
+    import numpy as np
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def mesh_phase(torch, dev: str, name_power: str,
+               sv: dict = MESH_SERVE) -> dict:
+    """Phase 13.  Returns the attention kernels' launch totals of (b).
+    ``dev`` "cpu" with a reduced ``sv`` rehearses it on the CPU."""
+    import numpy as np
+    from repro_torch.launch.mesh import run_ranks
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_mesh_cases as cases
+    t_phase = time.perf_counter()
+    card = dev != "cpu"
+    label = "gloo through host memory, 8 ranks on one card"
+    cfg = mesh_cfg(sv)
+    if card:
+        reset_counts(torch)
+    t0 = time.perf_counter()
+    ref = mesh_reference(torch, sv, dev)
+    ref_s = time.perf_counter() - t0
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9 if card else None
+    if card:
+        reset_counts(torch)
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, MESH_WORLD, sv, ref["tokens"],
+                      "cuda:0" if card else "cpu", timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+
+    # (a) the pins, on the card
+    pins = json.loads((ROOT / "tests" / "data" / "torch_mesh.json")
+                      .read_text())
+    worst = {}
+    for key in cases.case_keys():
+        want = cases.decode(pins[key])
+        for r in ranks:
+            got = r["pins"][key]
+            if got.shape != want.shape or not np.isfinite(got).all():
+                raise AssertionError(f"mesh pin {key}: malformed")
+            err = float(np.abs(got - want).max())
+            if err > MESH_PIN_TOL:
+                raise AssertionError(f"mesh pin {key}: {err} on the card")
+            worst[key] = max(worst.get(key, 0.0), err)
+    emit({"phase": "mesh_pins", "cases": len(worst), "ranks": MESH_WORLD,
+          "max_abs_err": max(worst.values()), "limit": MESH_PIN_TOL,
+          "worst_case": max(worst, key=worst.get),
+          "rank_pins_s": max(r["pins_s"] for r in ranks),
+          "collectives": ranks[0]["pins"]["_collectives"],
+          "nvidia_smi": name_power})
+
+    # (b) full width, each mode against the 1x1 path or its pair
+    by_mode = {m["mode"]: m for m in ranks[0]["modes"]}
+    totals = {"flash_attention": 0, "decode_attention": 0}
+    for i, mode in enumerate(MESH_MODES):
+        per = [r["modes"][i] for r in ranks]
+        want = {"flash_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * sv["decode"]}
+        for m in per:
+            # on the CPU the wrappers run their plain versions: no launch
+            if m["launches"] != (want if card else dict.fromkeys(want, 0)):
+                raise AssertionError(f"mesh {mode}: a rank launched "
+                                     f"{m['launches']}, want {want}")
+            if m["logits_sum"] != per[0]["logits_sum"]:
+                raise AssertionError(f"mesh {mode}: the ranks' logits "
+                                     f"differ")
+        for k in totals:
+            totals[k] += sum(m["launches"][k] for m in per)
+        logits = by_mode[mode]["logits"]
+        if logits.shape != ref["logits"].shape or not np.isfinite(
+                logits).all():
+            raise AssertionError(f"mesh {mode}: logits malformed")
+    checks = {
+        "2d_vs_1x1": (by_mode["2d"], ref),
+        "expert_vs_ffn": (by_mode["expert"], by_mode["ffn"])}
+    flips = {}
+    ref_routes = ref["routes"].reshape(sv["requests"], sv["prompt_len"], -1)
+    for i, mode in enumerate(MESH_MODES):
+        n = 0
+        for r in ranks:
+            m = r["modes"][i]
+            if mode == "2d":
+                n = max(n, int((m["routes"] != ref["routes"]).sum()))
+            else:
+                rows = sv["requests"] // 2
+                row = m["routes_dp_row"]
+                part = ref_routes[row * rows:(row + 1) * rows].reshape(
+                    m["routes"].shape)
+                n = max(n, int((m["routes"] != part).sum()))
+        flips[mode] = n
+    for name, (got, want) in checks.items():
+        rel = {"prefill": mesh_rel(got["logits"][0], want["logits"][0]),
+               "decode": mesh_rel(got["logits"][1:], want["logits"][1:]),
+               "layer0_moe": mesh_rel(got["layer0"], want["layer0"])}
+        emit({"phase": "mesh_check", "check": name, "rel_err": rel,
+              "limits": {"logits": MESH_REL, "layer0_moe": MESH_LAYER_REL},
+              "argmax_equal": float((got["logits"].argmax(-1)
+                                     == want["logits"].argmax(-1)).mean()),
+              "nvidia_smi": name_power})
+        if not (rel["prefill"] < MESH_REL and rel["decode"] < MESH_REL
+                and rel["layer0_moe"] < MESH_LAYER_REL):
+            raise AssertionError(f"mesh {name}: {rel}")
+    for i, mode in enumerate(MESH_MODES):
+        per = [r["modes"][i] for r in ranks]
+        emit({"phase": "mesh_serve", "arch": cfg.name, "mode": mode,
+              "mesh": list(MESH_SHAPE), "reduced": {
+                  "num_layers": [sv["layers"], 32]} if not sv["reduced"]
+              else "reduced config",
+              "requests": sv["requests"], "prompt_len": sv["prompt_len"],
+              "decode": sv["decode"], "timing": label,
+              "prefill_s": per[0]["prefill_s"],
+              "prefill_s_max_rank": max(m["prefill_s"] for m in per),
+              "decode_ms_per_step": per[0]["decode_ms_per_step"],
+              "decode_ms_per_step_max_rank": max(
+                  m["decode_ms_per_step"] for m in per),
+              "prefill_collectives": per[0]["prefill_collectives"],
+              "decode_collectives_per_step":
+                  per[0]["decode_collectives_per_step"],
+              "launches_per_rank": per[0]["launches"],
+              "dropped": sum(m["dropped"] for m in per) // {
+                  "expert": 1, "ffn": MESH_SHAPE[1],
+                  "2d": MESH_SHAPE[0]}[mode],
+              "assignments": cfg.num_layers * cfg.top_k * sv["requests"]
+              * (sv["prompt_len"] + sv["decode"]),
+              "layer0_routes_flipped_vs_1x1": flips[mode],
+              "peak_gb_per_rank": max(m.get("peak_gb", 0) for m in per),
+              "peak_gb_sum_ranks": sum(m.get("peak_gb", 0) for m in per),
+              "device_used_gb": max(m.get("device_used_gb", 0)
+                                    for m in per),
+              "nvidia_smi": name_power})
+    emit({"phase": "mesh_done", "seconds": time.perf_counter() - t_phase,
+          "reference_1x1_s": ref_s, "reference_1x1_peak_gb": ref_peak,
+          "reference_1x1_dropped": ref["dropped"],
+          "reference_1x1_prefill_s": ref["prefill_s"],
+          "reference_1x1_decode_ms_per_step": ref["decode_ms_per_step"],
+          "ranks_s": ranks_s, "launches": totals, "timing": label,
+          "nvidia_smi": name_power})
+    return totals
+
+
 PROFILES = ("episode", "serve", "fleet", "decode", "train")
 
 
@@ -3434,6 +3815,12 @@ def main(argv=None) -> int:
 
     # 12. the legacy store: golden episodes, the store A/B, the plain route
     for k, n in legacy_phase(torch, golden, dev, name_power).items():
+        totals[k] += n
+    torch.cuda.empty_cache()
+
+    # 13. the MoE block across 8 ranks on the card: the pins, then
+    # mixtral at full width in each mode
+    for k, n in mesh_phase(torch, dev, name_power).items():
         totals[k] += n
     torch.cuda.empty_cache()
 

@@ -5,12 +5,23 @@ mesh, or 2x16x16 with a ``"pod"`` axis, as an abstract mesh: axis names
 over device indices (``jax.sharding.AbstractMesh``), so the dry-run
 reckons each device's share of a cell without 256 GPUs.  The card's own
 mesh is ``launch.elastic.derive_mesh`` over its devices.
+
+``rank_mesh_ctx`` lays a mesh over the ranks of the running
+``torch.distributed`` process group (one process per mesh cell), which
+``run_ranks`` starts: ``world`` spawned processes on one host, each
+joining a group over ``tcp://localhost`` on the backend the caller
+names, each running one function and handing its result back.
 """
 from __future__ import annotations
 
+import datetime
 import math
+import os
+import socket
+import time
 
 import numpy as np
+import torch
 
 from repro_torch.models.sharding import Mesh, MeshCtx
 
@@ -23,6 +34,85 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def production_mesh_ctx(*, multi_pod: bool = False) -> MeshCtx:
     return MeshCtx(make_production_mesh(multi_pod=multi_pod))
+
+
+def rank_mesh_ctx(shape: tuple[int, ...],
+                  axis_names: tuple[str, ...] | None = None,
+                  device=None) -> MeshCtx:
+    """A mesh of ``shape`` over the ranks of the initialised process group
+    (``Mesh.over_ranks``): axes ``("data", "model")``, or ``("pod",
+    "data", "model")`` for three dims, unless named; this rank computes on
+    ``device``, by default ``cuda:<local rank>`` (``LOCAL_RANK``, else the
+    rank modulo the visible cards).  Every rank calls it alike."""
+    import torch.distributed as dist
+    if axis_names is None:
+        axis_names = ("pod", "data", "model") if len(shape) == 3 \
+            else ("data", "model")
+    if device is None:
+        if not dist.is_initialized():
+            raise RuntimeError("rank_mesh_ctx needs an initialised "
+                               "torch.distributed process group")
+        local = os.environ.get("LOCAL_RANK")
+        device = torch.device("cuda", int(local) if local is not None
+                              else dist.get_rank()
+                              % torch.cuda.device_count())
+    return MeshCtx(Mesh.over_ranks(tuple(shape), tuple(axis_names), device))
+
+
+def _rank_entry(rank: int, world: int, port: int, backend: str,
+                timeout_s: float, fn, args: tuple, results) -> None:
+    import torch.distributed as dist
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{port}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        results.put((rank, fn(rank, *args)))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args, backend: str = "gloo",
+              timeout_s: float = 600.0) -> list:
+    """Run ``fn(rank, *args)`` in ``world`` spawned processes that form one
+    ``torch.distributed`` process group on ``backend``; returns their
+    results by rank.  ``fn`` and its arguments and results are pickled
+    (``fn`` by import path).  A rank that fails, or a run past
+    ``timeout_s`` (also each collective's timeout), raises here with the
+    failing rank's traceback, and every process is ended."""
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    results = mp.get_context("spawn").SimpleQueue()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = mp.spawn(_rank_entry, nprocs=world, join=False,
+                     args=(world, port, backend, timeout_s, fn, args,
+                           results))
+    got: dict = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        # drained as they come: a rank blocks in put() on a full pipe
+        while True:
+            while not results.empty():
+                rank, val = results.get()
+                got[rank] = val
+            if procs.join(timeout=1.0):
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"run_ranks({fn.__name__}): past "
+                                   f"{timeout_s} s")
+    except ProcessException as e:
+        raise RuntimeError(f"run_ranks({fn.__name__}): ranks "
+                           f"[{e.error_index}] failed\n{e}") from None
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    while not results.empty():
+        rank, val = results.get()
+        got[rank] = val
+    return [got[r] for r in range(world)]
 
 
 # --- NVIDIA H100 SXM (H100 80GB HBM3 at its 700 W power limit), NVIDIA's

@@ -7,11 +7,19 @@ The two packages share the parameter tree (same keys, same stacked
 leaves; only the array type differs.  Any nesting of dicts carries over,
 leaf for leaf.  The JAX side hands its trees over as numpy arrays
 (``jax.tree.map(np.asarray, tree)``).
+
+On a mesh over ranks each rank holds its blocks of the MoE weights
+(``moe_blocks``) and the rest of the tree whole, so the same global
+weights feed both packages.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.moe import moe_in_specs, moe_param_shapes
+from repro_torch.models.sharding import MeshCtx, NamedSharding, P
 
 
 def _tree(tree, device, dtype):
@@ -36,3 +44,46 @@ def caches_from_numpy(tree, device, dtype=None):
     """numpy KV-cache tree -> the port's, on ``device``; a bfloat16 cache
     stays bfloat16 unless ``dtype`` is given."""
     return _tree(tree, device, dtype)
+
+
+def moe_shardings(tree, cfg: ArchConfig, mctx: MeshCtx, batch: int
+                  ) -> dict[tuple, NamedSharding]:
+    """The sharding of every MoE leaf of ``tree`` by its path of keys,
+    under the block's ``in_specs`` for a batch of ``batch`` rows
+    (``moe.moe_in_specs``; a leading layer dim unsharded).  ``tree`` is
+    one MoE block's parameters or a decoder's, given as arrays or as
+    shape tuples (``decoder_param_shapes``)."""
+    specs = moe_in_specs(cfg, mctx, batch)
+    stacked = moe_param_shapes(cfg, 1)          # [1, *the block's leaf]
+    if "router" in tree:
+        blocks = [((), tree)]
+    else:
+        blocks = [(("layers", name, "moe"), group["moe"])
+                  for name, group in sorted(tree["layers"].items())
+                  if "moe" in group]
+    out = {}
+    for path, block in blocks:
+        for key, leaf in block.items():
+            ndim = len(leaf) if isinstance(leaf, tuple) else leaf.ndim
+            lead = ndim - (len(stacked[key]) - 1)
+            out[path + (key,)] = mctx.sharding(
+                P(*(None,) * lead, *specs[key]))
+    return out
+
+
+def moe_blocks(tree, cfg: ArchConfig, mctx: MeshCtx, batch: int):
+    """``tree`` (one MoE block's parameters or a decoder's; numpy arrays or
+    tensors) with every MoE leaf cut to this rank's block of it
+    (``moe_shardings``), a copy; every other leaf as it is."""
+    shardings = moe_shardings(tree, cfg, mctx, batch)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if path not in shardings:
+            return node
+        block = shardings[path].block(node)
+        return block.copy() if isinstance(block, np.ndarray) \
+            else block.contiguous().clone()
+
+    return walk(tree, ())

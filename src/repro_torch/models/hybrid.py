@@ -287,7 +287,8 @@ def hybrid_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     return tfm.next_token_loss(x, tokens, params["embed"].T, cfg)
 
 
-def hybrid_prefill(params, batch: dict, cfg: ArchConfig):
+def hybrid_prefill(params, batch: dict, cfg: ArchConfig,
+                   mctx: MeshCtx | None = None):
     """batch["tokens"]: [B, S] ids.  Returns (last-token logits [B, V]
     float32, caches with S slots per attention layer)."""
     tokens = batch["tokens"]
@@ -300,7 +301,7 @@ def hybrid_prefill(params, batch: dict, cfg: ArchConfig):
 
 
 def hybrid_decode_step(params, caches: dict, tokens: torch.Tensor, t: int,
-                       cfg: ArchConfig):
+                       cfg: ArchConfig, mctx: MeshCtx | None = None):
     """tokens: [B, 1] new token ids at absolute position ``t`` (an int).
     Writes the new states, keys and values into ``caches`` in place.
     Returns (logits [B, V] float32, caches)."""

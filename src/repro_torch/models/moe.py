@@ -1,26 +1,58 @@
-"""Mixture-of-Experts FFN with capacity-bounded routing, on one device.
+"""Mixture-of-Experts FFN with capacity-bounded routing, on one device or
+across the ranks of a mesh.
 
 Port of ``repro.models.moe``.  The reference runs the block under
-``shard_map``: experts sharded over the mesh's ``model`` axis
-(``moe_shard="expert"``), or every expert on every shard with its hidden
-dim split (``"ffn"``), or both over two axes (``"2d"``, ``moe_ffn_2d``),
-each combined with a ``psum``.  On one device every mode computes the same
-function, so the port has one body; ``moe_param_specs`` gives each mode's
-layout, and ``moe_ffn_2d`` waits for a mesh of more than one card.
+``shard_map`` with the tokens split over the data-parallel axes (dp:
+``"data"``, or ``("pod", "data")``) and one of three layouts of the
+expert weights over ``model``:
+
+* ``moe_shard="expert"``: the experts split over ``model``; each cell
+  routes its dp shard's tokens to its ``e_loc`` experts, at offset
+  ``axis_index(model) * e_loc``;
+* ``"ffn"``: every expert on every cell, the hidden dim split over
+  ``model``;
+
+each followed by a ``psum`` over ``model`` (the shared expert, its hidden
+dim split over ``model``, added before it); and
+
+* ``"2d"`` (``moe_ffn_2d``): the tokens all-gathered over dp, the experts
+  over ``model`` and their hidden dim over dp, one ``psum`` over
+  ``(model, *dp)``; taken when dp divides the batch on a mesh of more than
+  one device.
+
+On one device the three compute the same function, which the port runs
+with ``mctx=None`` (or a 1x1 mesh) as one body.  On a mesh they do not:
+in ``"expert"`` and ``"ffn"`` each dp shard routes only its own tokens
+under a capacity reckoned from its own token count, so more assignments
+are dropped than on one device; ``"2d"`` routes every token under the
+global capacity and gives the one-device answer.  On a mesh over ranks
+(``Mesh.over_ranks``) the port runs the reference's bodies rank by rank:
+``moe_ffn`` takes the global input, replicated on every rank as the rest
+of the port's model runs, runs the body on the rank's dp shard of it (all
+of it in ``"2d"``) and the rank's weight blocks (``moe_in_specs``:
+exactly what the block's ``in_specs`` give it; ``convert.moe_blocks``
+cuts them) and returns the global output on every rank (the
+``out_specs`` gathered over dp; ``"2d"``'s psum is global already).  When
+dp does not divide the batch, the input stays replicated and ``"2d"``
+falls through to the ``"ffn"`` body, as in the reference.
 
 Routing is the reference's, step for step: router logits and softmax in
 float32, the top ``k`` experts per token (the lower expert index first on
 a tie, as ``lax.top_k``), gates renormalised, a capacity of
-``max(1, cdiv(int(n * k * capacity_factor), E))`` slots per expert, each
-(token, choice) ranked within its expert by an exclusive cumsum in token
-order, and assignments past the capacity dropped to the buffer's last
-row, which the combine reads as zeros.  The expert products are batched
-matrix products over the ``[E, cap, d]`` buffer (the reference leaves
-them to XLA; no hand-written kernel is on this path).
+``max(1, cdiv(int(n * k * capacity_factor), E))`` slots per expert (``n``
+the tokens this cell routes), each (token, choice) ranked within its
+expert by an exclusive cumsum in token order, and assignments past the
+capacity dropped to the buffer's last row, which the combine reads as
+zeros.  The expert products are batched matrix products over the
+``[E_loc, cap, d]`` buffer (the reference leaves them to XLA; no
+hand-written kernel is on this path).
 
 ``dropped``: set it to a 0-d int64 tensor on the run's device and every
-routing adds the assignments it dropped to it, on the device (no host
-sync); None (the default) counts nothing.
+routing adds the assignments it dropped past the capacity of its own
+experts to it, on the device (no host sync); None (the default) counts
+nothing.  Across ranks each cell counts its own experts' drops: summed
+over the ranks, ``"ffn"`` counts each drop once per ``model`` rank and
+``"2d"`` once per dp rank.
 """
 from __future__ import annotations
 
@@ -28,7 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.sharding import P
+from repro_torch.models.sharding import MeshCtx, P
 
 dropped: torch.Tensor | None = None
 
@@ -74,8 +106,8 @@ def _route_local(x: torch.Tensor, router: torch.Tensor, n_local_experts: int,
     keep = mine & (rank < cap)
     drop_row = n_local_experts * cap
     flat_pos = torch.where(keep, local_c * cap + rank, drop_row)
-    if dropped is not None:
-        dropped += (flat_pos == drop_row).sum()
+    if dropped is not None:            # this cell's experts' overflow only
+        dropped += (mine & ~keep).sum()
 
     buf = torch.zeros((drop_row + 1, d), dtype=x.dtype, device=x.device)
     xk = x[:, None].expand(n, k, d).reshape(n * k, d)
@@ -83,30 +115,163 @@ def _route_local(x: torch.Tensor, router: torch.Tensor, n_local_experts: int,
     return buf, flat_pos, gates.to(x.dtype), cap
 
 
-def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _experts(xf: torch.Tensor, p: dict, e_loc: int, off: int,
+             cfg: ArchConfig) -> torch.Tensor:
+    """The gated sum of each token's kept SwiGLU experts among the
+    ``e_loc`` at offset ``off`` whose weights ``p`` holds (in its hidden
+    dim's share): xf [N, d] -> [N, d]."""
+    n, d = xf.shape
+    dt = xf.dtype
+    buf, flat_pos, gates, cap = _route_local(xf, p["router"], e_loc, off,
+                                             cfg)
+    buf_e = buf[:-1].reshape(e_loc, cap, d)
+    h = torch.bmm(buf_e, p["wg"].to(dt))
+    u = torch.bmm(buf_e, p["wu"].to(dt))
+    out_e = torch.bmm(F.silu(h) * u, p["wo"].to(dt))
+    out_flat = torch.cat([out_e.reshape(e_loc * cap, d),
+                          torch.zeros((1, d), dtype=dt, device=xf.device)])
+    gathered = out_flat[flat_pos.reshape(-1)].reshape(n, cfg.top_k, d)
+    return (gathered * gates[..., None]).sum(1)
+
+
+def _shared(xf: torch.Tensor, p: dict) -> torch.Tensor:
+    dt = xf.dtype
+    g = xf @ p["sh_wg"].to(dt)
+    uu = xf @ p["sh_wu"].to(dt)
+    return (F.silu(g) * uu) @ p["sh_wo"].to(dt)
+
+
+def _global_shapes(cfg: ArchConfig) -> dict:
+    return {k: v[1:] for k, v in moe_param_shapes(cfg, 1).items()}
+
+
+def _body(cfg: ArchConfig, mctx: MeshCtx, batch: int) -> str:
+    """The body the block runs for a batch of ``batch`` rows, as the
+    reference chooses it: ``"2d"`` where dp divides the batch on a mesh of
+    more than one device, else ``"expert"``, or ``"ffn"`` (for ``"ffn"``
+    and ``"2d"``'s fall-through)."""
+    if cfg.moe_shard == "2d" and batch % mctx.dp_size == 0 \
+            and mctx.mesh.size > 1:
+        return "2d"
+    return "expert" if cfg.moe_shard == "expert" else "ffn"
+
+
+def moe_in_specs(cfg: ArchConfig, mctx: MeshCtx, batch: int) -> dict:
+    """The specs of the weights the block's ``shard_map`` takes for a
+    batch of ``batch`` rows (the reference's ``in_specs``): each rank
+    holds its block of every leaf under them.  ``"2d"`` where it runs
+    (dp divides the batch on a mesh of more than one device): the experts
+    over ``model`` and their hidden dim over dp, the shared expert's
+    d_model over dp; else experts over ``model`` (``"expert"``) or every
+    expert with its hidden dim over ``model``."""
+    tp, dp = mctx.tp, mctx.dp
+    body = _body(cfg, mctx, batch)
+    if body == "2d":
+        specs = {"wg": P(tp, None, dp), "wu": P(tp, None, dp),
+                 "wo": P(tp, dp, None)}
+        shared = {"sh_wg": P(dp, tp), "sh_wu": P(dp, tp),
+                  "sh_wo": P(tp, None)}
+    else:
+        ep = body == "expert"
+        w = P(tp, None, None) if ep else P(None, None, tp)
+        specs = {"wg": w, "wu": w,
+                 "wo": P(tp, None, None) if ep else P(None, tp, None)}
+        shared = {"sh_wg": P(None, tp), "sh_wu": P(None, tp),
+                  "sh_wo": P(tp, None)}
+    specs = {"router": P(None, None), **specs}
+    return specs | shared if cfg.shared_expert else specs
+
+
+def _check_blocks(params: dict, cfg: ArchConfig, mctx: MeshCtx,
+                  batch: int) -> None:
+    shapes = _global_shapes(cfg)
+    for k, spec in moe_in_specs(cfg, mctx, batch).items():
+        want = mctx.sharding(spec).shard_shape(shapes[k])
+        if tuple(params[k].shape) != want:
+            raise ValueError(
+                f"moe_ffn on a {mctx.mesh} mesh takes this rank's blocks "
+                f"(convert.moe_blocks): {k} {tuple(params[k].shape)}, "
+                f"not {want}")
+
+
+def _rank_mesh(mctx: MeshCtx):
+    mesh = mctx.mesh
+    if mesh.device_mesh is None:
+        raise RuntimeError(f"moe_ffn on a {mesh} mesh runs on the ranks of "
+                           f"a process group (Mesh.over_ranks)")
+    return mesh
+
+
+def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
+            mctx: MeshCtx | None = None) -> torch.Tensor:
     """x: [B, S, D]; returns the same shape: the gated sum of each token's
     kept experts' SwiGLU outputs, plus the shared expert's when the config
     has one.  Weights are cast to x's dtype per use (a no-op on a tree
-    from ``cast_params``)."""
+    from ``cast_params``).  With ``mctx`` a mesh of more than one device
+    over ranks, ``x`` is the global input (on every rank), ``params`` this
+    rank's blocks (``moe_in_specs``), and the global output is returned on
+    every rank."""
     b, s, d = x.shape
-    n = b * s
-    e, k = cfg.num_experts, cfg.top_k
-    dt = x.dtype
-    xf = x.reshape(n, d)
-    buf, flat_pos, gates, cap = _route_local(xf, params["router"], e, 0, cfg)
-    buf_e = buf[:-1].reshape(e, cap, d)
-    h = torch.bmm(buf_e, params["wg"].to(dt))
-    u = torch.bmm(buf_e, params["wu"].to(dt))
-    out_e = torch.bmm(F.silu(h) * u, params["wo"].to(dt))
-    out_flat = torch.cat([out_e.reshape(e * cap, d),
-                          torch.zeros((1, d), dtype=dt, device=x.device)])
-    gathered = out_flat[flat_pos.reshape(-1)].reshape(n, k, d)
-    y = (gathered * gates[..., None]).sum(1)
+    if mctx is None or mctx.mesh.size == 1:
+        xf = x.reshape(b * s, d)
+        y = _experts(xf, params, cfg.num_experts, 0, cfg)
+        if cfg.shared_expert:
+            y = y + _shared(xf, params)
+        return y.reshape(b, s, d)
+    body = _body(cfg, mctx, b)
+    if body == "2d":
+        return moe_ffn_2d(params, x, cfg, mctx)
+    mesh = _rank_mesh(mctx)
+    _check_blocks(params, cfg, mctx, b)
+    tp = mctx.tp
+    # batch-1 decode can't split tokens over dp: replicate instead
+    dp = mctx.dp if b % mctx.dp_size == 0 else None
+    x_loc = mctx.sharding(P(dp, None, None)).block(x)
+    xf = x_loc.reshape(-1, d)
+    if body == "expert":
+        e_loc = params["wg"].shape[0]
+        off = mesh.axis_index(tp) * e_loc
+    else:
+        e_loc, off = cfg.num_experts, 0
+    y = _experts(xf, params, e_loc, off, cfg)
     if cfg.shared_expert:
-        g = xf @ params["sh_wg"].to(dt)
-        uu = xf @ params["sh_wu"].to(dt)
-        y = y + (F.silu(g) * uu) @ params["sh_wo"].to(dt)
-    return y.reshape(b, s, d)
+        y = y + _shared(xf, params)
+    y = mesh.psum(y, tp).reshape(x_loc.shape)
+    return y if dp is None else mesh.all_gather(y, dp)
+
+
+def moe_ffn_2d(params: dict, x: torch.Tensor, cfg: ArchConfig,
+               mctx: MeshCtx) -> torch.Tensor:
+    """The expert weights fully sharded (E over ``model`` x F over dp),
+    tokens moved instead of weights: the reference's body on this rank.
+    Every rank routes the whole token batch under the global capacity to
+    its ``e_loc`` experts, runs its ``(E_loc, F_loc)`` blocks, and one
+    ``psum`` over ``(model, *dp)`` completes both partial dims.  x: the
+    global [B, S, D] (dp divides B) on every rank; returns the global
+    output on every rank.  The reference's all-gather of the tokens over
+    dp, its dp slice of the output and the ``out_specs``' gather of the
+    slices are identities here, where x and the psum's result are already
+    global on every rank, and are not issued."""
+    b, s, d = x.shape
+    mesh = _rank_mesh(mctx)
+    _check_blocks(params, cfg, mctx, b)
+    tp, dp, dp_size = mctx.tp, mctx.dp, mctx.dp_size
+    xf = x.reshape(b * s, d)
+    e_loc = params["wg"].shape[0]
+    y = _experts(xf, params, e_loc, mesh.axis_index(tp) * e_loc, cfg)
+    if cfg.shared_expert:
+        # shared expert: D sharded over dp, F over tp; finish the dp
+        # partial sums before the nonlinearity, then pre-scale by 1/dp so
+        # the joint (tp, dp) psum below stays exact
+        dt = xf.dtype
+        d_loc = params["sh_wg"].shape[0]
+        row = mesh.axis_index(dp)
+        xs = xf[:, row * d_loc:(row + 1) * d_loc]
+        g = mesh.psum(xs @ params["sh_wg"].to(dt), dp)
+        uu = mesh.psum(xs @ params["sh_wu"].to(dt), dp)
+        y_sh = (F.silu(g) * uu) @ params["sh_wo"].to(dt)
+        y = y + y_sh / dp_size
+    return mesh.psum(y, (tp, *dp)).reshape(b, s, d)
 
 
 def moe_param_shapes(cfg: ArchConfig, n_layers: int) -> dict:

@@ -264,7 +264,8 @@ def ssm_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     return tfm.next_token_loss(x, tokens, unembed, cfg)
 
 
-def ssm_prefill(params, batch: dict, cfg: ArchConfig):
+def ssm_prefill(params, batch: dict, cfg: ArchConfig,
+                mctx: MeshCtx | None = None):
     """batch["tokens"]: [B, S] ids.  Returns (last-token logits [B, V]
     float32, caches)."""
     tokens = batch["tokens"]
@@ -276,7 +277,7 @@ def ssm_prefill(params, batch: dict, cfg: ArchConfig):
 
 
 def ssm_decode_step(params, caches: dict, tokens: torch.Tensor, t: int,
-                    cfg: ArchConfig):
+                    cfg: ArchConfig, mctx: MeshCtx | None = None):
     """tokens: [B, 1] new token ids (the position ``t`` is not read: the
     state carries it).  Writes the new conv and SSM states into
     ``caches`` in place.  Returns (logits [B, V] float32, caches)."""

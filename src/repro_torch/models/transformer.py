@@ -58,6 +58,7 @@ zero tensor of the whole leaf at every layer.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -186,9 +187,10 @@ def dense_ffn_block(p, x: torch.Tensor) -> torch.Tensor:
     return x + swiglu(h, p["wg"], p["wu"], p["wd"])
 
 
-def moe_ffn_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def moe_ffn_block(p, x: torch.Tensor, cfg: ArchConfig,
+                  mctx: MeshCtx | None = None) -> torch.Tensor:
     h = rms_norm(x, p["ln2"])
-    return x + moe_ffn(p["moe"], h, cfg)
+    return x + moe_ffn(p["moe"], h, cfg, mctx)
 
 
 # ---------------------------------------------------------------------------
@@ -320,11 +322,11 @@ def _set(tree: dict, path: tuple, val) -> None:
 
 
 def init_decoder_params(cfg: ArchConfig, generator: torch.Generator,
-                        device=None, dtype: torch.dtype | None = None
-                        ) -> dict:
+                        device=None, dtype: torch.dtype | None = None,
+                        blocks: dict | None = None) -> dict:
     """The decoder's tree, drawn as ``_init_from_shapes`` draws."""
     return _init_from_shapes(decoder_param_shapes(cfg), cfg, generator,
-                             device, dtype)
+                             device, dtype, blocks)
 
 
 def init_encdec_params(cfg: ArchConfig, generator: torch.Generator,
@@ -346,7 +348,8 @@ def leaf_dtype(name: str, cfg: ArchConfig,
 
 
 def _init_from_shapes(shapes: dict, cfg: ArchConfig,
-                      generator: torch.Generator, device, dtype) -> dict:
+                      generator: torch.Generator, device, dtype,
+                      blocks: dict | None = None) -> dict:
     """The reference's initialisation: every leaf of two or more
     dimensions N(0, 0.02) drawn in float32, every 1-D leaf ones.  (By that
     rule the stacked per-layer norm scales ``ln1``/``ln2`` [L, d] are
@@ -357,7 +360,10 @@ def _init_from_shapes(shapes: dict, cfg: ArchConfig,
     Leaves are held in ``param_dtype``; with ``dtype`` given, the
     ``MATRICES`` leaves are held in it instead, which gives the tree
     ``cast_params`` makes from the float32 one, bit for bit, at the peak
-    memory of the cast tree."""
+    memory of the cast tree.  ``blocks`` (a path's ``NamedSharding`` on a
+    mesh over ranks, ``convert.moe_shardings``) keeps only this rank's
+    block of those leaves: every matrix is still drawn, so the tree equals
+    the global one's blocks, bit for bit."""
     device = generator.device if device is None else device
     params: dict = {}
     for path, shape in _leaves(shapes):
@@ -365,11 +371,17 @@ def _init_from_shapes(shapes: dict, cfg: ArchConfig,
         if len(shape) == 1:
             _set(params, path, torch.ones(shape, dtype=ldt, device=device))
             continue
-        leaf = torch.empty(shape, dtype=ldt, device=device)
-        for mat in leaf.reshape(-1, *shape[-2:]):
-            mat.copy_(torch.randn(shape[-2:], generator=generator,
-                                  dtype=torch.float32, device=device)
-                      .mul_(0.02))
+        index = (blocks or {}).get(path)
+        index = index.index(shape) if index else tuple(
+            slice(0, n) for n in shape)
+        leaf = torch.empty([i.stop - i.start for i in index], dtype=ldt,
+                           device=device)
+        for lead in np.ndindex(*shape[:-2]):
+            mat = torch.randn(shape[-2:], generator=generator,
+                              dtype=torch.float32, device=device).mul_(0.02)
+            if all(i.start <= j < i.stop for i, j in zip(index, lead)):
+                at = tuple(j - i.start for i, j in zip(index, lead))
+                leaf[at].copy_(mat[index[-2], index[-1]])
         _set(params, path, leaf)
     return params
 
@@ -512,7 +524,8 @@ def remat(cfg: ArchConfig, fn, *args):
     return fn(*args)
 
 
-def _group_layer(cfg: ArchConfig, mode: str, positions, t=None):
+def _group_layer(cfg: ArchConfig, mctx: MeshCtx | None, mode: str,
+                 positions, t=None):
     """One index of the stacked groups: each group's layer in sorted key
     order (dense0..denseK then moe), the reference's ``_group_body``."""
     def body(x, gp: dict, gcache: dict | None):
@@ -524,17 +537,19 @@ def _group_layer(cfg: ArchConfig, mode: str, positions, t=None):
             if name.startswith("dense"):
                 x = dense_ffn_block(p, x)
             else:
-                x = moe_ffn_block(p, x, cfg)
+                x = moe_ffn_block(p, x, cfg, mctx)
         return x
     return body
 
 
-def _run_stack(params, x, cfg: ArchConfig, mode: str, positions,
-               caches: dict | None = None, t=None):
+def _run_stack(params, x, cfg: ArchConfig, mctx: MeshCtx | None, mode: str,
+               positions, caches: dict | None = None, t=None):
     """The decoder stack.  ``caches`` (prefill, decode) are written in
-    place; "train" takes none and runs each layer under ``remat``."""
+    place; "train" takes none and runs each layer under ``remat``.  On a
+    mesh over ranks only the MoE blocks read ``mctx``: every other layer
+    runs on the whole batch on this rank's device."""
     groups = {name: _layers(g) for name, g in params["layers"].items()}
-    body = _group_layer(cfg, mode, positions, t)
+    body = _group_layer(cfg, mctx, mode, positions, t)
     for i in range(len(next(iter(groups.values())))):
         gp = {name: g[i] for name, g in groups.items()}
         if caches is None:
@@ -584,36 +599,40 @@ def decoder_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
                         cfg)
     n_img = x.shape[1] - tokens.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_stack(params, x, cfg, "train", positions)
+    x = _run_stack(params, x, cfg, None, "train", positions)
     x = rms_norm(x, params["ln_f"])
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return next_token_loss(x[:, n_img:], tokens, unembed, cfg)
 
 
-def decoder_prefill(params, batch: dict, cfg: ArchConfig):
+def decoder_prefill(params, batch: dict, cfg: ArchConfig,
+                    mctx: MeshCtx | None = None):
     """batch["tokens"]: [B, S] ids (and a VLM's ``img_emb``).  Returns
     (last-token logits [B, V] float32, caches with exactly as many slots
-    as positions: S, or img_tokens + S for a VLM)."""
+    as positions: S, or img_tokens + S for a VLM).  On a mesh over ranks
+    (``mctx``) every rank runs the whole batch and holds its blocks of the
+    MoE weights (``convert.moe_blocks``); the outputs are the same on
+    every rank."""
     _check_supported(cfg)
     x = _prepend_images(params, _embed_tokens(params, batch["tokens"], cfg),
                         batch, cfg)
     b, s, _ = x.shape
     caches = _alloc(kv_shapes(cfg, b, s), x)
     positions = torch.arange(s, device=x.device)
-    x = _run_stack(params, x, cfg, "prefill", positions, caches)
+    x = _run_stack(params, x, cfg, mctx, "prefill", positions, caches)
     x = rms_norm(x[:, -1], params["ln_f"])
     return _logits(params, x, cfg), caches
 
 
 def decoder_decode_step(params, caches, tokens: torch.Tensor, t: int,
-                        cfg: ArchConfig):
+                        cfg: ArchConfig, mctx: MeshCtx | None = None):
     """tokens: [B, 1] new token ids at absolute position ``t`` (an int;
     for a VLM the image tokens count).  Writes the new keys and values
     into ``caches`` in place.  Returns (logits [B, V] float32, caches)."""
     _check_supported(cfg)
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(t, t + 1, device=x.device)
-    x = _run_stack(params, x, cfg, "decode", positions, caches, t=t)
+    x = _run_stack(params, x, cfg, mctx, "decode", positions, caches, t=t)
     x = rms_norm(x[:, -1], params["ln_f"])
     return _logits(params, x, cfg), caches
 
@@ -711,7 +730,8 @@ def encdec_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     return next_token_loss(x, tokens, params["unembed"], cfg)
 
 
-def encdec_prefill(params, batch: dict, cfg: ArchConfig):
+def encdec_prefill(params, batch: dict, cfg: ArchConfig,
+                   mctx: MeshCtx | None = None):
     """batch["frames"]: [B, enc_seq, 1024], batch["tokens"]: [B, S] ids.
     Returns (last-token logits [B, V] float32, caches: self-attention with
     exactly S slots, and the cross-attention keys and values of every
@@ -737,7 +757,7 @@ def encdec_prefill(params, batch: dict, cfg: ArchConfig):
 
 
 def encdec_decode_step(params, caches, tokens: torch.Tensor, t: int,
-                       cfg: ArchConfig):
+                       cfg: ArchConfig, mctx: MeshCtx | None = None):
     """tokens: [B, 1] new token ids at absolute position ``t`` (an int).
     Writes the new self-attention keys and values into ``caches`` in
     place; the cross caches are read whole.  Returns (logits [B, V]

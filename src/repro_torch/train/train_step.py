@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import get_model
+from repro_torch.models.sharding import MeshCtx
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 from repro_torch.train.tree import leaves, unflatten
 
@@ -75,22 +76,22 @@ def make_train_step(cfg: ArchConfig, ocfg: AdamWConfig | None = None,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, mctx: MeshCtx | None = None):
     model = get_model(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model.prefill(params, batch, cfg)
+        return model.prefill(params, batch, cfg, mctx)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, mctx: MeshCtx | None = None):
     """One decode step: new token against the KV/state cache."""
     model = get_model(cfg)
 
     @torch.no_grad()
     def serve_step(params, caches, tokens, t):
-        return model.decode(params, caches, tokens, t, cfg)
+        return model.decode(params, caches, tokens, t, cfg, mctx)
 
     return serve_step

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch`` and neither
-``chip_smoke.py``, ``kernel_ab.py`` nor ``store_census.py`` imports JAX
-or the JAX package ``repro``, the entry points refuse to run on the CPU unless asked to, and
-``kernel_ab.py`` binds another tree's kernel wrappers to that tree's own
-build."""
+``chip_smoke.py``, ``kernel_ab.py``, ``store_census.py`` nor the mesh
+cases ``chip_smoke.py`` runs on the card (``tests/torch_mesh_cases.py``)
+imports JAX or the JAX package ``repro``, the entry points refuse to run
+on the CPU unless asked to, and ``kernel_ab.py`` binds another tree's
+kernel wrappers to that tree's own build."""
 import ast
 import pathlib
 
@@ -13,7 +14,7 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
-       ROOT / "store_census.py"]
+       ROOT / "store_census.py", ROOT / "tests" / "torch_mesh_cases.py"]
 FORBIDDEN = ("jax", "repro", "jaxlib", "ml_dtypes")
 
 

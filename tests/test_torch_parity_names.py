@@ -28,10 +28,8 @@ ALLOWED = {
     "launch/mesh.py": {"ICI_BW": "the TPU interconnect's rate; one H100 "
                                  "has no interconnect to price"},
     "launch/dryrun.py": {"collective_bytes_from_text":
-                         "parses XLA's HLO text; the collectives of a "
-                         "sharded step wait for more than one card"},
-    "models/moe.py": {"moe_ffn_2d": "runs only on a mesh of more than one "
-                                    "device; waits for more than one card"},
+                         "parses XLA's HLO text; the port's collective "
+                         "bytes wait for its sharded dense step"},
     "state/lsm.py": {n: "the wrappers already dispatch by device; CPU "
                         "tensors run the plain versions"
                      for n in ("DEFAULT_KERNEL_IMPL", "set_kernel_impl")},

@@ -31,6 +31,13 @@ reference's jitted ``make_train_step``; the port on the CPU (here) and on
 the card (``chip_smoke.run_train_pin``) must land within
 ``chip_smoke.TRAIN_PIN_TOL`` of them.  Written with ``--write-train`` (about a
 minute).
+
+``tests/data/torch_mesh.json`` holds the reference's answers to the MoE
+block on 8 devices (``torch_mesh_cases``: ``moe_ffn`` in every mode on
+2x4 and 2x2x2, the reduced decoders' prefill and decode on 2x4), which
+``test_torch_mesh.py`` holds the port to on 8 gloo ranks and
+``chip_smoke.py``'s phase 13 (a) on the card.  Written with
+``--write-mesh`` (about 40 s); the ``slow`` test regenerates it.
 """
 import importlib.util
 import json
@@ -40,7 +47,9 @@ import subprocess
 import sys
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
+import torch_mesh_cases as mesh_cases
 
 torch = pytest.importorskip("torch")
 
@@ -432,11 +441,135 @@ def test_reference_reproduces_spec_pins():
         assert got[arch] == pins[arch], arch
 
 
+# The MoE block across 8 devices: the reference runs ``moe_ffn`` in every
+# mode on 2x4 and 2x2x2 host meshes, and the reduced decoders' prefill and
+# two decode steps on 2x4, from ``torch_mesh_cases``' numpy inputs, in one
+# subprocess with 8 forced host devices (each step jitted, the caches
+# carried between steps as numpy).  ``test_torch_mesh.py`` holds the port
+# on 8 gloo ranks to the file.
+_MESH_SCRIPT = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import json, sys
+sys.path.insert(0, "tests")
+import jax
+import jax.numpy as jnp
+import numpy as np
+from repro.configs import get_config
+from repro.models import get_model
+from repro.models.moe import moe_ffn
+from repro.models.sharding import MeshCtx
+import torch_mesh_cases as C
+
+
+def carry(tree, pad=0):
+    # numpy and back (no sharding rides along), "k"/"v" grown by pad slots
+    def leaf(path, x):
+        x = np.asarray(x)
+        if pad and path[-1].key in ("k", "v"):
+            x = np.pad(x, [(0, 0)] * (x.ndim - 2) + [(0, pad), (0, 0)])
+        return jnp.asarray(x)
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+out = {}
+for mname, (shape, names) in C.MESHES.items():
+    mesh = jax.make_mesh(shape, names)
+    assert [d.id for d in mesh.devices.flat] == list(range(C.WORLD))
+    mctx = MeshCtx(mesh)
+    for arch in C.ARCHS:
+        for mode in C.MODES:
+            cfg = get_config(arch).reduced().replace(**C.REPLACE,
+                                                     moe_shard=mode)
+            inp = C.moe_inputs(arch, cfg.d_model, cfg.d_ff,
+                               cfg.num_experts, cfg.shared_expert)
+            params = jax.tree.map(jnp.asarray, inp["params"])
+            block = jax.jit(lambda p, x: moe_ffn(p, x, cfg, mctx))
+            for b in C.X_BATCHES:
+                out[f"moe/{mname}/{arch}/{mode}/x{b}"] = block(
+                    params, jnp.asarray(inp[f"x{b}"]))
+            if mname != C.DECODER_MESH:
+                continue
+            model = get_model(cfg)
+            dec = C.decoder_inputs(arch, model.param_shapes(cfg),
+                                   cfg.vocab_size)
+            params = jax.tree.map(jnp.asarray, dec["params"])
+            toks = dec["tokens"]
+            key = f"decoder/{mname}/{arch}/{mode}"
+            prefill = jax.jit(lambda p, b: model.prefill(p, b, cfg, mctx))
+            decode = jax.jit(lambda p, c, tok, t: model.decode(p, c, tok, t,
+                                                              cfg, mctx))
+            logits, caches = prefill(
+                params, {"tokens": jnp.asarray(toks[:, :C.PROMPT])})
+            out[f"{key}/prefill"] = logits
+            caches = carry(caches, C.STEPS)
+            for i in range(C.STEPS):
+                t = C.PROMPT + i
+                logits, caches = decode(params, caches,
+                                        jnp.asarray(toks[:, t:t + 1]),
+                                        jnp.int32(t))
+                out[f"{key}/decode{i}"] = logits
+                caches = carry(caches)
+print(json.dumps({k: C.encode(v) for k, v in out.items()}))
+"""
+MESH_PINS = ROOT / "tests" / "data" / "torch_mesh.json"
+
+
+def mesh_pins() -> dict:
+    """The reference's answers to every case of ``torch_mesh_cases``, from
+    one subprocess with 8 forced host devices (about 40 s)."""
+    out = subprocess.run([sys.executable, "-c", _MESH_SCRIPT],
+                         capture_output=True, text=True, timeout=1200,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": "src",
+                                        "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout)
+
+
+def write_mesh_pins() -> None:
+    pins = {"_meta": {
+        "written_by": "PYTHONPATH=src python tests/test_torch_pins.py "
+                      "--write-mesh (the reference package, on the CPU, "
+                      "8 forced host devices)",
+        "meshes": {k: [list(v[0]), list(v[1])]
+                   for k, v in mesh_cases.MESHES.items()},
+        "replace": mesh_cases.REPLACE},
+        **mesh_pins()}
+    MESH_PINS.write_text(json.dumps(pins, separators=(",", ":")) + "\n")
+
+
+def test_mesh_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s phase 13 with the reduced mixtral on 8 gloo
+    ranks on the CPU: the pins on every rank, "2d" against the 1x1 path
+    and "expert" against "ffn", the ranks' outputs equal (the card's run
+    with the sizes cut; the plain versions launch no kernel).  The ranks
+    import ``chip_smoke`` by name."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    sv = dict(chip_smoke.MESH_SERVE, reduced=True, prompt_len=16, decode=3)
+    assert chip_smoke.mesh_phase(torch, "cpu", "cpu", sv=sv) == {
+        "flash_attention": 0, "decode_attention": 0}
+
+
+@pytest.mark.slow
+def test_reference_reproduces_mesh_pins():
+    """Every mesh case regenerated from the reference equals the file, bit
+    for bit."""
+    pins = json.loads(MESH_PINS.read_text())
+    got = mesh_pins()
+    assert sorted(got) == sorted(mesh_cases.case_keys())
+    for key in mesh_cases.case_keys():
+        np.testing.assert_array_equal(mesh_cases.decode(got[key]),
+                                      mesh_cases.decode(pins[key]), key)
+
+
 if __name__ == "__main__":
     writers = {"--write": write_pins, "--write-serve": write_serve_pins,
                "--write-train": write_train_pins,
-               "--write-specs": write_spec_pins}
+               "--write-specs": write_spec_pins,
+               "--write-mesh": write_mesh_pins}
     if len(sys.argv) != 2 or sys.argv[1] not in writers:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_pins.py "
-                 "--write | --write-serve | --write-train | --write-specs")
+                 "--write | --write-serve | --write-train | --write-specs "
+                 "| --write-mesh")
     writers[sys.argv[1]]()
