@@ -126,13 +126,32 @@ Phases, each printing JSON lines:
    8-device answers (``tests/data/torch_mesh.json``) within 2e-5, on
    every rank; (b) mixtral-8x7b at full width with 4 of its 32 layers,
    bf16, on a 2x4 mesh in each mode, each rank holding only its blocks of
-   the expert weights: 8 prompts of 512 tokens and 16 decode steps fed
-   the greedy tokens of the same layers served 1x1 in this process;
+   the weights (the decoder's sharded step): 8 prompts of 512 tokens and
+   2 decode steps fed the greedy tokens of the same layers served 1x1 in
+   this process;
    "2d" held to the 1x1 logits and "expert" to "ffn" (< 0.03), the first
    MoE layer alone on one shared input the same way (< 2e-2) with its
    flipped routes, each rank's attention launches (reset just before,
    one flash launch per layer and one decode launch per layer a step),
-   prefill s, decode ms a step, collectives a step and memory per mode.
+   prefill s, decode ms a step, collectives a step and memory per mode;
+14. the decoder's sharded steps across ranks — 8 ranks on the one card
+   again: (a) every case of ``tests/torch_sharded_cases.py`` (reduced
+   dense, windowed, MoE and VLM decoders on 2x4 and 2x2x2, every
+   ``kv_spec`` branch, a batch of 1; a prefill and 4 decode steps,
+   float32) against the reference's 8-device answers
+   (``tests/data/torch_sharded.json``) within 2e-5, logits and caches, on
+   every rank, each step's collectives equal to a ``CountingMesh``'s
+   count; (b) llama3.2-3b at full width and depth, bf16, on 2x4, each
+   rank drawing only its blocks (FSDP over ``data``, TP over ``model``):
+   8 prompts of 512 tokens and 8 decode steps fed the greedy tokens of
+   the port's 1x1 run on the same weights in this process, the gathered
+   logits within 0.03 of it, each rank's parameter bytes equal to the
+   dry-run's per-device bytes, prefill s, decode ms a step, collectives
+   a prefill and a step, each rank's peak; (c) mixtral-8x7b at full
+   width with 4 of 32 layers on 2x4, 8 x 512 and 2 decode steps: "2d"
+   within 0.03 of 1x1, and in "ffn" the experts gathered from their FSDP
+   storage into the block's ``in_specs`` equal to ``convert.moe_blocks``'
+   blocks bit for bit, the routes that flip against 1x1 counted.
 
 Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
 spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
@@ -150,8 +169,12 @@ h2o-danube-1.8b's (``window_shape`` in its lines), mixtral-8x7b's
 times the same launch without the chunk, ``unchunked_ms``),
 internvl2-26b's (``vlm_shape``), whisper-medium's (``encoder_shape``,
 ``cross_shape``, ``encdec_self_shape``), recurrentgemma-2b's
-(``hybrid_shape``) and mixtral-8x7b's as phase 13 (b) serves it on each
-of its ranks (``mesh_shape``: 8 x 512 prompts, 528 decode slots).
+(``hybrid_shape``), mixtral-8x7b's as phase 13 (b) serves it on each
+of its ranks (``mesh_shape``: 8 x 512 prompts, 514 decode slots) and
+llama3.2-3b's as phase 14 (b) serves it on each of its ranks
+(``rank_shape``: 4 rows, 6 q heads on 2 KV heads, 512 prompt positions,
+520 decode slots); its sweeps include phase 14 (a)'s reduced heads (one
+q head on a KV head at head dim 16).
 
 Any mismatch or exception exits non-zero; only after every phase passed
 are the kernel table, the ``nvidia-smi`` line and the final
@@ -193,7 +216,7 @@ SERVE = dict(requests=8, prompt_len=2048, decode=128)
 # the attention kernels' rows at the other served models' shapes (phase 3)
 SHAPE_KEYS = ("window_shape", "moe_shape", "chunk_shape", "vlm_shape",
               "encoder_shape", "cross_shape", "encdec_self_shape",
-              "hybrid_shape", "mesh_shape")
+              "hybrid_shape", "mesh_shape", "rank_shape")
 
 
 def emit(obj: dict) -> None:
@@ -927,6 +950,16 @@ def flash_d256_cases(torch, dev):
                f"window={window}", "bfloat16", q, k, v, True, window, None)
 
 
+def shape_cfg(arch: str, sv: dict):
+    """``arch``'s configuration with the heads one rank runs where ``sv``
+    names them (``SHARD_RANK``: a rank's share of a sharded step)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if "heads" in sv:
+        cfg = cfg.replace(num_heads=sv["heads"], num_kv_heads=sv["kv_heads"])
+    return cfg
+
+
 def flash_shape(torch, dev, cfg, sv: dict, seed: int):
     """Prefill attention as phase 5 or 7 serves ``cfg`` at ``sv``: q a
     [B, S, Hq, D] projection seen as [B, Hq, S, D], k/v the [B, Hk, S, D]
@@ -938,6 +971,25 @@ def flash_shape(torch, dev, cfg, sv: dict, seed: int):
     k = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
     v = _randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
     return q, k, v, cfg.window
+
+
+def flash_rank_cases(torch, dev):
+    """(label, dtype name, q, k, v, causal, window, chunk) as a rank of
+    phase 14 (a)'s reduced cases runs the kernel: one q head (or two) on
+    one KV head at head dim 16, 16 and 24 positions (the VLM's image
+    tokens first), causal, under the reduced window and chunk of 32 or
+    none, q the [B, S, H, D] projection seen as [B, H, S, D]."""
+    g = torch.Generator(device="cpu").manual_seed(33)
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        for b, hq, s in ((2, 1, 16), (1, 1, 16), (1, 2, 16), (2, 1, 24)):
+            q = _randn(torch, g, (b, s, hq, 16), dev, dt).transpose(1, 2)
+            k = _randn(torch, g, (b, 1, s, 16), dev, dt)
+            v = _randn(torch, g, (b, 1, s, 16), dev, dt)
+            for window, chunk in ((None, None), (32, None), (None, 32)):
+                yield (f"{name} rank B={b} {hq}:1 S={s} D=16 "
+                       f"window={window} chunk={chunk}", name, q, k, v,
+                       True, window, chunk)
 
 
 def flash_sweep(torch, dev) -> tuple[dict, int]:
@@ -952,7 +1004,8 @@ def flash_sweep(torch, dev) -> tuple[dict, int]:
         (c + (None,) for c in itertools.chain(
             flash_cases(torch, dev), flash_layout_cases(torch, dev),
             flash_window_cases(torch, dev))),
-        flash_chunk_cases(torch, dev), flash_d256_cases(torch, dev))
+        flash_chunk_cases(torch, dev), flash_d256_cases(torch, dev),
+        flash_rank_cases(torch, dev))
     for label, name, q, k, v, causal, window, chunk in cases:
         kw = dict(causal=causal, window=window, chunk_attn=chunk)
         got = flash_attention(q, k, v, **kw)
@@ -1117,7 +1170,8 @@ def check_flash(torch, dev) -> dict:
     mixtral-8x7b, whose window is longer than its prompts (phase 7),
     recurrentgemma-2b's local attention (phase 9: head dim 256, 10 q-heads
     on one KV head, its 2,048 window binding over 4,096 positions),
-    mixtral-8x7b as each rank of phase 13 (b) prefills it (8 x 512), and
+    mixtral-8x7b as each rank of phase 13 (b) prefills it (8 x 512),
+    llama3.2-3b as each rank of phase 14 (b) does (``rank_shape``), and
     the shapes of phase 8 (``flash_slice7_shapes``)."""
     from repro_torch.configs import get_config
     worst, n_cases = flash_sweep(torch, dev)
@@ -1133,8 +1187,10 @@ def check_flash(torch, dev) -> dict:
              35),
             ("moe_shape", "mixtral-8x7b", SERVE_7["mixtral-8x7b"], 36),
             ("hybrid_shape", HYBRID, SERVE_9[HYBRID], 52),
-            ("mesh_shape", "mixtral-8x7b", MESH_SERVE, 54)):
-        q, k, v, window = flash_shape(torch, dev, get_config(arch), sv, seed)
+            ("mesh_shape", "mixtral-8x7b", MESH_SERVE, 54),
+            ("rank_shape", ARCH, SHARD_RANK, 56)):
+        q, k, v, window = flash_shape(torch, dev, shape_cfg(arch, sv), sv,
+                                      seed)
         b, hq, s, d = q.shape
         hk = k.shape[1]
         row = {"shape": f"{arch} prefill: q [{b}, {hq}, {s}, {d}] bf16 (a "
@@ -1289,6 +1345,24 @@ def decode_shape(torch, dev, cfg, sv: dict, seed: int, cross: bool = False):
     return q, k, v, lo, hi
 
 
+def decode_rank_cases(torch, dev):
+    """(label, dtype name, q, k, v, valid_len, lo) as a rank of phase 14
+    (a)'s reduced cases runs the kernel: one q head (or two) on one KV
+    head at head dim 16 over 18, 20 and 28 slots, every slot up to ``t``
+    (and a wrapped ring: all of them)."""
+    g = torch.Generator(device="cpu").manual_seed(43)
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        for b, hq, s in ((2, 1, 20), (1, 1, 18), (1, 2, 20), (2, 1, 28)):
+            q = _randn(torch, g, (b, hq, 16), dev, dt)
+            k = _randn(torch, g, (b, 1, s, 16), dev, dt)
+            v = _randn(torch, g, (b, 1, s, 16), dev, dt)
+            for t in (s - 4, s - 1):
+                vl = torch.full((b,), t + 1, dtype=torch.int32, device=dev)
+                yield (f"{name} rank B={b} {hq}:1 S={s} D=16 t={t}", name,
+                       q, k, v, vl, None)
+
+
 def decode_sweep(torch, dev) -> tuple[dict, int]:
     """Every ``decode_cases``, layout and group case through the kernel and
     its plain version, again on the same inputs (bit-identical: the
@@ -1301,7 +1375,7 @@ def decode_sweep(torch, dev) -> tuple[dict, int]:
     n_cases = 0
     for label, name, q, k, v, vl, lo in itertools.chain(
             decode_cases(torch, dev), decode_layout_cases(torch, dev),
-            decode_group_cases(torch, dev)):
+            decode_group_cases(torch, dev), decode_rank_cases(torch, dev)):
         got = decode_attention(q, k, v, vl, lo)
         want = decode_attention_ref(q, k, v, vl, 0 if lo is None else lo)
         worst[name] = max(worst[name],
@@ -1411,8 +1485,9 @@ def check_decode(torch, dev) -> dict:
     medium's self-attention and its cross-attention over 1,500 frames
     (phase 8), and recurrentgemma-2b's windowed span of 2,048 slots at
     head dim 256 with 10 q-heads on one KV head (phase 9: three
-    sub-groups), and mixtral-8x7b at each rank's last decode step of
-    phase 13 (b) (528 slots)."""
+    sub-groups), mixtral-8x7b at each rank's last decode step of phase 13
+    (b) (514 slots) and llama3.2-3b at each rank's of phase 14 (b)
+    (``rank_shape``: group 3 over 520 slots)."""
     from repro_torch.configs import get_config
     worst, n_cases = decode_sweep(torch, dev)
     res = {
@@ -1431,8 +1506,9 @@ def check_decode(torch, dev) -> dict:
             ("encdec_self_shape", WHISPER, SERVE_8[WHISPER], 48),
             ("cross_shape", WHISPER, SERVE_8[WHISPER], 49),
             ("hybrid_shape", HYBRID, SERVE_9[HYBRID], 53),
-            ("mesh_shape", "mixtral-8x7b", MESH_SERVE, 55)):
-        cfg = get_config(arch)
+            ("mesh_shape", "mixtral-8x7b", MESH_SERVE, 55),
+            ("rank_shape", ARCH, SHARD_RANK, 57)):
+        cfg = shape_cfg(arch, sv)
         q, k, v, lo, hi = decode_shape(torch, dev, cfg, sv, seed,
                                        cross=key == "cross_shape")
         b, hq, d = q.shape
@@ -3329,12 +3405,16 @@ def legacy_phase(torch, golden: dict, dev: str, name_power: str) -> dict:
 # "expert" and "ffn" route per dp shard and are held to each other; and
 # the first layer's MoE block alone, on one input shared bit for bit, is
 # held the same way (no upstream rounding can flip a route there), with
-# the flipped routes reported.
+# the flipped routes reported.  Since phase 14 every rank holds its blocks
+# of all the weights (FSDP over ``data``, TP over ``model``) and runs the
+# decoder's sharded step, whose weight gathers go through gloo too (the
+# experts' FSDP gathers: 2.9 GB a rank a step), so (b) runs 2 decode steps
+# (16 before).
 MESH_WORLD = 8
 MESH_PIN_TOL = 2e-5
 MESH_SHAPE = (2, 4)
 MESH_SERVE = dict(arch="mixtral-8x7b", layers=4, requests=8,
-                  prompt_len=512, decode=16, seed=0, reduced=False)
+                  prompt_len=512, decode=2, seed=0, reduced=False)
 MESH_REL = 0.03                    # logits, PERF.md section 2
 MESH_LAYER_REL = 2e-2              # the first layer's MoE output
 MESH_MODES = ("expert", "ffn", "2d")
@@ -3376,12 +3456,28 @@ def mesh_routes(torch, moe, xf, router, k: int):
     return moe.top_k(probs, k)[1]
 
 
+def capture_routes(moe, store: list):
+    """Record the experts every routing selects (``moe.top_k``'s indices,
+    on the host) into ``store``; returns the function to put back."""
+    orig = moe.top_k
+
+    def top_k(probs, k):
+        vals, idx = orig(probs, k)
+        store.append(idx.cpu().numpy())
+        return vals, idx
+
+    moe.top_k = top_k
+    return orig
+
+
 def mesh_reference(torch, sv: dict, dev: str) -> dict:
-    """(b)'s reference path: the 4 layers served 1x1 in this process, the
-    weights drawn as every rank draws them (``init_params``, seed 0; the
-    ranks keep only their blocks).  Prefill, 16 greedy steps (the tokens
-    fed are the argmax of the step before), the first MoE layer on
-    ``mesh_layer_input`` and its routes.  On the host as numpy."""
+    """A sharded serve's reference path: ``sv``'s layers served 1x1 in
+    this process, the weights drawn as every rank draws them
+    (``init_params``, the seed; the ranks keep only their blocks).
+    Prefill, ``sv["decode"]`` greedy steps (the tokens fed are the argmax
+    of the step before); for a MoE model also the experts each prefill
+    layer routes to and the first MoE layer on ``mesh_layer_input`` with
+    its routes.  On the host as numpy."""
     import numpy as np
     from repro_torch.launch.serve import init_params, pad_kv
     from repro_torch.models import get_model, moe
@@ -3390,12 +3486,16 @@ def mesh_reference(torch, sv: dict, dev: str) -> dict:
     params = init_params(cfg, torch.device(dev), sv["seed"])
     toks = torch.as_tensor(np.random.default_rng(sv["seed"]).integers(
         0, cfg.vocab_size, (sv["requests"], sv["prompt_len"])), device=dev)
-    h = mesh_layer_input(torch, cfg, sv, dev)
-    p0 = {k: v[0] for k, v in params["layers"]["moe"]["moe"].items()}
-    y0 = moe.moe_ffn(p0, h, cfg)
-    sel = mesh_routes(torch, moe, h.reshape(-1, cfg.d_model), p0["router"],
-                      cfg.top_k)
+    res, routes = {}, []
+    if cfg.num_experts:
+        h = mesh_layer_input(torch, cfg, sv, dev)
+        p0 = {k: v[0] for k, v in params["layers"]["moe"]["moe"].items()}
+        res["layer0"] = moe.moe_ffn(p0, h, cfg)
+        res["routes"] = mesh_routes(torch, moe, h.reshape(-1, cfg.d_model),
+                                    p0["router"], cfg.top_k)
+        del h
     moe.dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    orig = capture_routes(moe, routes)
     times = {}
     try:
         with torch.no_grad():
@@ -3404,6 +3504,7 @@ def mesh_reference(torch, sv: dict, dev: str) -> dict:
             logits, caches = model.prefill(params, {"tokens": toks}, cfg)
             mesh_sync(torch, dev)
             times["prefill_s"] = time.perf_counter() - t0
+            moe.top_k = orig
             out = [logits]
             fed = [logits.argmax(-1)]
             caches = pad_kv(caches, sv["decode"])
@@ -3420,95 +3521,155 @@ def mesh_reference(torch, sv: dict, dev: str) -> dict:
         dropped = int(moe.dropped)
     finally:
         moe.dropped = None
-    res = {"tokens": torch.cat([toks, torch.stack(fed[:-1], 1)], 1),
-           "logits": torch.stack(out), "layer0": y0, "routes": sel}
+        moe.top_k = orig
+    res |= {"tokens": torch.cat([toks, torch.stack(fed[:-1], 1)], 1),
+            "logits": torch.stack(out)}
     res = {k: v.cpu().numpy() if v.dtype != torch.bfloat16
            else v.float().cpu().numpy() for k, v in res.items()}
     del params, caches
-    return res | {"dropped": dropped, **times}
+    return res | {"dropped": dropped, "prefill_routes": routes, **times}
 
 
-def mesh_serve_mode(torch, mctx, sv: dict, mode: str, tokens,
-                    dev: str) -> dict:
-    """One mode of (b) on this rank: the blocks of the weights every rank
-    draws, the first MoE layer alone, then the prefill and the decode
-    steps fed ``tokens`` [B, prompt + decode], timed between barriers on
-    the host clock, with this rank's attention launches, collectives,
-    drops and memory."""
+def collective_summary(mesh, per: int = 1) -> dict:
+    """A mesh's collectives since its last reset: calls and output bytes
+    by kind, each divided by ``per`` (the steps they span)."""
+    calls, nbytes = {}, {}
+    for (kind, _), rec in mesh.collective_log.items():
+        calls[kind] = calls.get(kind, 0) + rec["calls"] / per
+        nbytes[kind] = nbytes.get(kind, 0) + rec["bytes"] / per
+    return {"calls": calls, "bytes": nbytes}
+
+
+def rank_serve(torch, mctx, cfg, params, tokens, p_len: int, steps: int,
+               dev: str) -> dict:
+    """Serve on this rank of ``mctx``: the prefill over this rank's rows of
+    ``tokens`` [B, p_len + steps] (numpy, global; its first ``p_len``
+    columns), the caches grown to ``p_len + steps`` slots, then ``steps``
+    decode steps fed the rest, each timed between barriers on the host
+    clock.  Returns the prefill s, decode ms a step, the collectives of
+    the prefill and of a step (``collective_summary``), this rank's
+    attention launches, peak memory, and the global logits of every step
+    (float32 numpy; gathered after the timing)."""
+    import numpy as np
     import torch.distributed as dist
     from repro_torch.kernels.decode_attn import ops as decode_ops
     from repro_torch.kernels.flash_attn import ops as flash_ops
-    from repro_torch.launch.serve import pad_kv
-    from repro_torch.models import get_model, moe
-    from repro_torch.models.convert import moe_shardings
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import blocks, gathered
     from repro_torch.models.sharding import P
-    cfg = mesh_cfg(sv, mode)
     model = get_model(cfg)
     mesh = mctx.mesh
     card = dev != "cpu"
-    b, p_len = sv["requests"], sv["prompt_len"]
-    toks = torch.as_tensor(tokens, device=dev)
-    blocks = moe_shardings(model.param_shapes(cfg), cfg, mctx, b)
-    params = model.init(cfg, torch.Generator(dev).manual_seed(sv["seed"]),
-                        dtype=getattr(torch, cfg.compute_dtype),
-                        blocks=blocks)
-    res = {"mode": mode}
-    h = mesh_layer_input(torch, cfg, sv, dev)
-    p0 = {k: v[0] for k, v in params["layers"]["moe"]["moe"].items()}
-    y0 = moe.moe_ffn(p0, h, cfg, mctx)
-    # the tokens this rank routes: all of them in "2d", its dp shard else
-    routed = h if mode == "2d" else mctx.sharding(P(mctx.dp)).block(h)
-    res["routes"] = mesh_routes(torch, moe, routed.reshape(-1, cfg.d_model),
-                                p0["router"], cfg.top_k).cpu().numpy()
-    res["routes_dp_row"] = mesh.axis_index(mctx.dp)
-    del h
-
+    b = tokens.shape[0]
+    dp = mctx.dp if b % mctx.dp_size == 0 else None
+    toks = torch.as_tensor(blocks(np.asarray(tokens), P(dp, None), mctx),
+                           device=dev)
+    layout = {"global_batch": b}
+    res = {}
     flash_ops.launches = decode_ops.launches = 0
-    moe.dropped = torch.zeros((), dtype=torch.int64, device=dev)
     if card:
         torch.cuda.reset_peak_memory_stats()
-    mesh.collectives.update(calls=0, bytes=0)
+    mesh.reset_collectives()
     with torch.no_grad():
         dist.barrier()
         mesh_sync(torch, dev)
         t0 = time.perf_counter()
         logits, caches = model.prefill(params, {"tokens": toks[:, :p_len]},
-                                       cfg, mctx)
+                                       cfg, mctx, **layout)
         mesh_sync(torch, dev)
         res["prefill_s"] = time.perf_counter() - t0
-        res["prefill_collectives"] = dict(mesh.collectives)
-        dist.barrier()
+        res["prefill_collectives"] = collective_summary(mesh)
+        out = [logits]
+        caches = grow_caches(model, cfg, mctx, caches, p_len, steps, dp)
         if card:
             free, total = torch.cuda.mem_get_info()
             res["device_used_gb"] = (total - free) / 1e9
-        out = [logits]
-        caches = pad_kv(caches, sv["decode"])
-        mesh.collectives.update(calls=0, bytes=0)
+        mesh.reset_collectives()
         dist.barrier()
         mesh_sync(torch, dev)
         t0 = time.perf_counter()
-        for i in range(sv["decode"]):
+        for i in range(steps):
             t = p_len + i
             logits, caches = model.decode(params, caches, toks[:, t:t + 1],
-                                          t, cfg, mctx)
+                                          t, cfg, mctx, n_slots=p_len + steps,
+                                          **layout)
             out.append(logits)
         mesh_sync(torch, dev)
         res["decode_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
-                                     / sv["decode"])
-    res["decode_collectives_per_step"] = {
-        k: v / sv["decode"] for k, v in mesh.collectives.items()}
+                                     / steps)
+        res["decode_collectives_per_step"] = collective_summary(mesh, steps)
     res["launches"] = {"flash_attention": flash_ops.launches,
                        "decode_attention": decode_ops.launches}
-    res["dropped"] = int(moe.dropped)
-    moe.dropped = None
     if card:
         res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    logits = torch.stack(out)
+    logits = torch.stack([gathered(lg, P(dp, "model"), mctx) for lg in out])
     res["logits_sum"] = float(logits.double().sum())
     if dist.get_rank() == 0:
         res["logits"] = logits.cpu().numpy()
+    del caches, out, logits
+    return res
+
+
+def grow_caches(model, cfg, mctx, caches, s0: int, n: int, dp):
+    """This rank's cache blocks of ``s0`` slots as its blocks of ``s0 + n``
+    (the new slots empty): padded in place where ``model`` leaves the
+    slots whole, else gathered, padded and cut again (``kv_spec`` may
+    split or replicate the two lengths differently)."""
+    from repro_torch.launch.serve import pad_kv
+    from repro_torch.models.convert import blocks, gathered
+    from repro_torch.models.model import drop_dp_axes
+
+    def specs(slots):
+        sp = model.cache_specs(cfg, mctx, slots)
+        return sp if dp else drop_dp_axes(sp, mctx)
+
+    old, new = specs(s0), specs(s0 + n)
+    group = next(iter(old))
+    if old[group]["k"][3] is None and new[group]["k"][3] is None \
+            and old == new:
+        return pad_kv(caches, n)
+    return blocks(pad_kv(gathered(caches, old, mctx), n), new, mctx)
+
+
+def mesh_serve_mode(torch, mctx, sv: dict, mode: str, tokens,
+                    dev: str) -> dict:
+    """One mode of (b) on this rank: its blocks of the weights every rank
+    draws (the decoder's layout: ``param_specs``), the first MoE layer
+    alone on this rank's rows of the shared input (its experts gathered
+    from their FSDP storage), then ``rank_serve``, with the drops."""
+    from repro_torch.models import get_model, moe
+    from repro_torch.models.convert import gathered, moe_in_blocks, \
+        shardings
+    from repro_torch.models.sharding import P
+    cfg = mesh_cfg(sv, mode)
+    model = get_model(cfg)
+    mesh = mctx.mesh
+    card = dev != "cpu"
+    b = sv["requests"]
+    params = model.init(cfg, torch.Generator(dev).manual_seed(sv["seed"]),
+                        dtype=getattr(torch, cfg.compute_dtype),
+                        blocks=shardings(model.param_specs(cfg, mctx), mctx))
+    res = {"mode": mode}
+    h = mesh_layer_input(torch, cfg, sv, dev)
+    rows = P(mctx.dp)
+    p0 = moe_in_blocks({k: v[0] for k, v in params["layers"]["moe"][
+        "moe"].items()}, cfg, mctx, b)
+    y0 = gathered(moe.moe_ffn(p0, mctx.sharding(rows).block(h), cfg, mctx,
+                              global_batch=b), rows, mctx)
+    # the tokens this rank routes: all of them in "2d", its dp shard else
+    routed = h if mode == "2d" else mctx.sharding(rows).block(h)
+    res["routes"] = mesh_routes(torch, moe, routed.reshape(-1, cfg.d_model),
+                                p0["router"], cfg.top_k).cpu().numpy()
+    res["routes_dp_row"] = mesh.axis_index(mctx.dp)
+    del h, p0
+    moe.dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    res |= rank_serve(torch, mctx, cfg, params, tokens, sv["prompt_len"],
+                      sv["decode"], dev)
+    res["dropped"] = int(moe.dropped)
+    moe.dropped = None
+    if "logits" in res:
         res["layer0"] = y0.float().cpu().numpy()
-    del params, caches, out, logits, y0
+    del params, y0
     gc.collect()
     if card:
         torch.cuda.empty_cache()
@@ -3672,6 +3833,306 @@ def mesh_phase(torch, dev: str, name_power: str,
     return totals
 
 
+# ------------------------------------------ phase 14: the sharded decoder
+# The decoder's prefill and decode steps across ranks, as the reference's
+# GSPMD program runs them on its mesh (every weight FSDP over ``data`` and
+# TP over ``model``, the caches by ``kv_spec``, the batch over ``data``),
+# on 8 gloo ranks on the one card, as phase 13: the collectives go through
+# host memory, so their times say nothing of NVLink.  (a) The pins: every
+# case of ``tests/torch_sharded_cases.py`` against the reference's answers
+# on 8 devices (``tests/data/torch_sharded.json``) within
+# ``MESH_PIN_TOL``, each step's collectives equal to a ``CountingMesh``'s
+# count of it.  (b) llama3.2-3b at full width and depth, bf16, on 2x4: 8
+# prompts of 512 tokens, 8 decode steps fed the greedy tokens of the
+# port's 1x1 run on the same weights (held to it within ``SHARD_REL``).
+# (c) mixtral-8x7b at full width with 4 of its 32 layers (8 ranks' blocks
+# and the 1x1 path fit the card), 8 x 512, 2 decode steps, in "2d" (the
+# one-device function: held to 1x1) and in its own "ffn" (each dp shard
+# routes its own rows: its experts gathered from FSDP storage equal
+# ``convert.moe_blocks``' blocks bit for bit, the flipped routes counted).
+# Phase 3 holds both attention kernels at (b)'s per-rank shapes
+# (``rank_shape``) and the reduced cases' heads (its sweeps).
+SHARD_MESH = (2, 4)
+SHARD_SERVE = dict(arch="llama3.2-3b", layers=28, requests=8,
+                   prompt_len=512, decode=8, seed=0, reduced=False)
+SHARD_MOE = dict(MESH_SERVE, decode=2)
+SHARD_MODES = ("2d", "ffn")
+SHARD_REL = 0.03                   # logits, PERF.md section 2
+# each rank's attention at (b): 8 / 2 rows, 24 / 4 q heads, 8 / 4 KV heads
+SHARD_RANK = dict(requests=4, prompt_len=512, decode=8, heads=6,
+                  kv_heads=2)
+
+
+def held_param_bytes(cfg, mctx, dtype) -> int:
+    """The dry-run's per-device bytes of the parameter tree on ``mctx``
+    (``model.abstract_params``' shard shapes) with each leaf in the dtype
+    the serving tree holds it (``transformer.leaf_dtype``: the matrices
+    in ``dtype``)."""
+    from repro_torch.models.model import abstract_params
+    from repro_torch.models.transformer import leaf_dtype
+
+    def walk(tree, key=""):
+        if isinstance(tree, dict):
+            return sum(walk(v, k) for k, v in tree.items())
+        return math.prod(tree.sharding.shard_shape(tree.shape)) * \
+            leaf_dtype(key, cfg, dtype).itemsize
+
+    return walk(abstract_params(cfg, mctx))
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def sharded_params(torch, cfg, mctx, seed: int, dev: str, blocks=None):
+    """This rank's blocks of the serving tree every rank draws from
+    ``seed`` (``param_specs``, or the shardings ``blocks``)."""
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import shardings
+    model = get_model(cfg)
+    if blocks is None:
+        blocks = shardings(model.param_specs(cfg, mctx), mctx)
+    return model.init(cfg, torch.Generator(dev).manual_seed(seed),
+                      dtype=getattr(torch, cfg.compute_dtype), blocks=blocks)
+
+
+def sharded_rank(rank: int, sv_b: dict, tokens_b, sv_c: dict, tokens_c,
+                 dev: str) -> dict:
+    """Phase 14 on one rank of the 8 (on the card, all on cuda:0): (a) the
+    pinned cases, then (b) llama3.2-3b, then (c) mixtral in each of
+    ``SHARD_MODES``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch_sharded_cases as cases
+    from repro_torch.launch.mesh import rank_mesh_ctx
+    from repro_torch.models import get_model, moe
+    from repro_torch.models.convert import moe_in_blocks, moe_shardings
+    from repro_torch.models.sharding import P
+    card = dev != "cpu"
+    t0 = time.perf_counter()
+    out = {"pins": cases.rank_cases(rank, dev)}
+    out["pins_s"] = time.perf_counter() - t0
+    mctx = rank_mesh_ctx(SHARD_MESH, device=dev)
+    bf16 = torch.bfloat16
+
+    def free():
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+
+    cfg = mesh_cfg(sv_b)
+    params = sharded_params(torch, cfg, mctx, sv_b["seed"], dev)
+    out["b"] = {"param_bytes": tree_bytes(params),
+                "param_bytes_dryrun": held_param_bytes(cfg, mctx, bf16),
+                **rank_serve(torch, mctx, cfg, params, tokens_b,
+                             sv_b["prompt_len"], sv_b["decode"], dev)}
+    del params
+    free()
+    out["c"] = {}
+    b = sv_c["requests"]
+    for mode in SHARD_MODES:
+        cfg = mesh_cfg(sv_c, mode)
+        params = sharded_params(torch, cfg, mctx, sv_c["seed"], dev)
+        rec = {"param_bytes": tree_bytes(params),
+               "param_bytes_dryrun": held_param_bytes(cfg, mctx, bf16)}
+        routes = []
+        orig = capture_routes(moe, routes)
+        try:
+            rec |= rank_serve(torch, mctx, cfg, params, tokens_c,
+                              sv_c["prompt_len"], sv_c["decode"], dev)
+        finally:
+            moe.top_k = orig
+        # the prefill's routings, one per MoE layer, of this rank's rows
+        rec["prefill_routes"] = routes[:cfg.num_layers]
+        rec["dp_row"] = mctx.mesh.axis_index(mctx.dp)
+        if mode == "ffn":
+            stored = moe_in_blocks({k: v[0] for k, v in params["layers"][
+                "moe"]["moe"].items()}, cfg, mctx, b)
+            del params
+            free()
+            own = sharded_params(torch, cfg, mctx, sv_c["seed"], dev,
+                                 moe_shardings(get_model(cfg).param_shapes(
+                                     cfg), cfg, mctx, b))
+            want = {k: v[0] for k, v in own["layers"]["moe"]["moe"].items()}
+            rec["experts_equal"] = sorted(want) == sorted(stored) and all(
+                torch.equal(stored[k], want[k]) for k in want)
+            whole = moe.moe_param_shapes(cfg, 1)
+            rec["expert_leaves_cut"] = sum(
+                want[k].numel() < math.prod(whole[k]) for k in want)
+            del own, stored, want
+        else:
+            del params
+        out["c"][mode] = rec
+        free()
+    return out
+
+
+def sharded_phase(torch, dev: str, name_power: str,
+                  sv_b: dict = SHARD_SERVE, sv_c: dict = SHARD_MOE) -> dict:
+    """Phase 14.  Returns the attention kernels' launch totals of (b) and
+    (c).  ``dev`` "cpu" with reduced ``sv_b`` / ``sv_c`` rehearses it on
+    the CPU."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_sharded_cases as cases
+    t_phase = time.perf_counter()
+    card = dev != "cpu"
+    label = "gloo through host memory, 8 ranks on one card"
+    refs = {}
+    for key, sv in (("b", sv_b), ("c", sv_c)):
+        if card:
+            reset_counts(torch)
+        t0 = time.perf_counter()
+        refs[key] = mesh_reference(torch, sv, dev)
+        refs[key]["wall_s"] = time.perf_counter() - t0
+        if card:
+            refs[key]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if card:
+        reset_counts(torch)
+    t0 = time.perf_counter()
+    ranks = run_ranks(sharded_rank, MESH_WORLD, sv_b, refs["b"]["tokens"],
+                      sv_c, refs["c"]["tokens"],
+                      "cuda:0" if card else "cpu", timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+
+    # (a) the pins, on every rank
+    pins = json.loads((ROOT / "tests" / "data" / "torch_sharded.json")
+                      .read_text())
+    worst = {}
+    for r in ranks:
+        for name in cases.CASES:
+            got = r["pins"][name]
+            keys = [k for k in pins if k.startswith(f"{name}/")]
+            for key in keys:
+                want = cases.decode(pins[key])
+                have = got[key[len(name) + 1:]]
+                if have.shape != want.shape or not np.isfinite(have).all():
+                    raise AssertionError(f"sharded pin {key}: malformed")
+                err = float(np.abs(have - want).max())
+                if err > MESH_PIN_TOL:
+                    raise AssertionError(f"sharded pin {key}: {err}")
+                worst[key] = max(worst.get(key, 0.0), err)
+            for step in cases.steps():
+                if got[f"log/{step}"] != got[f"count/{step}"]:
+                    raise AssertionError(f"sharded pin {name} {step}: the "
+                                         f"rank's collectives differ from "
+                                         f"the counting mesh's")
+    emit({"phase": "shard_pins", "cases": len(cases.CASES),
+          "arrays": len(worst), "ranks": MESH_WORLD,
+          "max_abs_err": max(worst.values()), "limit": MESH_PIN_TOL,
+          "worst_case": max(worst, key=worst.get),
+          "rank_pins_s": max(r["pins_s"] for r in ranks),
+          "collectives_equal_counting_mesh": True,
+          "nvidia_smi": name_power})
+
+    totals = {"flash_attention": 0, "decode_attention": 0}
+
+    def check_serve(part: str, per: list, cfg, sv: dict) -> None:
+        want = {"flash_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * sv["decode"]}
+        for m in per:
+            if m["launches"] != (want if card else dict.fromkeys(want, 0)):
+                raise AssertionError(f"shard {part}: a rank launched "
+                                     f"{m['launches']}, want {want}")
+            if m["logits_sum"] != per[0]["logits_sum"]:
+                raise AssertionError(f"shard {part}: the ranks' logits "
+                                     f"differ")
+            if m["param_bytes"] != m["param_bytes_dryrun"]:
+                raise AssertionError(f"shard {part}: a rank holds "
+                                     f"{m['param_bytes']} bytes of weights, "
+                                     f"the dry-run's blocks "
+                                     f"{m['param_bytes_dryrun']}")
+        for k in totals:
+            totals[k] += sum(m["launches"][k] for m in per)
+        logits = per[0]["logits"]
+        if not np.isfinite(logits).all():
+            raise AssertionError(f"shard {part}: logits not finite")
+
+    def line(part: str, per: list, cfg, sv: dict, ref: dict) -> tuple:
+        m = per[0]
+        rel = {"prefill": mesh_rel(m["logits"][0], ref["logits"][0]),
+               "decode": mesh_rel(m["logits"][1:], ref["logits"][1:])}
+        return {"arch": cfg.name, "mesh": list(SHARD_MESH),
+                "reduced": {"num_layers": [sv["layers"], get_config(
+                    sv["arch"]).num_layers]} if not sv["reduced"]
+                else "reduced config",
+                "requests": sv["requests"], "prompt_len": sv["prompt_len"],
+                "decode": sv["decode"], "timing": label,
+                "rel_err_vs_1x1": rel,
+                "argmax_equal": float((m["logits"].argmax(-1)
+                                       == ref["logits"].argmax(-1)).mean()),
+                "prefill_s": m["prefill_s"],
+                "prefill_s_max_rank": max(x["prefill_s"] for x in per),
+                "decode_ms_per_step": m["decode_ms_per_step"],
+                "decode_ms_per_step_max_rank": max(
+                    x["decode_ms_per_step"] for x in per),
+                "prefill_collectives": m["prefill_collectives"],
+                "decode_collectives_per_step":
+                    m["decode_collectives_per_step"],
+                "launches_per_rank": m["launches"],
+                "param_bytes_per_rank": m["param_bytes"],
+                "param_bytes_dryrun": m["param_bytes_dryrun"],
+                "peak_gb_per_rank": max(x.get("peak_gb", 0) for x in per),
+                "device_used_gb": max(x.get("device_used_gb", 0)
+                                      for x in per),
+                "reference_1x1_prefill_s": ref["prefill_s"],
+                "reference_1x1_decode_ms_per_step":
+                    ref["decode_ms_per_step"],
+                "reference_1x1_peak_gb": ref.get("peak_gb"),
+                "nvidia_smi": name_power}, rel
+
+    # (b) llama3.2-3b, full width and depth
+    cfg = mesh_cfg(sv_b)
+    per = [r["b"] for r in ranks]
+    check_serve("b", per, cfg, sv_b)
+    rec, rel = line("b", per, cfg, sv_b, refs["b"])
+    emit({"phase": "shard_serve", "part": "b", **rec, "limit": SHARD_REL})
+    if not (rel["prefill"] < SHARD_REL and rel["decode"] < SHARD_REL):
+        raise AssertionError(f"shard (b) vs 1x1: {rel}")
+
+    # (c) mixtral: "2d" against 1x1, "ffn"'s expert blocks and routes
+    ref = refs["c"]
+    rows = sv_c["requests"] // SHARD_MESH[0]
+    for mode in SHARD_MODES:
+        cfg = mesh_cfg(sv_c, mode)
+        per = [r["c"][mode] for r in ranks]
+        check_serve(f"c {mode}", per, cfg, sv_c)
+        rec, rel = line(f"c {mode}", per, cfg, sv_c, ref)
+        flips = 0
+        for m in per:
+            for got, want in zip(m["prefill_routes"], ref["prefill_routes"]):
+                if mode == "ffn":
+                    n = got.shape[0]
+                    want = want[m["dp_row"] * n:(m["dp_row"] + 1) * n]
+                flips = max(flips, int((got != want).sum()))
+        rec["prefill_routes_flipped_vs_1x1"] = flips
+        rec["assignments_a_rank_routes"] = sum(
+            g.size for g in per[0]["prefill_routes"])
+        if mode == "ffn":
+            rec["experts_equal_moe_blocks"] = all(
+                m["experts_equal"] for m in per)
+            rec["expert_leaves_cut"] = per[0]["expert_leaves_cut"]
+            if not rec["experts_equal_moe_blocks"]:
+                raise AssertionError("shard (c) ffn: the experts gathered "
+                                     "from FSDP storage differ from "
+                                     "moe_blocks' blocks")
+        emit({"phase": "shard_serve", "part": "c", "mode": mode, **rec,
+              "limit": SHARD_REL if mode == "2d" else None})
+        if mode == "2d" and not (rel["prefill"] < SHARD_REL
+                                 and rel["decode"] < SHARD_REL):
+            raise AssertionError(f"shard (c) 2d vs 1x1: {rel}")
+    emit({"phase": "shard_done", "seconds": time.perf_counter() - t_phase,
+          "ranks_s": ranks_s, "launches": totals, "timing": label,
+          "reference_1x1_s": {k: v["wall_s"] for k, v in refs.items()},
+          "nvidia_smi": name_power})
+    return totals
+
+
 PROFILES = ("episode", "serve", "fleet", "decode", "train")
 
 
@@ -3821,6 +4282,12 @@ def main(argv=None) -> int:
     # 13. the MoE block across 8 ranks on the card: the pins, then
     # mixtral at full width in each mode
     for k, n in mesh_phase(torch, dev, name_power).items():
+        totals[k] += n
+    torch.cuda.empty_cache()
+
+    # 14. the decoder's sharded steps across 8 ranks on the card: the pins,
+    # llama3.2-3b at full size, mixtral's MoE layers in "2d" and "ffn"
+    for k, n in sharded_phase(torch, dev, name_power).items():
         totals[k] += n
     torch.cuda.empty_cache()
 

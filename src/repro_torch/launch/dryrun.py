@@ -36,9 +36,17 @@ questions the reference asks of ``compiled``:
   capacity_factor / E))`` slots per expert and layer call): from top-k
   and capacity, not from the routed tokens.  Elementwise work is not
   counted.
-* Collective bytes: None.  On one card there are none; a 16x16 step's
-  wait for the multi-GPU round (the reference parses them from XLA's HLO
-  text, which PyTorch does not have).
+* Collective bytes (``count_collectives``): the port's own prefill or
+  decode step of a decoder-family cell run on meta tensors on a
+  ``CountingMesh`` of the cell's mesh, as the rank at coordinates 0 runs
+  it (its blocks of the parameters, the batch and the caches): the bytes
+  of every collective's output by kind, under the reference's keys
+  (``"all-gather"``, ``"all-reduce"``), with the calls and the axes.
+  These are the port's collectives, not XLA's: the reference parses
+  its numbers from the compiled HLO text, in which XLA chose its own
+  collectives, so the two are not expected to be equal.  Train cells
+  (training across ranks is not ported) and the enc-dec, SSM and hybrid
+  families (their steps run on one device) record None with the reason.
 
 The train step is the port's ``make_train_step``: autograd through the
 attention wrapper's meta branch, ``torch.utils.checkpoint`` per layer
@@ -90,7 +98,8 @@ from repro_torch.models.model import (abstract_batch, abstract_cache,
                                       abstract_params, drop_dp_axes,
                                       get_model)
 from repro_torch.models.moe import cdiv
-from repro_torch.models.sharding import MeshCtx, P, ShapeDtypeStruct
+from repro_torch.models.sharding import (CountingMesh, MeshCtx, P,
+                                        ShapeDtypeStruct)
 from repro_torch.train.optimizer import AdamWConfig, opt_state_specs
 from repro_torch.train.train_step import (make_prefill_step, make_serve_step,
                                           make_train_step)
@@ -231,6 +240,48 @@ def _count(cfg: ArchConfig, shape: ShapeConfig) -> dict:
             "trace_s": time.perf_counter() - t0}
 
 
+def _meta_blocks(tree):
+    """Meta tensors of one device's blocks of a sharded ShapeDtypeStruct
+    tree."""
+    return tree_map(lambda s: torch.empty(
+        s.sharding.shard_shape(s.shape), dtype=s.dtype, device="meta"),
+        tree)
+
+
+def count_collectives(cfg: ArchConfig, shape: ShapeConfig,
+                      mctx: MeshCtx) -> dict:
+    """The collectives one rank (coordinates 0) issues in the port's step
+    of the cell on ``mctx``'s mesh: ``{"bytes": {kind: output bytes},
+    "calls": {kind: n}, "by_axes": {"<kind> <axes>": [calls, bytes]}}``,
+    from a run on meta tensors on a ``CountingMesh``; or ``{"reason":
+    ...}`` where the port's step does not run across ranks."""
+    if shape.kind == "train":
+        return {"reason": "training across ranks is not ported yet"}
+    if cfg.family not in tfm.DECODER_FAMILIES:
+        return {"reason": f"the {cfg.family} family's steps run on one "
+                          f"device"}
+    mesh = CountingMesh(tuple(mctx.mesh.devices.shape),
+                        mctx.mesh.axis_names)
+    cm = MeshCtx(mesh)
+    b = shape.global_batch
+    params = _meta_blocks(abstract_params(cfg, cm))
+    batch = _meta_blocks(abstract_batch(cfg, shape, cm))
+    if shape.kind == "prefill":
+        make_prefill_step(cfg, cm)(params, batch, global_batch=b)
+    else:
+        make_serve_step(cfg, cm)(
+            params, _meta_blocks(abstract_cache(cfg, shape, cm)),
+            batch["tokens"], shape.seq_len - 1, global_batch=b,
+            n_slots=tfm.kv_cache_len(cfg, shape.seq_len))
+    calls: dict[str, int] = {}
+    by_axes = {}
+    for (kind, axes), rec in sorted(mesh.collective_log.items()):
+        calls[kind] = calls.get(kind, 0) + rec["calls"]
+        by_axes[f"{kind} {','.join(axes)}"] = [rec["calls"], rec["bytes"]]
+    return {"bytes": mesh.collective_bytes(), "calls": calls,
+            "by_axes": by_axes}
+
+
 class Lowered:
     """One cell's step (taking the arguments as tensors) and its abstract
     arguments and outputs on a mesh."""
@@ -272,6 +323,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         cost = lowered.cost_analysis()
         t2 = time.time()
         mem = lowered.memory_analysis()
+        coll = count_collectives(cfg, shape, mctx)
         rec.update(
             ok=True,
             lower_s=round(t1 - t0, 1), compile_s=round(t2 - t1, 1),
@@ -282,9 +334,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             output_bytes=mem.output_size_in_bytes,
             temp_bytes=None, peak_bytes_per_device=None,
             not_stated=_NOT_STATED,
-            collective_bytes=None, collective_bytes_total=None,
-            collectives="none on one card; a mesh's wait for the "
-                        "multi-GPU round",
+            collective_bytes=coll.get("bytes"),
+            collective_bytes_total=(float(sum(coll["bytes"].values()))
+                                    if "bytes" in coll else None),
+            collective_calls=coll.get("calls"),
+            collectives=coll.get("by_axes", coll.get("reason")),
             n_devices=mesh.size,
         )
         if cfg.num_experts:
@@ -298,7 +352,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             print(f"     memory_analysis: args={rec['argument_bytes']:,} "
                   f"out={rec['output_bytes']:,} (per device)")
             print(f"     cost_analysis: flops={rec['flops']:.3e} (global; "
-                  f"attention {rec['attention_flops']:.3e})", flush=True)
+                  f"attention {rec['attention_flops']:.3e})")
+            print(f"     collectives: {rec['collective_bytes']} "
+                  f"({rec['collective_calls']} calls, one rank)"
+                  if rec["collective_bytes"] is not None else
+                  f"     collectives: None ({rec['collectives']})",
+                  flush=True)
     except Exception as e:  # noqa: BLE001 — record and continue the sweep
         rec["error"] = f"{type(e).__name__}: {e}"
         if verbose:

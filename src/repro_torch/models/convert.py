@@ -8,9 +8,13 @@ leaves; only the array type differs.  Any nesting of dicts carries over,
 leaf for leaf.  The JAX side hands its trees over as numpy arrays
 (``jax.tree.map(np.asarray, tree)``).
 
-On a mesh over ranks each rank holds its blocks of the MoE weights
-(``moe_blocks``) and the rest of the tree whole, so the same global
-weights feed both packages.
+On a mesh over ranks each rank holds its blocks of a tree under a spec
+tree (``blocks``: the parameters under ``param_specs``, the caches under
+``cache_specs``, the batch under ``batch_specs``), so the same global
+arrays feed both packages; ``shardings`` gives the same cut by path for
+``init_decoder_params(..., blocks=)``, which draws only the blocks.
+``moe_blocks`` cuts the MoE leaves alone to the MoE block's ``in_specs``
+(the layout ``moe.moe_ffn`` takes).
 """
 from __future__ import annotations
 
@@ -18,8 +22,10 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.moe import moe_in_specs, moe_param_shapes
+from repro_torch.models.moe import (moe_in_specs, moe_param_shapes,
+                                    moe_param_specs)
 from repro_torch.models.sharding import MeshCtx, NamedSharding, P
+from repro_torch.models.sharding import relayout
 
 
 def _tree(tree, device, dtype):
@@ -87,3 +93,49 @@ def moe_blocks(tree, cfg: ArchConfig, mctx: MeshCtx, batch: int):
             else block.contiguous().clone()
 
     return walk(tree, ())
+
+
+def shardings(specs, mctx: MeshCtx, prefix: tuple = ()
+              ) -> dict[tuple, NamedSharding]:
+    """Every spec of the spec tree ``specs`` by its path of keys, as a
+    ``NamedSharding`` on ``mctx`` (``init_decoder_params(..., blocks=)``
+    takes it)."""
+    if isinstance(specs, P):
+        return {prefix: mctx.sharding(specs)}
+    out: dict = {}
+    for k, v in specs.items():
+        out |= shardings(v, mctx, prefix + (k,))
+    return out
+
+
+def blocks(tree, specs, mctx: MeshCtx):
+    """``tree`` (nested dicts of numpy arrays or tensors) cut to this
+    rank's block of every leaf under the spec tree ``specs`` of its
+    structure, each a copy (``NamedSharding.block``)."""
+    if isinstance(tree, dict):
+        return {k: blocks(v, specs[k], mctx) for k, v in tree.items()}
+    block = mctx.sharding(specs).block(tree)
+    return block.copy() if isinstance(block, np.ndarray) \
+        else block.contiguous().clone()
+
+
+def gathered(tree, specs, mctx: MeshCtx):
+    """The global arrays of a tree of this rank's blocks under ``specs``:
+    every leaf gathered over the axes its spec names
+    (``sharding.relayout`` to a replicated layout; the same on every
+    rank)."""
+    if isinstance(tree, dict):
+        return {k: gathered(v, specs[k], mctx) for k, v in tree.items()}
+    return relayout(tree, specs, P(), mctx)
+
+
+def moe_in_blocks(layer: dict, cfg: ArchConfig, mctx: MeshCtx, batch: int
+                  ) -> dict:
+    """One MoE layer's leaves as a rank holds them under
+    ``moe_param_specs`` (FSDP storage; the layer dim dropped), relaid into
+    the blocks ``moe.moe_ffn`` takes for a batch of ``batch`` rows
+    (``moe_in_specs``; ``sharding.relayout``: the FSDP dims gathered)."""
+    stored = moe_param_specs(cfg, mctx.dp if cfg.fsdp else None)
+    want = moe_in_specs(cfg, mctx, batch)
+    return {k: relayout(v, P(*stored[k][1:]), want[k], mctx)
+            for k, v in layer.items()}

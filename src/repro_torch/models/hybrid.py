@@ -290,7 +290,9 @@ def hybrid_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 def hybrid_prefill(params, batch: dict, cfg: ArchConfig,
                    mctx: MeshCtx | None = None):
     """batch["tokens"]: [B, S] ids.  Returns (last-token logits [B, V]
-    float32, caches with S slots per attention layer)."""
+    float32, caches with S slots per attention layer).  One device: a mesh
+    of more than one raises."""
+    tfm.not_on_ranks(cfg, mctx)
     tokens = batch["tokens"]
     x = tfm._embed_tokens(params, tokens, cfg)
     b, s, _ = x.shape
@@ -304,7 +306,9 @@ def hybrid_decode_step(params, caches: dict, tokens: torch.Tensor, t: int,
                        cfg: ArchConfig, mctx: MeshCtx | None = None):
     """tokens: [B, 1] new token ids at absolute position ``t`` (an int).
     Writes the new states, keys and values into ``caches`` in place.
-    Returns (logits [B, V] float32, caches)."""
+    Returns (logits [B, V] float32, caches).  One device: a mesh of more
+    than one raises."""
+    tfm.not_on_ranks(cfg, mctx)
     x = tfm._embed_tokens(params, tokens, cfg)
     positions = torch.arange(t, t + 1, device=x.device)
     x = _run_hybrid(params, x, cfg, "decode", positions, caches, t=t)

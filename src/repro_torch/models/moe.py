@@ -26,15 +26,17 @@ in ``"expert"`` and ``"ffn"`` each dp shard routes only its own tokens
 under a capacity reckoned from its own token count, so more assignments
 are dropped than on one device; ``"2d"`` routes every token under the
 global capacity and gives the one-device answer.  On a mesh over ranks
-(``Mesh.over_ranks``) the port runs the reference's bodies rank by rank:
-``moe_ffn`` takes the global input, replicated on every rank as the rest
-of the port's model runs, runs the body on the rank's dp shard of it (all
-of it in ``"2d"``) and the rank's weight blocks (``moe_in_specs``:
-exactly what the block's ``in_specs`` give it; ``convert.moe_blocks``
-cuts them) and returns the global output on every rank (the
-``out_specs`` gathered over dp; ``"2d"``'s psum is global already).  When
-dp does not divide the batch, the input stays replicated and ``"2d"``
-falls through to the ``"ffn"`` body, as in the reference.
+(``Mesh.over_ranks``, or a ``CountingMesh``) the port runs the
+reference's bodies rank by rank: ``moe_ffn`` takes this rank's block of
+the input under ``P(dp, None, None)`` (the whole input where dp does not
+divide the global batch, which the caller names) and the rank's weight
+blocks (``moe_in_specs``: exactly what the block's ``in_specs`` give it;
+``convert.moe_blocks`` cuts them, the decoder gathers them from its FSDP
+storage), and returns this rank's block of the output (the
+``out_specs``).  ``"2d"`` all-gathers the tokens over dp first and keeps
+its own rows of the psum's output, as the reference does.  When dp does
+not divide the batch, ``"2d"`` falls through to the ``"ffn"`` body, as in
+the reference.
 
 Routing is the reference's, step for step: router logits and softmax in
 float32, the top ``k`` experts per token (the lower expert index first on
@@ -196,21 +198,25 @@ def _check_blocks(params: dict, cfg: ArchConfig, mctx: MeshCtx,
 
 def _rank_mesh(mctx: MeshCtx):
     mesh = mctx.mesh
-    if mesh.device_mesh is None:
+    if not mesh.coords:
         raise RuntimeError(f"moe_ffn on a {mesh} mesh runs on the ranks of "
-                           f"a process group (Mesh.over_ranks)")
+                           f"a process group (Mesh.over_ranks) or on a "
+                           f"CountingMesh")
     return mesh
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
-            mctx: MeshCtx | None = None) -> torch.Tensor:
+            mctx: MeshCtx | None = None, *,
+            global_batch: int | None = None) -> torch.Tensor:
     """x: [B, S, D]; returns the same shape: the gated sum of each token's
     kept experts' SwiGLU outputs, plus the shared expert's when the config
     has one.  Weights are cast to x's dtype per use (a no-op on a tree
     from ``cast_params``).  With ``mctx`` a mesh of more than one device
-    over ranks, ``x`` is the global input (on every rank), ``params`` this
-    rank's blocks (``moe_in_specs``), and the global output is returned on
-    every rank."""
+    over ranks, ``global_batch`` is the batch's global row count, ``x``
+    this rank's block of it (``P(dp, None, None)``; the whole where dp
+    does not divide it), ``params`` this rank's blocks
+    (``moe_in_specs``), and this rank's block of the output is
+    returned."""
     b, s, d = x.shape
     if mctx is None or mctx.mesh.size == 1:
         xf = x.reshape(b * s, d)
@@ -218,16 +224,21 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
         if cfg.shared_expert:
             y = y + _shared(xf, params)
         return y.reshape(b, s, d)
-    body = _body(cfg, mctx, b)
+    mesh = _rank_mesh(mctx)
+    if global_batch is None:
+        raise ValueError(f"moe_ffn on a {mesh} mesh over ranks takes the "
+                         f"global batch (global_batch=): x is this rank's "
+                         f"block of it")
+    split = global_batch % mctx.dp_size == 0
+    if b != (global_batch // mctx.dp_size if split else global_batch):
+        raise ValueError(f"moe_ffn: {b} rows on this rank for a batch of "
+                         f"{global_batch} on {mesh}")
+    body = _body(cfg, mctx, global_batch)
     if body == "2d":
         return moe_ffn_2d(params, x, cfg, mctx)
-    mesh = _rank_mesh(mctx)
-    _check_blocks(params, cfg, mctx, b)
+    _check_blocks(params, cfg, mctx, global_batch)
     tp = mctx.tp
-    # batch-1 decode can't split tokens over dp: replicate instead
-    dp = mctx.dp if b % mctx.dp_size == 0 else None
-    x_loc = mctx.sharding(P(dp, None, None)).block(x)
-    xf = x_loc.reshape(-1, d)
+    xf = x.reshape(-1, d)
     if body == "expert":
         e_loc = params["wg"].shape[0]
         off = mesh.axis_index(tp) * e_loc
@@ -236,27 +247,25 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
     y = _experts(xf, params, e_loc, off, cfg)
     if cfg.shared_expert:
         y = y + _shared(xf, params)
-    y = mesh.psum(y, tp).reshape(x_loc.shape)
-    return y if dp is None else mesh.all_gather(y, dp)
+    return mesh.psum(y, tp).reshape(x.shape)
 
 
 def moe_ffn_2d(params: dict, x: torch.Tensor, cfg: ArchConfig,
                mctx: MeshCtx) -> torch.Tensor:
     """The expert weights fully sharded (E over ``model`` x F over dp),
     tokens moved instead of weights: the reference's body on this rank.
-    Every rank routes the whole token batch under the global capacity to
-    its ``e_loc`` experts, runs its ``(E_loc, F_loc)`` blocks, and one
-    ``psum`` over ``(model, *dp)`` completes both partial dims.  x: the
-    global [B, S, D] (dp divides B) on every rank; returns the global
-    output on every rank.  The reference's all-gather of the tokens over
-    dp, its dp slice of the output and the ``out_specs``' gather of the
-    slices are identities here, where x and the psum's result are already
-    global on every rank, and are not issued."""
-    b, s, d = x.shape
+    x: this rank's block [B / dp, S, D] of the batch (dp divides it).
+    Every rank all-gathers the tokens over dp, routes the whole batch
+    under the global capacity to its ``e_loc`` experts, runs its
+    ``(E_loc, F_loc)`` blocks, and one ``psum`` over ``(model, *dp)``
+    completes both partial dims; it returns its own rows of the sum."""
+    b_loc, s, d = x.shape
     mesh = _rank_mesh(mctx)
-    _check_blocks(params, cfg, mctx, b)
     tp, dp, dp_size = mctx.tp, mctx.dp, mctx.dp_size
-    xf = x.reshape(b * s, d)
+    _check_blocks(params, cfg, mctx, b_loc * dp_size)
+    x_all = mesh.all_gather(x, dp, dim=0)                  # [B, S, D]
+    n = x_all.shape[0] * s
+    xf = x_all.reshape(n, d)
     e_loc = params["wg"].shape[0]
     y = _experts(xf, params, e_loc, mesh.axis_index(tp) * e_loc, cfg)
     if cfg.shared_expert:
@@ -271,7 +280,9 @@ def moe_ffn_2d(params: dict, x: torch.Tensor, cfg: ArchConfig,
         uu = mesh.psum(xs @ params["sh_wu"].to(dt), dp)
         y_sh = (F.silu(g) * uu) @ params["sh_wo"].to(dt)
         y = y + y_sh / dp_size
-    return mesh.psum(y, (tp, *dp)).reshape(b, s, d)
+    y = mesh.psum(y, (tp, *dp)).reshape(-1, s, d)
+    row = mesh.axis_index(dp)
+    return y[row * b_loc:(row + 1) * b_loc]
 
 
 def moe_param_shapes(cfg: ArchConfig, n_layers: int) -> dict:

@@ -17,12 +17,24 @@ at the row-major coordinates ``jax.make_mesh`` gives host device r): the
 array then holds rank numbers, and the mesh gives what a ``shard_map``
 body uses, by axis name — the rank's index along axes
 (``axis_index``), a sum over axes (``psum``) and a tiled gather along
-dim 0 (``all_gather``) — through plain ``torch.distributed`` calls on
+any dim (``all_gather``) — through plain ``torch.distributed`` calls on
 groups made once per mesh, and this rank's block of a global array
-under a spec (``NamedSharding.block``).  The collectives run on whatever
-backend the caller initialised the group with; a collective over axes of
-size 1 issues nothing.  Every mesh counts the collectives it issued
-(``Mesh.collectives``: calls and the bytes this rank sent in).
+under a spec (``NamedSharding.block``).  ``relayout`` turns a rank's
+block under one spec into its block under another (the gathers GSPMD
+inserts where a weight's storage layout is not the layout its product
+takes).  The collectives run on whatever backend the caller initialised
+the group with; a collective over axes of size 1 issues nothing.
+
+``CountingMesh`` is a mesh's axis names and sizes seen from one rank's
+coordinates, with no process group: its collectives return tensors of
+the right shape (meta tensors too) and communicate nothing, so a step
+run on it (on the meta device) counts what it would issue.
+
+Every mesh counts the collectives it issued: ``Mesh.collectives``, the
+calls and the bytes this rank sent in, and ``Mesh.collective_log``, the
+calls and the bytes of their outputs per kind (``"all-gather"``,
+``"all-reduce"``: the reference dry-run's names of XLA's ops) and per
+axes; ``reset_collectives`` zeroes both.
 """
 from __future__ import annotations
 
@@ -64,6 +76,7 @@ class Mesh:
         self.coords: dict[str, int] = {}
         self._groups: dict[frozenset, object] = {}
         self.collectives = {"calls": 0, "bytes": 0}
+        self.collective_log: dict[tuple[str, tuple[str, ...]], dict] = {}
 
     @classmethod
     def over_ranks(cls, shape: tuple[int, ...], axis_names: tuple[str, ...],
@@ -139,12 +152,14 @@ class Mesh:
 
     def _axes(self, axes) -> tuple[str, ...]:
         """``axes`` (a name or a tuple of names) as the tuple of those whose
-        size is above 1; raises off a mesh over ranks."""
+        size is above 1; raises on a mesh that is not one rank's view (over
+        the ranks of a process group, or a counting mesh)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        if self.device_mesh is None:
+        if not self.coords:
             raise RuntimeError(f"a collective over {axes} needs a mesh over "
                                f"the ranks of a process group "
-                               f"(Mesh.over_ranks), not {self}")
+                               f"(Mesh.over_ranks) or a CountingMesh, not "
+                               f"{self}")
         return tuple(a for a in axes if self.shape[a] > 1)
 
     def axis_index(self, axes) -> int:
@@ -155,41 +170,136 @@ class Mesh:
         self._axes(axes)
         return self._row(self.coords, self.shape, axes)
 
-    def _count(self, x: torch.Tensor) -> None:
-        if x.device.type != self.device.type:
+    def _count(self, kind: str, axes: tuple[str, ...], x: torch.Tensor,
+               out: torch.Tensor) -> None:
+        if self.device is not None and x.device.type != self.device.type:
             raise ValueError(f"a {x.device} tensor on a mesh whose rank "
                              f"computes on {self.device}")
         self.collectives["calls"] += 1
         self.collectives["bytes"] += x.numel() * x.element_size()
+        rec = self.collective_log.setdefault((kind, axes),
+                                             {"calls": 0, "bytes": 0})
+        rec["calls"] += 1
+        rec["bytes"] += out.numel() * out.element_size()
+
+    def reset_collectives(self) -> None:
+        """Zero ``collectives`` and ``collective_log``."""
+        self.collectives.update(calls=0, bytes=0)
+        self.collective_log.clear()
+
+    def collective_bytes(self) -> dict[str, int]:
+        """The bytes of the issued collectives' outputs by kind (the keys
+        of the reference dry-run's ``collective_bytes``)."""
+        out: dict[str, int] = {}
+        for (kind, _), rec in self.collective_log.items():
+            out[kind] = out.get(kind, 0) + rec["bytes"]
+        return out
 
     def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
         """The sum of ``x`` over the ranks along ``axes`` (``lax.psum``),
         the same on each of them."""
-        import torch.distributed as dist
         axes = self._axes(axes)
         if not axes:
             return x
-        self._count(x)
+        out = self._all_reduce(x, axes)
+        self._count("all-reduce", axes, x, out)
+        return out
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0
+                   ) -> torch.Tensor:
+        """The ranks' ``x`` along ``axes`` concatenated on ``dim`` in their
+        ``axis_index`` order (``lax.all_gather(..., axis=dim,
+        tiled=True)``)."""
+        axes = self._axes(axes)
+        if not axes:
+            return x
+        out = self._all_gather(x, axes, dim % x.dim())
+        self._count("all-gather", axes, x, out)
+        return out
+
+    def _all_reduce(self, x: torch.Tensor, axes: tuple[str, ...]
+                    ) -> torch.Tensor:
+        import torch.distributed as dist
         x = x.clone()
         dist.all_reduce(x, group=self._groups[frozenset(axes)])
         return x
 
-    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """The ranks' ``x`` along ``axes`` concatenated on dim 0 in their
-        ``axis_index`` order (``lax.all_gather(..., tiled=True)``)."""
+    def _all_gather(self, x: torch.Tensor, axes: tuple[str, ...],
+                    dim: int) -> torch.Tensor:
         import torch.distributed as dist
-        axes = self._axes(axes)
-        if not axes:
-            return x
-        self._count(x)
         group = self._groups[frozenset(axes)]
         ranks = dist.get_process_group_ranks(group)      # in group order
-        parts = [torch.empty_like(x) for _ in ranks]
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in ranks]
         dist.all_gather(parts, x.contiguous(), group=group)
         order = [None] * len(ranks)
         for part, r in zip(parts, ranks):
             order[self._row(self._coords(r), self.shape, axes)] = part
-        return torch.cat(order, dim=0)
+        return torch.cat(order, dim=dim)
+
+
+class CountingMesh(Mesh):
+    """A mesh of ``shape`` seen from the rank at ``coords`` (every axis at 0
+    unless given), with no process group.  Its collectives communicate
+    nothing: ``psum`` returns a copy of ``x`` and ``all_gather`` the
+    concatenation of as many copies as the axes hold ranks, so the shapes
+    are right (on the meta device too), and both count as on a mesh over
+    ranks.  The dry-run runs a cell's step on meta tensors on it to count
+    the collectives one rank issues."""
+
+    def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...],
+                 coords: dict[str, int] | None = None):
+        super().__init__(np.arange(math.prod(shape)).reshape(shape),
+                         axis_names)
+        self.coords = dict(coords) if coords is not None else {
+            a: 0 for a in self.axis_names}
+        if sorted(self.coords) != sorted(self.axis_names) or any(
+                not 0 <= c < self.shape[a] for a, c in self.coords.items()):
+            raise ValueError(f"coordinates {coords} off the mesh {self}")
+
+    def _all_reduce(self, x, axes):
+        return x.clone()
+
+    def _all_gather(self, x, axes, dim):
+        n = math.prod(self.shape[a] for a in axes)
+        return torch.cat([x] * n, dim=dim)
+
+
+def _spec_axes(entry) -> tuple[str, ...]:
+    """A spec entry's axes as a tuple (None: none)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def relayout(x: torch.Tensor, have: P, want: P,
+             mctx: "MeshCtx") -> torch.Tensor:
+    """``x``, this rank's block of an array laid out under ``have``, as its
+    block under ``want``.  Every dim whose axes ``want`` does not keep is
+    gathered over ``have``'s axes (one ``Mesh.all_gather`` a dim, in the
+    reference's order), then cut to ``want``'s block where ``want`` splits
+    it (a local slice: no collective); a dim whose axes agree is left as it
+    is.  Identical layouts return ``x`` itself.  Raises where ``x`` is not a
+    block under ``have`` or ``want`` does not divide a dim."""
+    mesh = mctx.mesh
+    if len(have) > x.dim() or len(want) > x.dim():
+        raise ValueError(f"{have} -> {want} for a {x.dim()}-d block")
+    sizes = mesh.shape
+    for i in range(x.dim()):
+        h = _spec_axes(have[i] if i < len(have) else None)
+        w = _spec_axes(want[i] if i < len(want) else None)
+        if h == w:
+            continue
+        if h:
+            x = mesh.all_gather(x, h, dim=i)
+        if w:
+            parts = math.prod(sizes[a] for a in w)
+            if x.shape[i] % parts:
+                raise ValueError(f"{want} splits dim {i} of a block "
+                                 f"{tuple(x.shape)} {parts} ways")
+            n = x.shape[i] // parts
+            x = x.narrow(i, mesh.axis_index(w) * n, n)
+    return x
 
 
 @dataclass(frozen=True)
@@ -207,9 +317,7 @@ class NamedSharding:
         sizes = self.mesh.shape
         out = []
         for i, dim in enumerate(global_shape):
-            ent = self.spec[i] if i < len(self.spec) else None
-            axes = () if ent is None else (
-                ent if isinstance(ent, tuple) else (ent,))
+            axes = _spec_axes(self.spec[i] if i < len(self.spec) else None)
             parts = math.prod(sizes[a] for a in axes)
             if dim % parts:
                 raise ValueError(f"{self.spec} splits dim {i} of "
@@ -224,9 +332,7 @@ class NamedSharding:
         block = self.shard_shape(global_shape)
         out = []
         for i, n in enumerate(block):
-            ent = self.spec[i] if i < len(self.spec) else None
-            axes = () if ent is None else (
-                ent if isinstance(ent, tuple) else (ent,))
+            axes = _spec_axes(self.spec[i] if i < len(self.spec) else None)
             start = self.mesh.axis_index(axes) * n if axes else 0
             out.append(slice(start, start + n))
         return tuple(out)

@@ -267,7 +267,8 @@ def ssm_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 def ssm_prefill(params, batch: dict, cfg: ArchConfig,
                 mctx: MeshCtx | None = None):
     """batch["tokens"]: [B, S] ids.  Returns (last-token logits [B, V]
-    float32, caches)."""
+    float32, caches).  One device: a mesh of more than one raises."""
+    tfm.not_on_ranks(cfg, mctx)
     tokens = batch["tokens"]
     x = tfm._embed_tokens(params, tokens, cfg)
     caches = tfm._alloc(ssm_cache_shapes(cfg, *tokens.shape), x)
@@ -280,7 +281,9 @@ def ssm_decode_step(params, caches: dict, tokens: torch.Tensor, t: int,
                     cfg: ArchConfig, mctx: MeshCtx | None = None):
     """tokens: [B, 1] new token ids (the position ``t`` is not read: the
     state carries it).  Writes the new conv and SSM states into
-    ``caches`` in place.  Returns (logits [B, V] float32, caches)."""
+    ``caches`` in place.  Returns (logits [B, V] float32, caches).  One
+    device: a mesh of more than one raises."""
+    tfm.not_on_ranks(cfg, mctx)
     x = tfm._embed_tokens(params, tokens, cfg)
     x = _stack(params, x, cfg, "decode", caches)
     x = rms_norm(x[:, -1], params["ln_f"])

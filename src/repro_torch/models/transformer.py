@@ -9,8 +9,23 @@ group ``"moe"`` for an all-MoE model (mixtral), and ``"dense0"`` ..
 (llama4) — so one tree carries across by a tree map.  The stack runs as
 a Python loop over the groups' leading axis, the group's layers in
 sorted key order (the reference's ``lax.scan`` over ``_group_body``).
-One GPU needs no mesh, so the reference's sharding constraints have no
-counterpart here.
+
+Across ranks (a ``MeshCtx`` over the ranks of a process group, or a
+``CountingMesh``), the decoder's prefill and decode run as the
+reference's GSPMD program runs on its mesh, rank by rank: each rank holds
+its blocks of the parameters (``decoder_param_specs``: every layer matrix
+over ``model`` and FSDP over the data axes, the embedding's vocab rows
+over ``model``), of the caches (``kv_spec``) and of the batch (split over
+the data axes where they divide it, whole on every rank otherwise), and
+issues the collectives GSPMD inserts: per layer the FSDP all-gathers of
+the layer's matrices over the data axes (``sharding.relayout``; dropped
+after the layer), a vocab-parallel embedding (one psum over ``model``),
+column-parallel ``wq``/``wk``/``wv``/``wg``/``wu`` (this rank's q heads)
+and row-parallel ``wo``/``wd`` (a psum over ``model`` each), and this
+rank's block of the logits ``P(dp, "model")``.  ``_constrain`` and
+``_attn_constraints`` are the reference's layout hints; under the
+configs' ``attn_shard="auto"`` they are no-ops, and across ranks the
+other settings raise.
 
 Weights may be held in the config's ``param_dtype`` (float32) and are cast
 to the compute dtype per use, as the reference does; ``cast_params``
@@ -67,8 +82,9 @@ from repro_torch.models.layers import (chunked_attention,
                                        chunked_softmax_xent, decode_attention,
                                        rms_norm, rotary, sinusoid_positions,
                                        swiglu)
-from repro_torch.models.moe import moe_ffn, moe_param_shapes, moe_param_specs
-from repro_torch.models.sharding import MeshCtx, P
+from repro_torch.models.moe import (moe_ffn, moe_in_specs, moe_param_shapes,
+                                    moe_param_specs)
+from repro_torch.models.sharding import MeshCtx, P, relayout
 
 VIT_STUB_DIM = 1024     # the VLM/audio frontend stubs emit this width
 
@@ -188,9 +204,10 @@ def dense_ffn_block(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn_block(p, x: torch.Tensor, cfg: ArchConfig,
-                  mctx: MeshCtx | None = None) -> torch.Tensor:
+                  mctx: MeshCtx | None = None, *,
+                  global_batch: int | None = None) -> torch.Tensor:
     h = rms_norm(x, p["ln2"])
-    return x + moe_ffn(p["moe"], h, cfg, mctx)
+    return x + moe_ffn(p["moe"], h, cfg, mctx, global_batch=global_batch)
 
 
 # ---------------------------------------------------------------------------
@@ -606,14 +623,19 @@ def decoder_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 
 
 def decoder_prefill(params, batch: dict, cfg: ArchConfig,
-                    mctx: MeshCtx | None = None):
+                    mctx: MeshCtx | None = None, *,
+                    global_batch: int | None = None):
     """batch["tokens"]: [B, S] ids (and a VLM's ``img_emb``).  Returns
     (last-token logits [B, V] float32, caches with exactly as many slots
     as positions: S, or img_tokens + S for a VLM).  On a mesh over ranks
-    (``mctx``) every rank runs the whole batch and holds its blocks of the
-    MoE weights (``convert.moe_blocks``); the outputs are the same on
-    every rank."""
+    (``on_ranks``) every argument and result is this rank's block:
+    ``params`` under ``decoder_param_specs``, the batch under
+    ``batch_specs`` for ``global_batch`` rows, the logits under ``P(dp,
+    "model")`` and the caches under ``decoder_cache_specs(cfg, mctx, S)``
+    (the data axes dropped where they do not divide ``global_batch``)."""
     _check_supported(cfg)
+    if on_ranks(mctx):
+        return _prefill_ranked(params, batch, cfg, mctx, global_batch)
     x = _prepend_images(params, _embed_tokens(params, batch["tokens"], cfg),
                         batch, cfg)
     b, s, _ = x.shape
@@ -625,14 +647,311 @@ def decoder_prefill(params, batch: dict, cfg: ArchConfig,
 
 
 def decoder_decode_step(params, caches, tokens: torch.Tensor, t: int,
-                        cfg: ArchConfig, mctx: MeshCtx | None = None):
+                        cfg: ArchConfig, mctx: MeshCtx | None = None, *,
+                        global_batch: int | None = None,
+                        n_slots: int | None = None):
     """tokens: [B, 1] new token ids at absolute position ``t`` (an int;
     for a VLM the image tokens count).  Writes the new keys and values
-    into ``caches`` in place.  Returns (logits [B, V] float32, caches)."""
+    into ``caches`` in place.  Returns (logits [B, V] float32, caches).
+    On a mesh over ranks the arguments and results are this rank's blocks,
+    as for ``decoder_prefill``: the tokens of ``global_batch`` rows, the
+    caches of ``n_slots`` slots under ``kv_spec(cfg, mctx, n_slots)``
+    (which a block alone does not tell where ``model`` cuts the slots)."""
     _check_supported(cfg)
+    if on_ranks(mctx):
+        return _decode_ranked(params, caches, tokens, t, cfg, mctx,
+                              global_batch, n_slots)
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(t, t + 1, device=x.device)
     x = _run_stack(params, x, cfg, mctx, "decode", positions, caches, t=t)
+    x = rms_norm(x[:, -1], params["ln_f"])
+    return _logits(params, x, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# Across ranks: the reference's sharded program, one rank's part of it
+# ---------------------------------------------------------------------------
+
+def on_ranks(mctx: MeshCtx | None) -> bool:
+    """Whether a step on ``mctx`` runs across ranks: a mesh of more than
+    one device seen from one rank (``Mesh.over_ranks`` or a
+    ``CountingMesh``).  None and one-device meshes run the one-device
+    path; an abstract mesh of more than one device raises."""
+    if mctx is None or mctx.mesh.size == 1:
+        return False
+    if not mctx.mesh.coords:
+        raise RuntimeError(f"a step on a {mctx.mesh} mesh runs on the "
+                           f"ranks of a process group (Mesh.over_ranks) or "
+                           f"on a CountingMesh")
+    return True
+
+
+def not_on_ranks(cfg: ArchConfig, mctx: MeshCtx | None) -> None:
+    """Raise for a family whose steps do not run across ranks yet."""
+    if mctx is not None and mctx.mesh.size > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family runs on one device; its "
+            f"steps across ranks (on a {mctx.mesh} mesh) are not ported yet "
+            f"(the decoder families dense, moe and vlm are)")
+
+
+def _constrain(x: torch.Tensor, mctx: MeshCtx | None, spec: P
+               ) -> torch.Tensor:
+    """The reference's activation sharding constraint, a GSPMD layout hint
+    that leaves the values as they are: a no-op off a mesh or on one
+    device.  Across ranks the port lays every block out itself and takes
+    no hint."""
+    if mctx is None or mctx.mesh.size == 1:
+        return x
+    raise NotImplementedError(f"a layout hint {spec} on a {mctx.mesh} mesh: "
+                              f"the port lays its blocks out itself")
+
+
+def _attn_constraints(q, k, v, cfg: ArchConfig, mctx: MeshCtx | None,
+                      mode: str):
+    """The reference's attention layout hints (``cfg.attn_shard``): none
+    under "auto" (every config's); "heads" and "seq" pin GSPMD's layout of
+    q, k and v and raise across ranks (``_constrain``)."""
+    if mctx is None or cfg.attn_shard == "auto":
+        return q, k, v
+    b = q.shape[0]
+    dp = mctx.dp if b % mctx.dp_size == 0 else None
+    if cfg.attn_shard == "heads":
+        spec = P(dp, "model", None, None)
+        return tuple(_constrain(a, mctx, spec) for a in (q, k, v))
+    if cfg.attn_shard == "seq" and mode != "decode":
+        return (_constrain(q, mctx, P(dp, None, "model", None)),
+                _constrain(k, mctx, P(dp, None, None, None)),
+                _constrain(v, mctx, P(dp, None, None, None)))
+    return q, k, v
+
+
+class _Ranks:
+    """One step's layout on this rank: the global batch and the data axes
+    that split it, this rank's q heads and KV heads, the KV cache's
+    ``kv_spec`` branch, and each layer group's stored and computed
+    weight layouts."""
+
+    def __init__(self, cfg: ArchConfig, mctx: MeshCtx, global_batch,
+                 rows: int, n_slots: int):
+        if global_batch is None:
+            raise ValueError(f"a step on a {mctx.mesh} mesh over ranks takes "
+                             f"the global batch (global_batch=): its "
+                             f"tensors are this rank's blocks")
+        self.cfg, self.mctx, self.mesh = cfg, mctx, mctx.mesh
+        self.global_batch = global_batch
+        self.dp = mctx.dp if global_batch % mctx.dp_size == 0 else None
+        want = global_batch // mctx.dp_size if self.dp else global_batch
+        if rows != want:
+            raise ValueError(f"{rows} rows on this rank: the block of a "
+                             f"batch of {global_batch} on {mctx.mesh} has "
+                             f"{want}")
+        tp, r = mctx.tp_size, self.mesh.axis_index("model")
+        hq, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        self.tp, self.r = tp, r
+        # wo's rows on this rank are o's columns [r * cols, (r + 1) * cols):
+        # the q heads that cover them are this rank's
+        self.cols = hq * dh // tp
+        if hq % tp == 0:
+            self.q0, self.q1 = r * hq // tp, (r + 1) * hq // tp
+        else:
+            self.q0 = r * self.cols // dh
+            self.q1 = -(-(r + 1) * self.cols // dh)
+        self.o_off = r * self.cols - self.q0 * dh
+        # the KV heads this rank computes: its block where ``model`` divides
+        # them, else all (the cache holds every head in both other branches)
+        self.k0, self.k1 = ((r * hk // tp, (r + 1) * hk // tp)
+                            if hk % tp == 0 else (0, hk))
+        g = hq // hk
+        self.kv_idx = [qh // g - self.k0 for qh in range(self.q0, self.q1)]
+        self.n_slots = n_slots
+        spec = kv_spec(cfg, mctx, n_slots)
+        self.branch = ("heads" if spec[2] == "model" else
+                       "slots" if spec[3] == "model" else "replicated")
+        stored = decoder_param_specs(cfg, mctx)["layers"]
+        self.stored = {name: _drop_lead(sp) for name, sp in stored.items()}
+        q_cols = P(None, "model") if hq % tp == 0 else P()
+        kv_cols = P(None, "model") if hk % tp == 0 else P()
+        attn = {"ln1": P(), "wq": q_cols, "wk": kv_cols, "wv": kv_cols,
+                "wo": P("model", None)}
+        self.want = {}
+        for name in stored:
+            if name.startswith("dense"):
+                self.want[name] = attn | {
+                    "ln2": P(), "wg": P(None, "model"),
+                    "wu": P(None, "model"), "wd": P("model", None)}
+            else:
+                self.want[name] = attn | {"ln2": P(), "moe": moe_in_specs(
+                    cfg, mctx, global_batch)}
+
+    def layer(self, name: str, p: dict) -> dict:
+        """Layer ``p`` of group ``name`` (this rank's stored blocks) in the
+        layout its products take: ``relayout`` of every leaf, each matrix
+        cast to the compute dtype first (the cast each use makes, made
+        before the gather: the same values, fewer bytes)."""
+        return _relayout_tree(p, self.stored[name], self.want[name],
+                              self.mctx,
+                              getattr(torch, self.cfg.compute_dtype))
+
+    def kv(self, kt: torch.Tensor) -> torch.Tensor:
+        """The KV heads of ``kt`` [B, heads computed, S, D] that this
+        rank's q heads attend, in the grouped layout (a slice) where the
+        q heads share them evenly, else one per q head."""
+        idx = self.kv_idx
+        lo, n, nq = idx[0], idx[-1] - idx[0] + 1, len(idx)
+        if nq % n == 0 and idx == [lo + i // (nq // n) for i in range(nq)]:
+            return kt[:, lo:lo + n]
+        return kt.index_select(1, torch.tensor(idx, device=kt.device))
+
+
+def _drop_lead(specs):
+    if isinstance(specs, P):
+        return P(*specs[1:])
+    return {k: _drop_lead(v) for k, v in specs.items()}
+
+
+def _relayout_tree(p, have, want, mctx: MeshCtx, dt: torch.dtype,
+                   key: str = ""):
+    if isinstance(p, dict):
+        return {k: _relayout_tree(v, have[k], want[k], mctx, dt, k)
+                for k, v in p.items()}
+    return relayout(p.to(dt) if key in MATRICES else p, have, want, mctx)
+
+
+def _embed_ranked(params, tokens: torch.Tensor, cfg: ArchConfig,
+                  rk: _Ranks) -> torch.Tensor:
+    """The vocab-parallel embedding: this rank's rows of the table (its
+    block ``P("model", None)``) gathered for the tokens they hold, the
+    others zero, summed over ``model`` (a sum of zeros and one row:
+    exact), gathered before the cast as ``_embed_tokens`` serves."""
+    table = params["embed"]
+    n = table.shape[0]
+    local = tokens - rk.r * n
+    mine = (local >= 0) & (local < n)
+    x = table[torch.where(mine, local, 0)].to(
+        getattr(torch, cfg.compute_dtype))
+    x = x.masked_fill(~mine[..., None], 0)
+    return rk.mesh.psum(x, "model")
+
+
+def _attn_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
+                 mode: str, positions, cache: dict, t=None) -> torch.Tensor:
+    """``attn_block`` on this rank's q heads, ``p`` in the computed layout
+    (``_Ranks.layer``).  The cache by ``kv_spec``'s branch: "heads", this
+    rank's KV heads; "slots", every head of this rank's block of slots
+    (decode: the rank holding slot ``t % S`` writes it, and the blocks are
+    gathered over ``model`` before the kernel); "replicated", every head
+    and slot of this rank's rows.  The output projection is row-parallel:
+    this rank's columns of the heads' output times its rows of ``wo``,
+    summed over ``model``."""
+    h = rms_norm(x, p["ln1"])
+    b, s, _ = x.shape
+    dt, dh = h.dtype, cfg.head_dim
+    wq = p["wq"]
+    if cfg.num_heads % rk.tp:                        # every head gathered
+        wq = wq[:, rk.q0 * dh:rk.q1 * dh]
+    q = (h @ wq.to(dt)).reshape(b, s, rk.q1 - rk.q0, dh)
+    k = (h @ p["wk"].to(dt)).reshape(b, s, rk.k1 - rk.k0, dh)
+    v = (h @ p["wv"].to(dt)).reshape(b, s, rk.k1 - rk.k0, dh)
+    q = rotary(q, positions, cfg.rope_theta)
+    k = rotary(k, positions, cfg.rope_theta)
+    if mode == "prefill":
+        qt, kt, vt = _attn_constraints(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), cfg, rk.mctx, mode)
+        if rk.branch == "slots":
+            n = cache["k"].shape[2]
+            cache["k"].copy_(kt[:, :, rk.r * n:(rk.r + 1) * n])
+            cache["v"].copy_(vt[:, :, rk.r * n:(rk.r + 1) * n])
+        else:
+            cache["k"].copy_(kt)
+            cache["v"].copy_(vt)
+        o = chunked_attention(qt, rk.kv(kt), rk.kv(vt), causal=True,
+                              window=cfg.window, chunk_attn=cfg.chunk_attn)
+    elif mode == "decode":
+        slot = t % rk.n_slots
+        kc, vc = cache["k"], cache["v"]
+        if rk.branch == "slots":
+            n = kc.shape[2]
+            if slot // n == rk.r:
+                kc[:, :, slot - rk.r * n] = k[:, 0]
+                vc[:, :, slot - rk.r * n] = v[:, 0]
+            kc = rk.mesh.all_gather(kc, "model", dim=2)
+            vc = rk.mesh.all_gather(vc, "model", dim=2)
+        else:
+            kc[:, :, slot] = k[:, 0]
+            vc[:, :, slot] = v[:, 0]
+        o = decode_attention(q.transpose(1, 2), rk.kv(kc), rk.kv(vc), None,
+                             t, window=cfg.window, chunk_attn=cfg.chunk_attn)
+    else:
+        raise ValueError(f"across ranks the decoder runs 'prefill' and "
+                         f"'decode', not {mode!r}")
+    o = o.transpose(1, 2).reshape(b, s, -1)[..., rk.o_off:rk.o_off + rk.cols]
+    return x + rk.mesh.psum(o @ p["wo"].to(x.dtype), "model")
+
+
+def _ffn_ranked(p, x: torch.Tensor, rk: _Ranks) -> torch.Tensor:
+    """The SwiGLU FFN with ``wg``/``wu`` column-parallel and ``wd``
+    row-parallel: the partial outputs summed over ``model``."""
+    h = rms_norm(x, p["ln2"])
+    return x + rk.mesh.psum(swiglu(h, p["wg"], p["wu"], p["wd"]), "model")
+
+
+def _stack_ranked(params, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks,
+                  mode: str, positions, caches: dict, t=None) -> torch.Tensor:
+    """The decoder stack on this rank: per layer its weights gathered into
+    the computed layout (then dropped), attention, then the dense FFN or
+    the MoE block (``moe_ffn`` on this rank's rows)."""
+    groups = {name: _layers(g) for name, g in params["layers"].items()}
+    for i in range(len(next(iter(groups.values())))):
+        for name in sorted(groups):
+            p = rk.layer(name, groups[name][i])
+            c = caches[name]
+            x = _attn_ranked(p, x, cfg, rk, mode=mode, positions=positions,
+                             cache={"k": c["k"][i], "v": c["v"][i]}, t=t)
+            if name.startswith("dense"):
+                x = _ffn_ranked(p, x, rk)
+            else:
+                x = moe_ffn_block(p, x, cfg, rk.mctx,
+                                  global_batch=rk.global_batch)
+            del p
+    return x
+
+
+def _cache_blocks(cfg: ArchConfig, rk: _Ranks, s: int, like: torch.Tensor
+                  ) -> dict:
+    """Empty caches of ``s`` slots: this rank's blocks under ``kv_spec``."""
+    spec = kv_spec(cfg, rk.mctx, rk.n_slots)
+    shard = rk.mctx.sharding(P(None, rk.dp, *spec[2:]))
+    return _alloc({name: {kv: shard.shard_shape(shape) for kv, shape in
+                          group.items()}
+                   for name, group in kv_shapes(
+                       cfg, rk.global_batch, s).items()}, like)
+
+
+def _prefill_ranked(params, batch: dict, cfg: ArchConfig, mctx: MeshCtx,
+                    global_batch):
+    tokens = batch["tokens"]
+    s = tokens.shape[1] + (cfg.img_tokens if cfg.family == "vlm" else 0)
+    rk = _Ranks(cfg, mctx, global_batch, tokens.shape[0],
+                kv_cache_len(cfg, s))
+    x = _prepend_images(params, _embed_ranked(params, tokens, cfg, rk),
+                        batch, cfg)
+    caches = _cache_blocks(cfg, rk, s, x)
+    positions = torch.arange(s, device=x.device)
+    x = _stack_ranked(params, x, cfg, rk, "prefill", positions, caches)
+    x = rms_norm(x[:, -1], params["ln_f"])
+    return _logits(params, x, cfg), caches
+
+
+def _decode_ranked(params, caches, tokens: torch.Tensor, t: int,
+                   cfg: ArchConfig, mctx: MeshCtx, global_batch, n_slots):
+    if n_slots is None:
+        raise ValueError(f"a decode step on a {mctx.mesh} mesh over ranks "
+                         f"takes the caches' global slot count (n_slots=)")
+    rk = _Ranks(cfg, mctx, global_batch, tokens.shape[0], n_slots)
+    x = _embed_ranked(params, tokens, cfg, rk)
+    positions = torch.arange(t, t + 1, device=x.device)
+    x = _stack_ranked(params, x, cfg, rk, "decode", positions, caches, t=t)
     x = rms_norm(x[:, -1], params["ln_f"])
     return _logits(params, x, cfg), caches
 
@@ -735,8 +1054,10 @@ def encdec_prefill(params, batch: dict, cfg: ArchConfig,
     """batch["frames"]: [B, enc_seq, 1024], batch["tokens"]: [B, S] ids.
     Returns (last-token logits [B, V] float32, caches: self-attention with
     exactly S slots, and the cross-attention keys and values of every
-    decoder layer over the encoder output)."""
+    decoder layer over the encoder output).  One device: a mesh of more
+    than one raises."""
     _check_supported(cfg, ("encdec",))
+    not_on_ranks(cfg, mctx)
     enc_out = _encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -761,8 +1082,9 @@ def encdec_decode_step(params, caches, tokens: torch.Tensor, t: int,
     """tokens: [B, 1] new token ids at absolute position ``t`` (an int).
     Writes the new self-attention keys and values into ``caches`` in
     place; the cross caches are read whole.  Returns (logits [B, V]
-    float32, caches)."""
+    float32, caches).  One device: a mesh of more than one raises."""
     _check_supported(cfg, ("encdec",))
+    not_on_ranks(cfg, mctx)
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(t, t + 1, device=x.device)
     def layer(x, xs):

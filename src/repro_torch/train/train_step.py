@@ -1,5 +1,10 @@
 """The train / prefill / serve steps for every architecture (the
-reference's ``repro.train.train_step``, on one device: no mesh).
+reference's ``repro.train.train_step``).  Training runs on one device;
+the prefill and serve steps also run across ranks for the decoder
+families (``mctx`` over the ranks of a process group: every argument and
+result is this rank's block, ``models.transformer``), where they take
+the global batch (``global_batch=``) and a decode step the caches' global
+slot count (``n_slots=``).
 
 ``make_train_step`` returns train_step(params, opt_state, batch) ->
 (params, opt_state, metrics): the loss and its gradient by autograd,
@@ -61,10 +66,14 @@ def value_and_grad(loss_fn, params, batch: dict, microbatch: int = 1):
 
 
 def make_train_step(cfg: ArchConfig, ocfg: AdamWConfig | None = None,
-                    microbatch: int = 1):
+                    microbatch: int = 1, mctx: MeshCtx | None = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"}); params and the moments are updated in
-    place."""
+    place.  On one device: a mesh of more than one raises."""
+    if mctx is not None and mctx.mesh.size > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: training across ranks (a {mctx.mesh} mesh) is not "
+            f"ported yet; the prefill and serve steps run across ranks")
     ocfg = ocfg or AdamWConfig(opt_dtype=cfg.opt_dtype)
     loss_fn = make_loss_fn(cfg)
 
@@ -80,8 +89,8 @@ def make_prefill_step(cfg: ArchConfig, mctx: MeshCtx | None = None):
     model = get_model(cfg)
 
     @torch.no_grad()
-    def prefill_step(params, batch):
-        return model.prefill(params, batch, cfg, mctx)
+    def prefill_step(params, batch, **layout):
+        return model.prefill(params, batch, cfg, mctx, **layout)
 
     return prefill_step
 
@@ -91,7 +100,7 @@ def make_serve_step(cfg: ArchConfig, mctx: MeshCtx | None = None):
     model = get_model(cfg)
 
     @torch.no_grad()
-    def serve_step(params, caches, tokens, t):
-        return model.decode(params, caches, tokens, t, cfg, mctx)
+    def serve_step(params, caches, tokens, t, **layout):
+        return model.decode(params, caches, tokens, t, cfg, mctx, **layout)
 
     return serve_step

@@ -230,6 +230,48 @@ def test_run_cell_record_keys():
         PINS["mamba2-130m"]["bytes"]["16x16"]["long_500k"]
 
 
+def test_collective_bytes_of_a_decode_cell_written_out():
+    """llama3.2-3b ``decode_32k`` on 16x16, the rank at coordinates 0:
+    128 rows over 16 data ranks, 24 q heads and 8 KV heads that 16 model
+    ranks do not divide (``wq``/``wk``/``wv`` gathered over ``model`` too;
+    the 32,768 slots split over ``model``, gathered back each layer), bf16.
+    Per layer 7 FSDP gathers, 3 column gathers, 2 cache gathers and 2
+    psums of [8, 1, 3,072]; one embedding psum."""
+    cfg = get_config("llama3.2-3b")
+    got = dryrun.count_collectives(cfg, get_shape("decode_32k"),
+                                   production_mesh_ctx())
+    d, f, hd, n = 3072, 8192, 128, 28
+    q, kv = 24 * hd, 8 * hd
+    dp = (d // 16 * q // 16 + 2 * d // 16 * kv // 16 + q // 16 * d // 16
+          + 3 * d // 16 * f // 16) * 16
+    model = d * q + 2 * d * kv
+    cache = 2 * 8 * 8 * 32768 * hd
+    assert got["calls"] == {"all-gather": n * 12, "all-reduce": 1 + 2 * n}
+    assert got["bytes"] == {"all-reduce": 8 * d * 2 * (1 + 2 * n),
+                            "all-gather": n * 2 * (dp + model + cache)}
+    assert got["by_axes"]["all-gather data"][0] == 7 * n
+
+
+def test_every_decoder_serving_cell_counts_its_collectives():
+    """Non-null bytes for every decoder-family decode cell on both
+    production meshes, and for a prefill (the sweep,
+    ``python -m repro_torch.launch.dryrun --all --both-meshes``, counts
+    every prefill: 20 s on one CPU); train cells and the other families
+    say why theirs are null."""
+    for arch, sh in dryrun.all_cells():
+        cfg, shape = get_config(arch), get_shape(sh)
+        if shape.kind == "prefill" and arch != "llama3.2-3b":
+            continue
+        for name in ("16x16", "2x16x16"):
+            got = dryrun.count_collectives(cfg, shape, _mesh(name))
+            if shape.kind != "train" and cfg.family in ("dense", "moe",
+                                                        "vlm"):
+                assert set(got["bytes"]) == {"all-gather", "all-reduce"}
+                assert min(got["bytes"].values()) > 0
+            else:
+                assert "bytes" not in got and got["reason"]
+
+
 # --------------------------------------------------------------- elastic
 @pytest.mark.parametrize("old", [8, 16, 256, 512])
 def test_elastic_restart_plan_equals_the_reference(old):

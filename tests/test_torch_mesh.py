@@ -8,8 +8,11 @@ for the reduced llama4-maverick and mixtral at 8 experts, on x ``[4, 8,
 64]`` (dp divides the batch) and ``[1, 8, 64]`` (replicated; ``"2d"``
 falls through to ``"ffn"``), and the two decoders' prefill over ``[4,
 16]`` tokens and two decode steps on 2x4.  Each rank holds only its
-blocks of the MoE weights (``convert.moe_blocks``).  Every case is held to
-the reference's answer in ``tests/data/torch_mesh.json`` (written by
+blocks of the MoE weights (``convert.moe_blocks``) and of x, and returns
+its block of the output, which the rank gathers; the decoders hold every
+parameter, cache and token as the rank's block (``convert.blocks``) and
+run the whole sharded step (``test_torch_sharded.py``).  Every case is
+held to the reference's answer in ``tests/data/torch_mesh.json`` (written by
 ``test_torch_pins.py --write-mesh``) within 2e-5 absolute, float32 with
 values of order 1; every rank returns the same output.  The pins of
 ``"expert"`` and ``"ffn"`` differ from the one-device answer by more than

@@ -28,8 +28,9 @@ ALLOWED = {
     "launch/mesh.py": {"ICI_BW": "the TPU interconnect's rate; one H100 "
                                  "has no interconnect to price"},
     "launch/dryrun.py": {"collective_bytes_from_text":
-                         "parses XLA's HLO text; the port's collective "
-                         "bytes wait for its sharded dense step"},
+                         "parses XLA's HLO text; the port counts its own "
+                         "collectives (dryrun.count_collectives, a step "
+                         "on meta tensors on a CountingMesh)"},
     "state/lsm.py": {n: "the wrappers already dispatch by device; CPU "
                         "tensors run the plain versions"
                      for n in ("DEFAULT_KERNEL_IMPL", "set_kernel_impl")},

@@ -38,6 +38,14 @@ block on 8 devices (``torch_mesh_cases``: ``moe_ffn`` in every mode on
 ``test_torch_mesh.py`` holds the port to on 8 gloo ranks and
 ``chip_smoke.py``'s phase 13 (a) on the card.  Written with
 ``--write-mesh`` (about 40 s); the ``slow`` test regenerates it.
+
+``tests/data/torch_sharded.json`` holds the reference's answers to the
+decoder's sharded prefill and decode steps on 8 devices
+(``torch_sharded_cases``: dense, windowed, MoE in each mode and VLM
+configurations on 2x4 and 2x2x2, every ``kv_spec`` branch, a batch the
+data axes do not divide), which ``test_torch_sharded.py`` holds the port
+to on 8 gloo ranks and ``chip_smoke.py``'s phase 14 (a) on the card.
+Written with ``--write-sharded``; the ``slow`` test regenerates it.
 """
 import importlib.util
 import json
@@ -50,6 +58,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch_mesh_cases as mesh_cases
+import torch_sharded_cases as sharded_cases
 
 torch = pytest.importorskip("torch")
 
@@ -551,6 +560,148 @@ def test_mesh_phase_rehearses_on_the_cpu(monkeypatch):
         "flash_attention": 0, "decode_attention": 0}
 
 
+# The decoder's sharded steps across 8 devices: the reference runs every
+# case of ``torch_sharded_cases`` with its parameters placed under
+# ``param_specs``, the batch under ``P(dp, None)`` and the caches, carried
+# as numpy between steps and grown after the prefill, placed under
+# ``cache_specs`` before each step, on meshes with Auto axes (jax 0.9.0's
+# ``jax.make_mesh`` makes Explicit axes by default, under which the
+# reference's sharded embedding gather raises ``ShardingTypeError``).
+# ``test_torch_sharded.py`` holds the port on 8 gloo ranks to the file.
+_SHARDED_SCRIPT = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import json, sys
+sys.path.insert(0, "tests")
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+from repro.configs import get_config
+from repro.models import get_model
+from repro.models.model import drop_dp_axes
+from repro.models.sharding import MeshCtx
+import torch_sharded_cases as C
+
+
+def place(tree, specs, mesh):
+    if isinstance(tree, dict):
+        return {k: place(v, specs[k], mesh) for k, v in tree.items()}
+    return jax.device_put(jnp.asarray(tree), NamedSharding(mesh, specs))
+
+
+def carry(tree, pad=0):
+    # numpy, the "k"/"v" leaves grown by pad slots
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = carry(v, pad)
+            continue
+        v = np.asarray(v)
+        if pad and k in ("k", "v"):
+            v = np.pad(v, [(0, 0)] * (v.ndim - 2) + [(0, pad), (0, 0)])
+        out[k] = v
+    return out
+
+
+meshes = {}
+for m, (shape, names) in C.MESHES.items():
+    mesh = jax.make_mesh(shape, names,
+                         axis_types=(AxisType.Auto,) * len(shape))
+    assert [d.id for d in mesh.devices.flat] == list(range(C.WORLD))
+    meshes[m] = mesh
+out = {}
+for name, (arch, mode, m, batch, slots) in C.CASES.items():
+    mesh = meshes[m]
+    mctx = MeshCtx(mesh)
+    cfg = get_config(arch).reduced().replace(**C.replace(mode))
+    model = get_model(cfg)
+    img = cfg.img_tokens if cfg.family == "vlm" else 0
+    inp = C.inputs(name, model.param_shapes(cfg), cfg.vocab_size,
+                   cfg.d_model, img)
+    dp = mctx.dp if batch % mctx.dp_size == 0 else None
+    params = place(inp["params"], model.param_specs(cfg, mctx), mesh)
+    toks = inp["tokens"]
+    feed = {"tokens": place(toks[:, :C.PROMPT], P(dp, None), mesh)}
+    if img:
+        feed["img_emb"] = place(inp["img_emb"], P(dp, None, None), mesh)
+
+    def cache_specs(n):
+        specs = model.cache_specs(cfg, mctx, n)
+        return specs if dp else drop_dp_axes(specs, mctx)
+
+    prefill = jax.jit(lambda p, b: model.prefill(p, b, cfg, mctx))
+    decode = jax.jit(lambda p, c, tok, t: model.decode(p, c, tok, t, cfg,
+                                                      mctx))
+    logits, caches = prefill(params, feed)
+    out[f"{name}/prefill"] = logits
+    s0 = C.PROMPT + img
+    caches = carry(caches, slots - s0)
+    for i in range(C.STEPS):
+        tok = place(toks[:, C.PROMPT + i:C.PROMPT + i + 1], P(dp, None),
+                    mesh)
+        logits, caches = decode(params, place(caches, cache_specs(slots),
+                                              mesh), tok, jnp.int32(s0 + i))
+        out[f"{name}/decode{i}"] = logits
+        caches = carry(caches)
+    for key, arr in C.cache_paths(caches).items():
+        out[f"{name}/{key}"] = arr
+print(json.dumps({k: C.encode(v) for k, v in out.items()}))
+"""
+SHARDED_PINS = ROOT / "tests" / "data" / "torch_sharded.json"
+
+
+def sharded_pins() -> dict:
+    """The reference's answers to every case of ``torch_sharded_cases``,
+    from one subprocess with 8 forced host devices."""
+    out = subprocess.run([sys.executable, "-c", _SHARDED_SCRIPT],
+                         capture_output=True, text=True, timeout=1200,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": "src",
+                                        "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout)
+
+
+def write_sharded_pins() -> None:
+    pins = {"_meta": {
+        "written_by": "PYTHONPATH=src python tests/test_torch_pins.py "
+                      "--write-sharded (the reference package, on the CPU, "
+                      "8 forced host devices, Auto mesh axes)",
+        "cases": {k: list(v) for k, v in sharded_cases.CASES.items()},
+        "replace": sharded_cases.REPLACE,
+        "prompt": sharded_cases.PROMPT, "steps": sharded_cases.STEPS},
+        **sharded_pins()}
+    SHARDED_PINS.write_text(json.dumps(pins, separators=(",", ":")) + "\n")
+
+
+@pytest.mark.slow
+def test_reference_reproduces_sharded_pins():
+    """Every sharded case regenerated from the reference equals the file,
+    bit for bit."""
+    pins = json.loads(SHARDED_PINS.read_text())
+    got = sharded_pins()
+    assert sorted(got) == sorted(k for k in pins if k != "_meta")
+    for key in got:
+        np.testing.assert_array_equal(sharded_cases.decode(got[key]),
+                                      sharded_cases.decode(pins[key]), key)
+
+
+def test_sharded_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s phase 14 on 8 gloo ranks on the CPU: the sharded
+    pins on every rank with the counting mesh's counts, the reduced llama
+    and mixtral served on 2x4 against their 1x1 runs, "ffn"'s experts
+    from FSDP storage against ``moe_blocks``' (the card's run with the
+    sizes cut; the plain versions launch no kernel)."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    sv_b = dict(chip_smoke.SHARD_SERVE, reduced=True, layers=4,
+                prompt_len=16, decode=3)
+    sv_c = dict(chip_smoke.SHARD_MOE, reduced=True, prompt_len=16)
+    assert chip_smoke.sharded_phase(torch, "cpu", "cpu", sv_b=sv_b,
+                                    sv_c=sv_c) == {
+        "flash_attention": 0, "decode_attention": 0}
+
+
 @pytest.mark.slow
 def test_reference_reproduces_mesh_pins():
     """Every mesh case regenerated from the reference equals the file, bit
@@ -567,9 +718,10 @@ if __name__ == "__main__":
     writers = {"--write": write_pins, "--write-serve": write_serve_pins,
                "--write-train": write_train_pins,
                "--write-specs": write_spec_pins,
-               "--write-mesh": write_mesh_pins}
+               "--write-mesh": write_mesh_pins,
+               "--write-sharded": write_sharded_pins}
     if len(sys.argv) != 2 or sys.argv[1] not in writers:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_pins.py "
                  "--write | --write-serve | --write-train | --write-specs "
-                 "| --write-mesh")
+                 "| --write-mesh | --write-sharded")
     writers[sys.argv[1]]()

@@ -108,13 +108,19 @@ def rank_cases(rank: int, device: str) -> dict:
     """Every pinned case through the port on this rank of an 8-rank
     process group (``repro_torch.launch.mesh.run_ranks``), with its
     inputs and outputs on ``device``: ``{key: float32 array}``, plus
-    ``"_collectives"``, the calls each mesh issued."""
+    ``"_collectives"``, the calls each mesh issued.  ``moe_ffn`` takes
+    this rank's block of x (``P(dp, None, None)``; all of it where dp does
+    not divide the batch) and returns its block of the output, gathered
+    here; the decoders take every parameter, cache and token as this
+    rank's block (``convert.blocks``) and their logits are gathered."""
     import torch
     from repro_torch.launch.mesh import rank_mesh_ctx
     from repro_torch.launch.serve import pad_kv
     from repro_torch.models import get_model
-    from repro_torch.models.convert import moe_blocks, params_from_numpy
+    from repro_torch.models.convert import (blocks, gathered, moe_blocks,
+                                            params_from_numpy)
     from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.sharding import P
     torch.set_num_threads(1)
     out: dict = {"_collectives": {}}
     for mname, (shape, names) in MESHES.items():
@@ -125,30 +131,41 @@ def rank_cases(rank: int, device: str) -> dict:
                 inp = moe_inputs(arch, cfg.d_model, cfg.d_ff,
                                  cfg.num_experts, cfg.shared_expert)
                 for b in X_BATCHES:
+                    rows = P(mctx.dp if b % mctx.dp_size == 0 else None)
                     params = params_from_numpy(
                         moe_blocks(inp["params"], cfg, mctx, b), device)
-                    y = moe_ffn(params, torch.from_numpy(inp[f"x{b}"]).to(
-                        device), cfg, mctx)
-                    out[f"moe/{mname}/{arch}/{mode}/x{b}"] = \
-                        y.cpu().numpy()
+                    x = torch.from_numpy(blocks(inp[f"x{b}"], rows, mctx))
+                    y = moe_ffn(params, x.to(device), cfg, mctx,
+                                global_batch=b)
+                    out[f"moe/{mname}/{arch}/{mode}/x{b}"] = gathered(
+                        y, rows, mctx).cpu().numpy()
                 if mname != DECODER_MESH:
                     continue
                 model = get_model(cfg)
                 dec = decoder_inputs(arch, model.param_shapes(cfg),
                                      cfg.vocab_size)
-                params = params_from_numpy(
-                    moe_blocks(dec["params"], cfg, mctx, BATCH), device)
-                toks = torch.from_numpy(dec["tokens"]).to(device)
+                params = params_from_numpy(blocks(
+                    dec["params"], model.param_specs(cfg, mctx), mctx),
+                    device)
+                toks = torch.from_numpy(blocks(
+                    dec["tokens"], P(mctx.dp, None), mctx)).to(device)
                 key = f"decoder/{mname}/{arch}/{mode}"
+                layout = {"global_batch": BATCH}
                 logits, caches = model.prefill(
-                    params, {"tokens": toks[:, :PROMPT]}, cfg, mctx)
-                out[f"{key}/prefill"] = logits.cpu().numpy()
-                caches = pad_kv(caches, STEPS)
+                    params, {"tokens": toks[:, :PROMPT]}, cfg, mctx,
+                    **layout)
+                out[f"{key}/prefill"] = gathered(
+                    logits, P(mctx.dp, "model"), mctx).cpu().numpy()
+                caches = blocks(pad_kv(gathered(caches, model.cache_specs(
+                    cfg, mctx, PROMPT), mctx), STEPS), model.cache_specs(
+                    cfg, mctx, PROMPT + STEPS), mctx)
                 for i in range(STEPS):
                     t = PROMPT + i
                     logits, caches = model.decode(
-                        params, caches, toks[:, t:t + 1], t, cfg, mctx)
-                    out[f"{key}/decode{i}"] = logits.cpu().numpy()
+                        params, caches, toks[:, t:t + 1], t, cfg, mctx,
+                        n_slots=PROMPT + STEPS, **layout)
+                    out[f"{key}/decode{i}"] = gathered(
+                        logits, P(mctx.dp, "model"), mctx).cpu().numpy()
         out["_collectives"][mname] = dict(mctx.mesh.collectives)
     out["_checks"] = rank_checks(device)
     return out
@@ -187,7 +204,8 @@ def rank_checks(device: str) -> dict:
     try:
         moe_ffn({k: torch.from_numpy(v).to(device)
                  for k, v in inp["params"].items()},
-                torch.from_numpy(inp["x4"]).to(device), cfg, mctx)
+                mctx.sharding(P(mctx.dp)).block(torch.from_numpy(
+                    inp["x4"])).to(device), cfg, mctx, global_batch=4)
         out["global_weights"] = "taken"
     except ValueError as e:
         out["global_weights"] = str(e)
