@@ -143,15 +143,40 @@ Phases, each printing JSON lines:
    every rank, each step's collectives equal to a ``CountingMesh``'s
    count; (b) llama3.2-3b at full width and depth, bf16, on 2x4, each
    rank drawing only its blocks (FSDP over ``data``, TP over ``model``):
-   8 prompts of 512 tokens and 8 decode steps fed the greedy tokens of
+   8 prompts of 512 tokens and 4 decode steps fed the greedy tokens of
    the port's 1x1 run on the same weights in this process, the gathered
    logits within 0.03 of it, each rank's parameter bytes equal to the
    dry-run's per-device bytes, prefill s, decode ms a step, collectives
    a prefill and a step, each rank's peak; (c) mixtral-8x7b at full
-   width with 4 of 32 layers on 2x4, 8 x 512 and 2 decode steps: "2d"
+   width with 4 of 32 layers on 2x4, 8 x 512 and 1 decode step: "2d"
    within 0.03 of 1x1, and in "ffn" the experts gathered from their FSDP
    storage into the block's ``in_specs`` equal to ``convert.moe_blocks``'
-   blocks bit for bit, the routes that flip against 1x1 counted.
+   blocks bit for bit, the routes that flip against 1x1 counted;
+15. training across ranks — 8 ranks on the one card again
+   (``make_train_step(..., mctx=)``: every rank holds its blocks of the
+   float32 parameters and AdamW moments and runs its part of the forward
+   pass, the backward pass through the collectives' transposes and the
+   update): (a) every case of ``tests/torch_sharded_train_cases.py``
+   (reduced dense, windowed, MoE in each mode and VLM decoders, float32,
+   2 steps, on 2x4 and 2x2x2; q heads and KV heads that ``model`` cuts, a
+   batch of 1, microbatches) against the reference's jitted 8-device
+   train step (``tests/data/torch_sharded_train.json``) within that
+   module's bounds (losses, norms, sampled gradient and parameter
+   blocks, each leaf's sum of squares), on every rank, each step's
+   collectives equal to a ``CountingMesh``'s count; (b) llama3.2-3b at
+   full width and depth, bf16 compute, float32 parameters and moments,
+   ``remat="full"``, on 2x4, 3 steps of a global batch of 2 x 2,048,
+   each rank drawing only its blocks, every step from the weights of a
+   1x1 run of the same batches in a process of its own (run first and
+   ended before the ranks start; it writes the weights each step starts
+   from): every step's loss within 1e-2 of 1x1's, each rank's updated
+   blocks within 2 x 1.001 x lr of 1x1's next weights (the elements
+   beyond 1e-6 counted), and every step's loss and gradient norm taken
+   again in float32 compute on the same weights within 1e-4 of 1x1's
+   (the bf16 norms reported beside them), 56 forward and 28 backward flash launches a rank a step, step s,
+   each rank's peak, the collectives a step by kind (forward and
+   recompute gathers, reduce-scatters, psums); (c) mixtral-8x7b in "2d"
+   at full width, 1 of 32 layers, 2 steps, against 1x1 the same way.
 
 Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
 spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
@@ -173,8 +198,11 @@ internvl2-26b's (``vlm_shape``), whisper-medium's (``encoder_shape``,
 of its ranks (``mesh_shape``: 8 x 512 prompts, 514 decode slots) and
 llama3.2-3b's as phase 14 (b) serves it on each of its ranks
 (``rank_shape``: 4 rows, 6 q heads on 2 KV heads, 512 prompt positions,
-520 decode slots); its sweeps include phase 14 (a)'s reduced heads (one
-q head on a KV head at head dim 16).
+516 decode slots), and the flash forward at llama3.2-3b's training shape
+on each rank of phase 15 (b) (``train_rank_shape``: 1 row, 6 q heads on
+2 KV heads, 2,048 positions, causal); its sweeps include phase 14 (a)'s
+reduced heads (one q head on a KV head at head dim 16).  Phase 10 (a)
+times the backward at that shape too (``train_rank_shape``).
 
 Any mismatch or exception exits non-zero; only after every phase passed
 are the kernel table, the ``nvidia-smi`` line and the final
@@ -188,10 +216,12 @@ import gc
 import itertools
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -216,7 +246,8 @@ SERVE = dict(requests=8, prompt_len=2048, decode=128)
 # the attention kernels' rows at the other served models' shapes (phase 3)
 SHAPE_KEYS = ("window_shape", "moe_shape", "chunk_shape", "vlm_shape",
               "encoder_shape", "cross_shape", "encdec_self_shape",
-              "hybrid_shape", "mesh_shape", "rank_shape")
+              "hybrid_shape", "mesh_shape", "rank_shape",
+              "train_rank_shape")
 
 
 def emit(obj: dict) -> None:
@@ -1205,6 +1236,14 @@ def check_flash(torch, dev) -> dict:
             res[key] = row
         del q, k, v
         torch.cuda.empty_cache()
+    q, k, v = train_rank_attn(torch, dev, 57)
+    res["train_rank_shape"] = {
+        "shape": f"{ARCH} training on each rank of phase 15 (b): q "
+                 f"{list(q.shape)}, k/v {list(k.shape)} bf16 ([B, S, H, D] "
+                 f"views), causal",
+        **flash_row(torch, q, k, v, f"flash {ARCH} train_rank_shape")}
+    del q, k, v
+    torch.cuda.empty_cache()
     for key, arch, q, k, v, mask, per in flash_slice7_shapes(torch, dev):
         b, hq, sq, d = q.shape
         hk, skv = k.shape[1], k.shape[2]
@@ -1487,7 +1526,7 @@ def check_decode(torch, dev) -> dict:
     head dim 256 with 10 q-heads on one KV head (phase 9: three
     sub-groups), mixtral-8x7b at each rank's last decode step of phase 13
     (b) (514 slots) and llama3.2-3b at each rank's of phase 14 (b)
-    (``rank_shape``: group 3 over 520 slots)."""
+    (``rank_shape``: group 3 over 516 slots)."""
     from repro_torch.configs import get_config
     worst, n_cases = decode_sweep(torch, dev)
     res = {
@@ -2649,6 +2688,16 @@ def flash_bwd_sweep(torch, dev) -> tuple[dict, int]:
     return worst, n_cases
 
 
+def train_rank_attn(torch, dev, seed: int):
+    """q, k, v as each rank of phase 15 (b) trains llama3.2-3b
+    (``TRAIN_RANK_SHAPE``)."""
+    from repro_torch.configs import get_config
+    sh = TRAIN_RANK_SHAPE
+    cfg = get_config(ARCH).replace(num_heads=sh["heads"],
+                                   num_kv_heads=sh["kv_heads"])
+    return train_attn_shape(torch, dev, cfg, sh["batch"], sh["seq"], seed)
+
+
 def train_attn_shape(torch, dev, cfg, b: int, s: int, seed: int):
     """Attention as the training pass launches it for ``cfg``: q, k and v
     [B, S, H, D] projections seen as [B, H, S, D]."""
@@ -2794,8 +2843,14 @@ def check_flash_bwd(torch, dev) -> dict:
                                    63),
                                   ("window_shape", "h2o-danube-1.8b", 1, 6144,
                                    65),
-                                  ("hybrid_shape", HYBRID, 1, 4096, 64)):
+                                  ("hybrid_shape", HYBRID, 1, 4096, 64),
+                                  ("train_rank_shape", ARCH,
+                                   TRAIN_RANK_SHAPE["batch"],
+                                   TRAIN_RANK_SHAPE["seq"], 66)):
         cfg = get_config(arch)
+        if key == "train_rank_shape":        # one rank's heads, phase 15 (b)
+            cfg = cfg.replace(num_heads=TRAIN_RANK_SHAPE["heads"],
+                              num_kv_heads=TRAIN_RANK_SHAPE["kv_heads"])
         q, k, v = train_attn_shape(torch, dev, cfg, b, s, seed)
         row = {"shape": f"{arch} training: q [{b}, {cfg.num_heads}, {s}, "
                         f"{cfg.head_dim}], k/v [{b}, {cfg.num_kv_heads}, "
@@ -3843,23 +3898,25 @@ def mesh_phase(torch, dev: str, name_power: str,
 # on 8 devices (``tests/data/torch_sharded.json``) within
 # ``MESH_PIN_TOL``, each step's collectives equal to a ``CountingMesh``'s
 # count of it.  (b) llama3.2-3b at full width and depth, bf16, on 2x4: 8
-# prompts of 512 tokens, 8 decode steps fed the greedy tokens of the
+# prompts of 512 tokens, 4 decode steps fed the greedy tokens of the
 # port's 1x1 run on the same weights (held to it within ``SHARD_REL``).
 # (c) mixtral-8x7b at full width with 4 of its 32 layers (8 ranks' blocks
-# and the 1x1 path fit the card), 8 x 512, 2 decode steps, in "2d" (the
+# and the 1x1 path fit the card), 8 x 512, 1 decode step, in "2d" (the
 # one-device function: held to 1x1) and in its own "ffn" (each dp shard
 # routes its own rows: its experts gathered from FSDP storage equal
 # ``convert.moe_blocks``' blocks bit for bit, the flipped routes counted).
 # Phase 3 holds both attention kernels at (b)'s per-rank shapes
 # (``rank_shape``) and the reduced cases' heads (its sweeps).
 SHARD_MESH = (2, 4)
+# decode cut to 4 and 1 steps (from 8 and 2; a step is 2 s / 4 s of gloo
+# gathers) when phase 15 came: the whole run stays well inside its limit
 SHARD_SERVE = dict(arch="llama3.2-3b", layers=28, requests=8,
-                   prompt_len=512, decode=8, seed=0, reduced=False)
-SHARD_MOE = dict(MESH_SERVE, decode=2)
+                   prompt_len=512, decode=4, seed=0, reduced=False)
+SHARD_MOE = dict(MESH_SERVE, decode=1)
 SHARD_MODES = ("2d", "ffn")
 SHARD_REL = 0.03                   # logits, PERF.md section 2
 # each rank's attention at (b): 8 / 2 rows, 24 / 4 q heads, 8 / 4 KV heads
-SHARD_RANK = dict(requests=4, prompt_len=512, decode=8, heads=6,
+SHARD_RANK = dict(requests=4, prompt_len=512, decode=4, heads=6,
                   kv_heads=2)
 
 
@@ -4133,6 +4190,484 @@ def sharded_phase(torch, dev: str, name_power: str,
     return totals
 
 
+# ------------------------------------------- phase 15: training across ranks
+# The decoder's training step across ranks (``make_train_step(...,
+# mctx=)``): every rank holds its blocks of the float32 parameters and
+# AdamW moments (FSDP over ``data``, TP over ``model``), computes its part
+# of the forward pass, the backward pass (each FSDP gather's
+# reduce-scatter, the psums of ``pvary``) and the update, on 8 gloo ranks
+# on the one card as phases 13 and 14.  (a) The pins: every case of
+# ``tests/torch_sharded_train_cases.py`` against the reference's jitted
+# 8-device train step (``tests/data/torch_sharded_train.json``) within
+# that module's bounds, each step's collectives equal to a
+# ``CountingMesh``'s count of it.  (b) llama3.2-3b at full width and
+# depth, bf16 compute, float32 parameters and moments, ``remat="full"``,
+# on 2x4: ``TRAIN_RANKS["steps"]`` steps of a global batch of 2 x 2,048
+# (phase 10 (b)'s), each rank drawing only its blocks, held to a 1x1 run
+# of the same batches in its own process (run first and ended before the
+# ranks start: its float32 tree, gradients and moments take 51.4 GB) on
+# the same weights at every step: the 1x1 run writes the weights each of
+# its steps starts from, and before every step but the first each rank
+# measures its updated blocks against them and then takes them.  So every
+# step holds the sharded loss, gradient and update to 1x1 on one set of
+# weights; two free-running trajectories in bf16 part after a step or two
+# (Adam's first steps move a weight by about lr either way by its
+# gradient's sign, and bf16 rounding turns the signs of a gradient's
+# smallest elements), so they would test the rounding, not the sharding.
+# (c) mixtral-8x7b in "2d" at full width, 1 of its 32 layers (depth cut
+# only), 2 steps, against 1x1 the same way.
+TRAIN_RANKS = dict(arch="llama3.2-3b", layers=28, batch=2, seq=2048,
+                   steps=3, seed=0, reduced=False, mode=None)
+TRAIN_RANKS_MOE = dict(arch="mixtral-8x7b", layers=1, batch=2, seq=2048,
+                       steps=2, seed=0, reduced=False, mode="2d")
+TRAIN_RANKS_LOSS = 1e-2            # |loss - 1x1 loss| at every step
+# Each step's loss and gradient norm are also taken in float32 compute on
+# the same weights and batch, on the ranks and on 1x1: |loss - 1x1 loss|
+# and |norm - 1x1 norm| / 1x1 norm at every step.  A correct sharded
+# gradient agrees with 1x1's there up to the order of float32 sums; in
+# bf16 the norm is ill-conditioned once Adam has moved the weights (on an
+# H100, llama3.2-3b's bf16 norm at its third step lies 10 % below the
+# float32 one on 1x1 and 28 % on 2x4: PERF.md section 6), so the bf16
+# norms are reported beside these, not gated
+TRAIN_RANKS_F32_LOSS = 1e-4
+TRAIN_RANKS_F32_NORM = 1e-4
+# |updated block - 1x1's next weights|: AdamW from one set of weights moves
+# each weight by lr * (m^ / (sqrt(v^) + eps) + wd * w), and over the first
+# three steps |m^| / sqrt(v^) <= 1.001 (Cauchy-Schwarz with b1 0.9, b2
+# 0.95), so two runs whose gradients differ part by at most 2 * 1.001 * lr
+# (a weight whose gradient's sign differs); every element beyond
+# TRAIN_RANKS_PARAM_ATOL is counted
+TRAIN_RANKS_PARAM_ATOL = 1e-6
+TRAIN_RANKS_UPDATE = 2 * 1.001 * 3e-4 + TRAIN_RANKS_PARAM_ATOL
+# each rank's attention at (b): 1 of 2 rows, 24 / 4 q heads, 8 / 4 KV heads
+TRAIN_RANK_SHAPE = dict(batch=1, seq=2048, heads=6, kv_heads=2)
+TRAIN_MESH = (2, 4)
+
+
+def train_ranks_batch(torch, cfg, sv: dict, i: int, dev: str) -> dict:
+    """Step ``i``'s global batch: ``launch.train.synth_batch`` from a CPU
+    generator seeded ``seed + 1000 + i`` (the same in every process)."""
+    from repro_torch.launch.train import synth_batch
+    return synth_batch(cfg, sv["batch"], sv["seq"], torch.Generator()
+                       .manual_seed(sv["seed"] + 1000 + i), dev)
+
+
+def train_ranks_weights(weights_dir: str, i: int) -> pathlib.Path:
+    """Where (b)'s or (c)'s 1x1 run writes the weights of its step ``i``."""
+    return pathlib.Path(weights_dir) / f"step{i}.pt"
+
+
+def train_ranks_reference(rank: int, sv: dict, dev: str, weights_dir: str
+                          ) -> dict:
+    """(b)'s or (c)'s 1x1 run, in a process of its own: the float32 tree
+    every rank draws its blocks of, ``sv["steps"]`` steps of
+    ``make_train_step`` on one device, the weights each step after the
+    first starts from written to ``weights_dir`` (by their tree paths, on
+    the host); losses, norms, step s, peak; each step's loss and norm in
+    float32 compute on the same weights and batch (``f32_loss_norm``)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.tree import leaves
+    cfg = mesh_cfg(sv, sv["mode"])
+    params = get_model(cfg).init(cfg, torch.Generator(dev).manual_seed(
+        sv["seed"]))
+    ocfg = AdamWConfig(opt_dtype=cfg.opt_dtype)
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    res = {"loss": [], "grad_norm": [], "step_s": [], "write_s": 0.0,
+           "loss_f32": [], "grad_norm_f32": []}
+    if dev != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(sv["steps"]):
+        if i:
+            t0 = time.perf_counter()
+            torch.save({p: w.cpu() for p, w in leaves(params)},
+                       train_ranks_weights(weights_dir, i))
+            res["write_s"] += time.perf_counter() - t0
+        data = train_ranks_batch(torch, cfg, sv, i, dev)
+        for k, v in zip(("loss_f32", "grad_norm_f32"),
+                        f32_loss_norm(torch, cfg, params, data)):
+            res[k].append(v)
+        mesh_sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, data)
+        res["loss"].append(float(m["loss"]))
+        res["grad_norm"].append(float(m["grad_norm"]))
+        mesh_sync(torch, dev)
+        res["step_s"].append(time.perf_counter() - t0)
+    if dev != "cpu":
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def forward_collectives(torch, cfg, mctx, feed_shapes: dict, b: int
+                        ) -> dict:
+    """The collectives of the loss's forward pass alone (under a gradient,
+    no backward), counted on a ``CountingMesh`` at this rank's coordinates
+    on meta blocks: the forward's share of a step's log."""
+    from repro_torch.models import get_model
+    from repro_torch.models.model import abstract_params
+    from repro_torch.models.sharding import CountingMesh, MeshCtx
+    from repro_torch.train.tree import tree_map
+    mesh = mctx.mesh
+    counting = CountingMesh(tuple(mesh.devices.shape), mesh.axis_names,
+                            mesh.coords)
+    cm = MeshCtx(counting)
+    params = tree_map(lambda s: torch.empty(
+        s.sharding.shard_shape(s.shape), dtype=s.dtype, device="meta",
+        requires_grad=True), abstract_params(cfg, cm))
+    feed = {k: torch.empty(shape, dtype=dt, device="meta")
+            for k, (shape, dt) in feed_shapes.items()}
+    get_model(cfg).loss(params, feed, cfg, cm, global_batch=b)
+    return collective_summary(counting)
+
+
+def f32_loss_norm(torch, cfg, params, batch, mctx=None, specs=None,
+                  global_batch=None) -> tuple[float, float]:
+    """The loss and gradient norm of ``batch`` at ``params`` with the
+    compute in float32 (on ``mctx``'s ranks where given: this rank's
+    blocks under ``specs``), no update."""
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import make_loss_fn, value_and_grad
+    fn = make_loss_fn(cfg.replace(compute_dtype="float32"), mctx)
+    loss, grads = value_and_grad(fn, params, batch, mctx=mctx, specs=specs,
+                                 global_batch=global_batch)
+    return float(loss), float(global_norm(grads, mctx, specs))
+
+
+def take_reference_weights(torch, params, specs, mctx, path) -> dict:
+    """Measure this rank's blocks ``params`` (under the spec tree
+    ``specs``) against the 1x1 run's weights at ``path``, then copy those
+    weights' blocks into them: the largest distance, the elements beyond
+    ``TRAIN_RANKS_PARAM_ATOL``, the elements, the seconds."""
+    from repro_torch.train.optimizer import SLICE, spec_leaves
+    from repro_torch.train.tree import leaves
+    t0 = time.perf_counter()
+    ref = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+    out = {"max_abs": 0.0, "beyond": 0, "elements": 0}
+    with torch.no_grad():
+        for (p, w), spec in zip(leaves(params), spec_leaves(specs)):
+            src = mctx.sharding(spec).block(ref[p]).reshape(-1)
+            dst = w.view(-1)
+            # in slices: eight ranks share the card with ~1 GB to spare
+            for j in range(0, dst.numel(), SLICE):
+                part = src[j:j + SLICE].to(w.device)
+                gap = (dst[j:j + SLICE] - part).abs()
+                out["max_abs"] = max(out["max_abs"], float(gap.max()))
+                out["beyond"] += int((gap > TRAIN_RANKS_PARAM_ATOL).sum())
+                dst[j:j + SLICE].copy_(part)
+            out["elements"] += w.numel()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def train_ranks_run(torch, mctx, sv: dict, dev: str, weights_dir: str
+                    ) -> dict:
+    """(b) or (c) on this rank: its blocks drawn from the seed, then
+    ``sv["steps"]`` train steps on its rows of each global batch, every
+    step after the first from the 1x1 run's weights in ``weights_dir``
+    (``take_reference_weights``: the update's distance to them first); per
+    step the loss, the norm, the wall s, the collectives by kind and the
+    flash launches; the forward's collectives alone; the peak.  Then, the
+    moments freed, each step's loss and norm in float32 compute from the
+    same weights (``f32_loss_norm``) and its flash launches."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import blocks, shardings
+    from repro_torch.models.sharding import P
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    card = dev != "cpu"
+    cfg = mesh_cfg(sv, sv["mode"])
+    model = get_model(cfg)
+    b = sv["batch"]
+    specs = model.param_specs(cfg, mctx)
+
+    def draw():
+        return model.init(cfg, torch.Generator(dev).manual_seed(sv["seed"]),
+                          blocks=shardings(specs, mctx))
+
+    def rows(i):
+        return {k: blocks(v, P(dp, *(None,) * (v.dim() - 1)), mctx)
+                for k, v in train_ranks_batch(torch, cfg, sv, i, dev).items()}
+
+    params = draw()
+    ocfg = AdamWConfig(opt_dtype=cfg.opt_dtype)
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, ocfg, 1, mctx)
+    dp = mctx.dp if b % mctx.dp_size == 0 else None
+    mesh = mctx.mesh
+    res = {"loss": [], "grad_norm": [], "step_s": [], "collectives": [],
+           "launches": [], "update": [], "param_bytes": tree_bytes(params),
+           "loss_f32": [], "grad_norm_f32": [], "launches_f32": []}
+    if card:
+        # the full-size matrices the draw cached go back to the card
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        free, total = torch.cuda.mem_get_info()
+        emit({"phase": "shard_train_rank", "arch": cfg.name,
+              "rank": mesh.device_mesh.get_rank(),
+              "state_gb": torch.cuda.memory_allocated() / 1e9,
+              "device_used_gb": (total - free) / 1e9})
+    for i in range(sv["steps"]):
+        if i:
+            res["update"].append(take_reference_weights(
+                torch, params, specs, mctx,
+                train_ranks_weights(weights_dir, i)))
+        feed = rows(i)
+        mesh.reset_collectives()
+        before = (flash_ops.launches, flash_ops.bwd_launches)
+        mesh_sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, feed, global_batch=b)
+        res["loss"].append(float(m["loss"]))
+        res["grad_norm"].append(float(m["grad_norm"]))
+        mesh_sync(torch, dev)
+        res["step_s"].append(time.perf_counter() - t0)
+        res["launches"].append({
+            "flash_attention": flash_ops.launches - before[0],
+            "flash_attention_bwd": flash_ops.bwd_launches - before[1]})
+        res["collectives"].append(collective_summary(mesh))
+    if card:
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        free, total = torch.cuda.mem_get_info()
+        res["device_used_gb"] = (total - free) / 1e9
+    res["forward_collectives"] = forward_collectives(
+        torch, cfg, mctx, {k: (tuple(v.shape), v.dtype)
+                           for k, v in feed.items()}, b)
+    del params, opt, step
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    params = draw()
+    for i in range(sv["steps"]):
+        if i:
+            take_reference_weights(torch, params, specs, mctx,
+                                   train_ranks_weights(weights_dir, i))
+        before = (flash_ops.launches, flash_ops.bwd_launches)
+        for k, v in zip(("loss_f32", "grad_norm_f32"), f32_loss_norm(
+                torch, cfg, params, rows(i), mctx, specs, b)):
+            res[k].append(v)
+        res["launches_f32"].append({
+            "flash_attention": flash_ops.launches - before[0],
+            "flash_attention_bwd": flash_ops.bwd_launches - before[1]})
+    del params
+    return res
+
+
+def train_ranks_rank(rank: int, sv_b: dict, sv_c: dict, dev: str,
+                     weights: dict, pin_names=None) -> dict:
+    """Phase 15 on one rank of the 8 (on the card, all on cuda:0): (a) the
+    pinned cases (those of ``pin_names``, all by default), then (b), then
+    (c), each from its 1x1 run's weights in the directory ``weights[key]``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch_sharded_train_cases as cases
+    from repro_torch.launch.mesh import rank_mesh_ctx
+    t0 = time.perf_counter()
+    out = {"pins": cases.rank_cases(rank, dev, pin_names)}
+    out["pins_s"] = time.perf_counter() - t0
+    mctx = rank_mesh_ctx(TRAIN_MESH, device=dev)
+    for key, sv in (("b", sv_b), ("c", sv_c)):
+        out[key] = train_ranks_run(torch, mctx, sv, dev, weights[key])
+        gc.collect()
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def train_ranks_phase(torch, dev: str, name_power: str,
+                      sv_b: dict = TRAIN_RANKS,
+                      sv_c: dict = TRAIN_RANKS_MOE, pin_names=None) -> dict:
+    """Phase 15.  Returns the flash kernels' launch totals of (b) and (c).
+    ``dev`` "cpu" with reduced ``sv_b`` / ``sv_c`` (and a few
+    ``pin_names``) rehearses it on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import get_model
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_sharded_train_cases as cases
+    t_phase = time.perf_counter()
+    card = dev != "cpu"
+    label = "gloo through host memory, 8 ranks on one card"
+    refs = {}
+    main_gb = None
+    if card:
+        reset_counts(torch)
+        main_gb = torch.cuda.memory_reserved() / 1e9
+    # the spawned processes' allocators grow their segments in place: 8
+    # ranks sharing the card would each keep ~0.9 GB reserved and unused
+    # between fixed segments
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    # the 1x1 runs' weights (llama3.2-3b's 12.85 GB a step) on the disk of
+    # the checkout, removed with the directory
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix="train_ranks_",
+                                      dir=ROOT / "build")
+    weights = {}
+    try:
+        for key, sv in (("b", sv_b), ("c", sv_c)):
+            weights[key] = os.path.join(tmp.name, key)
+            os.mkdir(weights[key])
+            t0 = time.perf_counter()
+            refs[key] = run_ranks(train_ranks_reference, 1, sv, dev,
+                                  weights[key], timeout_s=900)[0]
+            refs[key]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_ranks(train_ranks_rank, MESH_WORLD, sv_b, sv_c,
+                          "cuda:0" if card else "cpu", weights, pin_names,
+                          timeout_s=1100)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        tmp.cleanup()
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+    # (a) the pins, on every rank
+    pins = json.loads((ROOT / "tests" / "data" / "torch_sharded_train.json")
+                      .read_text())
+    worst = {}
+    for name in pin_names or cases.CASES:
+        cfg = cases.port_config(name)
+        recs = [r["pins"][name] for r in ranks]
+        got = cases.check_case(name, recs, pins, cases.paths(
+            get_model(cfg).param_shapes(cfg)))
+        for r in recs:
+            if r["log/0"] != r["count"] or any(
+                    r[f"log/{i}"] != r["log/0"] for i in range(cases.STEPS)):
+                raise AssertionError(f"sharded train pin {name}: the rank's "
+                                     f"collectives differ from the counting "
+                                     f"mesh's")
+        worst[name] = got
+    emit({"phase": "shard_train_pins", "cases": len(worst),
+          "ranks": MESH_WORLD, "steps": cases.STEPS,
+          "loss_rel": max(w["loss_rel"] for w in worst.values()),
+          "grad_abs": max(w["grad_abs"] for w in worst.values()),
+          "param_abs": max(w["param_abs"] for w in worst.values()),
+          "adam_sign_samples": {k: [w["adam_sign"], w["samples"]]
+                                for k, w in worst.items() if w["adam_sign"]},
+          "limits": {"loss_rel": cases.LOSS_RTOL,
+                     "grad": [cases.GRAD_ATOL, cases.GRAD_RTOL],
+                     "param": cases.PARAM_ATOL,
+                     "adam_sign": cases.ADAM_SIGN_TOL},
+          "rank_pins_s": max(r["pins_s"] for r in ranks),
+          "collectives_equal_counting_mesh": True,
+          "nvidia_smi": name_power})
+
+    totals = {"flash_attention": 0, "flash_attention_bwd": 0}
+    failed = []
+    for part, sv in (("b", sv_b), ("c", sv_c)):
+        cfg = mesh_cfg(sv, sv["mode"])
+        per = [r[part] for r in ranks]
+        ref = refs[part]
+        want = {"flash_attention": 2 * cfg.num_layers,
+                "flash_attention_bwd": cfg.num_layers}
+        for m in per:
+            for got in m["launches"] + m["launches_f32"]:
+                if got != (want if card else dict.fromkeys(want, 0)):
+                    raise AssertionError(f"shard train {part}: a rank "
+                                         f"launched {got} a step, want "
+                                         f"{want}")
+                for k in totals:
+                    totals[k] += got[k]
+            if any(m[k] != per[0][k] for k in ("loss", "grad_norm",
+                                                "loss_f32", "grad_norm_f32")):
+                raise AssertionError(f"shard train {part}: the ranks' "
+                                     f"losses differ")
+        m = per[0]
+
+        def gaps(key):
+            return ([abs(a - w) for a, w in zip(m[f"loss{key}"],
+                                                 ref[f"loss{key}"])],
+                    [abs(a - w) / w for a, w in zip(m[f"grad_norm{key}"],
+                                                     ref[f"grad_norm{key}"])])
+
+        loss_err, norm_rel = gaps("")
+        loss_err32, norm_rel32 = gaps("_f32")
+        # each step's update over the ranks' blocks (a block held by
+        # several ranks counted on each)
+        update = [{"max_abs": max(x["update"][i]["max_abs"] for x in per),
+                   "beyond": sum(x["update"][i]["beyond"] for x in per),
+                   "elements": sum(x["update"][i]["elements"] for x in per),
+                   "read_s": max(x["update"][i]["seconds"] for x in per)}
+                  for i in range(sv["steps"] - 1)]
+        fwd = m["forward_collectives"]
+        step0 = m["collectives"][0]
+        emit({"phase": "shard_train", "part": part, "arch": cfg.name,
+              "mode": sv["mode"], "mesh": list(TRAIN_MESH),
+              "reduced": {"num_layers": [sv["layers"], get_config(
+                  sv["arch"]).num_layers]} if not sv["reduced"]
+              else "reduced config",
+              "global_batch": [sv["batch"], sv["seq"]],
+              "steps": sv["steps"], "remat": cfg.remat,
+              "compute": cfg.compute_dtype, "params": cfg.param_dtype,
+              "timing": label,
+              "weights": "1x1's at every step",
+              "loss": m["loss"], "loss_1x1": ref["loss"],
+              "grad_norm": m["grad_norm"], "grad_norm_1x1": ref["grad_norm"],
+              "loss_abs_err_vs_1x1": loss_err,
+              "grad_norm_rel_err_vs_1x1": norm_rel,
+              "update_vs_1x1": update,
+              "loss_f32": m["loss_f32"], "loss_f32_1x1": ref["loss_f32"],
+              "grad_norm_f32": m["grad_norm_f32"],
+              "grad_norm_f32_1x1": ref["grad_norm_f32"],
+              "loss_f32_abs_err_vs_1x1": loss_err32,
+              "grad_norm_f32_rel_err_vs_1x1": norm_rel32,
+              "limits": {"loss_abs": TRAIN_RANKS_LOSS,
+                         "update_abs": TRAIN_RANKS_UPDATE,
+                         "counted_above": TRAIN_RANKS_PARAM_ATOL,
+                         "loss_f32_abs": TRAIN_RANKS_F32_LOSS,
+                         "grad_norm_f32_rel": TRAIN_RANKS_F32_NORM},
+              "step_s": m["step_s"],
+              "step_s_max_rank": [max(x["step_s"][i] for x in per)
+                                  for i in range(sv["steps"])],
+              "step_s_1x1": ref["step_s"],
+              "collectives_per_step": {
+                  "forward_gathers": [fwd["calls"].get("all-gather", 0),
+                                      fwd["bytes"].get("all-gather", 0)],
+                  "recompute_gathers": [
+                      step0["calls"]["all-gather"]
+                      - fwd["calls"].get("all-gather", 0),
+                      step0["bytes"]["all-gather"]
+                      - fwd["bytes"].get("all-gather", 0)],
+                  "reduce_scatters": [step0["calls"]["reduce-scatter"],
+                                      step0["bytes"]["reduce-scatter"]],
+                  "psums": [step0["calls"]["all-reduce"],
+                            step0["bytes"]["all-reduce"]],
+                  "forward_psums": [fwd["calls"].get("all-reduce", 0),
+                                    fwd["bytes"].get("all-reduce", 0)]},
+              "launches_per_rank_step": m["launches"][0],
+              "param_bytes_per_rank": m["param_bytes"],
+              "peak_gb_per_rank": [x.get("peak_gb") for x in per],
+              "device_used_gb": max(x.get("device_used_gb", 0) for x in per),
+              "peak_gb_1x1": ref.get("peak_gb"),
+              "wall_s_1x1": ref["wall_s"], "write_s_1x1": ref["write_s"],
+              "nvidia_smi": name_power})
+        if not all(math.isfinite(x) for x in m["loss"] + m["grad_norm"]
+                   + m["loss_f32"] + m["grad_norm_f32"]) \
+                or max(loss_err) > TRAIN_RANKS_LOSS \
+                or any(u["max_abs"] > TRAIN_RANKS_UPDATE for u in update) \
+                or max(loss_err32) > TRAIN_RANKS_F32_LOSS \
+                or max(norm_rel32) > TRAIN_RANKS_F32_NORM:
+            failed.append(f"shard train {part} vs 1x1: losses {loss_err}, "
+                          f"updates {update}, float32 losses {loss_err32} "
+                          f"and norms {norm_rel32}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    emit({"phase": "shard_train_done",
+          "seconds": time.perf_counter() - t_phase, "ranks_s": ranks_s,
+          "main_process_reserved_gb": main_gb,
+          "launches": totals, "timing": label, "nvidia_smi": name_power})
+    return totals
+
+
 PROFILES = ("episode", "serve", "fleet", "decode", "train")
 
 
@@ -4180,7 +4715,6 @@ def main(argv=None) -> int:
     _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           **_build.build_info})
-
     # 3. kernels against their plain versions
     rows = [check_probe(torch, dev), check_agg(torch, dev),
             check_flash(torch, dev), check_decode(torch, dev)]
@@ -4288,6 +4822,12 @@ def main(argv=None) -> int:
     # 14. the decoder's sharded steps across 8 ranks on the card: the pins,
     # llama3.2-3b at full size, mixtral's MoE layers in "2d" and "ffn"
     for k, n in sharded_phase(torch, dev, name_power).items():
+        totals[k] += n
+    torch.cuda.empty_cache()
+
+    # 15. training across 8 ranks on the card: the pins, llama3.2-3b at
+    # full size and mixtral's "2d" layer, each against its 1x1 run
+    for k, n in train_ranks_phase(torch, dev, name_power).items():
         totals[k] += n
     torch.cuda.empty_cache()
 

@@ -36,17 +36,21 @@ questions the reference asks of ``compiled``:
   capacity_factor / E))`` slots per expert and layer call): from top-k
   and capacity, not from the routed tokens.  Elementwise work is not
   counted.
-* Collective bytes (``count_collectives``): the port's own prefill or
-  decode step of a decoder-family cell run on meta tensors on a
-  ``CountingMesh`` of the cell's mesh, as the rank at coordinates 0 runs
-  it (its blocks of the parameters, the batch and the caches): the bytes
-  of every collective's output by kind, under the reference's keys
-  (``"all-gather"``, ``"all-reduce"``), with the calls and the axes.
-  These are the port's collectives, not XLA's: the reference parses
-  its numbers from the compiled HLO text, in which XLA chose its own
-  collectives, so the two are not expected to be equal.  Train cells
-  (training across ranks is not ported) and the enc-dec, SSM and hybrid
-  families (their steps run on one device) record None with the reason.
+* Collective bytes (``count_collectives``): the port's own train,
+  prefill or decode step of a decoder-family cell run on meta tensors on
+  a ``CountingMesh`` of the cell's mesh, as the rank at coordinates 0
+  runs it (its blocks of the parameters, the moments, the batch and the
+  caches): the bytes of every collective's output by kind, under the
+  reference's keys (``"all-gather"``, ``"all-reduce"``,
+  ``"reduce-scatter"``), with the calls and the axes.  A train step's
+  count holds its forward, the recompute of each layer under
+  ``cfg.remat``, its backward (each FSDP gather's reduce-scatter, the
+  psums of ``pvary``), the replicated leaves' gradient sums over the data
+  axes and the global norm's psums.  These are the port's collectives,
+  not XLA's: the reference parses its numbers from the compiled HLO text,
+  in which XLA chose its own collectives, so the two are not expected to
+  be equal.  The enc-dec, SSM and hybrid families (their steps run on one
+  device) record None with the reason.
 
 The train step is the port's ``make_train_step``: autograd through the
 attention wrapper's meta branch, ``torch.utils.checkpoint`` per layer
@@ -255,8 +259,6 @@ def count_collectives(cfg: ArchConfig, shape: ShapeConfig,
     "calls": {kind: n}, "by_axes": {"<kind> <axes>": [calls, bytes]}}``,
     from a run on meta tensors on a ``CountingMesh``; or ``{"reason":
     ...}`` where the port's step does not run across ranks."""
-    if shape.kind == "train":
-        return {"reason": "training across ranks is not ported yet"}
     if cfg.family not in tfm.DECODER_FAMILIES:
         return {"reason": f"the {cfg.family} family's steps run on one "
                           f"device"}
@@ -266,7 +268,15 @@ def count_collectives(cfg: ArchConfig, shape: ShapeConfig,
     b = shape.global_batch
     params = _meta_blocks(abstract_params(cfg, cm))
     batch = _meta_blocks(abstract_batch(cfg, shape, cm))
-    if shape.kind == "prefill":
+    if shape.kind == "train":
+        odt = getattr(torch, cfg.opt_dtype)
+        moment = functools.partial(tree_map, lambda t: torch.empty(
+            t.shape, dtype=odt, device="meta"))
+        opt = {"m": moment(params), "v": moment(params),
+               "step": torch.zeros((), dtype=torch.int32, device="meta")}
+        make_train_step(cfg, AdamWConfig(opt_dtype=cfg.opt_dtype),
+                        mctx=cm)(params, opt, batch, global_batch=b)
+    elif shape.kind == "prefill":
         make_prefill_step(cfg, cm)(params, batch, global_batch=b)
     else:
         make_serve_step(cfg, cm)(

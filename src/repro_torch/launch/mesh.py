@@ -18,7 +18,9 @@ import datetime
 import math
 import os
 import socket
+import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -65,8 +67,17 @@ def _rank_entry(rank: int, world: int, port: int, backend: str,
     dist.init_process_group(
         backend, init_method=f"tcp://localhost:{port}", world_size=world,
         rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    # every rank's connections made before any rank can end and close its
+    # own (a rank that returns at once would cut a peer still connecting)
+    dist.barrier()
     try:
         results.put((rank, fn(rank, *args)))
+    except BaseException:
+        # every failing rank's own traceback: the caller's error names one
+        # rank, often one that only lost its peer
+        print(f"run_ranks: rank {rank} of {world} failed\n"
+              f"{traceback.format_exc()}", file=sys.stderr, flush=True)
+        raise
     finally:
         dist.destroy_process_group()
 
@@ -102,8 +113,11 @@ def run_ranks(fn, world: int, *args, backend: str = "gloo",
                 raise RuntimeError(f"run_ranks({fn.__name__}): past "
                                    f"{timeout_s} s")
     except ProcessException as e:
+        codes = {i: p.exitcode for i, p in enumerate(procs.processes)}
         raise RuntimeError(f"run_ranks({fn.__name__}): ranks "
-                           f"[{e.error_index}] failed\n{e}") from None
+                           f"[{e.error_index}] failed (exit codes by rank "
+                           f"{codes}; a negative code is the signal that "
+                           f"ended it)\n{e}") from None
     finally:
         for p in procs.processes:
             if p.is_alive():

@@ -275,10 +275,13 @@ def _logits(params, x_last: torch.Tensor) -> torch.Tensor:
     return x_last.float() @ params["embed"].T.float()
 
 
-def hybrid_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def hybrid_loss(params, batch: dict, cfg: ArchConfig,
+                mctx: MeshCtx | None = None, *,
+                global_batch: int | None = None) -> torch.Tensor:
     """The training loss (float32 scalar) of ``batch["tokens"]`` [B, S]:
     the stack in "train" mode, then the next-token cross-entropy against
-    the tied embedding."""
+    the tied embedding.  One device: a mesh of more than one raises."""
+    tfm.not_on_ranks(cfg, mctx)
     tokens = batch["tokens"]
     x = tfm._embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)

@@ -240,16 +240,30 @@ def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _xent_chunk(h_c: torch.Tensor, unembed: torch.Tensor, y_c: torch.Tensor,
-                w_c: torch.Tensor) -> torch.Tensor:
+                w_c: torch.Tensor, mesh=None) -> torch.Tensor:
     logits = (h_c @ unembed.to(h_c.dtype)).float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, y_c[:, None])[:, 0]
-    return torch.sum((lse - gold) * w_c)
+    if mesh is None:
+        gold = logits.gather(-1, y_c[:, None])[:, 0]
+        return torch.sum((lse - gold) * w_c)
+    # vocab-parallel: this rank's columns start at its index over "model"
+    n = logits.shape[1]
+    local = y_c - mesh.axis_index("model") * n
+    mine = (local >= 0) & (local < n)
+    gold = logits.gather(-1, torch.where(mine, local, 0)[:, None])[:, 0]
+    # the ranks' log-sum-exps combined about their maximum (gathered
+    # without a gradient: any constant gives the same value and gradient),
+    # and the gold logit from the rank holding the label (a sum of zeros
+    # and one value): one psum over "model" for both
+    top = mesh.all_gather(lse.detach()[None], "model").amax(0)
+    both = mesh.psum(torch.stack([torch.exp(lse - top),
+                                  gold.masked_fill(~mine, 0)]), "model")
+    return torch.sum((top + torch.log(both[0]) - both[1]) * w_c)
 
 
 def chunked_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
                          labels: torch.Tensor, weights: torch.Tensor,
-                         chunk: int) -> torch.Tensor:
+                         chunk: int, mesh=None) -> torch.Tensor:
     """h: [N, D] final hidden states; unembed: [D, V]; labels/weights: [N].
 
     Returns the float32 sum of weighted token NLLs (the caller divides by
@@ -258,7 +272,11 @@ def chunked_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
     ``h_c @ unembed`` in h's dtype and cast to float32, logsumexp minus
     the gold logit.  Each chunk runs under ``torch.utils.checkpoint`` (the
     reference's ``jax.checkpoint``), so its logits are recomputed in the
-    backward pass, not kept."""
+    backward pass, not kept (and, across ranks, its collectives issued
+    again).  With ``mesh`` (a mesh over ranks) ``unembed`` is this rank's
+    block of vocabulary columns [D, V / |model|] (the block at its index
+    over ``"model"``), ``h`` the same on every rank along ``"model"``, and
+    the log-sum-exp and the gold logit are combined over ``"model"``."""
     n = h.shape[0]
     chunk = min(chunk, n)
     pad = (-n) % chunk
@@ -269,7 +287,7 @@ def chunked_softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, n + pad, chunk):
         args = (h[i:i + chunk], unembed, labels[i:i + chunk],
-                weights[i:i + chunk])
+                weights[i:i + chunk], mesh)
         if torch.is_grad_enabled():
             total = total + checkpoint(_xent_chunk, *args,
                                        use_reentrant=False,

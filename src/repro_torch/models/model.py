@@ -5,19 +5,21 @@ The port has every family of the JAX package: the decoder families
 ``vlm`` (the image-token prefix) on the decoder's functions, ``encdec``
 (whisper) on the encoder-decoder's, ``ssm`` (mamba2) on ``ssm.py``'s and
 ``hybrid`` (recurrentgemma) on ``hybrid.py``'s.  ``loss(params, batch,
-cfg)`` is each family's training loss, the float32 scalar the reference's
-``model.loss`` returns (``train/`` takes its gradient).
+cfg, mctx=None, *, global_batch=None)`` is each family's training loss,
+the float32 scalar the reference's ``model.loss`` returns (``train/``
+takes its gradient).
 
 Each family also gives its parameter and cache layouts on a mesh
 (``param_specs``, ``cache_specs``: the reference's PartitionSpec trees),
 and the abstract inputs below describe a step's inputs without allocating
 them (``ShapeDtypeStruct`` trees, sharded when a mesh is given), for the
 dry-run (``launch/dryrun.py``).  On a mesh over ranks the decoder
-families' ``prefill`` / ``decode`` take and return this rank's blocks
-under those trees, the batch under ``batch_specs`` (``drop_dp_axes``
-where the data axes do not divide it; the caller names the global batch,
-``global_batch=``, and a decode step the caches' ``n_slots=``); the other
-families raise there.
+families' ``loss`` / ``prefill`` / ``decode`` take and return this
+rank's blocks under those trees, the batch under ``batch_specs``
+(``drop_dp_axes`` where the data axes do not divide it; the caller names
+the global batch, ``global_batch=``, and a decode step the caches'
+``n_slots=``); the other families raise there
+(``transformer.not_on_ranks``).
 """
 from __future__ import annotations
 

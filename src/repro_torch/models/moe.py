@@ -205,6 +205,13 @@ def _rank_mesh(mctx: MeshCtx):
     return mesh
 
 
+def _routed_here(params: dict, mesh, tp) -> dict:
+    """``params`` with the router through ``pvary`` over tp: every rank
+    routes alike, but the gates weigh this rank's experts (or hidden
+    columns), so the router's cotangents are summed over tp."""
+    return {**params, "router": mesh.pvary(params["router"], tp)}
+
+
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
             mctx: MeshCtx | None = None, *,
             global_batch: int | None = None) -> torch.Tensor:
@@ -238,13 +245,15 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
         return moe_ffn_2d(params, x, cfg, mctx)
     _check_blocks(params, cfg, mctx, global_batch)
     tp = mctx.tp
-    xf = x.reshape(-1, d)
+    # the input enters this rank's experts (or hidden columns): its
+    # cotangents are summed over tp
+    xf = mesh.pvary(x.reshape(-1, d), tp)
     if body == "expert":
         e_loc = params["wg"].shape[0]
         off = mesh.axis_index(tp) * e_loc
     else:
         e_loc, off = cfg.num_experts, 0
-    y = _experts(xf, params, e_loc, off, cfg)
+    y = _experts(xf, _routed_here(params, mesh, tp), e_loc, off, cfg)
     if cfg.shared_expert:
         y = y + _shared(xf, params)
     return mesh.psum(y, tp).reshape(x.shape)
@@ -258,16 +267,26 @@ def moe_ffn_2d(params: dict, x: torch.Tensor, cfg: ArchConfig,
     Every rank all-gathers the tokens over dp, routes the whole batch
     under the global capacity to its ``e_loc`` experts, runs its
     ``(E_loc, F_loc)`` blocks, and one ``psum`` over ``(model, *dp)``
-    completes both partial dims; it returns its own rows of the sum."""
+    completes both partial dims; it returns its own rows of the sum.
+
+    Backward: the tokens and the router enter this rank's experts through
+    ``pvary`` over tp, the gather's reduce-scatter sums the tokens'
+    cotangents over dp, the shared expert's dp sums enter the dp-varying
+    ``y_sh / dp`` through ``pvary`` over dp, and the psum's output before
+    the rows are cut through ``pvary`` over dp (each dp rank's rows'
+    cotangents summed into the whole batch's).  The router's cotangent
+    stays this dp rank's share: the caller sums the replicated leaves'
+    gradients over dp."""
     b_loc, s, d = x.shape
     mesh = _rank_mesh(mctx)
     tp, dp, dp_size = mctx.tp, mctx.dp, mctx.dp_size
     _check_blocks(params, cfg, mctx, b_loc * dp_size)
-    x_all = mesh.all_gather(x, dp, dim=0)                  # [B, S, D]
+    x_all = mesh.all_gather(mesh.pvary(x, tp), dp, dim=0)   # [B, S, D]
     n = x_all.shape[0] * s
     xf = x_all.reshape(n, d)
     e_loc = params["wg"].shape[0]
-    y = _experts(xf, params, e_loc, mesh.axis_index(tp) * e_loc, cfg)
+    y = _experts(xf, _routed_here(params, mesh, tp), e_loc,
+                 mesh.axis_index(tp) * e_loc, cfg)
     if cfg.shared_expert:
         # shared expert: D sharded over dp, F over tp; finish the dp
         # partial sums before the nonlinearity, then pre-scale by 1/dp so
@@ -276,11 +295,11 @@ def moe_ffn_2d(params: dict, x: torch.Tensor, cfg: ArchConfig,
         d_loc = params["sh_wg"].shape[0]
         row = mesh.axis_index(dp)
         xs = xf[:, row * d_loc:(row + 1) * d_loc]
-        g = mesh.psum(xs @ params["sh_wg"].to(dt), dp)
-        uu = mesh.psum(xs @ params["sh_wu"].to(dt), dp)
+        g = mesh.pvary(mesh.psum(xs @ params["sh_wg"].to(dt), dp), dp)
+        uu = mesh.pvary(mesh.psum(xs @ params["sh_wu"].to(dt), dp), dp)
         y_sh = (F.silu(g) * uu) @ params["sh_wo"].to(dt)
         y = y + y_sh / dp_size
-    y = mesh.psum(y, (tp, *dp)).reshape(-1, s, d)
+    y = mesh.pvary(mesh.psum(y, (tp, *dp)), dp).reshape(-1, s, d)
     row = mesh.axis_index(dp)
     return y[row * b_loc:(row + 1) * b_loc]
 

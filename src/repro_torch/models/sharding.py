@@ -16,8 +16,8 @@ is what the dry-run reckons with.
 at the row-major coordinates ``jax.make_mesh`` gives host device r): the
 array then holds rank numbers, and the mesh gives what a ``shard_map``
 body uses, by axis name — the rank's index along axes
-(``axis_index``), a sum over axes (``psum``) and a tiled gather along
-any dim (``all_gather``) — through plain ``torch.distributed`` calls on
+(``axis_index``), a sum over axes (``psum``), a tiled gather along any
+dim (``all_gather``) and its transpose (``reduce_scatter``) — through plain ``torch.distributed`` calls on
 groups made once per mesh, and this rank's block of a global array
 under a spec (``NamedSharding.block``).  ``relayout`` turns a rank's
 block under one spec into its block under another (the gathers GSPMD
@@ -30,11 +30,31 @@ coordinates, with no process group: its collectives return tensors of
 the right shape (meta tensors too) and communicate nothing, so a step
 run on it (on the meta device) counts what it would issue.
 
-Every mesh counts the collectives it issued: ``Mesh.collectives``, the
-calls and the bytes this rank sent in, and ``Mesh.collective_log``, the
-calls and the bytes of their outputs per kind (``"all-gather"``,
-``"all-reduce"``: the reference dry-run's names of XLA's ops) and per
-axes; ``reset_collectives`` zeroes both.
+Every collective is differentiable: under autograd each is a
+``torch.autograd.Function`` whose backward issues its transpose, so a
+loss across ranks back-propagates through the collectives.  The
+transposes follow one convention: the cotangent of a value that is the
+same on every rank along an axis is the whole cotangent on each of them
+(as the forward computes it there), and the cotangent of a value that
+differs by rank is that rank's own.  So
+
+* ``psum`` (partial sums made one replicated value) has the identity as
+  its backward;
+* ``pvary`` (the identity forward: a replicated value entering work that
+  differs by rank, such as the input of a column-parallel product) sums
+  the cotangents over the axes in its backward (JAX's ``pvary``);
+* ``all_gather`` (a block per rank made one whole array, which the
+  callers feed to work that differs by rank: an FSDP weight against this
+  rank's rows) has ``reduce_scatter`` as its backward, and
+  ``reduce_scatter`` ``all_gather``;
+* ``relayout``'s local cut (``narrow``) pads its cotangent with zeros.
+
+Every mesh counts the collectives it issued, the backward's too:
+``Mesh.collectives``, the calls and the bytes this rank sent in, and
+``Mesh.collective_log``, the calls and the bytes of their outputs per kind
+(``"all-gather"``, ``"all-reduce"``, ``"reduce-scatter"``: the reference
+dry-run's names of XLA's ops) and per axes; ``reset_collectives`` zeroes
+both.
 """
 from __future__ import annotations
 
@@ -197,55 +217,164 @@ class Mesh:
 
     def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
         """The sum of ``x`` over the ranks along ``axes`` (``lax.psum``),
-        the same on each of them."""
+        the same on each of them.  Backward: the identity (the sum is used
+        replicated, so each rank's cotangent is the whole one)."""
         axes = self._axes(axes)
         if not axes:
             return x
-        out = self._all_reduce(x, axes)
-        self._count("all-reduce", axes, x, out)
-        return out
+        return _PSum.apply(x, self, axes)
+
+    def pvary(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``x`` itself, marked as entering work that differs by rank along
+        ``axes`` (JAX's ``pvary``): no collective forward; backward, the
+        ranks' cotangents summed over ``axes``."""
+        axes = self._axes(axes)
+        if not axes:
+            return x
+        return _PVary.apply(x, self, axes)
 
     def all_gather(self, x: torch.Tensor, axes, dim: int = 0
                    ) -> torch.Tensor:
         """The ranks' ``x`` along ``axes`` concatenated on ``dim`` in their
         ``axis_index`` order (``lax.all_gather(..., axis=dim,
-        tiled=True)``)."""
+        tiled=True)``).  Backward: ``reduce_scatter`` over ``axes`` on
+        ``dim``."""
         axes = self._axes(axes)
         if not axes:
             return x
-        out = self._all_gather(x, axes, dim % x.dim())
+        dim %= x.dim()
+        return _Gather.apply(x, self, axes, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axes, dim: int = 0
+                       ) -> torch.Tensor:
+        """The sum of ``x`` over the ranks along ``axes``, cut on ``dim``
+        into as many blocks as they are, this rank keeping the block at
+        its ``axis_index`` (``lax.psum_scatter(..., tiled=True)``; the
+        transpose of ``all_gather``).  A float16 or bfloat16 ``x`` is
+        summed in float32 and the block returned in its dtype, so a sum of
+        many partial gradients rounds once.  Backward: ``all_gather``."""
+        axes = self._axes(axes)
+        if not axes:
+            return x
+        dim %= x.dim()
+        return _Scatter.apply(x, self, axes, dim)
+
+    # the counted collectives themselves
+    def _issue_psum(self, x, axes):
+        out = self._all_reduce(x, axes)
+        self._count("all-reduce", axes, x, out)
+        return out
+
+    def _issue_gather(self, x, axes, dim):
+        out = self._all_gather(x, axes, dim)
         self._count("all-gather", axes, x, out)
         return out
+
+    def _issue_scatter(self, x, axes, dim):
+        n = math.prod(self.shape[a] for a in axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"reduce_scatter over {axes} cuts dim {dim} of "
+                             f"{tuple(x.shape)} {n} ways")
+        wide = x.float() if x.dtype in (torch.float16, torch.bfloat16) \
+            else x
+        out = self._reduce_scatter(wide, axes, dim)
+        self._count("reduce-scatter", axes, wide, out)
+        return out.to(x.dtype)
+
+    def _group_rows(self, axes):
+        """The group over ``axes`` and each of its ranks' ``axis_index``
+        over them, in the group's rank order."""
+        import torch.distributed as dist
+        group = self._groups[frozenset(axes)]
+        ranks = dist.get_process_group_ranks(group)      # in group order
+        return group, [self._row(self._coords(r), self.shape, axes)
+                       for r in ranks]
 
     def _all_reduce(self, x: torch.Tensor, axes: tuple[str, ...]
                     ) -> torch.Tensor:
         import torch.distributed as dist
-        x = x.clone()
+        x = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(x, group=self._groups[frozenset(axes)])
         return x
 
     def _all_gather(self, x: torch.Tensor, axes: tuple[str, ...],
                     dim: int) -> torch.Tensor:
         import torch.distributed as dist
-        group = self._groups[frozenset(axes)]
-        ranks = dist.get_process_group_ranks(group)      # in group order
+        group, rows = self._group_rows(axes)
         parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-                 for _ in ranks]
+                 for _ in rows]
         dist.all_gather(parts, x.contiguous(), group=group)
-        order = [None] * len(ranks)
-        for part, r in zip(parts, ranks):
-            order[self._row(self._coords(r), self.shape, axes)] = part
+        order = [None] * len(rows)
+        for part, row in zip(parts, rows):
+            order[row] = part
         return torch.cat(order, dim=dim)
+
+    def _reduce_scatter(self, x: torch.Tensor, axes: tuple[str, ...],
+                        dim: int) -> torch.Tensor:
+        import torch.distributed as dist
+        group, rows = self._group_rows(axes)
+        blocks = x.chunk(len(rows), dim=dim)
+        # the group's j-th rank receives the block at its axis_index
+        send = torch.cat([blocks[row].reshape(-1) for row in rows])
+        out = torch.empty(blocks[0].numel(), dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, send, group=group)
+        return out.view(blocks[0].shape)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh._issue_psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _PVary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._issue_psum(g, ctx.axes), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh._issue_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh._issue_scatter(g, ctx.axes, ctx.dim), None, None,
+                None)
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh._issue_scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh._issue_gather(g, ctx.axes, ctx.dim), None, None,
+                None)
 
 
 class CountingMesh(Mesh):
     """A mesh of ``shape`` seen from the rank at ``coords`` (every axis at 0
     unless given), with no process group.  Its collectives communicate
-    nothing: ``psum`` returns a copy of ``x`` and ``all_gather`` the
-    concatenation of as many copies as the axes hold ranks, so the shapes
-    are right (on the meta device too), and both count as on a mesh over
-    ranks.  The dry-run runs a cell's step on meta tensors on it to count
-    the collectives one rank issues."""
+    nothing: ``psum`` returns a copy of ``x``, ``all_gather`` the
+    concatenation of as many copies as the axes hold ranks and
+    ``reduce_scatter`` a copy of this rank's block, so the shapes are
+    right (on the meta device too), and all count as on a mesh over
+    ranks, backward included.  The dry-run runs a cell's step on meta
+    tensors on it to count the collectives one rank issues."""
 
     def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...],
                  coords: dict[str, int] | None = None):
@@ -264,12 +393,21 @@ class CountingMesh(Mesh):
         n = math.prod(self.shape[a] for a in axes)
         return torch.cat([x] * n, dim=dim)
 
+    def _reduce_scatter(self, x, axes, dim):
+        n = x.shape[dim] // math.prod(self.shape[a] for a in axes)
+        return x.narrow(dim, self.axis_index(axes) * n, n).clone()
+
 
 def _spec_axes(entry) -> tuple[str, ...]:
     """A spec entry's axes as a tuple (None: none)."""
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec: P) -> tuple[str, ...]:
+    """The mesh axes ``spec`` shards its array over, in the order named."""
+    return tuple(a for e in spec for a in _spec_axes(e))
 
 
 def relayout(x: torch.Tensor, have: P, want: P,
@@ -279,7 +417,9 @@ def relayout(x: torch.Tensor, have: P, want: P,
     gathered over ``have``'s axes (one ``Mesh.all_gather`` a dim, in the
     reference's order), then cut to ``want``'s block where ``want`` splits
     it (a local slice: no collective); a dim whose axes agree is left as it
-    is.  Identical layouts return ``x`` itself.  Raises where ``x`` is not a
+    is.  Identical layouts return ``x`` itself.  Under autograd it
+    differentiates by itself: each gather's backward reduce-scatters the
+    cotangent, each cut's pads it with zeros.  Raises where ``x`` is not a
     block under ``have`` or ``want`` does not divide a dim."""
     mesh = mctx.mesh
     if len(have) > x.dim() or len(want) > x.dim():

@@ -252,10 +252,14 @@ def _stack(params, x: torch.Tensor, cfg: ArchConfig, mode: str,
     return x
 
 
-def ssm_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def ssm_loss(params, batch: dict, cfg: ArchConfig,
+             mctx: MeshCtx | None = None, *,
+             global_batch: int | None = None) -> torch.Tensor:
     """The training loss (float32 scalar) of ``batch["tokens"]`` [B, S]:
     the SSD stack in "train" mode, then the next-token cross-entropy
-    against the (tied) embedding."""
+    against the (tied) embedding.  One device: a mesh of more than one
+    raises."""
+    tfm.not_on_ranks(cfg, mctx)
     tokens = batch["tokens"]
     x = _stack(params, tfm._embed_tokens(params, tokens, cfg), cfg, "train",
                None)

@@ -11,7 +11,7 @@ a Python loop over the groups' leading axis, the group's layers in
 sorted key order (the reference's ``lax.scan`` over ``_group_body``).
 
 Across ranks (a ``MeshCtx`` over the ranks of a process group, or a
-``CountingMesh``), the decoder's prefill and decode run as the
+``CountingMesh``), the decoder's loss, prefill and decode run as the
 reference's GSPMD program runs on its mesh, rank by rank: each rank holds
 its blocks of the parameters (``decoder_param_specs``: every layer matrix
 over ``model`` and FSDP over the data axes, the embedding's vocab rows
@@ -22,7 +22,11 @@ the layer's matrices over the data axes (``sharding.relayout``; dropped
 after the layer), a vocab-parallel embedding (one psum over ``model``),
 column-parallel ``wq``/``wk``/``wv``/``wg``/``wu`` (this rank's q heads)
 and row-parallel ``wo``/``wd`` (a psum over ``model`` each), and this
-rank's block of the logits ``P(dp, "model")``.  ``_constrain`` and
+rank's block of the logits ``P(dp, "model")`` (the loss: a vocab-parallel
+cross-entropy, its sums psummed over ``model`` and over the data axes).
+Under autograd the collectives run their transposes backward
+(``models/sharding.py``); the normed input of every column-parallel
+product enters through ``pvary``.  ``_constrain`` and
 ``_attn_constraints`` are the reference's layout hints; under the
 configs' ``attn_shard="auto"`` they are no-ops, and across ranks the
 other settings raise.
@@ -561,10 +565,9 @@ def _group_layer(cfg: ArchConfig, mctx: MeshCtx | None, mode: str,
 
 def _run_stack(params, x, cfg: ArchConfig, mctx: MeshCtx | None, mode: str,
                positions, caches: dict | None = None, t=None):
-    """The decoder stack.  ``caches`` (prefill, decode) are written in
-    place; "train" takes none and runs each layer under ``remat``.  On a
-    mesh over ranks only the MoE blocks read ``mctx``: every other layer
-    runs on the whole batch on this rank's device."""
+    """The decoder stack on one device (a step across ranks runs
+    ``_stack_ranked``).  ``caches`` (prefill, decode) are written in
+    place; "train" takes none and runs each layer under ``remat``."""
     groups = {name: _layers(g) for name, g in params["layers"].items()}
     body = _group_layer(cfg, mctx, mode, positions, t)
     for i in range(len(next(iter(groups.values())))):
@@ -590,27 +593,50 @@ def _prepend_images(params, x_tok: torch.Tensor, batch: dict,
 
 
 def next_token_loss(x: torch.Tensor, tokens: torch.Tensor, unembed,
-                    cfg: ArchConfig) -> torch.Tensor:
+                    cfg: ArchConfig, rk: "_Ranks | None" = None
+                    ) -> torch.Tensor:
     """Mean next-token cross-entropy of the final hidden states x [B, S,
     d] (after ``ln_f``) against ``tokens`` [B, S]: label i is token
     i + 1, the last position weighs 0 (the reference's labels roll the
     first token there), through ``chunked_softmax_xent`` in chunks of
-    ``cfg.loss_chunk``."""
+    ``cfg.loss_chunk``.  Across ranks (``rk``) x and the tokens are this
+    rank's rows, ``unembed`` its vocabulary columns, x enters them through
+    ``pvary`` over ``model``, and the mean is over the global batch: the
+    sum of NLLs and of weights psummed over the data axes (where they do
+    not split the batch, every data rank holds the whole of it and adds
+    its 1/dp share, so each one's gradient is a share too, as an FSDP
+    gather's reduce-scatter and the replicated leaves' sum over the data
+    axes take it)."""
     b, s = tokens.shape
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     weights = torch.ones((b, s), dtype=torch.float32, device=x.device)
     weights[:, -1] = 0.0
+    mesh = None if rk is None else rk.mesh
+    if mesh is not None:
+        x = mesh.pvary(x, "model")
     loss_sum = chunked_softmax_xent(x.reshape(b * s, -1), unembed,
                                     labels.reshape(-1), weights.reshape(-1),
-                                    cfg.loss_chunk)
-    return loss_sum / torch.clamp(weights.sum(), min=1.0)
+                                    cfg.loss_chunk, mesh)
+    if mesh is None:
+        return loss_sum / torch.clamp(weights.sum(), min=1.0)
+    share = 1 if rk.dp else rk.mctx.dp_size
+    tot = mesh.psum(torch.stack([loss_sum, weights.sum()]) / share,
+                    rk.mctx.dp)
+    return tot[0] / torch.clamp(tot[1], min=1.0)
 
 
-def decoder_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def decoder_loss(params, batch: dict, cfg: ArchConfig,
+                 mctx: MeshCtx | None = None, *,
+                 global_batch: int | None = None) -> torch.Tensor:
     """The training loss (float32 scalar) of ``batch["tokens"]`` [B, S]
     (and a VLM's ``img_emb``): the stack in "train" mode over the whole
-    sequence, the cross-entropy over the text positions only."""
+    sequence, the cross-entropy over the text positions only.  On a mesh
+    over ranks (``on_ranks``) ``params`` and the batch are this rank's
+    blocks, as for ``decoder_prefill``, and every rank returns the loss
+    of the whole global batch (``_loss_ranked``)."""
     _check_supported(cfg)
+    if on_ranks(mctx):
+        return _loss_ranked(params, batch, cfg, mctx, global_batch)
     tokens = batch["tokens"]
     x = _prepend_images(params, _embed_tokens(params, tokens, cfg), batch,
                         cfg)
@@ -823,13 +849,12 @@ def _embed_ranked(params, tokens: torch.Tensor, cfg: ArchConfig,
     """The vocab-parallel embedding: this rank's rows of the table (its
     block ``P("model", None)``) gathered for the tokens they hold, the
     others zero, summed over ``model`` (a sum of zeros and one row:
-    exact), gathered before the cast as ``_embed_tokens`` serves."""
+    exact), gathered and cast in ``_embed_tokens``' order."""
     table = params["embed"]
     n = table.shape[0]
     local = tokens - rk.r * n
     mine = (local >= 0) & (local < n)
-    x = table[torch.where(mine, local, 0)].to(
-        getattr(torch, cfg.compute_dtype))
+    x = _embed_tokens({"embed": table}, torch.where(mine, local, 0), cfg)
     x = x.masked_fill(~mine[..., None], 0)
     return rk.mesh.psum(x, "model")
 
@@ -841,10 +866,13 @@ def _attn_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
     rank's KV heads; "slots", every head of this rank's block of slots
     (decode: the rank holding slot ``t % S`` writes it, and the blocks are
     gathered over ``model`` before the kernel); "replicated", every head
-    and slot of this rank's rows.  The output projection is row-parallel:
-    this rank's columns of the heads' output times its rows of ``wo``,
-    summed over ``model``."""
-    h = rms_norm(x, p["ln1"])
+    and slot of this rank's rows; "train" keeps none.  The output
+    projection is row-parallel: this rank's columns of the heads' output
+    times its rows of ``wo``, summed over ``model``.  The normed input
+    enters this rank's heads through ``pvary``: its cotangents, this
+    rank's heads' alone (every KV head's where each rank computes all and
+    keeps some), are summed over ``model``."""
+    h = rk.mesh.pvary(rms_norm(x, p["ln1"]), "model")
     b, s, _ = x.shape
     dt, dh = h.dtype, cfg.head_dim
     wq = p["wq"]
@@ -882,38 +910,58 @@ def _attn_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
             vc[:, :, slot] = v[:, 0]
         o = decode_attention(q.transpose(1, 2), rk.kv(kc), rk.kv(vc), None,
                              t, window=cfg.window, chunk_attn=cfg.chunk_attn)
+    elif mode == "train":
+        o = chunked_attention(q.transpose(1, 2), rk.kv(k.transpose(1, 2)),
+                              rk.kv(v.transpose(1, 2)), causal=True,
+                              window=cfg.window, chunk_attn=cfg.chunk_attn)
     else:
-        raise ValueError(f"across ranks the decoder runs 'prefill' and "
-                         f"'decode', not {mode!r}")
+        raise ValueError(f"mode must be 'prefill', 'decode' or 'train', "
+                         f"got {mode!r}")
     o = o.transpose(1, 2).reshape(b, s, -1)[..., rk.o_off:rk.o_off + rk.cols]
     return x + rk.mesh.psum(o @ p["wo"].to(x.dtype), "model")
 
 
 def _ffn_ranked(p, x: torch.Tensor, rk: _Ranks) -> torch.Tensor:
-    """The SwiGLU FFN with ``wg``/``wu`` column-parallel and ``wd``
-    row-parallel: the partial outputs summed over ``model``."""
-    h = rms_norm(x, p["ln2"])
+    """The SwiGLU FFN with ``wg``/``wu`` column-parallel (the normed input
+    through ``pvary``) and ``wd`` row-parallel: the partial outputs summed
+    over ``model``."""
+    h = rk.mesh.pvary(rms_norm(x, p["ln2"]), "model")
     return x + rk.mesh.psum(swiglu(h, p["wg"], p["wu"], p["wd"]), "model")
 
 
 def _stack_ranked(params, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks,
-                  mode: str, positions, caches: dict, t=None) -> torch.Tensor:
+                  mode: str, positions, caches: dict | None = None,
+                  t=None) -> torch.Tensor:
     """The decoder stack on this rank: per layer its weights gathered into
     the computed layout (then dropped), attention, then the dense FFN or
-    the MoE block (``moe_ffn`` on this rank's rows)."""
+    the MoE block (``moe_ffn`` on this rank's rows).  "train" takes no
+    caches and runs each index of the groups under ``remat``, gathers
+    included: the recompute in the backward pass gathers the weights
+    again, and each gather's backward reduce-scatters the weights'
+    gradients into their FSDP blocks."""
     groups = {name: _layers(g) for name, g in params["layers"].items()}
-    for i in range(len(next(iter(groups.values())))):
-        for name in sorted(groups):
-            p = rk.layer(name, groups[name][i])
-            c = caches[name]
+
+    def body(x, gp: dict, gcache: dict | None):
+        for name in sorted(gp):
+            p = rk.layer(name, gp[name])
             x = _attn_ranked(p, x, cfg, rk, mode=mode, positions=positions,
-                             cache={"k": c["k"][i], "v": c["v"][i]}, t=t)
+                             cache=None if gcache is None else gcache[name],
+                             t=t)
             if name.startswith("dense"):
                 x = _ffn_ranked(p, x, rk)
             else:
                 x = moe_ffn_block(p, x, cfg, rk.mctx,
                                   global_batch=rk.global_batch)
             del p
+        return x
+
+    for i in range(len(next(iter(groups.values())))):
+        gp = {name: g[i] for name, g in groups.items()}
+        if caches is None:
+            x = remat(cfg, body, x, gp, None)
+        else:
+            x = body(x, gp, {name: {"k": c["k"][i], "v": c["v"][i]}
+                             for name, c in caches.items()})
     return x
 
 
@@ -941,6 +989,26 @@ def _prefill_ranked(params, batch: dict, cfg: ArchConfig, mctx: MeshCtx,
     x = _stack_ranked(params, x, cfg, rk, "prefill", positions, caches)
     x = rms_norm(x[:, -1], params["ln_f"])
     return _logits(params, x, cfg), caches
+
+
+def _loss_ranked(params, batch: dict, cfg: ArchConfig, mctx: MeshCtx,
+                 global_batch) -> torch.Tensor:
+    """``decoder_loss`` on this rank: the stack in "train" mode on its rows
+    and blocks, ``ln_f``, then the vocab-parallel cross-entropy of its
+    tokens (``next_token_loss`` against this rank's vocabulary columns:
+    ``unembed``'s ``P(None, "model")`` block, or the tied ``embed``'s
+    ``P("model", None)`` block transposed)."""
+    tokens = batch["tokens"]
+    s = tokens.shape[1] + (cfg.img_tokens if cfg.family == "vlm" else 0)
+    rk = _Ranks(cfg, mctx, global_batch, tokens.shape[0], s)
+    x = _prepend_images(params, _embed_ranked(params, tokens, cfg, rk),
+                        batch, cfg)
+    n_img = x.shape[1] - tokens.shape[1]
+    x = _stack_ranked(params, x, cfg, rk, "train",
+                      torch.arange(s, device=x.device))
+    x = rms_norm(x, params["ln_f"])
+    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return next_token_loss(x[:, n_img:], tokens, unembed, cfg, rk)
 
 
 def _decode_ranked(params, caches, tokens: torch.Tensor, t: int,
@@ -1030,13 +1098,17 @@ def _dec_train_layer(cfg: ArchConfig, positions):
     return body
 
 
-def encdec_loss(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def encdec_loss(params, batch: dict, cfg: ArchConfig,
+                mctx: MeshCtx | None = None, *,
+                global_batch: int | None = None) -> torch.Tensor:
     """The training loss (float32 scalar) of ``batch["frames"]`` [B,
     enc_seq, 1024] and ``batch["tokens"]`` [B, S]: the encoder, then the
     decoder in "train" mode (causal self-attention with rotary,
     cross-attention over the encoder output), the next-token
-    cross-entropy against ``unembed``."""
+    cross-entropy against ``unembed``.  One device: a mesh of more than
+    one raises."""
     _check_supported(cfg, ("encdec",))
+    not_on_ranks(cfg, mctx)
     enc_out = _encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)

@@ -1,5 +1,5 @@
 """AdamW with dtype-configurable states (the reference's
-``repro.train.optimizer``, on one device).
+``repro.train.optimizer``), on one device or on this rank's blocks.
 
 The arithmetic is the reference's, in float32: global-norm clipping to
 ``grad_clip``, bias-corrected moments, weight decay on every leaf of two
@@ -9,13 +9,22 @@ dtype and the moments stored in ``opt_dtype``.  JAX returns new arrays;
 here the parameters and the moments are updated in place (at
 llama3.2-3b's 3.2 B parameters a second copy of them and their float32
 moments would not fit the card), in slices of at most ``SLICE`` elements
-so that the float32 temporaries stay small.  The elementwise arithmetic
-is the same whatever the slicing, so on the meta device (the dry-run's
-trace, which holds no memory) a leaf is one slice: in ``SLICE`` slices
-the trace of llama4-maverick's ``train_4k`` cell took 36.0 s on one CPU
-thread against 9.8 s, and the whole sweep must stay near a minute
-(``launch/dryrun.py``).  The moments are
-sharded as their parameters are (``opt_state_specs``).
+so that the float32 temporaries stay small (about eight of a slice, 0.5
+GB: eight ranks training llama3.2-3b on one card ran out of memory in
+the update with 2^26-element slices).  The elementwise arithmetic is the
+same whatever the slicing, so on the meta device (the dry-run's trace,
+which holds no memory) a leaf is one slice: sliced, the trace of
+llama4-maverick's ``train_4k`` cell took 36.0 s on one CPU thread
+against 9.8 s, and the whole sweep must stay near a minute
+(``launch/dryrun.py``).  The moments are sharded as their parameters
+are (``opt_state_specs``).
+
+Across ranks (``mctx`` a mesh over ranks, ``specs`` the parameters' spec
+tree) every rank holds its blocks of the parameters, the gradients and
+the moments: ``global_norm`` sums each leaf's local sum of squares over
+the axes its spec shards it on (a leaf replicated over an axis counted
+once), one psum per set of axes, so the clip factor is the same on every
+rank, and the update runs on the blocks in place, as on one device.
 """
 from __future__ import annotations
 
@@ -23,10 +32,10 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.models.sharding import P
+from repro_torch.models.sharding import MeshCtx, P, spec_axes
 from repro_torch.train.tree import leaves, tree_map
 
-SLICE = 1 << 26          # elements updated at once (256 MB of float32)
+SLICE = 1 << 24          # elements updated at once (64 MB of float32)
 
 
 @dataclass(frozen=True)
@@ -56,14 +65,35 @@ def opt_state_specs(param_specs) -> dict:
     return {"m": param_specs, "v": param_specs, "step": P()}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mctx: MeshCtx | None = None, specs=None
+                ) -> torch.Tensor:
     """sqrt of the sum over leaves (in the reference's leaf order) of each
-    leaf's sum of squares, in float32."""
-    total = None
-    for _, x in leaves(tree):
+    leaf's sum of squares, in float32.  Across ranks ``tree`` holds this
+    rank's blocks under the spec tree ``specs``: the leaves' sums are
+    grouped by the mesh axes their specs shard them on, each group's sum
+    psummed over its axes, and the groups added in the order of their
+    axes; every rank returns the same norm."""
+    groups: dict[tuple[str, ...], torch.Tensor] = {}
+    flat = leaves(tree)
+    sharded = [()] * len(flat) if mctx is None else [
+        tuple(a for a in mctx.mesh.axis_names if a in spec_axes(sp))
+        for sp in spec_leaves(specs)]
+    for (_, x), axes in zip(flat, sharded):
         sq = torch.sum(torch.square(x.float()))
+        groups[axes] = sq if axes not in groups else groups[axes] + sq
+    total = None
+    for axes in sorted(groups, key=lambda a: (len(a), a)):
+        sq = mctx.mesh.psum(groups[axes], axes) if axes else groups[axes]
         total = sq if total is None else total + sq
     return torch.sqrt(total)
+
+
+def spec_leaves(specs) -> list[P]:
+    """The specs of a spec tree in the order ``tree.leaves`` lists the
+    leaves of the tree they describe."""
+    if isinstance(specs, P):
+        return [specs]
+    return [sp for key in sorted(specs) for sp in spec_leaves(specs[key])]
 
 
 def _update(p, g, m, v, clip, step_f, ocfg: AdamWConfig, decay: bool):
@@ -83,13 +113,16 @@ def _update(p, g, m, v, clip, step_f, ocfg: AdamWConfig, decay: bool):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state: dict, ocfg: AdamWConfig):
+def adamw_update(params, grads, opt_state: dict, ocfg: AdamWConfig, *,
+                 mctx: MeshCtx | None = None, specs=None):
     """One AdamW step.  Updates ``params`` and ``opt_state``'s moments in
     place and returns (params, opt_state, {"grad_norm": the gradients'
     global norm before clipping}); ``opt_state["step"]`` is a new 0-d
-    int32 tensor, one more."""
+    int32 tensor, one more.  Across ranks (``mctx`` over ranks) the trees
+    are this rank's blocks under the parameters' spec tree ``specs``
+    (``global_norm``)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mctx, specs)
     clip = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                        max=1.0)
     step_f = step.float()

@@ -38,7 +38,8 @@ from repro_torch.launch import dryrun, elastic  # noqa: E402
 from repro_torch.launch.mesh import production_mesh_ctx  # noqa: E402
 from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
-from repro_torch.models.sharding import (ShapeDtypeStruct,  # noqa: E402
+from repro_torch.models.sharding import (Mesh, MeshCtx,  # noqa: E402
+                                         ShapeDtypeStruct,
                                          cpu_mesh_ctx)
 from repro_torch.models.transformer import scan_or_unroll  # noqa: E402
 
@@ -253,23 +254,70 @@ def test_collective_bytes_of_a_decode_cell_written_out():
 
 
 def test_every_decoder_serving_cell_counts_its_collectives():
-    """Non-null bytes for every decoder-family decode cell on both
-    production meshes, and for a prefill (the sweep,
+    """Non-null bytes for every decoder-family decode and train cell on
+    both production meshes (a train step's backward adds the
+    reduce-scatters), and for a prefill (the sweep,
     ``python -m repro_torch.launch.dryrun --all --both-meshes``, counts
-    every prefill: 20 s on one CPU); train cells and the other families
-    say why theirs are null."""
+    every prefill); the other families say why theirs are null."""
     for arch, sh in dryrun.all_cells():
         cfg, shape = get_config(arch), get_shape(sh)
         if shape.kind == "prefill" and arch != "llama3.2-3b":
             continue
         for name in ("16x16", "2x16x16"):
             got = dryrun.count_collectives(cfg, shape, _mesh(name))
-            if shape.kind != "train" and cfg.family in ("dense", "moe",
-                                                        "vlm"):
-                assert set(got["bytes"]) == {"all-gather", "all-reduce"}
+            if cfg.family in ("dense", "moe", "vlm"):
+                kinds = {"all-gather", "all-reduce"} | (
+                    {"reduce-scatter"} if shape.kind == "train" else set())
+                assert set(got["bytes"]) == kinds
                 assert min(got["bytes"].values()) > 0
             else:
                 assert "bytes" not in got and got["reason"]
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_collectives_of_a_train_cell_written_out(remat):
+    """The reduced llama3.2-3b ``train_4k`` cell (2 x 128 tokens) on 2x4,
+    the rank at coordinates 0: one row, 4 layers of d 64, 4 q heads and 2
+    KV heads of 16 (4 model ranks do not divide the KV heads: ``wk`` and
+    ``wv`` gathered over ``model`` too), d_ff 128, 256 tied vocabulary
+    rows, bf16 compute, loss chunks of 64.  Forward: the embedding's psum,
+    per layer 7 FSDP gathers (bf16), 2 column gathers and 2 psums of
+    [1, 128, 64] bf16, and per loss chunk a gather of the [64] float32
+    log-sum-exps over ``model`` and one psum of [2, 64]; the loss's psum
+    over ``data``.  Backward: the chunks recomputed, the final states'
+    ``pvary`` psum, per layer 2 ``pvary`` psums and the gathers'
+    reduce-scatters, summed in float32; the replicated leaves' gradients
+    summed over ``data`` in one psum; the global norm's psums over
+    ``model`` (the embedding) and over both axes (the layer matrices).
+    Under ``remat="full"`` each layer's forward is recomputed up to its
+    last product, so its gathers and its attention psum are issued
+    again, not its FFN's psum."""
+    cfg = get_config("llama3.2-3b").reduced().replace(remat=remat)
+    mesh = MeshCtx(Mesh(np.arange(8).reshape(2, 4), ("data", "model")))
+    got = dryrun.count_collectives(cfg, get_shape("train_4k").reduced(),
+                                   mesh)
+    n, chunks, act = 4, 2, 128 * 64 * 2
+    # per layer, gathered over data in bf16: wq and wo [64, 16] / [16, 64],
+    # wk and wv [64, 8], wg, wu and wd [64, 32] / [32, 64]; then wk and wv
+    # over model to [64, 32]; the blocks' gradients half those, float32
+    dp = 2 * (64 * 64 // 4 * 2 + 64 * 32 // 4 * 2 + 64 * 128 // 4 * 3)
+    model = 2 * 64 * 32 * 2
+    f32 = 4 * (64 * 64 // 8 * 2 + 64 * 32 // 8 * 2 + 64 * 128 // 8 * 3)
+    again = 2 if remat == "full" else 1
+    want = {
+        "all-gather data": [7 * n * again, dp * n * again],
+        "all-gather model": [2 * n * again + 2 * chunks,
+                             model * n * again + 2 * chunks * 4 * 64 * 4],
+        "all-reduce data": [2, 2 * 4 + (64 * 64 + 64 + 2 * n * 64) * 4],
+        "all-reduce data,model": [1, 4],
+        "all-reduce model": [
+            1 + 2 * n + (again - 1) * n + 2 * chunks + 1 + 2 * n + 1,
+            act * (1 + 2 * n + (again - 1) * n + 1 + 2 * n)
+            + 2 * chunks * 2 * 64 * 4 + 4],
+        "reduce-scatter data": [7 * n, f32 * n],
+        "reduce-scatter model": [2 * n, 2 * n * 64 * 8 * 4],
+    }
+    assert got["by_axes"] == want
 
 
 # --------------------------------------------------------------- elastic

@@ -46,6 +46,16 @@ configurations on 2x4 and 2x2x2, every ``kv_spec`` branch, a batch the
 data axes do not divide), which ``test_torch_sharded.py`` holds the port
 to on 8 gloo ranks and ``chip_smoke.py``'s phase 14 (a) on the card.
 Written with ``--write-sharded``; the ``slow`` test regenerates it.
+
+``tests/data/torch_sharded_train.json`` holds the reference's answers to
+its jitted ``make_train_step`` on 8 devices (``torch_sharded_train_cases``:
+the decoder families' reduced configs on 2x4 and 2x2x2, float32, 2 AdamW
+steps): each step's loss and gradient norm, and the first step's
+gradients and the last step's parameters as each leaf's sum of squares
+and its values at fixed sample positions.  ``test_torch_sharded_train.py``
+holds the port on 8 gloo ranks to it and ``chip_smoke.py``'s phase 15 (a)
+on the card.  Written with ``--write-sharded-train``; the ``slow`` test
+regenerates it.
 """
 import importlib.util
 import json
@@ -59,6 +69,7 @@ import numpy as np
 import pytest
 import torch_mesh_cases as mesh_cases
 import torch_sharded_cases as sharded_cases
+import torch_sharded_train_cases as train_cases
 
 torch = pytest.importorskip("torch")
 
@@ -702,6 +713,138 @@ def test_sharded_phase_rehearses_on_the_cpu(monkeypatch):
         "flash_attention": 0, "decode_attention": 0}
 
 
+# The sharded training step across 8 devices: the reference's jitted
+# ``make_train_step`` on every case of ``torch_sharded_train_cases``, its
+# parameters and moments placed under ``param_specs`` /
+# ``opt_state_specs`` and the batch under ``P(dp, None)``, on meshes with
+# Auto axes; the first step's gradients from ``jax.grad`` of the loss the
+# step differentiates (a microbatched case's whole-batch gradient: its
+# parts weigh as many tokens each, so the mean is the same function).
+_SHARDED_TRAIN_SCRIPT = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import json, sys
+sys.path.insert(0, "tests")
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+from repro.configs import get_config
+from repro.models import get_model
+from repro.models.sharding import MeshCtx
+from repro.train.optimizer import AdamWConfig, init_opt_state, \
+    opt_state_specs
+from repro.train.train_step import make_loss_fn, make_train_step
+import torch_sharded_train_cases as C
+
+
+def place(tree, specs, mesh):
+    if isinstance(tree, dict):
+        return {k: place(v, specs[k], mesh) for k, v in tree.items()}
+    return jax.device_put(jnp.asarray(tree), NamedSharding(mesh, specs))
+
+
+def host(tree):
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+meshes = {}
+for m, (shape, names) in C.MESHES.items():
+    mesh = jax.make_mesh(shape, names,
+                         axis_types=(AxisType.Auto,) * len(shape))
+    assert [d.id for d in mesh.devices.flat] == list(range(C.WORLD))
+    meshes[m] = mesh
+out = {}
+for name, (arch, mode, m, batch, micro) in C.CASES.items():
+    mesh = meshes[m]
+    mctx = MeshCtx(mesh)
+    cfg = get_config(arch).reduced().replace(**C.replace(name))
+    model = get_model(cfg)
+    img = cfg.img_tokens if cfg.family == "vlm" else 0
+    inp = C.inputs(name, model.param_shapes(cfg), cfg.vocab_size,
+                   cfg.d_model, img)
+    dp = mctx.dp if batch % mctx.dp_size == 0 else None
+    specs = model.param_specs(cfg, mctx)
+    params = place(inp["params"], specs, mesh)
+    ocfg = AdamWConfig(opt_dtype=cfg.opt_dtype)
+    opt = place(host(init_opt_state(inp["params"], ocfg)),
+                opt_state_specs(specs), mesh)
+    opt["step"] = jax.device_put(jnp.zeros((), jnp.int32),
+                                 NamedSharding(mesh, P()))
+    feed = {"tokens": place(inp["tokens"], P(dp, None), mesh)}
+    if img:
+        feed["img_emb"] = place(inp["img_emb"], P(dp, None, None), mesh)
+    grads = jax.jit(jax.grad(make_loss_fn(cfg, mctx)))(params, feed)
+    for key, val in C.summarise(name, host(grads)).items():
+        out[f"{name}/grad/{key}"] = val
+    step = jax.jit(make_train_step(cfg, mctx, ocfg, microbatch=micro))
+    losses, norms = [], []
+    for _ in range(C.STEPS):
+        params, opt, metrics = step(params, opt, feed)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    out[f"{name}/loss"] = np.asarray(losses, np.float32)
+    out[f"{name}/grad_norm"] = np.asarray(norms, np.float32)
+    for key, val in C.summarise(name, host(params)).items():
+        out[f"{name}/param/{key}"] = val
+print(json.dumps({k: C.encode(v) for k, v in out.items()}))
+"""
+SHARDED_TRAIN_PINS = ROOT / "tests" / "data" / "torch_sharded_train.json"
+
+
+def sharded_train_pins() -> dict:
+    """The reference's answers to every case of
+    ``torch_sharded_train_cases``, from one subprocess with 8 forced host
+    devices."""
+    out = subprocess.run([sys.executable, "-c", _SHARDED_TRAIN_SCRIPT],
+                         capture_output=True, text=True, timeout=1800,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": "src",
+                                        "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout)
+
+
+def write_sharded_train_pins() -> None:
+    pins = {"_meta": {
+        "written_by": "PYTHONPATH=src python tests/test_torch_pins.py "
+                      "--write-sharded-train (the reference package, on the "
+                      "CPU, 8 forced host devices, Auto mesh axes)",
+        "cases": {k: list(v) for k, v in train_cases.CASES.items()},
+        "replace": {k: train_cases.replace(k) for k in train_cases.CASES},
+        "steps": train_cases.STEPS, "seq": train_cases.SEQ,
+        "samples": train_cases.SAMPLES},
+        **sharded_train_pins()}
+    SHARDED_TRAIN_PINS.write_text(json.dumps(pins, separators=(",", ":"))
+                                  + "\n")
+
+
+@pytest.mark.slow
+def test_reference_reproduces_sharded_train_pins():
+    """Every sharded training case regenerated from the reference equals
+    the file, bit for bit."""
+    pins = json.loads(SHARDED_TRAIN_PINS.read_text())
+    got = sharded_train_pins()
+    assert sorted(got) == sorted(k for k in pins if k != "_meta")
+    for key in got:
+        np.testing.assert_array_equal(train_cases.decode(got[key]),
+                                      train_cases.decode(pins[key]), key)
+
+
+def test_train_ranks_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s phase 15 on 8 gloo ranks on the CPU: one pinned
+    case with the counting mesh's counts, the reduced llama and mixtral
+    ("2d") trained on 2x4 against their 1x1 runs (the card's run with the
+    sizes cut; the plain versions launch no kernel)."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    sv_b = dict(chip_smoke.TRAIN_RANKS, reduced=True, layers=2, seq=64)
+    sv_c = dict(chip_smoke.TRAIN_RANKS_MOE, reduced=True, seq=64)
+    assert chip_smoke.train_ranks_phase(
+        torch, "cpu", "cpu", sv_b=sv_b, sv_c=sv_c,
+        pin_names=["llama/2x2x2/groups3"]) == {
+        "flash_attention": 0, "flash_attention_bwd": 0}
+
+
 @pytest.mark.slow
 def test_reference_reproduces_mesh_pins():
     """Every mesh case regenerated from the reference equals the file, bit
@@ -719,9 +862,11 @@ if __name__ == "__main__":
                "--write-train": write_train_pins,
                "--write-specs": write_spec_pins,
                "--write-mesh": write_mesh_pins,
-               "--write-sharded": write_sharded_pins}
+               "--write-sharded": write_sharded_pins,
+               "--write-sharded-train": write_sharded_train_pins}
     if len(sys.argv) != 2 or sys.argv[1] not in writers:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_pins.py "
                  "--write | --write-serve | --write-train | --write-specs "
-                 "| --write-mesh | --write-sharded")
+                 "| --write-mesh | --write-sharded "
+                 "| --write-sharded-train")
     writers[sys.argv[1]]()

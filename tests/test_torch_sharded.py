@@ -262,9 +262,10 @@ def test_relayout_gathers_and_cuts():
 
 
 def test_what_does_not_run_across_ranks_raises():
-    """The enc-dec, SSM and hybrid families, training, the "heads"/"seq"
-    layout hints, a step without its global batch or slot count, and an
-    abstract mesh of more than one device."""
+    """The enc-dec, SSM and hybrid families (their prefill, decode and,
+    through the train step, loss), the "heads"/"seq" layout hints, a step
+    without its global batch or slot count, and an abstract mesh of more
+    than one device."""
     from repro_torch.configs import get_config
     mctx = _mctx("2x4")
     for arch in ("whisper-medium", "mamba2-130m", "recurrentgemma-2b"):
@@ -275,9 +276,12 @@ def test_what_does_not_run_across_ranks_raises():
         with pytest.raises(NotImplementedError, match="across ranks"):
             get_model(cfg).decode({}, {}, torch.zeros(
                 (2, 1), dtype=torch.int32), 4, cfg, mctx)
+    cfg = get_config("whisper-medium").reduced()
+    with pytest.raises(NotImplementedError, match="across ranks"):
+        make_train_step(cfg, mctx=mctx)({}, {}, {"tokens": torch.zeros(
+            (2, 4), dtype=torch.int32)}, global_batch=4)
     cfg = C.port_config("llama/2x4/slots")
-    with pytest.raises(NotImplementedError, match="training across ranks"):
-        make_train_step(cfg, mctx=mctx)
+    make_train_step(cfg, mctx=mctx)
     make_train_step(cfg, mctx=cpu_mesh_ctx())
     model = get_model(cfg)
     params = {}

@@ -5,7 +5,8 @@ to them on 8 gloo ranks (``test_torch_sharded.py``, and on the card
 ``chip_smoke.py``'s phase 14 (a)).  numpy only: both packages import it.
 
 Each case is a reduced decoder (d_model 64, 4 q heads and 2 KV heads of
-16, vocab 256, 8 experts, float32) run as the reference runs it on a
+16, vocab 256, float32; the MoE configs at 8 experts) run as the
+reference runs it on a
 mesh: every parameter placed under ``param_specs``, the tokens under
 ``P(dp, None)`` (replicated where dp does not divide the batch), a
 prefill over ``[batch, 16]`` tokens, the caches carried as numpy, grown
@@ -23,7 +24,7 @@ import numpy as np
 
 from torch_mesh_cases import MESHES, WORLD, decode, encode  # noqa: F401
 
-REPLACE = {"num_experts": 8, "compute_dtype": "float32"}
+REPLACE = {"compute_dtype": "float32"}
 PROMPT, STEPS = 16, 4
 VIT_STUB_DIM = 1024
 
@@ -49,7 +50,10 @@ def steps() -> tuple[str, ...]:
 
 
 def replace(mode) -> dict:
-    return REPLACE if mode is None else {**REPLACE, "moe_shard": mode}
+    """A case's config replacements: a MoE mode at 8 experts (a dense
+    config keeps its dense FFN)."""
+    return REPLACE if mode is None else {**REPLACE, "num_experts": 8,
+                                         "moe_shard": mode}
 
 
 def inputs(name: str, shapes: dict, vocab: int, d_model: int,
