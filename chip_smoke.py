@@ -164,8 +164,8 @@ Phases, each printing JSON lines:
    module's bounds (losses, norms, sampled gradient and parameter
    blocks, each leaf's sum of squares), on every rank, each step's
    collectives equal to a ``CountingMesh``'s count; (b) llama3.2-3b at
-   full width and depth, bf16 compute, float32 parameters and moments,
-   ``remat="full"``, on 2x4, 3 steps of a global batch of 2 x 2,048,
+   full width, 4 of its 28 layers, bf16 compute, float32 parameters and
+   moments, ``remat="full"``, on 2x4, 2 steps of a global batch of 2 x 2,048,
    each rank drawing only its blocks, every step from the weights of a
    1x1 run of the same batches in a process of its own (run first and
    ended before the ranks start; it writes the weights each step starts
@@ -176,7 +176,27 @@ Phases, each printing JSON lines:
    (the bf16 norms reported beside them), 56 forward and 28 backward flash launches a rank a step, step s,
    each rank's peak, the collectives a step by kind (forward and
    recompute gathers, reduce-scatters, psums); (c) mixtral-8x7b in "2d"
-   at full width, 1 of 32 layers, 2 steps, against 1x1 the same way.
+   at full width, 1 of 32 layers, 2 steps, against 1x1 the same way
+   ((b) cut from 28 layers and 3 steps when phase 16 came: at 4 layers a
+   third step's bf16 loss lay 0.0138 from 1x1's, past the 1e-2 gate, the
+   shallow random model's logits being ~4 times larger, while its float32
+   loss was exact);
+16. serving across ranks for the enc-dec, SSM and hybrid families — 8
+   ranks on the one card again, on 2x4: (a) every case of
+   ``tests/torch_sharded_families_cases.py`` (reduced whisper, mamba2 and
+   recurrentgemma, float32, on 2x4 and 2x2x2, every cache layout branch,
+   a batch of 1) against the reference's jitted 8-device steps
+   (``tests/data/torch_sharded_families.json``) within 2e-5 on every
+   rank, each step's collectives equal to a ``CountingMesh``'s count; (b)
+   whisper-medium (full depth, 8 x 384 tokens over 1,500 frames, 4
+   decode steps), mamba2-130m (full depth, 8 x 2,048, 4 steps) and
+   recurrentgemma-2b (full width and depth, 8 x 512, 2 steps), each rank
+   drawing only its blocks, against a 1x1 run on the same weights: the
+   prefill's and every decode step's logits within 0.03 (max|Δ| /
+   max|ref|), each rank's collectives equal to the dry-run's count of the
+   cell, one flash launch per attention a rank a prefill and one decode
+   launch per attention a rank a step; prefill s, decode ms a step,
+   collectives by kind, each rank's peak.
 
 Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
 spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
@@ -200,7 +220,13 @@ llama3.2-3b's as phase 14 (b) serves it on each of its ranks
 (``rank_shape``: 4 rows, 6 q heads on 2 KV heads, 512 prompt positions,
 516 decode slots), and the flash forward at llama3.2-3b's training shape
 on each rank of phase 15 (b) (``train_rank_shape``: 1 row, 6 q heads on
-2 KV heads, 2,048 positions, causal); its sweeps include phase 14 (a)'s
+2 KV heads, 2,048 positions, causal), and whisper-medium's and
+recurrentgemma-2b's as phase 16 (b) serves them on each rank
+(``rank_encoder_shape``: the encoder on 4 rows, 4 of 16 heads, 1,500 x
+1,500 positions, not causal; ``rank_cross_shape``: its cross decode over
+1,500 slots on those heads; ``rank_hybrid_shape``: the span of 3 of 10
+q heads on the one KV head, 4 x 512 positions under the 2,048 window,
+and its decode over 514 slots); its sweeps include phase 14 (a)'s
 reduced heads (one q head on a KV head at head dim 16).  Phase 10 (a)
 times the backward at that shape too (``train_rank_shape``).
 
@@ -247,7 +273,8 @@ SERVE = dict(requests=8, prompt_len=2048, decode=128)
 SHAPE_KEYS = ("window_shape", "moe_shape", "chunk_shape", "vlm_shape",
               "encoder_shape", "cross_shape", "encdec_self_shape",
               "hybrid_shape", "mesh_shape", "rank_shape",
-              "train_rank_shape")
+              "train_rank_shape", "rank_encoder_shape", "rank_cross_shape",
+              "rank_hybrid_shape")
 
 
 def emit(obj: dict) -> None:
@@ -1158,6 +1185,30 @@ def flash_row(torch, q, k, v, label: str, *, causal: bool = True,
     return add_rates(res, flops, "TFLOP/s")
 
 
+def family_rank_flash(torch, dev):
+    """(key, arch, q, k, v, mask) as each rank of phase 16 (b) launches
+    the flash kernel: whisper-medium's encoder on the rank's 4 rows and 4
+    of 16 heads (1,500 frames, D 64, not causal) and recurrentgemma-2b's
+    prefill on its span of 3 of 10 q heads over the one KV head (4 x 512,
+    D 256, causal under the 2,048 window); q, k and v views of the
+    [B, S, H, D] projections."""
+    g = torch.Generator(device="cpu").manual_seed(62)
+    bf = torch.bfloat16
+    for key, arch in (("rank_encoder_shape", WHISPER),
+                      ("rank_hybrid_shape", HYBRID)):
+        sv = FAMILY_RANK[arch]
+        cfg = shape_cfg(arch, sv)
+        b, d = sv["requests"], cfg.head_dim
+        s = cfg.enc_seq if cfg.family == "encdec" else sv["prompt_len"]
+        q, k, v = (_randn(torch, g, (b, s, h, d), dev, bf).transpose(1, 2)
+                   for h in (cfg.num_heads, cfg.num_kv_heads,
+                             cfg.num_kv_heads))
+        mask = (dict(causal=False) if cfg.family == "encdec"
+                else dict(causal=True, window=cfg.window))
+        yield key, arch, q, k, v, mask
+        del q, k, v
+
+
 def flash_slice7_shapes(torch, dev):
     """(key, arch, q, k, v, mask, per) at the prefill shapes phase 8
     launches: llama4-maverick's chunked prefill (2 x 10,240, chunk 8,192,
@@ -1202,8 +1253,11 @@ def check_flash(torch, dev) -> dict:
     recurrentgemma-2b's local attention (phase 9: head dim 256, 10 q-heads
     on one KV head, its 2,048 window binding over 4,096 positions),
     mixtral-8x7b as each rank of phase 13 (b) prefills it (8 x 512),
-    llama3.2-3b as each rank of phase 14 (b) does (``rank_shape``), and
-    the shapes of phase 8 (``flash_slice7_shapes``)."""
+    llama3.2-3b as each rank of phase 14 (b) does (``rank_shape``), its
+    training shape on each rank of phase 15 (b), whisper-medium's
+    encoder and recurrentgemma-2b's prefill on each rank of phase 16 (b)
+    (``family_rank_flash``), and the shapes of phase 8
+    (``flash_slice7_shapes``)."""
     from repro_torch.configs import get_config
     worst, n_cases = flash_sweep(torch, dev)
     res = {
@@ -1244,6 +1298,14 @@ def check_flash(torch, dev) -> dict:
         **flash_row(torch, q, k, v, f"flash {ARCH} train_rank_shape")}
     del q, k, v
     torch.cuda.empty_cache()
+    for key, arch, q, k, v, mask in family_rank_flash(torch, dev):
+        res[key] = {"shape": f"{arch} on each rank of phase 16 (b): q "
+                             f"{list(q.shape)}, k/v {list(k.shape)} bf16 "
+                             f"([B, S, H, D] views), {mask}",
+                    **flash_row(torch, q, k, v, f"flash {arch} {key}",
+                                **mask)}
+        del q, k, v
+        torch.cuda.empty_cache()
     for key, arch, q, k, v, mask, per in flash_slice7_shapes(torch, dev):
         b, hq, sq, d = q.shape
         hk, skv = k.shape[1], k.shape[2]
@@ -1525,8 +1587,10 @@ def check_decode(torch, dev) -> dict:
     (phase 8), and recurrentgemma-2b's windowed span of 2,048 slots at
     head dim 256 with 10 q-heads on one KV head (phase 9: three
     sub-groups), mixtral-8x7b at each rank's last decode step of phase 13
-    (b) (514 slots) and llama3.2-3b at each rank's of phase 14 (b)
-    (``rank_shape``: group 3 over 516 slots)."""
+    (b) (514 slots), llama3.2-3b at each rank's of phase 14 (b)
+    (``rank_shape``: group 3 over 516 slots), and whisper-medium's cross
+    decode and recurrentgemma-2b's decode on each rank of phase 16 (b)
+    (``rank_cross_shape``, ``rank_hybrid_shape``)."""
     from repro_torch.configs import get_config
     worst, n_cases = decode_sweep(torch, dev)
     res = {
@@ -1546,14 +1610,17 @@ def check_decode(torch, dev) -> dict:
             ("cross_shape", WHISPER, SERVE_8[WHISPER], 49),
             ("hybrid_shape", HYBRID, SERVE_9[HYBRID], 53),
             ("mesh_shape", "mixtral-8x7b", MESH_SERVE, 55),
-            ("rank_shape", ARCH, SHARD_RANK, 57)):
+            ("rank_shape", ARCH, SHARD_RANK, 57),
+            ("rank_cross_shape", WHISPER, FAMILY_RANK[WHISPER], 60),
+            ("rank_hybrid_shape", HYBRID, FAMILY_RANK[HYBRID], 61)):
         cfg = shape_cfg(arch, sv)
+        cross = key in ("cross_shape", "rank_cross_shape")
         q, k, v, lo, hi = decode_shape(torch, dev, cfg, sv, seed,
-                                       cross=key == "cross_shape")
+                                       cross=cross)
         b, hq, d = q.shape
         _, hk, s, _ = k.shape
-        what = "cross-attention decode" if key == "cross_shape" else \
-            f"decode, window {cfg.window}, chunk {cfg.chunk_attn},"
+        what = ("cross-attention decode" if cross
+                else f"decode, window {cfg.window}, chunk {cfg.chunk_attn},")
         row = {"shape": f"{arch} {what} at t={hi - 1}: q [{b}, {hq}, {d}] "
                         f"bf16, caches [{b}, {hk}, {s}, {d}], slots [{lo}, "
                         f"{hi}) on every row",
@@ -3532,9 +3599,10 @@ def mesh_reference(torch, sv: dict, dev: str) -> dict:
     Prefill, ``sv["decode"]`` greedy steps (the tokens fed are the argmax
     of the step before); for a MoE model also the experts each prefill
     layer routes to and the first MoE layer on ``mesh_layer_input`` with
-    its routes.  On the host as numpy."""
+    its routes.  An enc-dec's frames come from ``make_batch`` and the
+    seed.  On the host as numpy."""
     import numpy as np
-    from repro_torch.launch.serve import init_params, pad_kv
+    from repro_torch.launch.serve import init_params, make_batch, pad_kv
     from repro_torch.models import get_model, moe
     cfg = mesh_cfg(sv)
     model = get_model(cfg)
@@ -3556,7 +3624,8 @@ def mesh_reference(torch, sv: dict, dev: str) -> dict:
         with torch.no_grad():
             mesh_sync(torch, dev)
             t0 = time.perf_counter()
-            logits, caches = model.prefill(params, {"tokens": toks}, cfg)
+            logits, caches = model.prefill(
+                params, make_batch(cfg, toks, sv["seed"]), cfg)
             mesh_sync(torch, dev)
             times["prefill_s"] = time.perf_counter() - t0
             moe.top_k = orig
@@ -3596,10 +3665,12 @@ def collective_summary(mesh, per: int = 1) -> dict:
 
 
 def rank_serve(torch, mctx, cfg, params, tokens, p_len: int, steps: int,
-               dev: str) -> dict:
+               dev: str, seed: int = 0) -> dict:
     """Serve on this rank of ``mctx``: the prefill over this rank's rows of
     ``tokens`` [B, p_len + steps] (numpy, global; its first ``p_len``
-    columns), the caches grown to ``p_len + steps`` slots, then ``steps``
+    columns; an enc-dec's frames from ``make_batch`` and ``seed``, as
+    ``mesh_reference`` draws them), the caches grown to ``p_len + steps``
+    slots, then ``steps``
     decode steps fed the rest, each timed between barriers on the host
     clock.  Returns the prefill s, decode ms a step, the collectives of
     the prefill and of a step (``collective_summary``), this rank's
@@ -3609,6 +3680,7 @@ def rank_serve(torch, mctx, cfg, params, tokens, p_len: int, steps: int,
     import torch.distributed as dist
     from repro_torch.kernels.decode_attn import ops as decode_ops
     from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch.serve import make_batch
     from repro_torch.models import get_model
     from repro_torch.models.convert import blocks, gathered
     from repro_torch.models.sharding import P
@@ -3619,6 +3691,8 @@ def rank_serve(torch, mctx, cfg, params, tokens, p_len: int, steps: int,
     dp = mctx.dp if b % mctx.dp_size == 0 else None
     toks = torch.as_tensor(blocks(np.asarray(tokens), P(dp, None), mctx),
                            device=dev)
+    feed = {k: mctx.sharding(P(dp)).block(v).to(dev) for k, v in make_batch(
+        cfg, torch.as_tensor(np.asarray(tokens)[:, :p_len]), seed).items()}
     layout = {"global_batch": b}
     res = {}
     flash_ops.launches = decode_ops.launches = 0
@@ -3629,8 +3703,7 @@ def rank_serve(torch, mctx, cfg, params, tokens, p_len: int, steps: int,
         dist.barrier()
         mesh_sync(torch, dev)
         t0 = time.perf_counter()
-        logits, caches = model.prefill(params, {"tokens": toks[:, :p_len]},
-                                       cfg, mctx, **layout)
+        logits, caches = model.prefill(params, feed, cfg, mctx, **layout)
         mesh_sync(torch, dev)
         res["prefill_s"] = time.perf_counter() - t0
         res["prefill_collectives"] = collective_summary(mesh)
@@ -3667,9 +3740,10 @@ def rank_serve(torch, mctx, cfg, params, tokens, p_len: int, steps: int,
 
 def grow_caches(model, cfg, mctx, caches, s0: int, n: int, dp):
     """This rank's cache blocks of ``s0`` slots as its blocks of ``s0 + n``
-    (the new slots empty): padded in place where ``model`` leaves the
-    slots whole, else gathered, padded and cut again (``kv_spec`` may
-    split or replicate the two lengths differently)."""
+    (the new slots empty; ``pad_kv`` grows the self-attention ``k``/``v``
+    leaves alone): padded in place where ``model`` leaves the slots whole,
+    else gathered, padded and cut again (``kv_spec`` may split or
+    replicate the two lengths differently)."""
     from repro_torch.launch.serve import pad_kv
     from repro_torch.models.convert import blocks, gathered
     from repro_torch.models.model import drop_dp_axes
@@ -3678,10 +3752,13 @@ def grow_caches(model, cfg, mctx, caches, s0: int, n: int, dp):
         sp = model.cache_specs(cfg, mctx, slots)
         return sp if dp else drop_dp_axes(sp, mctx)
 
+    def slots_split(sp) -> bool:
+        return any(slots_split(v) if isinstance(v, dict)
+                   else k in ("k", "v") and v[-2] is not None
+                   for k, v in sp.items())
+
     old, new = specs(s0), specs(s0 + n)
-    group = next(iter(old))
-    if old[group]["k"][3] is None and new[group]["k"][3] is None \
-            and old == new:
+    if old == new and not slots_split(new):
         return pad_kv(caches, n)
     return blocks(pad_kv(gathered(caches, old, mctx), n), new, mctx)
 
@@ -4027,6 +4104,35 @@ def sharded_rank(rank: int, sv_b: dict, tokens_b, sv_c: dict, tokens_c,
     return out
 
 
+def hold_rank_pins(ranks: list, cases, pin_file: str, label: str) -> dict:
+    """Raise unless every rank's answers to the pinned cases (``cases``'
+    ``rank_cases``, under each rank's ``"pins"``) lie within
+    ``MESH_PIN_TOL`` of ``tests/data/<pin_file>`` and each step's
+    collectives equal its counting mesh's; returns each pinned array's
+    largest error over the ranks."""
+    import numpy as np
+    pins = json.loads((ROOT / "tests" / "data" / pin_file).read_text())
+    worst = {}
+    for r in ranks:
+        for name in cases.CASES:
+            got = r["pins"][name]
+            for key in [k for k in pins if k.startswith(f"{name}/")]:
+                want = cases.decode(pins[key])
+                have = got[key[len(name) + 1:]]
+                if have.shape != want.shape or not np.isfinite(have).all():
+                    raise AssertionError(f"{label} pin {key}: malformed")
+                err = float(np.abs(have - want).max())
+                if err > MESH_PIN_TOL:
+                    raise AssertionError(f"{label} pin {key}: {err}")
+                worst[key] = max(worst.get(key, 0.0), err)
+            for step in cases.steps():
+                if got[f"log/{step}"] != got[f"count/{step}"]:
+                    raise AssertionError(f"{label} pin {name} {step}: the "
+                                         f"rank's collectives differ from "
+                                         f"the counting mesh's")
+    return worst
+
+
 def sharded_phase(torch, dev: str, name_power: str,
                   sv_b: dict = SHARD_SERVE, sv_c: dict = SHARD_MOE) -> dict:
     """Phase 14.  Returns the attention kernels' launch totals of (b) and
@@ -4058,27 +4164,7 @@ def sharded_phase(torch, dev: str, name_power: str,
     ranks_s = time.perf_counter() - t0
 
     # (a) the pins, on every rank
-    pins = json.loads((ROOT / "tests" / "data" / "torch_sharded.json")
-                      .read_text())
-    worst = {}
-    for r in ranks:
-        for name in cases.CASES:
-            got = r["pins"][name]
-            keys = [k for k in pins if k.startswith(f"{name}/")]
-            for key in keys:
-                want = cases.decode(pins[key])
-                have = got[key[len(name) + 1:]]
-                if have.shape != want.shape or not np.isfinite(have).all():
-                    raise AssertionError(f"sharded pin {key}: malformed")
-                err = float(np.abs(have - want).max())
-                if err > MESH_PIN_TOL:
-                    raise AssertionError(f"sharded pin {key}: {err}")
-                worst[key] = max(worst.get(key, 0.0), err)
-            for step in cases.steps():
-                if got[f"log/{step}"] != got[f"count/{step}"]:
-                    raise AssertionError(f"sharded pin {name} {step}: the "
-                                         f"rank's collectives differ from "
-                                         f"the counting mesh's")
+    worst = hold_rank_pins(ranks, cases, "torch_sharded.json", "sharded")
     emit({"phase": "shard_pins", "cases": len(cases.CASES),
           "arrays": len(worst), "ranks": MESH_WORLD,
           "max_abs_err": max(worst.values()), "limit": MESH_PIN_TOL,
@@ -4200,12 +4286,14 @@ def sharded_phase(torch, dev: str, name_power: str,
 # ``tests/torch_sharded_train_cases.py`` against the reference's jitted
 # 8-device train step (``tests/data/torch_sharded_train.json``) within
 # that module's bounds, each step's collectives equal to a
-# ``CountingMesh``'s count of it.  (b) llama3.2-3b at full width and
-# depth, bf16 compute, float32 parameters and moments, ``remat="full"``,
+# ``CountingMesh``'s count of it.  (b) llama3.2-3b at full width
+# (``TRAIN_RANKS["layers"]`` of its 28 layers), bf16 compute, float32
+# parameters and moments, ``remat="full"``,
 # on 2x4: ``TRAIN_RANKS["steps"]`` steps of a global batch of 2 x 2,048
 # (phase 10 (b)'s), each rank drawing only its blocks, held to a 1x1 run
 # of the same batches in its own process (run first and ended before the
-# ranks start: its float32 tree, gradients and moments take 51.4 GB) on
+# ranks start: at 28 layers its float32 tree, gradients and moments took
+# 51.4 GB) on
 # the same weights at every step: the 1x1 run writes the weights each of
 # its steps starts from, and before every step but the first each rank
 # measures its updated blocks against them and then takes them.  So every
@@ -4216,10 +4304,26 @@ def sharded_phase(torch, dev: str, name_power: str,
 # smallest elements), so they would test the rounding, not the sharding.
 # (c) mixtral-8x7b in "2d" at full width, 1 of its 32 layers (depth cut
 # only), 2 steps, against 1x1 the same way.
-TRAIN_RANKS = dict(arch="llama3.2-3b", layers=28, batch=2, seq=2048,
-                   steps=3, seed=0, reduced=False, mode=None)
+# (b) cut to 4 of the 28 layers when phase 16 came (the phase took
+# 309-318 s at 28 layers, each step ~14-20 s of gloo traffic, a float32
+# pass and a 12.85 GB weight write and read), with the layers' RMS norm
+# scales at ones (``norms``: llama's own initialisation of them; the
+# reference draws them N(0, 0.02) like every leaf of two or more
+# dimensions).  Under the reference's draw a shallow llama is another
+# model: its residual stream is nearly the tied embedding's row, so the
+# final state predicts its own token (at 4 layers the first loss is 56.4,
+# not ln V + 0.02^2 d / 2 = 12.4, and a third step's bf16 loss lay 0.0138
+# from 1x1's, beyond the gate); at full depth its first loss is 12.8.
+# With the scales at ones the layers' outputs dominate the stream at any
+# depth (``first_loss_depth.py`` measures both draws by depth).  Every
+# part's 1x1 first loss must lie within ``TRAIN_RANKS_INIT_LOSS`` of ln V +
+# 0.02^2 d / 2 (``init_loss``, phase 10's gate)
+TRAIN_RANKS = dict(arch="llama3.2-3b", layers=4, batch=2, seq=2048,
+                   steps=3, seed=0, reduced=False, mode=None, norms="ones")
 TRAIN_RANKS_MOE = dict(arch="mixtral-8x7b", layers=1, batch=2, seq=2048,
-                       steps=2, seed=0, reduced=False, mode="2d")
+                       steps=2, seed=0, reduced=False, mode="2d",
+                       norms="drawn")
+TRAIN_RANKS_INIT_LOSS = 0.5
 TRAIN_RANKS_LOSS = 1e-2            # |loss - 1x1 loss| at every step
 # Each step's loss and gradient norm are also taken in float32 compute on
 # the same weights and batch, on the ranks and on 1x1: |loss - 1x1 loss|
@@ -4242,6 +4346,29 @@ TRAIN_RANKS_UPDATE = 2 * 1.001 * 3e-4 + TRAIN_RANKS_PARAM_ATOL
 # each rank's attention at (b): 1 of 2 rows, 24 / 4 q heads, 8 / 4 KV heads
 TRAIN_RANK_SHAPE = dict(batch=1, seq=2048, heads=6, kv_heads=2)
 TRAIN_MESH = (2, 4)
+
+
+def set_norm_scales(params: dict, value: float) -> dict:
+    """Every stacked layer norm scale (a leaf named ``ln1``/``ln2`` of two
+    or more dimensions: a whole tree's or a rank's block) filled with
+    ``value``, in place."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            set_norm_scales(v, value)
+        elif k in ("ln1", "ln2") and v.dim() >= 2:
+            v.fill_(value)
+    return params
+
+
+def train_ranks_init(torch, cfg, sv: dict, dev: str, **kw) -> dict:
+    """(b)'s or (c)'s float32 tree (``kw``: ``blocks=`` for a rank's),
+    drawn from ``sv["seed"]``, the norm scales at ones where
+    ``sv["norms"]`` is "ones"."""
+    from repro_torch.models import get_model
+    params = get_model(cfg).init(
+        cfg, torch.Generator(dev).manual_seed(sv["seed"]), **kw)
+    return set_norm_scales(params, 1.0) if sv["norms"] == "ones" \
+        else params
 
 
 def train_ranks_batch(torch, cfg, sv: dict, i: int, dev: str) -> dict:
@@ -4267,13 +4394,11 @@ def train_ranks_reference(rank: int, sv: dict, dev: str, weights_dir: str
     float32 compute on the same weights and batch (``f32_loss_norm``)."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.models import get_model
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import make_train_step
     from repro_torch.train.tree import leaves
     cfg = mesh_cfg(sv, sv["mode"])
-    params = get_model(cfg).init(cfg, torch.Generator(dev).manual_seed(
-        sv["seed"]))
+    params = train_ranks_init(torch, cfg, sv, dev)
     ocfg = AdamWConfig(opt_dtype=cfg.opt_dtype)
     opt = init_opt_state(params, ocfg)
     step = make_train_step(cfg, ocfg)
@@ -4387,8 +4512,8 @@ def train_ranks_run(torch, mctx, sv: dict, dev: str, weights_dir: str
     specs = model.param_specs(cfg, mctx)
 
     def draw():
-        return model.init(cfg, torch.Generator(dev).manual_seed(sv["seed"]),
-                          blocks=shardings(specs, mctx))
+        return train_ranks_init(torch, cfg, sv, dev,
+                                blocks=shardings(specs, mctx))
 
     def rows(i):
         return {k: blocks(v, P(dp, *(None,) * (v.dim() - 1)), mctx)
@@ -4504,8 +4629,8 @@ def train_ranks_phase(torch, dev: str, name_power: str,
     # between fixed segments
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    # the 1x1 runs' weights (llama3.2-3b's 12.85 GB a step) on the disk of
-    # the checkout, removed with the directory
+    # the 1x1 runs' weights (llama3.2-3b's 12.85 GB a step at 28 layers) on
+    # the disk of the checkout, removed with the directory
     (ROOT / "build").mkdir(exist_ok=True)
     tmp = tempfile.TemporaryDirectory(prefix="train_ranks_",
                                       dir=ROOT / "build")
@@ -4620,7 +4745,9 @@ def train_ranks_phase(torch, dev: str, name_power: str,
               "grad_norm_f32_1x1": ref["grad_norm_f32"],
               "loss_f32_abs_err_vs_1x1": loss_err32,
               "grad_norm_f32_rel_err_vs_1x1": norm_rel32,
-              "limits": {"loss_abs": TRAIN_RANKS_LOSS,
+              "norm_scales": sv["norms"], "init_loss": init_loss(cfg),
+              "limits": {"init_loss_abs": TRAIN_RANKS_INIT_LOSS,
+                         "loss_abs": TRAIN_RANKS_LOSS,
                          "update_abs": TRAIN_RANKS_UPDATE,
                          "counted_above": TRAIN_RANKS_PARAM_ATOL,
                          "loss_f32_abs": TRAIN_RANKS_F32_LOSS,
@@ -4652,11 +4779,15 @@ def train_ranks_phase(torch, dev: str, name_power: str,
               "nvidia_smi": name_power})
         if not all(math.isfinite(x) for x in m["loss"] + m["grad_norm"]
                    + m["loss_f32"] + m["grad_norm_f32"]) \
+                or abs(ref["loss"][0] - init_loss(cfg)) \
+                > TRAIN_RANKS_INIT_LOSS \
                 or max(loss_err) > TRAIN_RANKS_LOSS \
                 or any(u["max_abs"] > TRAIN_RANKS_UPDATE for u in update) \
                 or max(loss_err32) > TRAIN_RANKS_F32_LOSS \
                 or max(norm_rel32) > TRAIN_RANKS_F32_NORM:
-            failed.append(f"shard train {part} vs 1x1: losses {loss_err}, "
+            failed.append(f"shard train {part} vs 1x1: first 1x1 loss "
+                          f"{ref['loss'][0]} (want {init_loss(cfg)} within "
+                          f"{TRAIN_RANKS_INIT_LOSS}), losses {loss_err}, "
                           f"updates {update}, float32 losses {loss_err32} "
                           f"and norms {norm_rel32}")
     if failed:
@@ -4665,6 +4796,198 @@ def train_ranks_phase(torch, dev: str, name_power: str,
           "seconds": time.perf_counter() - t_phase, "ranks_s": ranks_s,
           "main_process_reserved_gb": main_gb,
           "launches": totals, "timing": label, "nvidia_smi": name_power})
+    return totals
+
+
+# ------------------------------ phase 16: serving across ranks, other families
+# The enc-dec, SSM and hybrid families' prefill and decode steps across
+# ranks, as the reference's GSPMD program runs them on its mesh (every
+# weight FSDP over ``data`` and TP over ``model``, the caches by the
+# families' cache specs, the batch over ``data``), on 8 gloo ranks on the
+# one card as phases 13-15: the collectives go through host memory, so
+# their times say nothing of NVLink.  (a) The pins: every case of
+# ``tests/torch_sharded_families_cases.py`` against the reference's
+# answers on 8 devices (``tests/data/torch_sharded_families.json``) within
+# ``MESH_PIN_TOL``, each step's collectives equal to a ``CountingMesh``'s
+# count of it.  (b) whisper-medium (phase 8's shape, 4 decode steps),
+# mamba2-130m (8 x 2,048, 4 steps) and recurrentgemma-2b (8 x 512, 2
+# steps: a step is about 1.1 GB of FSDP gathers a rank) at full width and
+# depth, bf16, on 2x4, each rank drawing only its blocks, fed the greedy
+# tokens of the port's 1x1 run on the same weights and held to it within
+# ``SHARD_REL`` at the prefill and every decode step; each rank's
+# collectives equal to ``dryrun.count_collectives``' count of the cell
+# (the rank at coordinates 0 on meta tensors).  Phase 3 holds both
+# attention kernels at (b)'s per-rank shapes (``FAMILY_RANK``).
+FAMILY_MESH = (2, 4)
+FAMILY_SERVE = (
+    dict(arch=WHISPER, layers=24, requests=8, prompt_len=384, decode=4,
+         seed=0, reduced=False),
+    dict(arch=SSM, layers=24, requests=8, prompt_len=2048, decode=4, seed=0,
+         reduced=False),
+    dict(arch=HYBRID, layers=26, requests=8, prompt_len=512, decode=2,
+         seed=0, reduced=False))
+# each rank's attention at (b): 4 of 8 rows; whisper's 4 of 16 heads (its
+# KV heads too), recurrentgemma's span of 3 of 10 q heads on its KV head
+FAMILY_RANK = {WHISPER: dict(requests=4, prompt_len=384, decode=4, heads=4,
+                             kv_heads=4),
+               HYBRID: dict(requests=4, prompt_len=512, decode=2, heads=3,
+                            kv_heads=1)}
+
+
+def family_rank(rank: int, svs: tuple, tokens: list, dev: str) -> dict:
+    """Phase 16 on one rank of the 8 (on the card, all on cuda:0): (a) the
+    pinned cases, then (b) each model of ``svs`` in turn, freed before
+    the next."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch_sharded_families_cases as cases
+    from repro_torch.launch.mesh import rank_mesh_ctx
+    card = dev != "cpu"
+    t0 = time.perf_counter()
+    out = {"pins": cases.rank_cases(rank, dev)}
+    out["pins_s"] = time.perf_counter() - t0
+    mctx = rank_mesh_ctx(FAMILY_MESH, device=dev)
+    out["serve"] = []
+    for sv, toks in zip(svs, tokens):
+        cfg = mesh_cfg(sv)
+        params = sharded_params(torch, cfg, mctx, sv["seed"], dev)
+        rec = {"param_bytes": tree_bytes(params),
+               "param_bytes_dryrun": held_param_bytes(cfg, mctx,
+                                                      torch.bfloat16)}
+        rec |= rank_serve(torch, mctx, cfg, params, toks, sv["prompt_len"],
+                          sv["decode"], dev, seed=sv["seed"])
+        del params
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        out["serve"].append(rec)
+    return out
+
+
+def family_phase(torch, dev: str, name_power: str,
+                 svs: tuple = FAMILY_SERVE) -> dict:
+    """Phase 16.  Returns the attention kernels' launch totals of (b).
+    ``dev`` "cpu" with reduced ``svs`` rehearses it on the CPU."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import count_collectives
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.sharding import Mesh, MeshCtx
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_sharded_families_cases as cases
+    t_phase = time.perf_counter()
+    card = dev != "cpu"
+    label = "gloo through host memory, 8 ranks on one card"
+    refs = []
+    for sv in svs:
+        if card:
+            reset_counts(torch)
+        t0 = time.perf_counter()
+        ref = mesh_reference(torch, sv, dev)
+        ref["wall_s"] = time.perf_counter() - t0
+        if card:
+            ref["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        refs.append(ref)
+    if card:
+        reset_counts(torch)
+    t0 = time.perf_counter()
+    ranks = run_ranks(family_rank, MESH_WORLD, svs,
+                      [r["tokens"] for r in refs],
+                      "cuda:0" if card else "cpu", timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+
+    # (a) the pins, on every rank
+    worst = hold_rank_pins(ranks, cases, "torch_sharded_families.json",
+                           "families")
+    emit({"phase": "family_pins", "cases": len(cases.CASES),
+          "arrays": len(worst), "ranks": MESH_WORLD,
+          "max_abs_err": max(worst.values()), "limit": MESH_PIN_TOL,
+          "worst_case": max(worst, key=worst.get),
+          "rank_pins_s": max(r["pins_s"] for r in ranks),
+          "collectives_equal_counting_mesh": True,
+          "nvidia_smi": name_power})
+
+    # (b) each model against its 1x1 run
+    totals = {"flash_attention": 0, "decode_attention": 0}
+    mesh = MeshCtx(Mesh(np.arange(MESH_WORLD).reshape(FAMILY_MESH),
+                        ("data", "model")))
+    for i, (sv, ref) in enumerate(zip(svs, refs)):
+        cfg = mesh_cfg(sv)
+        per = [r["serve"][i] for r in ranks]
+        per_prefill, per_step = attn_launches(cfg)
+        want = {"flash_attention": per_prefill,
+                "decode_attention": per_step * sv["decode"]}
+        b, p_len, steps = sv["requests"], sv["prompt_len"], sv["decode"]
+        counted = {
+            "prefill": count_collectives(cfg, ShapeConfig(
+                "prefill", "prefill", p_len, b), mesh),
+            "decode": count_collectives(cfg, ShapeConfig(
+                "decode", "decode", p_len + steps, b), mesh)}
+        for m in per:
+            if m["launches"] != (want if card else dict.fromkeys(want, 0)):
+                raise AssertionError(f"family {cfg.name}: a rank launched "
+                                     f"{m['launches']}, want {want}")
+            if m["logits_sum"] != per[0]["logits_sum"]:
+                raise AssertionError(f"family {cfg.name}: the ranks' "
+                                     f"logits differ")
+            if m["param_bytes"] != m["param_bytes_dryrun"]:
+                raise AssertionError(f"family {cfg.name}: a rank holds "
+                                     f"{m['param_bytes']} bytes of weights, "
+                                     f"the dry-run's blocks "
+                                     f"{m['param_bytes_dryrun']}")
+            for part, key in (("prefill", "prefill_collectives"),
+                              ("decode", "decode_collectives_per_step")):
+                if m[key] != {k: counted[part][k] for k in ("calls",
+                                                            "bytes")}:
+                    raise AssertionError(f"family {cfg.name} {part}: a "
+                                         f"rank's collectives {m[key]}, the "
+                                         f"dry-run's {counted[part]}")
+        for k in totals:
+            totals[k] += sum(m["launches"][k] for m in per)
+        m = per[0]
+        logits = m["logits"]
+        if not np.isfinite(logits).all():
+            raise AssertionError(f"family {cfg.name}: logits not finite")
+        rel = [mesh_rel(logits[j], ref["logits"][j])
+               for j in range(steps + 1)]
+        emit({"phase": "family_serve", "arch": cfg.name,
+              "family": cfg.family, "mesh": list(FAMILY_MESH),
+              "reduced": "reduced config" if sv["reduced"] else False,
+              "layers": [sv["layers"], get_config(sv["arch"]).num_layers],
+              "requests": b, "prompt_len": p_len, "decode": steps,
+              "timing": label, "rel_err_vs_1x1": {
+                  "prefill": rel[0], "decode_steps": rel[1:]},
+              "limit": SHARD_REL,
+              "argmax_equal": float((logits.argmax(-1)
+                                     == ref["logits"].argmax(-1)).mean()),
+              "prefill_s": m["prefill_s"],
+              "prefill_s_max_rank": max(x["prefill_s"] for x in per),
+              "decode_ms_per_step": m["decode_ms_per_step"],
+              "decode_ms_per_step_max_rank": max(
+                  x["decode_ms_per_step"] for x in per),
+              "prefill_collectives": m["prefill_collectives"],
+              "decode_collectives_per_step":
+                  m["decode_collectives_per_step"],
+              "collectives_equal_dryrun": True,
+              "launches_per_rank": m["launches"],
+              "param_bytes_per_rank": m["param_bytes"],
+              "peak_gb_per_rank": max(x.get("peak_gb", 0) for x in per),
+              "device_used_gb": max(x.get("device_used_gb", 0)
+                                    for x in per),
+              "reference_1x1_prefill_s": ref["prefill_s"],
+              "reference_1x1_decode_ms_per_step":
+                  ref["decode_ms_per_step"],
+              "reference_1x1_peak_gb": ref.get("peak_gb"),
+              "nvidia_smi": name_power})
+        if max(rel) >= SHARD_REL:
+            raise AssertionError(f"family {cfg.name} vs 1x1: {rel}")
+    emit({"phase": "family_done", "seconds": time.perf_counter() - t_phase,
+          "ranks_s": ranks_s, "launches": totals, "timing": label,
+          "reference_1x1_s": {r_sv["arch"]: r["wall_s"]
+                              for r_sv, r in zip(svs, refs)},
+          "nvidia_smi": name_power})
     return totals
 
 
@@ -4828,6 +5151,13 @@ def main(argv=None) -> int:
     # 15. training across 8 ranks on the card: the pins, llama3.2-3b at
     # full size and mixtral's "2d" layer, each against its 1x1 run
     for k, n in train_ranks_phase(torch, dev, name_power).items():
+        totals[k] += n
+    torch.cuda.empty_cache()
+
+    # 16. serving across 8 ranks on the card for the enc-dec, SSM and
+    # hybrid families: the pins, then whisper-medium, mamba2-130m and
+    # recurrentgemma-2b at full width, each against its 1x1 run
+    for k, n in family_phase(torch, dev, name_power).items():
         totals[k] += n
     torch.cuda.empty_cache()
 

@@ -37,8 +37,8 @@ questions the reference asks of ``compiled``:
   and capacity, not from the routed tokens.  Elementwise work is not
   counted.
 * Collective bytes (``count_collectives``): the port's own train,
-  prefill or decode step of a decoder-family cell run on meta tensors on
-  a ``CountingMesh`` of the cell's mesh, as the rank at coordinates 0
+  prefill or decode step of a cell run on meta tensors on a
+  ``CountingMesh`` of the cell's mesh, as the rank at coordinates 0
   runs it (its blocks of the parameters, the moments, the batch and the
   caches): the bytes of every collective's output by kind, under the
   reference's keys (``"all-gather"``, ``"all-reduce"``,
@@ -49,8 +49,8 @@ questions the reference asks of ``compiled``:
   axes and the global norm's psums.  These are the port's collectives,
   not XLA's: the reference parses its numbers from the compiled HLO text,
   in which XLA chose its own collectives, so the two are not expected to
-  be equal.  The enc-dec, SSM and hybrid families (their steps run on one
-  device) record None with the reason.
+  be equal.  The enc-dec, SSM and hybrid families' train cells (their
+  training runs on one device) record None with the reason.
 
 The train step is the port's ``make_train_step``: autograd through the
 attention wrapper's meta branch, ``torch.utils.checkpoint`` per layer
@@ -258,10 +258,12 @@ def count_collectives(cfg: ArchConfig, shape: ShapeConfig,
     of the cell on ``mctx``'s mesh: ``{"bytes": {kind: output bytes},
     "calls": {kind: n}, "by_axes": {"<kind> <axes>": [calls, bytes]}}``,
     from a run on meta tensors on a ``CountingMesh``; or ``{"reason":
-    ...}`` where the port's step does not run across ranks."""
-    if cfg.family not in tfm.DECODER_FAMILIES:
-        return {"reason": f"the {cfg.family} family's steps run on one "
-                          f"device"}
+    ...}`` where the port's step does not run across ranks (the enc-dec,
+    SSM and hybrid families' training)."""
+    if shape.kind == "train" and cfg.family not in tfm.DECODER_FAMILIES:
+        return {"reason": f"the {cfg.family} family's training runs on one "
+                          f"device: training across ranks is not ported "
+                          f"yet (its prefill and decode are)"}
     mesh = CountingMesh(tuple(mctx.mesh.devices.shape),
                         mctx.mesh.axis_names)
     cm = MeshCtx(mesh)

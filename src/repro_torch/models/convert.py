@@ -4,15 +4,18 @@ The two packages share the parameter tree (same keys, same stacked
 ``[L, ...]`` shapes) and the cache tree: a decoder's
 ``{"dense0": {"k", "v"}}`` of ``[L, B, Hk, S, Dh]``, an enc-dec's
 ``{"self": {"k", "v"}, "cross_k", "cross_v"}`` whose cross caches are
-leaves; only the array type differs.  Any nesting of dicts carries over,
+leaves, an SSM's ``{"conv", "state"}``, a hybrid's ``{"groups": {...},
+"tail0_rec": ...}``; only the array type differs.  Any nesting of dicts carries over,
 leaf for leaf.  The JAX side hands its trees over as numpy arrays
 (``jax.tree.map(np.asarray, tree)``).
 
 On a mesh over ranks each rank holds its blocks of a tree under a spec
 tree (``blocks``: the parameters under ``param_specs``, the caches under
 ``cache_specs``, the batch under ``batch_specs``), so the same global
-arrays feed both packages; ``shardings`` gives the same cut by path for
-``init_decoder_params(..., blocks=)``, which draws only the blocks.
+arrays feed both packages (every family's: the enc-dec's, SSM's and
+hybrid's trees cut as the decoder's); ``shardings`` gives the same cut by
+path for every family's ``init(..., blocks=)``, which draws only the
+blocks.
 ``moe_blocks`` cuts the MoE leaves alone to the MoE block's ``in_specs``
 (the layout ``moe.moe_ffn`` takes).
 """

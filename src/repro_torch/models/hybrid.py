@@ -23,6 +23,11 @@ reference stores them), an attention layer's ``{"k", "v"}`` [.., B, Hk,
 S, Dh] with every prompt position's slot (the reference's prefill returns
 them all, whatever the window).  Decode writes every layer's new state
 and its key and value into the caches in place and returns them.
+
+Across ranks (``_hybrid_ranked``) each rank holds its blocks under
+``hybrid_param_specs`` and ``hybrid_cache_specs``: a recurrent layer runs
+on this rank's channels of the RG-LRU width (``_rec_ranked``), an
+attention layer on its q heads (``transformer._attn_ranked``).
 """
 from __future__ import annotations
 
@@ -42,11 +47,18 @@ _LRU_C = 8.0
 # RG-LRU
 # ---------------------------------------------------------------------------
 
-def _lru_coeffs(p, xc: torch.Tensor):
-    """Gates shared by scan and step.  xc: [..., R] (after the conv).
+def lru_gates(p, xc: torch.Tensor) -> tuple:
+    """The RG-LRU's gate products ``(xc @ wa, xc @ wi)`` in xc's dtype (on
+    one device; across ranks ``_gates_ranked``)."""
+    return xc @ p["wa"].to(xc.dtype), xc @ p["wi"].to(xc.dtype)
+
+
+def _lru_coeffs(p, xc: torch.Tensor, gates: tuple):
+    """Gates shared by scan and step.  xc: [..., R] (after the conv);
+    ``gates`` its products with ``wa`` and ``wi`` (``lru_gates``).
     Returns the float32 decay a and input b."""
-    r = torch.sigmoid((xc @ p["wa"].to(xc.dtype)).float())
-    i = torch.sigmoid((xc @ p["wi"].to(xc.dtype)).float())
+    r = torch.sigmoid(gates[0].float())
+    i = torch.sigmoid(gates[1].float())
     log_a = -_LRU_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -54,11 +66,11 @@ def _lru_coeffs(p, xc: torch.Tensor):
     return a, b
 
 
-def rg_lru_scan(p, xc: torch.Tensor) -> torch.Tensor:
+def rg_lru_scan(p, xc: torch.Tensor, gates: tuple) -> torch.Tensor:
     """xc: [B, S, R] -> h: [B, S, R] (float32 math, returns xc.dtype): an
     inclusive scan of ``(a_l, b_l) . (a_r, b_r) = (a_l a_r, b_l a_r +
     b_r)`` over S in ceil(log2 S) steps."""
-    a, b = _lru_coeffs(p, xc)
+    a, b = _lru_coeffs(p, xc, gates)
     d = 1
     while d < a.shape[1]:
         b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], dim=1)
@@ -67,9 +79,10 @@ def rg_lru_scan(p, xc: torch.Tensor) -> torch.Tensor:
     return b.to(xc.dtype)
 
 
-def rg_lru_step(p, xc_t: torch.Tensor, h_prev: torch.Tensor) -> torch.Tensor:
+def rg_lru_step(p, xc_t: torch.Tensor, h_prev: torch.Tensor,
+                gates: tuple) -> torch.Tensor:
     """xc_t: [B, R]; h_prev: [B, R].  Returns h [B, R] in xc_t's dtype."""
-    a, b = _lru_coeffs(p, xc_t)
+    a, b = _lru_coeffs(p, xc_t, gates)
     return (a * h_prev.float() + b).to(xc_t.dtype)
 
 
@@ -78,23 +91,35 @@ def rec_block(p, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     """Griffin recurrent mixer, gated output, then the SwiGLU FFN.
     ``mode`` "prefill" returns the layer's cache {"conv", "h"}; "decode"
     (S = 1) takes it and returns the new one."""
-    u = rms_norm(x, p["ln1"])
+    x, new_cache = _rec_mixer(p, x, rms_norm(x, p["ln1"]), mode=mode,
+                              cache=cache, gates=lru_gates,
+                              reduce=lambda y: y)
+    return tfm.dense_ffn_block(p, x), new_cache
+
+
+def _rec_mixer(p, x: torch.Tensor, u: torch.Tensor, *, mode: str,
+               cache: dict | None, gates, reduce):
+    """x plus the recurrent mixer's output on the normed input ``u``, and
+    the layer's cache (``cache`` itself in "train").  ``gates(p, xc)``
+    makes the gate products and ``reduce`` sums ``wo``'s product: on one
+    device ``lru_gates`` and nothing, across ranks (``_rec_ranked``) their
+    sharded forms."""
     gate = F.gelu(u @ p["wy"].to(u.dtype), approximate="tanh")
     xb = u @ p["wx"].to(u.dtype)
     new_cache = cache
     if mode == "decode":
         xc_t, conv_state = conv1d_step(xb[:, 0], cache["conv"], p["conv_w"],
                                        p["conv_b"])
-        h = rg_lru_step(p, xc_t, cache["h"])
+        h = rg_lru_step(p, xc_t, cache["h"], gates(p, xc_t))
         new_cache = {"conv": conv_state, "h": h}
         hs = h[:, None]
     else:
-        hs = rg_lru_scan(p, causal_conv1d(xb, p["conv_w"], p["conv_b"]))
+        xc = causal_conv1d(xb, p["conv_w"], p["conv_b"])
+        hs = rg_lru_scan(p, xc, gates(p, xc))
         if mode == "prefill":
             new_cache = {"conv": _conv_state(xb, p["conv_w"].shape[-1]),
                          "h": hs[:, -1]}
-    x = x + (hs * gate) @ p["wo"].to(x.dtype)
-    return tfm.dense_ffn_block(p, x), new_cache
+    return x + reduce((hs * gate) @ p["wo"].to(x.dtype)), new_cache
 
 
 def _attn_layer(p, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
@@ -166,11 +191,11 @@ def hybrid_param_specs(cfg: ArchConfig, mctx: MeshCtx) -> dict:
 
 
 def init_hybrid_params(cfg: ArchConfig, generator: torch.Generator,
-                       device=None, dtype: torch.dtype | None = None
-                       ) -> dict:
+                       device=None, dtype: torch.dtype | None = None,
+                       blocks: dict | None = None) -> dict:
     """The hybrid tree, drawn as ``transformer._init_from_shapes`` draws."""
     return tfm._init_from_shapes(hybrid_param_shapes(cfg), cfg, generator,
-                                 device, dtype)
+                                 device, dtype, blocks)
 
 
 def _cache_tree(cfg: ArchConfig, batch: int, n_slots: int) -> dict:
@@ -224,12 +249,13 @@ def hybrid_cache_specs(cfg: ArchConfig, mctx: MeshCtx,
 # Stack
 # ---------------------------------------------------------------------------
 
-def _apply_block(kind: str, p, x: torch.Tensor, cfg: ArchConfig, mode: str,
-                 positions, cache: dict | None, t: int | None
+def _apply_block(name: str, p, x: torch.Tensor, cfg: ArchConfig,
+                 mode: str, positions, cache: dict | None, t: int | None
                  ) -> torch.Tensor:
-    """One layer; its cache (views into the stacked caches) is updated in
+    """Layer ``name`` (a group's ``{i}_{kind}`` or ``tail{j}_{kind}``) on
+    one device; its cache (views into the stacked caches) is updated in
     place ("train" has none)."""
-    if kind == "rec":
+    if name.split("_")[1] == "rec":
         x, new = rec_block(p, x, cfg, mode=mode,
                            cache=cache if mode == "decode" else None)
         for k, c in (cache or {}).items():
@@ -240,20 +266,21 @@ def _apply_block(kind: str, p, x: torch.Tensor, cfg: ArchConfig, mode: str,
 
 
 def _run_hybrid(params, x: torch.Tensor, cfg: ArchConfig, mode: str,
-                positions, caches: dict | None, t: int | None = None
-                ) -> torch.Tensor:
+                positions, caches: dict | None, t: int | None = None,
+                apply=_apply_block) -> torch.Tensor:
     """The full groups in turn, each group's layers in sorted key order,
-    then the tail layers (the reference's ``_run_hybrid``).  "train" takes
-    no caches and runs each group index under ``remat``, as the reference
-    checkpoints its scanned group body (the tail layers are not)."""
+    then the tail layers (the reference's ``_run_hybrid``), each through
+    ``apply`` (``_apply_block``'s arguments; across ranks
+    ``_hybrid_ranked``'s).  "train" takes no caches and runs each group
+    index under ``remat``, as the reference checkpoints its scanned group
+    body (the tail layers are not)."""
     names = sorted(params["groups"])
     groups = {name: tfm._layers(params["groups"][name]) for name in names}
 
     def body(x, gp, gcache):
         for name in names:
-            x = _apply_block(name.split("_")[1], gp[name], x, cfg, mode,
-                             positions,
-                             None if gcache is None else gcache[name], t)
+            x = apply(name, gp[name], x, cfg, mode, positions,
+                      None if gcache is None else gcache[name], t)
         return x
 
     for i in range(len(groups[names[0]])):
@@ -264,9 +291,8 @@ def _run_hybrid(params, x: torch.Tensor, cfg: ArchConfig, mode: str,
             x = body(x, gp, {name: tfm._index(caches["groups"][name], i)
                              for name in names})
     for key in sorted(k for k in params if k.startswith("tail")):
-        x = _apply_block(key.split("_")[1], tfm._index(params[key], 0), x,
-                         cfg, mode, positions,
-                         None if caches is None else caches[key], t)
+        x = apply(key, tfm._index(params[key], 0), x, cfg, mode, positions,
+                  None if caches is None else caches[key], t)
     return x
 
 
@@ -291,12 +317,19 @@ def hybrid_loss(params, batch: dict, cfg: ArchConfig,
 
 
 def hybrid_prefill(params, batch: dict, cfg: ArchConfig,
-                   mctx: MeshCtx | None = None):
+                   mctx: MeshCtx | None = None, *,
+                   global_batch: int | None = None):
     """batch["tokens"]: [B, S] ids.  Returns (last-token logits [B, V]
-    float32, caches with S slots per attention layer).  One device: a mesh
-    of more than one raises."""
-    tfm.not_on_ranks(cfg, mctx)
+    float32, caches with S slots per attention layer).  On a mesh over
+    ranks every argument and result is this rank's block, as for
+    ``transformer.decoder_prefill``: ``params`` under
+    ``hybrid_param_specs``, the tokens of ``global_batch`` rows, the
+    caches under ``hybrid_cache_specs(cfg, mctx, S)`` (whose ``kv_spec``
+    branch is that of min(window, S) slots; ``_hybrid_ranked``)."""
     tokens = batch["tokens"]
+    if tfm.on_ranks(mctx):
+        return _hybrid_ranked(params, None, tokens, None, cfg, mctx,
+                              global_batch, None)
     x = tfm._embed_tokens(params, tokens, cfg)
     b, s, _ = x.shape
     caches = tfm._alloc(_cache_tree(cfg, b, s), x)
@@ -306,13 +339,100 @@ def hybrid_prefill(params, batch: dict, cfg: ArchConfig,
 
 
 def hybrid_decode_step(params, caches: dict, tokens: torch.Tensor, t: int,
-                       cfg: ArchConfig, mctx: MeshCtx | None = None):
+                       cfg: ArchConfig, mctx: MeshCtx | None = None, *,
+                       global_batch: int | None = None,
+                       n_slots: int | None = None):
     """tokens: [B, 1] new token ids at absolute position ``t`` (an int).
     Writes the new states, keys and values into ``caches`` in place.
-    Returns (logits [B, V] float32, caches).  One device: a mesh of more
-    than one raises."""
-    tfm.not_on_ranks(cfg, mctx)
+    Returns (logits [B, V] float32, caches).  On a mesh over ranks the
+    arguments and results are this rank's blocks, as for
+    ``transformer.decoder_decode_step``: the attention caches of
+    ``n_slots`` slots under ``kv_spec(cfg, mctx, n_slots)``."""
+    if tfm.on_ranks(mctx):
+        tfm._need_slots(mctx, n_slots)
+        return _hybrid_ranked(params, caches, tokens, t, cfg, mctx,
+                              global_batch, n_slots)
     x = tfm._embed_tokens(params, tokens, cfg)
     positions = torch.arange(t, t + 1, device=x.device)
     x = _run_hybrid(params, x, cfg, "decode", positions, caches, t=t)
     return _logits(params, rms_norm(x[:, -1], params["ln_f"])), caches
+
+
+# ---------------------------------------------------------------------------
+# Across ranks
+# ---------------------------------------------------------------------------
+
+def _hybrid_ranked(params, caches: dict | None, tokens: torch.Tensor,
+                   t: int | None, cfg: ArchConfig, mctx: MeshCtx,
+                   global_batch, n_slots):
+    """``hybrid_prefill`` (``caches`` None) or ``hybrid_decode_step`` on
+    this rank: the vocab-parallel embedding, the groups and tail layers
+    in the one-device order (``_run_hybrid``), each layer's weights
+    gathered from their FSDP blocks, then this rank's block of the logits
+    against its rows of the tied embedding."""
+    specs = hybrid_param_specs(cfg, mctx)
+    stored = dict(specs["groups"]) | {k: v for k, v in specs.items()
+                                      if k.startswith("tail")}
+    s = tokens.shape[1]
+    prefill = caches is None
+    rk = tfm._Ranks(cfg, mctx, global_batch, tokens.shape[0],
+                    min(cfg.window, s) if prefill else n_slots, stored,
+                    _COMPUTED)
+    x = tfm._embed_ranked(params, tokens, cfg, rk)
+    if prefill:
+        caches = tfm._cache_alloc(_cache_tree(cfg, global_batch, s),
+                                  hybrid_cache_specs(cfg, mctx, s), rk, x)
+        positions = torch.arange(s, device=x.device)
+    else:
+        positions = torch.arange(t, t + 1, device=x.device)
+
+    def apply(name, p, x, cfg, mode, positions, cache, t):
+        p = rk.layer(name, p)
+        if name.split("_")[1] == "rec":
+            x, new = _rec_ranked(p, x, rk, mode=mode, cache=cache)
+            for k, c in cache.items():
+                c.copy_(new[k])
+        else:
+            x = tfm._attn_ranked(p, x, cfg, rk, mode=mode,
+                                 positions=positions, cache=cache, t=t)
+        return tfm._ffn_ranked(p, x, rk)
+
+    x = _run_hybrid(params, x, cfg, "prefill" if prefill else "decode",
+                    positions, caches, t, apply)
+    return _logits(params, rms_norm(x[:, -1], params["ln_f"])), caches
+
+
+# The layout each RG-LRU leaf takes where its product runs: column-parallel
+# ``wx`` and ``wy``, the conv filters and ``lam`` per channel, the gates'
+# ``wa`` and ``wi`` by rows as stored (``_gates_ranked``), all over
+# ``model`` (the stored FSDP cut dropped)
+_COMPUTED = {"wx": P(None, "model"), "wy": P(None, "model"),
+             "conv_w": P("model", None), "conv_b": P("model"),
+             "lam": P("model"), "wa": P("model", None),
+             "wi": P("model", None)}
+
+
+def _gates_ranked(p, xc: torch.Tensor, rk) -> tuple:
+    """``(xc @ wa, xc @ wi)`` on this rank's channels of the RG-LRU width:
+    ``wa`` and ``wi`` are stored by rows (``P("model", None)``), so this
+    rank's channels of ``xc`` give partial products of every output
+    channel; summed over ``model`` and scattered back to this rank's
+    channels in one ``reduce_scatter`` of the two, in float32, then
+    rounded to the compute dtype as the one product would be."""
+    x32 = xc.float()
+    part = torch.stack([x32 @ p["wa"].float(), x32 @ p["wi"].float()])
+    gates = rk.mesh.reduce_scatter(part, "model", dim=-1).to(xc.dtype)
+    return gates[0], gates[1]
+
+
+def _rec_ranked(p, x: torch.Tensor, rk, *, mode: str, cache: dict):
+    """``rec_block``'s recurrent mixer on this rank's channels of the
+    RG-LRU width, ``p`` in the computed layout: ``wx`` and ``wy``
+    column-parallel, the conv, ``lam`` and the state ``h`` per channel
+    (its stored block), the gates from ``_gates_ranked``, ``wo``
+    row-parallel (summed over ``model``).  Returns x plus the mixer's
+    output (the caller runs the FFN) and the layer's new cache."""
+    return _rec_mixer(p, x, rk.mesh.pvary(rms_norm(x, p["ln1"]), "model"),
+                      mode=mode, cache=cache,
+                      gates=lambda p, xc: _gates_ranked(p, xc, rk),
+                      reduce=lambda y: rk.mesh.psum(y, "model"))

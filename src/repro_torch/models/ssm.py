@@ -17,6 +17,12 @@ compute dtype as the reference stores them: the conv state is the raw
 rounded to the compute dtype.  Prefill fills them; decode writes every
 layer's new state into them in place and returns them.
 
+Across ranks (``_ssm_ranked``) each rank holds its blocks under
+``ssm_param_specs`` and ``ssm_cache_specs``: the prefill runs the SSD on
+the heads whose channels cover its block of ``d_inner``, the decode step
+updates the SSM state in its stored layout, this rank's block of N of
+every head (``_mamba_ranked``).
+
 Mixed dtypes: where the reference's ``jnp.einsum`` meets a bf16 and a
 float32 operand it promotes to float32; here the bf16 operands are cast
 to float32 first, and each four-operand einsum is split into two-operand
@@ -200,10 +206,11 @@ def ssm_param_specs(cfg: ArchConfig, mctx: MeshCtx) -> dict:
 
 
 def init_ssm_params(cfg: ArchConfig, generator: torch.Generator,
-                    device=None, dtype: torch.dtype | None = None) -> dict:
+                    device=None, dtype: torch.dtype | None = None,
+                    blocks: dict | None = None) -> dict:
     """The SSM tree, drawn as ``transformer._init_from_shapes`` draws."""
     return tfm._init_from_shapes(ssm_param_shapes(cfg), cfg, generator,
-                                 device, dtype)
+                                 device, dtype, blocks)
 
 
 def ssm_cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
@@ -269,11 +276,16 @@ def ssm_loss(params, batch: dict, cfg: ArchConfig,
 
 
 def ssm_prefill(params, batch: dict, cfg: ArchConfig,
-                mctx: MeshCtx | None = None):
+                mctx: MeshCtx | None = None, *,
+                global_batch: int | None = None):
     """batch["tokens"]: [B, S] ids.  Returns (last-token logits [B, V]
-    float32, caches).  One device: a mesh of more than one raises."""
-    tfm.not_on_ranks(cfg, mctx)
+    float32, caches).  On a mesh over ranks every argument and result is
+    this rank's block, as for ``transformer.decoder_prefill``: ``params``
+    under ``ssm_param_specs``, the tokens of ``global_batch`` rows, the
+    caches under ``ssm_cache_specs`` (``_ssm_ranked``)."""
     tokens = batch["tokens"]
+    if tfm.on_ranks(mctx):
+        return _ssm_ranked(params, None, tokens, cfg, mctx, global_batch)
     x = tfm._embed_tokens(params, tokens, cfg)
     caches = tfm._alloc(ssm_cache_shapes(cfg, *tokens.shape), x)
     x = _stack(params, x, cfg, "prefill", caches)
@@ -282,13 +294,176 @@ def ssm_prefill(params, batch: dict, cfg: ArchConfig,
 
 
 def ssm_decode_step(params, caches: dict, tokens: torch.Tensor, t: int,
-                    cfg: ArchConfig, mctx: MeshCtx | None = None):
+                    cfg: ArchConfig, mctx: MeshCtx | None = None, *,
+                    global_batch: int | None = None,
+                    n_slots: int | None = None):
     """tokens: [B, 1] new token ids (the position ``t`` is not read: the
     state carries it).  Writes the new conv and SSM states into
-    ``caches`` in place.  Returns (logits [B, V] float32, caches).  One
-    device: a mesh of more than one raises."""
-    tfm.not_on_ranks(cfg, mctx)
+    ``caches`` in place.  Returns (logits [B, V] float32, caches).  On a
+    mesh over ranks the arguments and results are this rank's blocks, as
+    for ``ssm_prefill`` (``n_slots`` is not read: the caches hold no
+    slots)."""
+    if tfm.on_ranks(mctx):
+        return _ssm_ranked(params, caches, tokens, cfg, mctx, global_batch)
     x = tfm._embed_tokens(params, tokens, cfg)
     x = _stack(params, x, cfg, "decode", caches)
     x = rms_norm(x[:, -1], params["ln_f"])
     return tfm._logits(params, x, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# Across ranks
+# ---------------------------------------------------------------------------
+
+def _ssm_ranked(params, caches: dict | None, tokens: torch.Tensor,
+                cfg: ArchConfig, mctx: MeshCtx, global_batch):
+    """``ssm_prefill`` (``caches`` None) or ``ssm_decode_step`` on this
+    rank: the vocab-parallel embedding, each layer's weights gathered
+    from their FSDP blocks (``_Ranks.layer``), ``_mamba_ranked``, then
+    this rank's block of the logits against its rows of the tied
+    embedding."""
+    rk = tfm._Ranks(cfg, mctx, global_batch, tokens.shape[0], None,
+                    {"layers": ssm_param_specs(cfg, mctx)["layers"]},
+                    _COMPUTED)
+    x = tfm._embed_ranked(params, tokens, cfg, rk)
+    mode = "decode" if caches is not None else "prefill"
+    if caches is None:
+        caches = tfm._cache_alloc(
+            ssm_cache_shapes(cfg, global_batch, tokens.shape[1]),
+            ssm_cache_specs(cfg, mctx), rk, x)
+    whole = () if mode == "decode" else ("wxbc", "conv_w", "conv_b")
+    for p, cache in zip(tfm._layers(params["layers"]), tfm._layers(caches)):
+        p = rk.layer("layers", p, whole)
+        x, new = _mamba_ranked(p, x, cfg, rk, mode=mode, cache=cache)
+        for k, c in cache.items():
+            c.copy_(new[k])
+        del p, new
+    x = rms_norm(x[:, -1], params["ln_f"])
+    return tfm._logits(params, x, cfg), caches
+
+
+# The layout each mamba leaf takes where its product runs: column-parallel
+# ``wz`` and ``wxbc``, every head's ``wdt``, ``A_log``, ``D`` and
+# ``dt_bias``, the conv filters and ``ssm_ln`` per channel as stored over
+# ``model``, row-parallel ``out_proj`` (the stored FSDP cut dropped)
+_COMPUTED = {"ln": P(), "wz": P(None, "model"), "wxbc": P(None, "model"),
+             "wdt": P(), "A_log": P(), "D": P(), "dt_bias": P(),
+             "conv_w": P("model", None), "conv_b": P("model"),
+             "ssm_ln": P("model"), "out_proj": P("model", None)}
+
+
+def _head_span(cfg: ArchConfig, tp: int, r: int) -> tuple[int, int, int]:
+    """The heads [h0, h1) whose channels cover rank ``r``'s block of
+    ``d_inner`` (``wz``'s columns, ``ssm_ln``'s and ``out_proj``'s rows:
+    ``d_inner / tp`` channels, which may cut a head), and the block's
+    offset into the span's channels."""
+    cols, pd = cfg.d_inner // tp, cfg.ssm_headdim
+    h0 = r * cols // pd
+    return h0, -(-(r + 1) * cols // pd), r * cols - h0 * pd
+
+
+def _states_to_store(fs: torch.Tensor, cfg: ArchConfig, rk) -> torch.Tensor:
+    """The prefill's final states of this rank's head span ``fs`` [B, span,
+    Pd, N] as the stored cache block: every head's states, gathered over
+    ``model`` (each rank's span padded to the longest; a head taken from
+    the rank whose block holds its first channel), cut to this rank's
+    block of N where ``ssm_cache_specs`` splits N over ``model``."""
+    tp, h = rk.tp, cfg.ssm_nheads
+    cols, pd = cfg.d_inner // tp, cfg.ssm_headdim
+    spans = [_head_span(cfg, tp, r) for r in range(tp)]
+    m = max(h1 - h0 for h0, h1, _ in spans)
+    fs = F.pad(fs, (0, 0, 0, 0, 0, m - fs.shape[1]))
+    full = rk.mesh.all_gather(fs, "model", dim=1)           # [B, tp*m, ..]
+    idx = [(j * pd // cols) * m + j - spans[j * pd // cols][0]
+           for j in range(h)]
+    if idx != list(range(h)):
+        full = full.index_select(1, torch.tensor(idx, device=fs.device))
+    if cfg.ssm_state % tp == 0:
+        nb = cfg.ssm_state // tp
+        full = full[..., rk.r * nb:(rk.r + 1) * nb]
+    return full
+
+
+def _mamba_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk, *, mode: str,
+                  cache: dict):
+    """``mamba_block`` on this rank, ``p`` in the computed layout.  The
+    gate ``z``, the norm ``ssm_ln`` and ``out_proj``'s rows are this
+    rank's block of ``d_inner`` (a row-parallel product, summed over
+    ``model``); ``ssm_ln``'s mean of squares is summed over ``model`` too.
+    ``dt`` is every head's (``wdt`` whole).
+
+    Prefill ("prefill"; ``wxbc`` and the conv filters gathered whole): the
+    SSD runs on this rank's head span, from x's channels of those heads
+    and all of B and C (the column cut of ``wxbc`` does not follow the
+    x | B | C split); the cache takes the raw ``xbc`` of the last W-1
+    positions in its stored channel block and the final states relaid to
+    the stored layout (``_states_to_store``).
+
+    Decode: the conv step runs in the stored layout (per channel, on this
+    rank's block of ``wxbc``'s columns and of the conv state), its output
+    gathered over ``model``; the SSM state is updated in its stored layout,
+    this rank's block of N of every head (or all of it where N is not
+    split), and y's partial sums over N are summed over ``model``."""
+    bsz, s, _ = x.shape
+    d_in, ds, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, \
+        cfg.ssm_headdim
+    tp, r = rk.tp, rk.r
+    cols = d_in // tp
+    u = rk.mesh.pvary(rms_norm(x, p["ln"]), "model")
+    z = u @ p["wz"].to(u.dtype)
+    dt = u @ p["wdt"].to(u.dtype)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())          # [B, S, H]
+    a = -torch.exp(p["A_log"].float())                          # [H]
+    if mode == "decode":
+        xbc_t, conv_state = conv1d_step((u @ p["wxbc"].to(u.dtype))[:, 0],
+                                        cache["conv"], p["conv_w"],
+                                        p["conv_b"])
+        xbc_t = rk.mesh.all_gather(F.silu(xbc_t), "model", dim=-1)
+        xs = xbc_t[..., :d_in].reshape(bsz, h, pd).float()
+        n0, n1 = 0, ds
+        if ds % tp == 0:
+            n0, n1 = r * ds // tp, (r + 1) * ds // tp
+        b_t = xbc_t[..., d_in + n0:d_in + n1].float()
+        c_t = xbc_t[..., d_in + ds + n0:d_in + ds + n1].float()
+        dt_t = dt[:, 0]                                         # [B, H]
+        a_bar = torch.exp(dt_t * a[None])                       # [B, H]
+        st = cache["state"].float()
+        st = (a_bar[..., None, None] * st
+              + (dt_t[..., None] * xs)[..., None] * b_t[:, None, None, :])
+        y = torch.einsum("bhpn,bn->bhp", st, c_t)
+        if ds % tp == 0:
+            y = rk.mesh.psum(y, "model")
+        y = y + p["D"].float()[None, :, None] * xs
+        y = y.reshape(bsz, 1, d_in)[..., r * cols:(r + 1) * cols]
+        y = y.to(x.dtype)
+        new = {"conv": conv_state, "state": st.to(cache["state"].dtype)}
+    else:
+        h0, h1, off = _head_span(cfg, tp, r)
+        w = p["wxbc"]
+        w_need = torch.cat([w[:, h0 * pd:h1 * pd], w[:, d_in:]], dim=1)
+        cw, cb = p["conv_w"], p["conv_b"]
+        xbc = u @ w_need.to(u.dtype)
+        xbc_c = F.silu(causal_conv1d(
+            xbc, torch.cat([cw[h0 * pd:h1 * pd], cw[d_in:]]),
+            torch.cat([cb[h0 * pd:h1 * pd], cb[d_in:]])))
+        nx = (h1 - h0) * pd
+        xs = xbc_c[..., :nx].reshape(bsz, s, h1 - h0, pd)
+        b_mat, c_mat = xbc_c[..., nx:nx + ds], xbc_c[..., nx + ds:]
+        dt_h = dt[..., h0:h1]
+        x_bar = (xs.float() * dt_h[..., None]).to(x.dtype)
+        y, final_state = ssd_chunked(x_bar, dt_h * a[None, None, h0:h1],
+                                     b_mat, c_mat, cfg.ssd_chunk)
+        y = y + p["D"][h0:h1].to(y.dtype)[None, None, :, None] \
+            * xs.to(y.dtype)
+        y = y.reshape(bsz, s, nx)[..., off:off + cols].to(x.dtype)
+        # the conv state: the raw xbc of the stored channel block
+        cc = w.shape[1] // tp
+        width = cw.shape[-1]
+        tail = u[:, max(0, s - (width - 1)):] \
+            @ w[:, r * cc:(r + 1) * cc].to(u.dtype)
+        new = {"conv": _conv_state(tail, width),
+               "state": _states_to_store(final_state.to(x.dtype), cfg, rk)}
+    g = (y * F.silu(z)).float()
+    ss = rk.mesh.psum((g * g).sum(-1, keepdim=True), "model")
+    g = (g * torch.rsqrt(ss / d_in + 1e-6) * p["ssm_ln"].float()).to(x.dtype)
+    return x + rk.mesh.psum(g @ p["out_proj"].to(x.dtype), "model"), new

@@ -29,7 +29,11 @@ Under autograd the collectives run their transposes backward
 product enters through ``pvary``.  ``_constrain`` and
 ``_attn_constraints`` are the reference's layout hints; under the
 configs' ``attn_shard="auto"`` they are no-ops, and across ranks the
-other settings raise.
+other settings raise.  The enc-dec's prefill and decode run across ranks
+the same way (``_encdec_ranked``: the encoder on this rank's rows and
+heads, the cross caches laid out by ``kv_spec`` over ``enc_seq``), and
+so do the SSM's and the hybrid's (``ssm.py``, ``hybrid.py``), on the
+same ``_Ranks`` layout, which takes each family's stored spec tree.
 
 Weights may be held in the config's ``param_dtype`` (float32) and are cast
 to the compute dtype per use, as the reference does; ``cast_params``
@@ -351,11 +355,11 @@ def init_decoder_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 def init_encdec_params(cfg: ArchConfig, generator: torch.Generator,
-                       device=None, dtype: torch.dtype | None = None
-                       ) -> dict:
+                       device=None, dtype: torch.dtype | None = None,
+                       blocks: dict | None = None) -> dict:
     """The enc-dec tree, drawn as ``_init_from_shapes`` draws."""
     return _init_from_shapes(encdec_param_shapes(cfg), cfg, generator,
-                             device, dtype)
+                             device, dtype, blocks)
 
 
 def leaf_dtype(name: str, cfg: ArchConfig,
@@ -713,12 +717,20 @@ def on_ranks(mctx: MeshCtx | None) -> bool:
 
 
 def not_on_ranks(cfg: ArchConfig, mctx: MeshCtx | None) -> None:
-    """Raise for a family whose steps do not run across ranks yet."""
+    """Raise for a step that does not run across ranks yet: the training
+    loss of the enc-dec, SSM and hybrid families."""
     if mctx is not None and mctx.mesh.size > 1:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family runs on one device; its "
-            f"steps across ranks (on a {mctx.mesh} mesh) are not ported yet "
-            f"(the decoder families dense, moe and vlm are)")
+            f"{cfg.name}: the {cfg.family} family's training loss runs on "
+            f"one device; across ranks (on a {mctx.mesh} mesh) its prefill "
+            f"and decode run, its training is not ported yet (the decoder "
+            f"families dense, moe and vlm train across ranks)")
+
+
+def _need_slots(mctx: MeshCtx, n_slots: int | None) -> None:
+    if n_slots is None:
+        raise ValueError(f"a decode step on a {mctx.mesh} mesh over ranks "
+                         f"takes the caches' global slot count (n_slots=)")
 
 
 def _constrain(x: torch.Tensor, mctx: MeshCtx | None, spec: P
@@ -752,14 +764,30 @@ def _attn_constraints(q, k, v, cfg: ArchConfig, mctx: MeshCtx | None,
     return q, k, v
 
 
+def kv_branch(cfg: ArchConfig, mctx: MeshCtx, n_slots: int) -> str:
+    """``kv_spec``'s branch for a cache of ``n_slots`` slots: "heads",
+    "slots" or "replicated"."""
+    spec = kv_spec(cfg, mctx, n_slots)
+    return ("heads" if spec[2] == "model" else
+            "slots" if spec[3] == "model" else "replicated")
+
+
 class _Ranks:
     """One step's layout on this rank: the global batch and the data axes
-    that split it, this rank's q heads and KV heads, the KV cache's
-    ``kv_spec`` branch, and each layer group's stored and computed
-    weight layouts."""
+    that split it, this rank's q heads and KV heads, the KV caches'
+    ``kv_spec`` branches (the self-attention's of ``n_slots`` slots; an
+    enc-dec's cross-attention's of ``enc_seq``; ``n_slots`` None for a
+    family without attention), and each layer group's stored and
+    computed weight layouts.  ``stored`` is the family's stored spec tree
+    of its layer groups by name (stacked: a leading layer dim), the
+    decoder's ``layers`` by default; the computed layout is chosen leaf
+    by leaf: the attention and FFN leaves' from ``_computed_specs``, the
+    family's own leaves' from ``computed`` (a leaf named in both
+    raises)."""
 
     def __init__(self, cfg: ArchConfig, mctx: MeshCtx, global_batch,
-                 rows: int, n_slots: int):
+                 rows: int, n_slots: int | None, stored: dict | None = None,
+                 computed: dict | None = None):
         if global_batch is None:
             raise ValueError(f"a step on a {mctx.mesh} mesh over ranks takes "
                              f"the global batch (global_batch=): its "
@@ -775,48 +803,51 @@ class _Ranks:
         tp, r = mctx.tp_size, self.mesh.axis_index("model")
         hq, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         self.tp, self.r = tp, r
-        # wo's rows on this rank are o's columns [r * cols, (r + 1) * cols):
-        # the q heads that cover them are this rank's
-        self.cols = hq * dh // tp
-        if hq % tp == 0:
-            self.q0, self.q1 = r * hq // tp, (r + 1) * hq // tp
-        else:
-            self.q0 = r * self.cols // dh
-            self.q1 = -(-(r + 1) * self.cols // dh)
-        self.o_off = r * self.cols - self.q0 * dh
-        # the KV heads this rank computes: its block where ``model`` divides
-        # them, else all (the cache holds every head in both other branches)
-        self.k0, self.k1 = ((r * hk // tp, (r + 1) * hk // tp)
-                            if hk % tp == 0 else (0, hk))
-        g = hq // hk
-        self.kv_idx = [qh // g - self.k0 for qh in range(self.q0, self.q1)]
         self.n_slots = n_slots
-        spec = kv_spec(cfg, mctx, n_slots)
-        self.branch = ("heads" if spec[2] == "model" else
-                       "slots" if spec[3] == "model" else "replicated")
-        stored = decoder_param_specs(cfg, mctx)["layers"]
-        self.stored = {name: _drop_lead(sp) for name, sp in stored.items()}
-        q_cols = P(None, "model") if hq % tp == 0 else P()
-        kv_cols = P(None, "model") if hk % tp == 0 else P()
-        attn = {"ln1": P(), "wq": q_cols, "wk": kv_cols, "wv": kv_cols,
-                "wo": P("model", None)}
-        self.want = {}
-        for name in stored:
-            if name.startswith("dense"):
-                self.want[name] = attn | {
-                    "ln2": P(), "wg": P(None, "model"),
-                    "wu": P(None, "model"), "wd": P("model", None)}
+        if n_slots is not None:
+            # wo's rows on this rank are o's columns [r * cols, (r + 1) *
+            # cols): the q heads that cover them are this rank's
+            self.cols = hq * dh // tp
+            if hq % tp == 0:
+                self.q0, self.q1 = r * hq // tp, (r + 1) * hq // tp
             else:
-                self.want[name] = attn | {"ln2": P(), "moe": moe_in_specs(
-                    cfg, mctx, global_batch)}
+                self.q0 = r * self.cols // dh
+                self.q1 = -(-(r + 1) * self.cols // dh)
+            self.o_off = r * self.cols - self.q0 * dh
+            # the KV heads this rank computes: its block where ``model``
+            # divides them, else all (the cache holds every head in both
+            # other branches)
+            self.k0, self.k1 = ((r * hk // tp, (r + 1) * hk // tp)
+                                if hk % tp == 0 else (0, hk))
+            g = hq // hk
+            self.kv_idx = [qh // g - self.k0
+                           for qh in range(self.q0, self.q1)]
+            self.branch = kv_branch(cfg, mctx, n_slots)
+            if cfg.family == "encdec":
+                self.x_branch = kv_branch(cfg, mctx, cfg.enc_seq)
+        if stored is None:
+            stored = decoder_param_specs(cfg, mctx)["layers"]
+        self.stored = {name: _drop_lead(sp) for name, sp in stored.items()}
+        own = computed or {}
+        computed = _computed_specs(cfg, mctx, global_batch)
+        if computed.keys() & own.keys():
+            raise ValueError(f"{sorted(computed.keys() & own.keys())}: a "
+                             f"family's leaf named as an attention or FFN "
+                             f"leaf")
+        computed = computed | own
+        self.want = {name: {k: computed[k.removeprefix("x_")] for k in sp}
+                     for name, sp in self.stored.items()}
 
-    def layer(self, name: str, p: dict) -> dict:
+    def layer(self, name: str, p: dict, whole: tuple = ()) -> dict:
         """Layer ``p`` of group ``name`` (this rank's stored blocks) in the
-        layout its products take: ``relayout`` of every leaf, each matrix
-        cast to the compute dtype first (the cast each use makes, made
-        before the gather: the same values, fewer bytes)."""
-        return _relayout_tree(p, self.stored[name], self.want[name],
-                              self.mctx,
+        layout its products take: ``relayout`` of every leaf (those named
+        in ``whole`` gathered whole), each matrix cast to the compute dtype
+        first (the cast each use makes, made before the gather: the same
+        values, fewer bytes)."""
+        want = self.want[name]
+        if whole:
+            want = want | {k: P() for k in whole}
+        return _relayout_tree(p, self.stored[name], want, self.mctx,
                               getattr(torch, self.cfg.compute_dtype))
 
     def kv(self, kt: torch.Tensor) -> torch.Tensor:
@@ -828,6 +859,27 @@ class _Ranks:
         if nq % n == 0 and idx == [lo + i // (nq // n) for i in range(nq)]:
             return kt[:, lo:lo + n]
         return kt.index_select(1, torch.tensor(idx, device=kt.device))
+
+
+def _computed_specs(cfg: ArchConfig, mctx: MeshCtx, global_batch) -> dict:
+    """The layout each attention and FFN leaf takes where its product
+    runs, by key (a cross-attention leaf ``x_*`` as its self-attention
+    one): the norms whole; column-parallel ``wq``/``wk``/``wv`` (whole
+    where ``model`` does not divide the heads) and ``wg``/``wu``;
+    row-parallel ``wo``/``wd``; the MoE block's ``moe_in_specs``.  Each
+    drops the stored FSDP cut over the data axes.  The SSM's and the
+    RG-LRU's leaves come from their modules (``_Ranks``' ``computed``)."""
+    tp = mctx.tp_size
+    cols, rows = P(None, "model"), P("model", None)
+    q_cols = cols if cfg.num_heads and cfg.num_heads % tp == 0 else P()
+    kv_cols = cols if cfg.num_kv_heads and cfg.num_kv_heads % tp == 0 \
+        else P()
+    out = {"ln1": P(), "ln2": P(),
+           "wq": q_cols, "wk": kv_cols, "wv": kv_cols, "wo": rows,
+           "wg": cols, "wu": cols, "wd": rows}
+    if cfg.num_experts:
+        out["moe"] = moe_in_specs(cfg, mctx, global_batch)
+    return out
 
 
 def _drop_lead(specs):
@@ -859,40 +911,69 @@ def _embed_ranked(params, tokens: torch.Tensor, cfg: ArchConfig,
     return rk.mesh.psum(x, "model")
 
 
+def _q_ranked(p, h: torch.Tensor, cfg: ArchConfig, rk: _Ranks
+              ) -> torch.Tensor:
+    """This rank's q heads [B, S, q1 - q0, Dh] of the normed input ``h``:
+    its columns of ``wq``, or its span of them where ``model`` does not
+    divide the heads (``wq`` gathered whole)."""
+    b, s, _ = h.shape
+    dh = cfg.head_dim
+    wq = p["wq"]
+    if cfg.num_heads % rk.tp:                        # every head gathered
+        wq = wq[:, rk.q0 * dh:rk.q1 * dh]
+    return (h @ wq.to(h.dtype)).reshape(b, s, rk.q1 - rk.q0, dh)
+
+
+def _out_ranked(p, x: torch.Tensor, o: torch.Tensor, rk: _Ranks
+                ) -> torch.Tensor:
+    """x plus the row-parallel output projection of this rank's heads'
+    output ``o`` [B, heads, S, Dh]: its columns times its rows of ``wo``,
+    summed over ``model``."""
+    b, s, _ = x.shape
+    o = o.transpose(1, 2).reshape(b, s, -1)[..., rk.o_off:rk.o_off + rk.cols]
+    return x + rk.mesh.psum(o @ p["wo"].to(x.dtype), "model")
+
+
+def _store_kv(cache: torch.Tensor, kt: torch.Tensor, branch: str,
+              rk: _Ranks) -> None:
+    """Write a prefill's keys or values ``kt`` [B, heads computed, S, Dh]
+    into this rank's cache block: its block of slots in the "slots"
+    branch, all of them otherwise."""
+    if branch == "slots":
+        n = cache.shape[2]
+        kt = kt[:, :, rk.r * n:(rk.r + 1) * n]
+    cache.copy_(kt)
+
+
 def _attn_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
-                 mode: str, positions, cache: dict, t=None) -> torch.Tensor:
+                 mode: str, positions, cache: dict, t=None,
+                 causal: bool = True, use_rotary: bool = True
+                 ) -> torch.Tensor:
     """``attn_block`` on this rank's q heads, ``p`` in the computed layout
     (``_Ranks.layer``).  The cache by ``kv_spec``'s branch: "heads", this
     rank's KV heads; "slots", every head of this rank's block of slots
     (decode: the rank holding slot ``t % S`` writes it, and the blocks are
     gathered over ``model`` before the kernel); "replicated", every head
-    and slot of this rank's rows; "train" keeps none.  The output
-    projection is row-parallel: this rank's columns of the heads' output
-    times its rows of ``wo``, summed over ``model``.  The normed input
-    enters this rank's heads through ``pvary``: its cotangents, this
-    rank's heads' alone (every KV head's where each rank computes all and
-    keeps some), are summed over ``model``."""
+    and slot of this rank's rows; "train" keeps none (and runs the
+    encoder: ``causal`` and ``use_rotary`` False).  The output projection is
+    row-parallel (``_out_ranked``).  The normed input enters this rank's
+    heads through ``pvary``: its cotangents, this rank's heads' alone
+    (every KV head's where each rank computes all and keeps some), are
+    summed over ``model``."""
     h = rk.mesh.pvary(rms_norm(x, p["ln1"]), "model")
     b, s, _ = x.shape
     dt, dh = h.dtype, cfg.head_dim
-    wq = p["wq"]
-    if cfg.num_heads % rk.tp:                        # every head gathered
-        wq = wq[:, rk.q0 * dh:rk.q1 * dh]
-    q = (h @ wq.to(dt)).reshape(b, s, rk.q1 - rk.q0, dh)
+    q = _q_ranked(p, h, cfg, rk)
     k = (h @ p["wk"].to(dt)).reshape(b, s, rk.k1 - rk.k0, dh)
     v = (h @ p["wv"].to(dt)).reshape(b, s, rk.k1 - rk.k0, dh)
-    q = rotary(q, positions, cfg.rope_theta)
-    k = rotary(k, positions, cfg.rope_theta)
+    if use_rotary:
+        q = rotary(q, positions, cfg.rope_theta)
+        k = rotary(k, positions, cfg.rope_theta)
     if mode == "prefill":
         qt, kt, vt = _attn_constraints(q.transpose(1, 2), k.transpose(1, 2),
                                        v.transpose(1, 2), cfg, rk.mctx, mode)
-        if rk.branch == "slots":
-            n = cache["k"].shape[2]
-            cache["k"].copy_(kt[:, :, rk.r * n:(rk.r + 1) * n])
-            cache["v"].copy_(vt[:, :, rk.r * n:(rk.r + 1) * n])
-        else:
-            cache["k"].copy_(kt)
-            cache["v"].copy_(vt)
+        _store_kv(cache["k"], kt, rk.branch, rk)
+        _store_kv(cache["v"], vt, rk.branch, rk)
         o = chunked_attention(qt, rk.kv(kt), rk.kv(vt), causal=True,
                               window=cfg.window, chunk_attn=cfg.chunk_attn)
     elif mode == "decode":
@@ -912,13 +993,41 @@ def _attn_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
                              t, window=cfg.window, chunk_attn=cfg.chunk_attn)
     elif mode == "train":
         o = chunked_attention(q.transpose(1, 2), rk.kv(k.transpose(1, 2)),
-                              rk.kv(v.transpose(1, 2)), causal=True,
+                              rk.kv(v.transpose(1, 2)), causal=causal,
                               window=cfg.window, chunk_attn=cfg.chunk_attn)
     else:
         raise ValueError(f"mode must be 'prefill', 'decode' or 'train', "
                          f"got {mode!r}")
-    o = o.transpose(1, 2).reshape(b, s, -1)[..., rk.o_off:rk.o_off + rk.cols]
-    return x + rk.mesh.psum(o @ p["wo"].to(x.dtype), "model")
+    return _out_ranked(p, x, o, rk)
+
+
+def _cross_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
+                  mode: str, cache: tuple, enc_out=None) -> torch.Tensor:
+    """``attn_block``'s cross-attention on this rank's q heads (no rotary,
+    not causal), ``p`` the ``x_*`` leaves in the computed layout.  The
+    cross caches ``(cross_k, cross_v)`` by ``kv_spec(cfg, mctx,
+    enc_seq)``'s branch (``_Ranks.x_branch``): the prefill projects the
+    encoder output ``enc_out`` (this rank's rows, whole over ``model``)
+    into this rank's KV heads and stores its block; decode reads them,
+    gathered over ``model`` first in the "slots" branch, at ``t =
+    enc_seq - 1`` as the reference does."""
+    h = rk.mesh.pvary(rms_norm(x, p["ln1"]), "model")
+    b, dh = x.shape[0], cfg.head_dim
+    q = _q_ranked(p, h, cfg, rk).transpose(1, 2)
+    kc, vc = cache
+    if mode == "prefill":
+        kt, vt = ((enc_out @ p[w].to(enc_out.dtype)).reshape(
+            b, -1, rk.k1 - rk.k0, dh).transpose(1, 2) for w in ("wk", "wv"))
+        _store_kv(kc, kt, rk.x_branch, rk)
+        _store_kv(vc, vt, rk.x_branch, rk)
+        o = chunked_attention(q, rk.kv(kt), rk.kv(vt), causal=False,
+                              window=cfg.window, chunk_attn=cfg.chunk_attn)
+    else:
+        if rk.x_branch == "slots":
+            kc = rk.mesh.all_gather(kc, "model", dim=2)
+            vc = rk.mesh.all_gather(vc, "model", dim=2)
+        o = decode_attention(q, rk.kv(kc), rk.kv(vc), None, kc.shape[2] - 1)
+    return _out_ranked(p, x, o, rk)
 
 
 def _ffn_ranked(p, x: torch.Tensor, rk: _Ranks) -> torch.Tensor:
@@ -965,15 +1074,24 @@ def _stack_ranked(params, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks,
     return x
 
 
-def _cache_blocks(cfg: ArchConfig, rk: _Ranks, s: int, like: torch.Tensor
-                  ) -> dict:
-    """Empty caches of ``s`` slots: this rank's blocks under ``kv_spec``."""
-    spec = kv_spec(cfg, rk.mctx, rk.n_slots)
-    shard = rk.mctx.sharding(P(None, rk.dp, *spec[2:]))
-    return _alloc({name: {kv: shard.shard_shape(shape) for kv, shape in
-                          group.items()}
-                   for name, group in kv_shapes(
-                       cfg, rk.global_batch, s).items()}, like)
+def _cache_alloc(shapes: dict, specs: dict, rk: _Ranks,
+                 like: torch.Tensor) -> dict:
+    """Empty caches: this rank's blocks of ``shapes`` (the global caches)
+    under ``specs`` (a family's cache specs), the data axes dropped where
+    they do not divide the batch, in ``like``'s dtype and on its
+    device."""
+    dp = P(rk.mctx.dp)[0]
+
+    def block(shape, spec: P) -> tuple:
+        spec = P(*(rk.dp if e == dp else e for e in spec))
+        return rk.mctx.sharding(spec).shard_shape(shape)
+
+    def walk(sh, sp):
+        if isinstance(sh, dict):
+            return {k: walk(v, sp[k]) for k, v in sh.items()}
+        return block(sh, sp)
+
+    return _alloc(walk(shapes, specs), like)
 
 
 def _prefill_ranked(params, batch: dict, cfg: ArchConfig, mctx: MeshCtx,
@@ -984,7 +1102,8 @@ def _prefill_ranked(params, batch: dict, cfg: ArchConfig, mctx: MeshCtx,
                 kv_cache_len(cfg, s))
     x = _prepend_images(params, _embed_ranked(params, tokens, cfg, rk),
                         batch, cfg)
-    caches = _cache_blocks(cfg, rk, s, x)
+    caches = _cache_alloc(kv_shapes(cfg, global_batch, s),
+                          decoder_cache_specs(cfg, mctx, s), rk, x)
     positions = torch.arange(s, device=x.device)
     x = _stack_ranked(params, x, cfg, rk, "prefill", positions, caches)
     x = rms_norm(x[:, -1], params["ln_f"])
@@ -1013,9 +1132,7 @@ def _loss_ranked(params, batch: dict, cfg: ArchConfig, mctx: MeshCtx,
 
 def _decode_ranked(params, caches, tokens: torch.Tensor, t: int,
                    cfg: ArchConfig, mctx: MeshCtx, global_batch, n_slots):
-    if n_slots is None:
-        raise ValueError(f"a decode step on a {mctx.mesh} mesh over ranks "
-                         f"takes the caches' global slot count (n_slots=)")
+    _need_slots(mctx, n_slots)
     rk = _Ranks(cfg, mctx, global_batch, tokens.shape[0], n_slots)
     x = _embed_ranked(params, tokens, cfg, rk)
     positions = torch.arange(t, t + 1, device=x.device)
@@ -1055,14 +1172,21 @@ def _enc_layer(cfg: ArchConfig):
     return body
 
 
+def _encoder_input(params, frames: torch.Tensor, cfg: ArchConfig
+                   ) -> torch.Tensor:
+    """The frames projected (``frame_proj``, replicated across ranks) in
+    the compute dtype, plus the sinusoid positions."""
+    dt = getattr(torch, cfg.compute_dtype)
+    x = frames.to(dt) @ params["frame_proj"].to(dt)
+    return x + sinusoid_positions(x.shape[1], cfg.d_model,
+                                  x.device).to(dt)[None]
+
+
 def _encode(params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Encoder output [B, enc_seq, d]: the frames projected, plus sinusoid
     positions, through non-causal self-attention layers without rotary
     (each under ``remat`` when a gradient is taken)."""
-    dt = getattr(torch, cfg.compute_dtype)
-    x = frames.to(dt) @ params["frame_proj"].to(dt)
-    x = x + sinusoid_positions(x.shape[1], cfg.d_model,
-                               x.device).to(dt)[None]
+    x = _encoder_input(params, frames, cfg)
     body = _enc_layer(cfg)
     x, _ = scan_or_unroll(cfg, lambda c, p: (remat(cfg, body, c, p), None),
                           x, params["enc_layers"])
@@ -1122,14 +1246,20 @@ def encdec_loss(params, batch: dict, cfg: ArchConfig,
 
 
 def encdec_prefill(params, batch: dict, cfg: ArchConfig,
-                   mctx: MeshCtx | None = None):
+                   mctx: MeshCtx | None = None, *,
+                   global_batch: int | None = None):
     """batch["frames"]: [B, enc_seq, 1024], batch["tokens"]: [B, S] ids.
     Returns (last-token logits [B, V] float32, caches: self-attention with
     exactly S slots, and the cross-attention keys and values of every
-    decoder layer over the encoder output).  One device: a mesh of more
-    than one raises."""
+    decoder layer over the encoder output).  On a mesh over ranks every
+    argument and result is this rank's block, as for ``decoder_prefill``:
+    ``params`` under ``encdec_param_specs``, the frames and tokens of
+    ``global_batch`` rows, the caches under ``encdec_cache_specs(cfg,
+    mctx, S)`` (``_encdec_ranked``)."""
     _check_supported(cfg, ("encdec",))
-    not_on_ranks(cfg, mctx)
+    if on_ranks(mctx):
+        return _encdec_ranked(params, batch, None, batch["tokens"], None,
+                              cfg, mctx, global_batch, None)
     enc_out = _encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -1150,13 +1280,20 @@ def encdec_prefill(params, batch: dict, cfg: ArchConfig,
 
 
 def encdec_decode_step(params, caches, tokens: torch.Tensor, t: int,
-                       cfg: ArchConfig, mctx: MeshCtx | None = None):
+                       cfg: ArchConfig, mctx: MeshCtx | None = None, *,
+                       global_batch: int | None = None,
+                       n_slots: int | None = None):
     """tokens: [B, 1] new token ids at absolute position ``t`` (an int).
     Writes the new self-attention keys and values into ``caches`` in
     place; the cross caches are read whole.  Returns (logits [B, V]
-    float32, caches).  One device: a mesh of more than one raises."""
+    float32, caches).  On a mesh over ranks the arguments and results are
+    this rank's blocks, as for ``decoder_decode_step``: the
+    self-attention caches of ``n_slots`` slots."""
     _check_supported(cfg, ("encdec",))
-    not_on_ranks(cfg, mctx)
+    if on_ranks(mctx):
+        _need_slots(mctx, n_slots)
+        return _encdec_ranked(params, None, caches, tokens, t, cfg, mctx,
+                              global_batch, n_slots)
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(t, t + 1, device=x.device)
     def layer(x, xs):
@@ -1166,3 +1303,62 @@ def encdec_decode_step(params, caches, tokens: torch.Tensor, t: int,
     x, _ = scan_or_unroll(cfg, layer, x, (params["dec_layers"], caches))
     x = rms_norm(x[:, -1], params["ln_f"])
     return _logits(params, x, cfg), caches
+
+
+def _encdec_ranked(params, batch: dict | None, caches: dict | None,
+                   tokens: torch.Tensor, t: int | None, cfg: ArchConfig,
+                   mctx: MeshCtx, global_batch, n_slots):
+    """The enc-dec's prefill (``batch`` given) or decode step (``caches``
+    given) on this rank.  The prefill runs the encoder first: the frames
+    of this rank's rows through the replicated ``frame_proj``, the
+    sinusoid positions, then per encoder layer non-causal attention
+    without rotary on this rank's heads (``_attn_ranked``) and the
+    tensor-parallel FFN; ``ln_enc``.  Each decoder layer: self-attention
+    (``_attn_ranked``, the cache by ``kv_spec(cfg, mctx, S)``),
+    cross-attention (``_cross_ranked``, the cross caches by ``kv_spec(cfg,
+    mctx, enc_seq)``), the FFN.  The logits are this rank's block
+    ``P(dp, "model")``, against ``unembed``'s ``P(None, "model")``
+    block."""
+    specs = encdec_param_specs(cfg, mctx)
+    stored = {"enc": specs["enc_layers"], "dec": specs["dec_layers"]}
+    prefill = batch is not None
+    s = tokens.shape[1]
+    rk = _Ranks(cfg, mctx, global_batch, tokens.shape[0],
+                s if prefill else n_slots, stored)
+    x = _embed_ranked(params, tokens, cfg, rk)
+    enc_out = None
+    if prefill:
+        enc_out = _encode_ranked(params, batch["frames"], cfg, rk)
+        caches = _cache_alloc(encdec_cache_shapes(cfg, global_batch, s),
+                              encdec_cache_specs(cfg, mctx, s), rk, x)
+        positions = torch.arange(s, device=x.device)
+    else:
+        positions = torch.arange(t, t + 1, device=x.device)
+    mode = "prefill" if prefill else "decode"
+    for p, lc in zip(_layers(params["dec_layers"]), _layers(caches)):
+        p = rk.layer("dec", p)
+        x = _attn_ranked(p, x, cfg, rk, mode=mode, positions=positions,
+                         cache=lc["self"], t=t)
+        xp = {k[2:]: v for k, v in p.items() if k.startswith("x_")}
+        x = _cross_ranked(xp, x, cfg, rk, mode=mode,
+                          cache=(lc["cross_k"], lc["cross_v"]),
+                          enc_out=enc_out)
+        x = _ffn_ranked(p, x, rk)
+        del p, xp
+    x = rms_norm(x[:, -1], params["ln_f"])
+    return _logits(params, x, cfg), caches
+
+
+def _encode_ranked(params, frames: torch.Tensor, cfg: ArchConfig,
+                   rk: _Ranks) -> torch.Tensor:
+    """``_encode`` on this rank's rows: [B_rank, enc_seq, d], whole over
+    ``model`` (the row-parallel products' psums), entering the
+    cross-attention's column-parallel products through ``pvary``."""
+    x = _encoder_input(params, frames, cfg)
+    for p in _layers(params["enc_layers"]):
+        p = rk.layer("enc", p)
+        x = _attn_ranked(p, x, cfg, rk, mode="train", positions=None,
+                         cache=None, causal=False, use_rotary=False)
+        x = _ffn_ranked(p, x, rk)
+        del p
+    return rk.mesh.pvary(rms_norm(x, params["ln_enc"]), "model")

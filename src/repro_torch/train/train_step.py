@@ -1,10 +1,11 @@
 """The train / prefill / serve steps for every architecture (the
-reference's ``repro.train.train_step``).  Each runs on one device, and for
-the decoder families (dense, MoE, VLM) also across ranks (``mctx`` over
-the ranks of a process group: every argument and result is this rank's
-block under the spec trees, ``models.transformer``), where the steps take
-the global batch (``global_batch=``) and a decode step the caches' global
-slot count (``n_slots=``).
+reference's ``repro.train.train_step``).  Each runs on one device, and
+also across ranks (``mctx`` over the ranks of a process group: every
+argument and result is this rank's block under the spec trees,
+``models.transformer``): the prefill and serve steps of every family, the
+train step of the decoder families (dense, MoE, VLM).  There the steps
+take the global batch (``global_batch=``) and a decode step the caches'
+global slot count (``n_slots=``).
 
 ``make_train_step`` returns train_step(params, opt_state, batch) ->
 (params, opt_state, metrics): the loss and its gradient by autograd,

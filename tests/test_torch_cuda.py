@@ -718,3 +718,43 @@ def test_cuda_meta_trace_launches_no_kernel(hopper):
         assert cost["attention_flops"] > 0
     assert (flash_ops.launches, flash_ops.bwd_launches,
             decode_ops.launches) == before
+
+
+@pytest.mark.gpu
+def test_cuda_flash_family_rank_shapes_match_plain_version(hopper):
+    """The flash kernel at the shapes each rank of ``chip_smoke.py``'s
+    phase 16 (b) gives it: whisper-medium's encoder on 4 of 16 heads
+    (1,500 frames, D 64, not causal) and recurrentgemma-2b's prefill on
+    its span of 3 q heads over the one KV head (D 256, the 2,048 window)."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    keys = []
+    for key, arch, q, k, v, mask in _smoke().family_rank_flash(torch,
+                                                               hopper):
+        _smoke().attn_err(torch, flash_attention(q, k, v, **mask),
+                          flash_attention_ref(q, k, v, **mask), "bfloat16",
+                          f"{arch} {key}")
+        keys.append(key)
+    assert keys == ["rank_encoder_shape", "rank_hybrid_shape"]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-medium", "recurrentgemma-2b"])
+def test_cuda_decode_family_rank_shapes_match_plain_version(hopper, arch):
+    """The decode kernel at the shapes each rank of phase 16 (b) gives it:
+    whisper-medium's cross decode on 4 of 16 heads over 1,500 slots, and
+    recurrentgemma-2b's decode, 3 q heads on the one KV head at D 256
+    over the 514 slots of its last step."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attention
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    smoke = _smoke()
+    sv = smoke.FAMILY_RANK[arch]
+    cfg = smoke.shape_cfg(arch, sv)
+    q, k, v, lo, hi = smoke.decode_shape(torch, hopper, cfg, sv, 63,
+                                         cross=cfg.family == "encdec")
+    vl, lo = (torch.full((q.shape[0],), n, dtype=torch.int32,
+                         device=hopper) for n in (hi, lo))
+    smoke.attn_err(torch, decode_attention(q, k, v, vl, lo),
+                   decode_attention_ref(q, k, v, vl, lo), "bfloat16", arch)
+    torch.cuda.synchronize()

@@ -226,9 +226,19 @@ def test_run_cell_record_keys():
                 "output_bytes", "temp_bytes", "peak_bytes_per_device",
                 "collective_bytes", "collective_bytes_total", "n_devices"}
     assert ref_keys <= set(rec)
-    assert rec["collective_bytes"] is None and rec["n_devices"] == 256
+    assert rec["n_devices"] == 256
+    # mamba2's decode runs across ranks: the rank's own collectives
+    coll = dryrun.count_collectives(get_config("mamba2-130m"),
+                                    get_shape("long_500k"),
+                                    production_mesh_ctx())
+    assert rec["collective_bytes"] == coll["bytes"]
+    assert rec["collective_bytes_total"] == sum(coll["bytes"].values()) > 0
     assert [rec["argument_bytes"], rec["output_bytes"]] == \
         PINS["mamba2-130m"]["bytes"]["16x16"]["long_500k"]
+    train = dryrun.run_cell("mamba2-130m", "train_4k", multi_pod=False,
+                            verbose=False)
+    assert train["ok"] and train["collective_bytes"] is None
+    assert "not ported" in train["collectives"]
 
 
 def test_collective_bytes_of_a_decode_cell_written_out():
@@ -254,24 +264,100 @@ def test_collective_bytes_of_a_decode_cell_written_out():
 
 
 def test_every_decoder_serving_cell_counts_its_collectives():
-    """Non-null bytes for every decoder-family decode and train cell on
-    both production meshes (a train step's backward adds the
-    reduce-scatters), and for a prefill (the sweep,
-    ``python -m repro_torch.launch.dryrun --all --both-meshes``, counts
-    every prefill); the other families say why theirs are null."""
+    """Non-null bytes for every decode and train cell of the decoder
+    families and every decode cell of the others on both production
+    meshes (a train step's backward adds the reduce-scatters; the
+    RG-LRU's gates add one a layer), and for the prefill cells of
+    llama3.2-3b and the three other families (the sweep, ``python -m
+    repro_torch.launch.dryrun --all --both-meshes``, counts every
+    prefill); the enc-dec, SSM and hybrid families' train cells say why
+    theirs are null."""
+    others = ("whisper-medium", "mamba2-130m", "recurrentgemma-2b")
     for arch, sh in dryrun.all_cells():
         cfg, shape = get_config(arch), get_shape(sh)
-        if shape.kind == "prefill" and arch != "llama3.2-3b":
+        if shape.kind == "prefill" and arch not in ("llama3.2-3b",
+                                                    *others):
             continue
         for name in ("16x16", "2x16x16"):
             got = dryrun.count_collectives(cfg, shape, _mesh(name))
-            if cfg.family in ("dense", "moe", "vlm"):
+            if cfg.family in ("dense", "moe", "vlm") \
+                    or shape.kind != "train":
                 kinds = {"all-gather", "all-reduce"} | (
-                    {"reduce-scatter"} if shape.kind == "train" else set())
+                    {"reduce-scatter"} if shape.kind == "train"
+                    or cfg.family == "hybrid" else set())
                 assert set(got["bytes"]) == kinds
                 assert min(got["bytes"].values()) > 0
             else:
-                assert "bytes" not in got and got["reason"]
+                assert "bytes" not in got
+                assert "training across ranks is not ported" in \
+                    got["reason"]
+
+
+FAMILY_CELLS = [(arch, sh) for arch in ("whisper-medium", "mamba2-130m",
+                                        "recurrentgemma-2b")
+                for sh in applicable_shapes(get_config(arch))
+                if sh != "train_4k"]
+
+
+@pytest.mark.parametrize("arch,sh", FAMILY_CELLS)
+def test_family_serving_cells_count_a_ranks_own_run(arch, sh):
+    """The enc-dec, SSM and hybrid families' prefill and decode cells at
+    the reduced size on 2x4: the dry-run's count (its step on meta
+    tensors) equals the collectives the rank at coordinates 0 issues
+    running the same step on CPU tensors of its blocks on a
+    ``CountingMesh``."""
+    from repro_torch.models.sharding import CountingMesh
+    from repro_torch.models.transformer import kv_cache_len
+    cfg, shape = get_config(arch).reduced(), get_shape(sh).reduced()
+    mesh = MeshCtx(Mesh(np.arange(8).reshape(2, 4), ("data", "model")))
+    want = dryrun.count_collectives(cfg, shape, mesh)
+    cm = MeshCtx(CountingMesh((2, 4), ("data", "model")))
+    g = torch.Generator().manual_seed(0)
+
+    def blocks(tree):
+        if isinstance(tree, dict):
+            return {k: blocks(v) for k, v in tree.items()}
+        block = tree.sharding.shard_shape(tree.shape)
+        if tree.dtype == torch.int32:
+            return torch.randint(0, cfg.vocab_size, block, generator=g,
+                                 dtype=torch.int32)
+        return torch.randn(block, generator=g).to(tree.dtype)
+
+    model = port_model.get_model(cfg)
+    params = blocks(port_model.abstract_params(cfg, cm))
+    batch = blocks(port_model.abstract_batch(cfg, shape, cm))
+    b = shape.global_batch
+    with torch.no_grad():
+        if shape.kind == "prefill":
+            logits, _ = model.prefill(params, batch, cfg, cm,
+                                      global_batch=b)
+        else:
+            logits, _ = model.decode(
+                params, blocks(port_model.abstract_cache(cfg, shape, cm)),
+                batch["tokens"], shape.seq_len - 1, cfg, cm,
+                global_batch=b, n_slots=kv_cache_len(cfg, shape.seq_len))
+    assert logits.shape[1] == cfg.padded_vocab // 4
+    by_axes = {f"{kind} {','.join(axes)}": [rec["calls"], rec["bytes"]]
+               for (kind, axes), rec in sorted(
+                   cm.mesh.collective_log.items())}
+    assert want["by_axes"] == by_axes
+    assert want["bytes"] == cm.mesh.collective_bytes()
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "mamba2-130m",
+                                  "recurrentgemma-2b"])
+def test_other_families_loss_across_ranks_raises(arch):
+    """Training across ranks is ported for the decoder families only: the
+    enc-dec, SSM and hybrid losses on a mesh over ranks raise, and say
+    that their serving runs there."""
+    from repro_torch.models.sharding import CountingMesh
+    cfg = get_config(arch).reduced()
+    cm = MeshCtx(CountingMesh((2, 4), ("data", "model")))
+    loss = port_model.get_model(cfg).loss
+    with pytest.raises(NotImplementedError,
+                       match="prefill and decode run, its training is not"):
+        loss({}, {"tokens": torch.zeros((2, 8), dtype=torch.int32)}, cfg,
+             cm, global_batch=4)
 
 
 @pytest.mark.parametrize("remat", ["none", "full"])

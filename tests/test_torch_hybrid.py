@@ -63,13 +63,13 @@ def test_rg_lru_scan_and_step_match_reference(s, dtype):
     jx, tx = _pair(r.normal(size=(2, s, 64)).astype(np.float32), dtype)
     jp, tp = jax.tree.map(jnp.asarray, p), params_from_numpy(p, "cpu")
     want = jax_hybrid.rg_lru_scan(jp, jx)
-    got = hybrid.rg_lru_scan(tp, tx)
+    got = hybrid.rg_lru_scan(tp, tx, hybrid.lru_gates(tp, tx))
     assert got.dtype == tx.dtype and got.shape == tx.shape
     assert rel_err(got, want) <= REL_TOL[dtype]
     (jxt, txt), (jh, th) = (
         _pair(r.normal(size=(2, 64)).astype(np.float32), dtype)
         for _ in range(2))
-    got = hybrid.rg_lru_step(tp, txt, th)
+    got = hybrid.rg_lru_step(tp, txt, th, hybrid.lru_gates(tp, txt))
     want = jax_hybrid.rg_lru_step(jp, jxt, jh)
     assert got.dtype == txt.dtype and rel_err(got, want) <= REL_TOL[dtype]
 
@@ -81,12 +81,13 @@ def test_rg_lru_scan_equals_the_sequential_recurrence():
     tp = params_from_numpy(p, "cpu")
     x = torch.from_numpy(np.random.default_rng(9).normal(
         size=(2, 37, 64)).astype(np.float32))
-    a, b = hybrid._lru_coeffs(tp, x)
+    gates = hybrid.lru_gates(tp, x)
+    a, b = hybrid._lru_coeffs(tp, x, gates)
     h, want = torch.zeros_like(b[:, 0]), []
     for t in range(x.shape[1]):
         h = a[:, t] * h + b[:, t]
         want.append(h)
-    torch.testing.assert_close(hybrid.rg_lru_scan(tp, x),
+    torch.testing.assert_close(hybrid.rg_lru_scan(tp, x, gates),
                                torch.stack(want, 1), rtol=1e-5, atol=1e-6)
 
 

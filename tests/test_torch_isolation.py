@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and neither
-``chip_smoke.py``, ``kernel_ab.py``, ``store_census.py`` nor the mesh
+``chip_smoke.py``, ``kernel_ab.py``, ``store_census.py``,
+``first_loss_depth.py`` nor the mesh
 cases ``chip_smoke.py`` runs on the card (``tests/torch_mesh_cases.py``)
 imports JAX or the JAX package ``repro``, the entry points refuse to run
 on the CPU unless asked to, and ``kernel_ab.py`` binds another tree's
@@ -14,7 +15,8 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
-       ROOT / "store_census.py", ROOT / "tests" / "torch_mesh_cases.py"]
+       ROOT / "store_census.py", ROOT / "first_loss_depth.py",
+       ROOT / "tests" / "torch_mesh_cases.py"]
 FORBIDDEN = ("jax", "repro", "jaxlib", "ml_dtypes")
 
 

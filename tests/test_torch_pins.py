@@ -56,6 +56,15 @@ and its values at fixed sample positions.  ``test_torch_sharded_train.py``
 holds the port on 8 gloo ranks to it and ``chip_smoke.py``'s phase 15 (a)
 on the card.  Written with ``--write-sharded-train``; the ``slow`` test
 regenerates it.
+
+``tests/data/torch_sharded_families.json`` holds the reference's answers
+to the enc-dec, SSM and hybrid families' sharded prefill and decode steps
+on 8 devices (``torch_sharded_families_cases``: reduced whisper, mamba2
+and recurrentgemma on 2x4 and 2x2x2, every cache layout branch, a batch
+the data axes do not divide), which ``test_torch_sharded_families.py``
+holds the port to on 8 gloo ranks and ``chip_smoke.py``'s phase 16 (a) on
+the card.  Written with ``--write-sharded-families``; the ``slow`` test
+regenerates it.
 """
 import importlib.util
 import json
@@ -69,6 +78,7 @@ import numpy as np
 import pytest
 import torch_mesh_cases as mesh_cases
 import torch_sharded_cases as sharded_cases
+import torch_sharded_families_cases as families_cases
 import torch_sharded_train_cases as train_cases
 
 torch = pytest.importorskip("torch")
@@ -713,6 +723,151 @@ def test_sharded_phase_rehearses_on_the_cpu(monkeypatch):
         "flash_attention": 0, "decode_attention": 0}
 
 
+
+# The other families' sharded steps across 8 devices, as ``_SHARDED_SCRIPT``
+# runs the decoder's: every case of ``torch_sharded_families_cases``, its
+# parameters placed under ``param_specs``, the tokens and whisper's frames
+# under ``P(dp, ...)``, the caches carried as numpy (only the
+# self-attention ``k``/``v`` leaves grown after the prefill) and placed
+# under ``cache_specs`` before each step, each step jitted, on meshes with
+# Auto axes.  ``test_torch_sharded_families.py`` holds the port on 8 gloo
+# ranks to the file.
+_SHARDED_FAMILIES_SCRIPT = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import json, sys
+sys.path.insert(0, "tests")
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+from repro.configs import get_config
+from repro.models import get_model
+from repro.models.model import drop_dp_axes
+from repro.models.sharding import MeshCtx
+import torch_sharded_families_cases as C
+
+
+def place(tree, specs, mesh):
+    if isinstance(tree, dict):
+        return {k: place(v, specs[k], mesh) for k, v in tree.items()}
+    return jax.device_put(jnp.asarray(tree), NamedSharding(mesh, specs))
+
+
+def carry(tree, pad=0):
+    # numpy, the self-attention "k"/"v" leaves grown by pad slots
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = carry(v, pad)
+            continue
+        v = np.asarray(v)
+        if pad and k in ("k", "v"):
+            v = np.pad(v, [(0, 0)] * (v.ndim - 2) + [(0, pad), (0, 0)])
+        out[k] = v
+    return out
+
+
+meshes = {}
+for m, (shape, names) in C.MESHES.items():
+    mesh = jax.make_mesh(shape, names,
+                         axis_types=(AxisType.Auto,) * len(shape))
+    assert [d.id for d in mesh.devices.flat] == list(range(C.WORLD))
+    meshes[m] = mesh
+out = {}
+for name, (arch, _, m, batch, slots) in C.CASES.items():
+    mesh = meshes[m]
+    mctx = MeshCtx(mesh)
+    cfg = get_config(arch).reduced().replace(**C.replace(name))
+    model = get_model(cfg)
+    enc = cfg.enc_seq if cfg.family == "encdec" else 0
+    inp = C.inputs(name, model.param_shapes(cfg), cfg.vocab_size,
+                   cfg.d_model, enc)
+    dp = mctx.dp if batch % mctx.dp_size == 0 else None
+    params = place(inp["params"], model.param_specs(cfg, mctx), mesh)
+    toks = inp["tokens"]
+    feed = {"tokens": place(toks[:, :C.PROMPT], P(dp, None), mesh)}
+    if enc:
+        feed["frames"] = place(inp["frames"], P(dp, None, None), mesh)
+
+    def cache_specs(n):
+        specs = model.cache_specs(cfg, mctx, n)
+        return specs if dp else drop_dp_axes(specs, mctx)
+
+    prefill = jax.jit(lambda p, b: model.prefill(p, b, cfg, mctx))
+    decode = jax.jit(lambda p, c, tok, t: model.decode(p, c, tok, t, cfg,
+                                                      mctx))
+    logits, caches = prefill(params, feed)
+    out[f"{name}/prefill"] = logits
+    caches = carry(caches, slots - C.PROMPT)
+    for i in range(C.STEPS):
+        tok = place(toks[:, C.PROMPT + i:C.PROMPT + i + 1], P(dp, None),
+                    mesh)
+        logits, caches = decode(params, place(caches, cache_specs(slots),
+                                              mesh), tok,
+                                jnp.int32(C.PROMPT + i))
+        out[f"{name}/decode{i}"] = logits
+        caches = carry(caches)
+    for key, arr in C.cache_paths(caches).items():
+        out[f"{name}/{key}"] = arr
+print(json.dumps({k: C.encode(np.asarray(v, np.float32))
+                  for k, v in out.items()}))
+"""
+SHARDED_FAMILIES_PINS = ROOT / "tests" / "data" / \
+    "torch_sharded_families.json"
+
+
+def sharded_families_pins() -> dict:
+    """The reference's answers to every case of
+    ``torch_sharded_families_cases``, from one subprocess with 8 forced
+    host devices."""
+    out = subprocess.run([sys.executable, "-c", _SHARDED_FAMILIES_SCRIPT],
+                         capture_output=True, text=True, timeout=1800,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": "src",
+                                        "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout)
+
+
+def write_sharded_families_pins() -> None:
+    pins = {"_meta": {
+        "written_by": "PYTHONPATH=src python tests/test_torch_pins.py "
+                      "--write-sharded-families (the reference package, on "
+                      "the CPU, 8 forced host devices, Auto mesh axes)",
+        "cases": {k: list(v) for k, v in families_cases.CASES.items()},
+        "replace": families_cases.REPLACE,
+        "prompt": families_cases.PROMPT, "steps": families_cases.STEPS},
+        **sharded_families_pins()}
+    SHARDED_FAMILIES_PINS.write_text(json.dumps(pins, separators=(",", ":"))
+                                     + "\n")
+
+
+@pytest.mark.slow
+def test_reference_reproduces_sharded_families_pins():
+    """Every case of the other families regenerated from the reference
+    equals the file, bit for bit."""
+    pins = json.loads(SHARDED_FAMILIES_PINS.read_text())
+    got = sharded_families_pins()
+    assert sorted(got) == sorted(k for k in pins if k != "_meta")
+    for key in got:
+        np.testing.assert_array_equal(families_cases.decode(got[key]),
+                                      families_cases.decode(pins[key]), key)
+
+
+def test_family_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s phase 16 on 8 gloo ranks on the CPU: the
+    families' sharded pins on every rank with the counting mesh's counts,
+    then the reduced whisper, mamba2 and recurrentgemma served on 2x4
+    against their 1x1 runs, each rank's collectives equal to the
+    dry-run's count (the card's run with the sizes cut; the plain
+    versions launch no kernel)."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    svs = tuple(dict(sv, reduced=True, layers=4, prompt_len=16, decode=2)
+                for sv in chip_smoke.FAMILY_SERVE)
+    assert chip_smoke.family_phase(torch, "cpu", "cpu", svs=svs) == {
+        "flash_attention": 0, "decode_attention": 0}
+
 # The sharded training step across 8 devices: the reference's jitted
 # ``make_train_step`` on every case of ``torch_sharded_train_cases``, its
 # parameters and moments placed under ``param_specs`` /
@@ -863,10 +1018,11 @@ if __name__ == "__main__":
                "--write-specs": write_spec_pins,
                "--write-mesh": write_mesh_pins,
                "--write-sharded": write_sharded_pins,
-               "--write-sharded-train": write_sharded_train_pins}
+               "--write-sharded-train": write_sharded_train_pins,
+               "--write-sharded-families": write_sharded_families_pins}
     if len(sys.argv) != 2 or sys.argv[1] not in writers:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_pins.py "
                  "--write | --write-serve | --write-train | --write-specs "
                  "| --write-mesh | --write-sharded "
-                 "| --write-sharded-train")
+                 "| --write-sharded-train | --write-sharded-families")
     writers[sys.argv[1]]()

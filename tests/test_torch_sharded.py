@@ -262,20 +262,26 @@ def test_relayout_gathers_and_cuts():
 
 
 def test_what_does_not_run_across_ranks_raises():
-    """The enc-dec, SSM and hybrid families (their prefill, decode and,
-    through the train step, loss), the "heads"/"seq" layout hints, a step
-    without its global batch or slot count, and an abstract mesh of more
-    than one device."""
+    """The enc-dec, SSM and hybrid families' loss (their prefill and
+    decode run across ranks, ``test_torch_sharded_families.py``; through
+    the train step too), the "heads"/"seq" layout hints, a step without
+    its global batch or slot count, and an abstract mesh of more than one
+    device."""
     from repro_torch.configs import get_config
     mctx = _mctx("2x4")
     for arch in ("whisper-medium", "mamba2-130m", "recurrentgemma-2b"):
         cfg = get_config(arch).reduced()
         with pytest.raises(NotImplementedError, match="across ranks"):
+            get_model(cfg).loss({}, {"tokens": torch.zeros(
+                (2, 4), dtype=torch.int32)}, cfg, mctx)
+        with pytest.raises(ValueError, match="global_batch"):
             get_model(cfg).prefill({}, {"tokens": torch.zeros(
                 (2, 4), dtype=torch.int32)}, cfg, mctx)
-        with pytest.raises(NotImplementedError, match="across ranks"):
-            get_model(cfg).decode({}, {}, torch.zeros(
-                (2, 1), dtype=torch.int32), 4, cfg, mctx)
+        if cfg.family != "ssm":                  # its caches hold no slots
+            with pytest.raises(ValueError, match="n_slots"):
+                get_model(cfg).decode({}, {}, torch.zeros(
+                    (2, 1), dtype=torch.int32), 4, cfg, mctx,
+                    global_batch=4)
     cfg = get_config("whisper-medium").reduced()
     with pytest.raises(NotImplementedError, match="across ranks"):
         make_train_step(cfg, mctx=mctx)({}, {}, {"tokens": torch.zeros(
