@@ -124,7 +124,7 @@ Phases, each printing JSON lines:
    "2d" modes on 2x4 and 2x2x2 meshes, the reduced llama4 and mixtral
    decoders' prefill and decode on 2x4, float32) against the reference's
    8-device answers (``tests/data/torch_mesh.json``) within 2e-5, on
-   every rank; (b) mixtral-8x7b at full width with 4 of its 32 layers,
+   every rank; (b) mixtral-8x7b at full width with 2 of its 32 layers,
    bf16, on a 2x4 mesh in each mode, each rank holding only its blocks of
    the weights (the decoder's sharded step): 8 prompts of 512 tokens and
    2 decode steps fed the greedy tokens of the same layers served 1x1 in
@@ -148,7 +148,7 @@ Phases, each printing JSON lines:
    logits within 0.03 of it, each rank's parameter bytes equal to the
    dry-run's per-device bytes, prefill s, decode ms a step, collectives
    a prefill and a step, each rank's peak; (c) mixtral-8x7b at full
-   width with 4 of 32 layers on 2x4, 8 x 512 and 1 decode step: "2d"
+   width with 2 of 32 layers on 2x4, 8 x 512 and 1 decode step: "2d"
    within 0.03 of 1x1, and in "ffn" the experts gathered from their FSDP
    storage into the block's ``in_specs`` equal to ``convert.moe_blocks``'
    blocks bit for bit, the routes that flip against 1x1 counted;
@@ -188,15 +188,42 @@ Phases, each printing JSON lines:
    a batch of 1) against the reference's jitted 8-device steps
    (``tests/data/torch_sharded_families.json``) within 2e-5 on every
    rank, each step's collectives equal to a ``CountingMesh``'s count; (b)
-   whisper-medium (full depth, 8 x 384 tokens over 1,500 frames, 4
-   decode steps), mamba2-130m (full depth, 8 x 2,048, 4 steps) and
-   recurrentgemma-2b (full width and depth, 8 x 512, 2 steps), each rank
+   whisper-medium (12 of its 24 encoder and of its 24 decoder layers, 8 x
+   384 tokens over 1,500 frames, 2 decode steps), mamba2-130m (full
+   depth, 8 x 2,048, 2 steps) and recurrentgemma-2b (full width and
+   depth, 8 x 512, 2 steps), each rank
    drawing only its blocks, against a 1x1 run on the same weights: the
    prefill's and every decode step's logits within 0.03 (max|Δ| /
    max|ref|), each rank's collectives equal to the dry-run's count of the
    cell, one flash launch per attention a rank a prefill and one decode
    launch per attention a rank a step; prefill s, decode ms a step,
-   collectives by kind, each rank's peak.
+   collectives by kind, each rank's peak;
+17. training across ranks for the enc-dec, SSM and hybrid families — 8
+   ranks on the one card again, on 2x4 (``make_train_step(..., mctx=)``
+   for whisper, mamba2 and recurrentgemma, through the phase 15 body
+   ``train_across_ranks``): (a) every case of
+   ``tests/torch_sharded_families_train_cases.py`` (reduced whisper,
+   mamba2 and recurrentgemma, float32, 2 steps, on 2x4 and 2x2x2; KV heads
+   whole and cut, mamba2's heads cut by ``model``, a full hybrid group and
+   a tail layer, 10 q heads over 4 ranks, a batch of 1, microbatches)
+   against the reference's jitted 8-device train step
+   (``tests/data/torch_sharded_families_train.json``) within phase 15
+   (a)'s bounds on every rank, each step's collectives equal to a
+   ``CountingMesh``'s count; (b) whisper-medium (6 of its 24 encoder and
+   of its 24 decoder layers, a global batch of 2 x 448 tokens over 1,500
+   frames), mamba2-130m (full depth, 2 x 2,048) and recurrentgemma-2b (4
+   of 26 layers: a full group and a tail layer, 2 x 2,048) at full
+   width, float32 parameters and moments, bf16 compute, ``remat="full"``,
+   norm scales at ones, 2 steps, each rank drawing only its blocks, every
+   step from the weights of a 1x1 run of the same batches in a process of
+   their own (the depths cut for time: a rank's step goes at the pace of
+   its collective calls through gloo): the gates of phase 15 (b) (the first
+   1x1 loss within 0.5 of ln V + 0.02^2 d / 2, bf16 losses within 1e-2,
+   updated blocks within 2 x 1.001 x lr, float32 losses and norms within
+   1e-4), each rank's collectives a step equal to
+   ``dryrun.count_collectives``' count of the cell, 2 forward and 1
+   backward flash launches per attention a rank a step (mamba2 none);
+   step s, each rank's peak, the collectives by kind.
 
 Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
 spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
@@ -226,9 +253,16 @@ recurrentgemma-2b's as phase 16 (b) serves them on each rank
 1,500 positions, not causal; ``rank_cross_shape``: its cross decode over
 1,500 slots on those heads; ``rank_hybrid_shape``: the span of 3 of 10
 q heads on the one KV head, 4 x 512 positions under the 2,048 window,
-and its decode over 514 slots); its sweeps include phase 14 (a)'s
-reduced heads (one q head on a KV head at head dim 16).  Phase 10 (a)
-times the backward at that shape too (``train_rank_shape``).
+and its decode over 514 slots), and the flash forward at whisper-medium's
+and recurrentgemma-2b's training shapes on each rank of phase 17 (b)
+(``rank_train_encoder_shape``: 1 row, 4 of 16 heads, 1,500 x 1,500, not
+causal; ``rank_train_self_shape``: 448 positions, causal;
+``rank_train_cross_shape``: 448 against 1,500, not causal;
+``rank_train_hybrid_shape``: the span of 3 of 10 q heads on the one KV
+head, 2,048 positions under the 2,048 window, D 256); its sweeps include
+phase 14 (a)'s reduced heads (one q head on a KV head at head dim 16).
+Phase 10 (a) times the backward at those training shapes too
+(``train_rank_shape`` and the four ``rank_train_*_shape`` rows).
 
 Any mismatch or exception exits non-zero; only after every phase passed
 are the kernel table, the ``nvidia-smi`` line and the final
@@ -274,7 +308,9 @@ SHAPE_KEYS = ("window_shape", "moe_shape", "chunk_shape", "vlm_shape",
               "encoder_shape", "cross_shape", "encdec_self_shape",
               "hybrid_shape", "mesh_shape", "rank_shape",
               "train_rank_shape", "rank_encoder_shape", "rank_cross_shape",
-              "rank_hybrid_shape")
+              "rank_hybrid_shape", "rank_train_encoder_shape",
+              "rank_train_self_shape", "rank_train_cross_shape",
+              "rank_train_hybrid_shape")
 
 
 def emit(obj: dict) -> None:
@@ -1256,8 +1292,9 @@ def check_flash(torch, dev) -> dict:
     llama3.2-3b as each rank of phase 14 (b) does (``rank_shape``), its
     training shape on each rank of phase 15 (b), whisper-medium's
     encoder and recurrentgemma-2b's prefill on each rank of phase 16 (b)
-    (``family_rank_flash``), and the shapes of phase 8
-    (``flash_slice7_shapes``)."""
+    (``family_rank_flash``), whisper-medium's and recurrentgemma-2b's
+    training shapes on each rank of phase 17 (b) (``family_train_attn``),
+    and the shapes of phase 8 (``flash_slice7_shapes``)."""
     from repro_torch.configs import get_config
     worst, n_cases = flash_sweep(torch, dev)
     res = {
@@ -1302,6 +1339,14 @@ def check_flash(torch, dev) -> dict:
         res[key] = {"shape": f"{arch} on each rank of phase 16 (b): q "
                              f"{list(q.shape)}, k/v {list(k.shape)} bf16 "
                              f"([B, S, H, D] views), {mask}",
+                    **flash_row(torch, q, k, v, f"flash {arch} {key}",
+                                **mask)}
+        del q, k, v
+        torch.cuda.empty_cache()
+    for key, arch, q, k, v, mask in family_train_attn(torch, dev):
+        res[key] = {"shape": f"{arch} training on each rank of phase 17 "
+                             f"(b): q {list(q.shape)}, k/v {list(k.shape)} "
+                             f"bf16 ([B, S, H, D] views), {mask}",
                     **flash_row(torch, q, k, v, f"flash {arch} {key}",
                                 **mask)}
         del q, k, v
@@ -2892,9 +2937,12 @@ def check_flash_bwd(torch, dev) -> dict:
     """Phase 10 (a): the sweep, then the row at llama3.2-3b's training
     shape (the kernel line's main row), at h2o-danube-1.8b's (D 80, 32
     q-heads on 8, window 4,096 binding over 6,144 tokens, its serving
-    prompt: ``window_shape``)
-    and at recurrentgemma-2b's (D 256, 10 q-heads on one KV head, window
-    2,048 binding over 4,096 tokens: ``hybrid_shape``)."""
+    prompt: ``window_shape``),
+    at recurrentgemma-2b's (D 256, 10 q-heads on one KV head, window
+    2,048 binding over 4,096 tokens: ``hybrid_shape``), at llama's on each
+    rank of phase 15 (b) (``train_rank_shape``) and at whisper-medium's
+    and recurrentgemma-2b's on each rank of phase 17 (b)
+    (``family_train_attn``)."""
     from repro_torch.configs import get_config
     worst, n_cases = flash_bwd_sweep(torch, dev)
     res = {
@@ -2929,6 +2977,14 @@ def check_flash_bwd(torch, dev) -> dict:
             res.update(row)
         else:
             res[key] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    for key, arch, q, k, v, mask in family_train_attn(torch, dev):
+        res[key] = {"shape": f"{arch} training on each rank of phase 17 "
+                             f"(b): q {list(q.shape)}, k/v {list(k.shape)} "
+                             f"bf16 ([B, S, H, D] views), {mask}",
+                    **flash_bwd_row(torch, q, k, v, f"flash bwd {arch} {key}",
+                                    **mask)}
         del q, k, v
         torch.cuda.empty_cache()
     emit({"phase": "kernel", **res})
@@ -3520,9 +3576,10 @@ def legacy_phase(torch, golden: dict, dev: str, name_power: str) -> dict:
 # (float32, reduced) on the ranks against the reference's answers on 8
 # devices (``tests/data/torch_mesh.json``) within ``MESH_PIN_TOL``, the
 # CPU test's bound.  (b) Full width: mixtral-8x7b at its published widths
-# with 4 of its 32 layers, bf16, on a 2x4 mesh in each of the three modes:
-# 8 prompts of 512 tokens, then 16 decode steps fed the greedy tokens of
-# the same 4 layers served 1x1 in this process (the reference path).
+# with 2 of its 32 layers (4 before phase 17 came), bf16, on a 2x4 mesh in
+# each of the three modes: 8 prompts of 512 tokens, then 2 decode steps
+# fed the greedy tokens of the same 2 layers served 1x1 in this process
+# (the reference path).
 # "2d" computes the one-device function and is held to the 1x1 logits;
 # "expert" and "ffn" route per dp shard and are held to each other; and
 # the first layer's MoE block alone, on one input shared bit for bit, is
@@ -3535,7 +3592,7 @@ def legacy_phase(torch, golden: dict, dev: str, name_power: str) -> dict:
 MESH_WORLD = 8
 MESH_PIN_TOL = 2e-5
 MESH_SHAPE = (2, 4)
-MESH_SERVE = dict(arch="mixtral-8x7b", layers=4, requests=8,
+MESH_SERVE = dict(arch="mixtral-8x7b", layers=2, requests=8,
                   prompt_len=512, decode=2, seed=0, reduced=False)
 MESH_REL = 0.03                    # logits, PERF.md section 2
 MESH_LAYER_REL = 2e-2              # the first layer's MoE output
@@ -3544,13 +3601,16 @@ MESH_MODES = ("expert", "ffn", "2d")
 
 def mesh_cfg(sv: dict, mode: str | None = None):
     """(b)'s configuration: ``sv["arch"]`` cut to ``sv["layers"]`` layers
-    (its reduced form when ``sv["reduced"]``: the CPU rehearsal), in
-    ``mode`` when given."""
+    (and an enc-dec's encoder to ``sv["enc_layers"]`` where given; its
+    reduced form when ``sv["reduced"]``: the CPU rehearsal), in ``mode``
+    when given."""
     from repro_torch.configs import get_config
     cfg = get_config(sv["arch"])
     if sv["reduced"]:
         cfg = cfg.reduced()
     cfg = cfg.replace(num_layers=sv["layers"])
+    if "enc_layers" in sv:
+        cfg = cfg.replace(enc_layers=sv["enc_layers"])
     return cfg if mode is None else cfg.replace(moe_shard=mode)
 
 
@@ -3652,6 +3712,14 @@ def mesh_reference(torch, sv: dict, dev: str) -> dict:
            else v.float().cpu().numpy() for k, v in res.items()}
     del params, caches
     return res | {"dropped": dropped, "prefill_routes": routes, **times}
+
+
+def rank_overheads(ranks: list, t_spawn: float, t_join: float) -> dict:
+    """A ``run_ranks`` call's time outside its rank function (the ranks'
+    ``t_enter`` / ``t_exit`` epoch stamps): from the spawn to the last
+    rank's entry, and from the last rank's exit to the join."""
+    return {"spawn_s": max(r["t_enter"] for r in ranks) - t_spawn,
+            "join_s": t_join - max(r["t_exit"] for r in ranks)}
 
 
 def collective_summary(mesh, per: int = 1) -> dict:
@@ -3773,6 +3841,7 @@ def mesh_serve_mode(torch, mctx, sv: dict, mode: str, tokens,
     from repro_torch.models.convert import gathered, moe_in_blocks, \
         shardings
     from repro_torch.models.sharding import P
+    t0 = time.perf_counter()
     cfg = mesh_cfg(sv, mode)
     model = get_model(cfg)
     mesh = mctx.mesh
@@ -3805,6 +3874,7 @@ def mesh_serve_mode(torch, mctx, sv: dict, mode: str, tokens,
     gc.collect()
     if card:
         torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t0
     return res
 
 
@@ -3816,13 +3886,15 @@ def mesh_rank(rank: int, sv: dict, tokens, dev: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     import torch_mesh_cases as cases
     from repro_torch.launch.mesh import rank_mesh_ctx
+    t_enter = time.time()
     t0 = time.perf_counter()
     pins = cases.rank_cases(rank, dev)
     pins_s = time.perf_counter() - t0
     mctx = rank_mesh_ctx(MESH_SHAPE, device=dev)
     return {"pins": pins, "pins_s": pins_s,
             "modes": [mesh_serve_mode(torch, mctx, sv, mode, tokens, dev)
-                      for mode in MESH_MODES]}
+                      for mode in MESH_MODES],
+            "t_enter": t_enter, "t_exit": time.time()}
 
 
 def mesh_rel(got, want) -> float:
@@ -3850,10 +3922,12 @@ def mesh_phase(torch, dev: str, name_power: str,
     ref_peak = torch.cuda.max_memory_allocated() / 1e9 if card else None
     if card:
         reset_counts(torch)
+    t_spawn = time.time()
     t0 = time.perf_counter()
     ranks = run_ranks(mesh_rank, MESH_WORLD, sv, ref["tokens"],
                       "cuda:0" if card else "cpu", timeout_s=900)
     ranks_s = time.perf_counter() - t0
+    over = rank_overheads(ranks, t_spawn, time.time())
 
     # (a) the pins, on the card
     pins = json.loads((ROOT / "tests" / "data" / "torch_mesh.json")
@@ -3952,10 +4026,12 @@ def mesh_phase(torch, dev: str, name_power: str,
               "layer0_routes_flipped_vs_1x1": flips[mode],
               "peak_gb_per_rank": max(m.get("peak_gb", 0) for m in per),
               "peak_gb_sum_ranks": sum(m.get("peak_gb", 0) for m in per),
+              "rank_wall_s": max(m["wall_s"] for m in per),
               "device_used_gb": max(m.get("device_used_gb", 0)
                                     for m in per),
               "nvidia_smi": name_power})
-    emit({"phase": "mesh_done", "seconds": time.perf_counter() - t_phase,
+    emit({"phase": "mesh_done", **over,
+          "seconds": time.perf_counter() - t_phase,
           "reference_1x1_s": ref_s, "reference_1x1_peak_gb": ref_peak,
           "reference_1x1_dropped": ref["dropped"],
           "reference_1x1_prefill_s": ref["prefill_s"],
@@ -3977,8 +4053,8 @@ def mesh_phase(torch, dev: str, name_power: str,
 # count of it.  (b) llama3.2-3b at full width and depth, bf16, on 2x4: 8
 # prompts of 512 tokens, 4 decode steps fed the greedy tokens of the
 # port's 1x1 run on the same weights (held to it within ``SHARD_REL``).
-# (c) mixtral-8x7b at full width with 4 of its 32 layers (8 ranks' blocks
-# and the 1x1 path fit the card), 8 x 512, 1 decode step, in "2d" (the
+# (c) mixtral-8x7b at full width with 2 of its 32 layers (4 before phase
+# 17 came), 8 x 512, 1 decode step, in "2d" (the
 # one-device function: held to 1x1) and in its own "ffn" (each dp shard
 # routes its own rows: its experts gathered from FSDP storage equal
 # ``convert.moe_blocks``' blocks bit for bit, the flipped routes counted).
@@ -4046,6 +4122,7 @@ def sharded_rank(rank: int, sv_b: dict, tokens_b, sv_c: dict, tokens_c,
     from repro_torch.models.convert import moe_in_blocks, moe_shardings
     from repro_torch.models.sharding import P
     card = dev != "cpu"
+    t_enter = time.time()
     t0 = time.perf_counter()
     out = {"pins": cases.rank_cases(rank, dev)}
     out["pins_s"] = time.perf_counter() - t0
@@ -4057,6 +4134,7 @@ def sharded_rank(rank: int, sv_b: dict, tokens_b, sv_c: dict, tokens_c,
         if card:
             torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
     cfg = mesh_cfg(sv_b)
     params = sharded_params(torch, cfg, mctx, sv_b["seed"], dev)
     out["b"] = {"param_bytes": tree_bytes(params),
@@ -4065,9 +4143,11 @@ def sharded_rank(rank: int, sv_b: dict, tokens_b, sv_c: dict, tokens_c,
                              sv_b["prompt_len"], sv_b["decode"], dev)}
     del params
     free()
+    out["b"]["wall_s"] = time.perf_counter() - t0
     out["c"] = {}
     b = sv_c["requests"]
     for mode in SHARD_MODES:
+        t0 = time.perf_counter()
         cfg = mesh_cfg(sv_c, mode)
         params = sharded_params(torch, cfg, mctx, sv_c["seed"], dev)
         rec = {"param_bytes": tree_bytes(params),
@@ -4101,6 +4181,8 @@ def sharded_rank(rank: int, sv_b: dict, tokens_b, sv_c: dict, tokens_c,
             del params
         out["c"][mode] = rec
         free()
+        rec["wall_s"] = time.perf_counter() - t0
+    out["t_enter"], out["t_exit"] = t_enter, time.time()
     return out
 
 
@@ -4157,11 +4239,13 @@ def sharded_phase(torch, dev: str, name_power: str,
             refs[key]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if card:
         reset_counts(torch)
+    t_spawn = time.time()
     t0 = time.perf_counter()
     ranks = run_ranks(sharded_rank, MESH_WORLD, sv_b, refs["b"]["tokens"],
                       sv_c, refs["c"]["tokens"],
                       "cuda:0" if card else "cpu", timeout_s=900)
     ranks_s = time.perf_counter() - t0
+    over = rank_overheads(ranks, t_spawn, time.time())
 
     # (a) the pins, on every rank
     worst = hold_rank_pins(ranks, cases, "torch_sharded.json", "sharded")
@@ -4227,6 +4311,7 @@ def sharded_phase(torch, dev: str, name_power: str,
                 "reference_1x1_decode_ms_per_step":
                     ref["decode_ms_per_step"],
                 "reference_1x1_peak_gb": ref.get("peak_gb"),
+                "rank_wall_s": max(x["wall_s"] for x in per),
                 "nvidia_smi": name_power}, rel
 
     # (b) llama3.2-3b, full width and depth
@@ -4269,7 +4354,8 @@ def sharded_phase(torch, dev: str, name_power: str,
         if mode == "2d" and not (rel["prefill"] < SHARD_REL
                                  and rel["decode"] < SHARD_REL):
             raise AssertionError(f"shard (c) 2d vs 1x1: {rel}")
-    emit({"phase": "shard_done", "seconds": time.perf_counter() - t_phase,
+    emit({"phase": "shard_done", **over,
+          "seconds": time.perf_counter() - t_phase,
           "ranks_s": ranks_s, "launches": totals, "timing": label,
           "reference_1x1_s": {k: v["wall_s"] for k, v in refs.items()},
           "nvidia_smi": name_power})
@@ -4348,14 +4434,17 @@ TRAIN_RANK_SHAPE = dict(batch=1, seq=2048, heads=6, kv_heads=2)
 TRAIN_MESH = (2, 4)
 
 
+NORM_SCALES = ("ln1", "ln2", "ln", "ssm_ln")
+
+
 def set_norm_scales(params: dict, value: float) -> dict:
-    """Every stacked layer norm scale (a leaf named ``ln1``/``ln2`` of two
-    or more dimensions: a whole tree's or a rank's block) filled with
-    ``value``, in place."""
+    """Every stacked layer norm scale (a leaf named ``ln1``/``ln2``, or an
+    SSM layer's ``ln``/``ssm_ln``, of two or more dimensions: a whole
+    tree's or a rank's block) filled with ``value``, in place."""
     for k, v in params.items():
         if isinstance(v, dict):
             set_norm_scales(v, value)
-        elif k in ("ln1", "ln2") and v.dim() >= 2:
+        elif k in NORM_SCALES and v.dim() >= 2:
             v.fill_(value)
     return params
 
@@ -4384,16 +4473,33 @@ def train_ranks_weights(weights_dir: str, i: int) -> pathlib.Path:
     return pathlib.Path(weights_dir) / f"step{i}.pt"
 
 
-def train_ranks_reference(rank: int, sv: dict, dev: str, weights_dir: str
-                          ) -> dict:
-    """(b)'s or (c)'s 1x1 run, in a process of its own: the float32 tree
-    every rank draws its blocks of, ``sv["steps"]`` steps of
-    ``make_train_step`` on one device, the weights each step after the
-    first starts from written to ``weights_dir`` (by their tree paths, on
-    the host); losses, norms, step s, peak; each step's loss and norm in
-    float32 compute on the same weights and batch (``f32_loss_norm``)."""
+def train_ranks_references(rank: int, parts: dict, dev: str,
+                           weights: dict) -> dict:
+    """The 1x1 runs of phase 15's or 17's models (``parts`` by key), one
+    after another in a process of its own (``train_ranks_reference``),
+    each writing its weights under ``weights[key]``: ``{key: its record
+    and its wall s}``."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for key, sv in parts.items():
+        t0 = time.perf_counter()
+        out[key] = train_ranks_reference(torch, sv, dev, weights[key])
+        out[key]["wall_s"] = time.perf_counter() - t0
+        gc.collect()
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def train_ranks_reference(torch, sv: dict, dev: str, weights_dir: str
+                          ) -> dict:
+    """(b)'s or (c)'s 1x1 run: the float32 tree every rank draws its
+    blocks of, ``sv["steps"]`` steps of ``make_train_step`` on one device,
+    the weights each step after the first starts from written to
+    ``weights_dir`` (by their tree paths, on the host); losses, norms,
+    step s, peak; each step's loss and norm in float32 compute on the
+    same weights and batch (``f32_loss_norm``)."""
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import make_train_step
     from repro_torch.train.tree import leaves
@@ -4519,7 +4625,9 @@ def train_ranks_run(torch, mctx, sv: dict, dev: str, weights_dir: str
         return {k: blocks(v, P(dp, *(None,) * (v.dim() - 1)), mctx)
                 for k, v in train_ranks_batch(torch, cfg, sv, i, dev).items()}
 
+    t0 = time.perf_counter()
     params = draw()
+    draw_s = time.perf_counter() - t0
     ocfg = AdamWConfig(opt_dtype=cfg.opt_dtype)
     opt = init_opt_state(params, ocfg)
     step = make_train_step(cfg, ocfg, 1, mctx)
@@ -4527,16 +4635,18 @@ def train_ranks_run(torch, mctx, sv: dict, dev: str, weights_dir: str
     mesh = mctx.mesh
     res = {"loss": [], "grad_norm": [], "step_s": [], "collectives": [],
            "launches": [], "update": [], "param_bytes": tree_bytes(params),
-           "loss_f32": [], "grad_norm_f32": [], "launches_f32": []}
+           "loss_f32": [], "grad_norm_f32": [], "launches_f32": [],
+           "draw_s": [draw_s], "f32_s": []}
     if card:
         # the full-size matrices the draw cached go back to the card
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         free, total = torch.cuda.mem_get_info()
-        emit({"phase": "shard_train_rank", "arch": cfg.name,
-              "rank": mesh.device_mesh.get_rank(),
-              "state_gb": torch.cuda.memory_allocated() / 1e9,
-              "device_used_gb": (total - free) / 1e9})
+        if mesh.device_mesh.get_rank() == 0:
+            emit({"phase": "train_rank_state", "arch": cfg.name,
+                  "rank": 0,
+                  "state_gb": torch.cuda.memory_allocated() / 1e9,
+                  "device_used_gb": (total - free) / 1e9})
     for i in range(sv["steps"]):
         if i:
             res["update"].append(take_reference_weights(
@@ -4567,15 +4677,19 @@ def train_ranks_run(torch, mctx, sv: dict, dev: str, weights_dir: str
     gc.collect()
     if card:
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     params = draw()
+    res["draw_s"].append(time.perf_counter() - t0)
     for i in range(sv["steps"]):
         if i:
             take_reference_weights(torch, params, specs, mctx,
                                    train_ranks_weights(weights_dir, i))
         before = (flash_ops.launches, flash_ops.bwd_launches)
+        t0 = time.perf_counter()
         for k, v in zip(("loss_f32", "grad_norm_f32"), f32_loss_norm(
                 torch, cfg, params, rows(i), mctx, specs, b)):
             res[k].append(v)
+        res["f32_s"].append(time.perf_counter() - t0)
         res["launches_f32"].append({
             "flash_attention": flash_ops.launches - before[0],
             "flash_attention_bwd": flash_ops.bwd_launches - before[1]})
@@ -4583,25 +4697,45 @@ def train_ranks_run(torch, mctx, sv: dict, dev: str, weights_dir: str
     return res
 
 
-def train_ranks_rank(rank: int, sv_b: dict, sv_c: dict, dev: str,
+def train_attn_launches(cfg) -> dict:
+    """The flash launches a rank makes in a train step (or a float32
+    pass) of ``cfg``: each attention under ``remat`` runs forward twice
+    (the recompute) and backward once; a hybrid's tail layers run outside
+    ``remat`` (forward once); an SSM none."""
+    twice = 2 if cfg.remat != "none" else 1
+    if cfg.family == "hybrid":
+        groups, tail = divmod(cfg.num_layers, len(cfg.block_pattern))
+        g = groups * cfg.block_pattern.count("attn")
+        t = cfg.block_pattern[:tail].count("attn")
+        return {"flash_attention": twice * g + t, "flash_attention_bwd": g + t}
+    n = attn_launches(cfg)[0]
+    return {"flash_attention": twice * n, "flash_attention_bwd": n}
+
+
+def train_ranks_rank(rank: int, cases_name: str, parts: dict, dev: str,
                      weights: dict, pin_names=None) -> dict:
-    """Phase 15 on one rank of the 8 (on the card, all on cuda:0): (a) the
-    pinned cases (those of ``pin_names``, all by default), then (b), then
-    (c), each from its 1x1 run's weights in the directory ``weights[key]``."""
+    """Phase 15 or 17 on one rank of the 8 (on the card, all on cuda:0):
+    (a) the pinned cases of the cases module ``cases_name`` (those of
+    ``pin_names``, all by default), then each model of ``parts`` in turn,
+    each from its 1x1 run's weights in the directory ``weights[key]``."""
+    import importlib
+
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    import torch_sharded_train_cases as cases
     from repro_torch.launch.mesh import rank_mesh_ctx
+    cases = importlib.import_module(cases_name)
+    t_enter = time.time()
     t0 = time.perf_counter()
     out = {"pins": cases.rank_cases(rank, dev, pin_names)}
     out["pins_s"] = time.perf_counter() - t0
     mctx = rank_mesh_ctx(TRAIN_MESH, device=dev)
-    for key, sv in (("b", sv_b), ("c", sv_c)):
+    for key, sv in parts.items():
         out[key] = train_ranks_run(torch, mctx, sv, dev, weights[key])
         gc.collect()
         if dev != "cpu":
             torch.cuda.empty_cache()
+    out["t_enter"], out["t_exit"] = t_enter, time.time()
     return out
 
 
@@ -4611,15 +4745,32 @@ def train_ranks_phase(torch, dev: str, name_power: str,
     """Phase 15.  Returns the flash kernels' launch totals of (b) and (c).
     ``dev`` "cpu" with reduced ``sv_b`` / ``sv_c`` (and a few
     ``pin_names``) rehearses it on the CPU."""
+    return train_across_ranks(torch, dev, name_power, "shard_train",
+                              "torch_sharded_train_cases",
+                              {"b": sv_b, "c": sv_c}, pin_names)
+
+
+def train_across_ranks(torch, dev: str, name_power: str, phase: str,
+                       cases_name: str, parts: dict, pin_names=None) -> dict:
+    """Phases 15 and 17: the models of ``parts`` (by key) trained 1x1 in a
+    process of their own, writing the weights each step starts from; then
+    the 8 ranks (``train_ranks_rank``): the pins of the cases module
+    ``cases_name`` and each model against its 1x1 run.  Lines
+    ``<phase>_pins``, ``<phase>`` (one a model) and ``<phase>_done``.
+    Returns the flash kernels' launch totals of the models."""
+    import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import count_collectives
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.models import get_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.sharding import Mesh, MeshCtx
     sys.path.insert(0, str(ROOT / "tests"))
-    import torch_sharded_train_cases as cases
+    import importlib
+    cases = importlib.import_module(cases_name)
     t_phase = time.perf_counter()
     card = dev != "cpu"
     label = "gloo through host memory, 8 ranks on one card"
-    refs = {}
     main_gb = None
     if card:
         reset_counts(torch)
@@ -4636,18 +4787,20 @@ def train_ranks_phase(torch, dev: str, name_power: str,
                                       dir=ROOT / "build")
     weights = {}
     try:
-        for key, sv in (("b", sv_b), ("c", sv_c)):
+        for key in parts:
             weights[key] = os.path.join(tmp.name, key)
             os.mkdir(weights[key])
-            t0 = time.perf_counter()
-            refs[key] = run_ranks(train_ranks_reference, 1, sv, dev,
-                                  weights[key], timeout_s=900)[0]
-            refs[key]["wall_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ranks = run_ranks(train_ranks_rank, MESH_WORLD, sv_b, sv_c,
+        refs = run_ranks(train_ranks_references, 1, parts, dev, weights,
+                         timeout_s=900)[0]
+        refs_s = time.perf_counter() - t0
+        t_spawn = time.time()
+        t0 = time.perf_counter()
+        ranks = run_ranks(train_ranks_rank, MESH_WORLD, cases_name, parts,
                           "cuda:0" if card else "cpu", weights, pin_names,
                           timeout_s=1100)
         ranks_s = time.perf_counter() - t0
+        over = rank_overheads(ranks, t_spawn, time.time())
     finally:
         tmp.cleanup()
         if alloc is None:
@@ -4656,8 +4809,7 @@ def train_ranks_phase(torch, dev: str, name_power: str,
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
 
     # (a) the pins, on every rank
-    pins = json.loads((ROOT / "tests" / "data" / "torch_sharded_train.json")
-                      .read_text())
+    pins = json.loads((ROOT / "tests" / "data" / cases.PIN_FILE).read_text())
     worst = {}
     for name in pin_names or cases.CASES:
         cfg = cases.port_config(name)
@@ -4667,11 +4819,11 @@ def train_ranks_phase(torch, dev: str, name_power: str,
         for r in recs:
             if r["log/0"] != r["count"] or any(
                     r[f"log/{i}"] != r["log/0"] for i in range(cases.STEPS)):
-                raise AssertionError(f"sharded train pin {name}: the rank's "
+                raise AssertionError(f"{phase} pin {name}: the rank's "
                                      f"collectives differ from the counting "
                                      f"mesh's")
         worst[name] = got
-    emit({"phase": "shard_train_pins", "cases": len(worst),
+    emit({"phase": f"{phase}_pins", "cases": len(worst),
           "ranks": MESH_WORLD, "steps": cases.STEPS,
           "loss_rel": max(w["loss_rel"] for w in worst.values()),
           "grad_abs": max(w["grad_abs"] for w in worst.values()),
@@ -4688,24 +4840,33 @@ def train_ranks_phase(torch, dev: str, name_power: str,
 
     totals = {"flash_attention": 0, "flash_attention_bwd": 0}
     failed = []
-    for part, sv in (("b", sv_b), ("c", sv_c)):
+    grid = MeshCtx(Mesh(np.arange(MESH_WORLD).reshape(TRAIN_MESH),
+                        ("data", "model")))
+    for part, sv in parts.items():
         cfg = mesh_cfg(sv, sv["mode"])
+        full = get_config(sv["arch"])
         per = [r[part] for r in ranks]
         ref = refs[part]
-        want = {"flash_attention": 2 * cfg.num_layers,
-                "flash_attention_bwd": cfg.num_layers}
+        want = train_attn_launches(cfg)
+        counted = count_collectives(cfg, ShapeConfig(
+            "train", "train", sv["seq"], sv["batch"]), grid)
+        counted = {k: counted[k] for k in ("calls", "bytes")}
         for m in per:
             for got in m["launches"] + m["launches_f32"]:
                 if got != (want if card else dict.fromkeys(want, 0)):
-                    raise AssertionError(f"shard train {part}: a rank "
+                    raise AssertionError(f"{phase} {part}: a rank "
                                          f"launched {got} a step, want "
                                          f"{want}")
                 for k in totals:
                     totals[k] += got[k]
             if any(m[k] != per[0][k] for k in ("loss", "grad_norm",
                                                 "loss_f32", "grad_norm_f32")):
-                raise AssertionError(f"shard train {part}: the ranks' "
+                raise AssertionError(f"{phase} {part}: the ranks' "
                                      f"losses differ")
+            if any(c != counted for c in m["collectives"]):
+                raise AssertionError(f"{phase} {part}: a rank's collectives "
+                                     f"{m['collectives']}, the dry-run's "
+                                     f"{counted}")
         m = per[0]
 
         def gaps(key):
@@ -4725,11 +4886,13 @@ def train_ranks_phase(torch, dev: str, name_power: str,
                   for i in range(sv["steps"] - 1)]
         fwd = m["forward_collectives"]
         step0 = m["collectives"][0]
-        emit({"phase": "shard_train", "part": part, "arch": cfg.name,
-              "mode": sv["mode"], "mesh": list(TRAIN_MESH),
-              "reduced": {"num_layers": [sv["layers"], get_config(
-                  sv["arch"]).num_layers]} if not sv["reduced"]
-              else "reduced config",
+        cut = {k: [getattr(cfg, k), getattr(full, k)]
+               for k in ("num_layers", "enc_layers")
+               if getattr(cfg, k) != getattr(full, k)}
+        emit({"phase": phase, "part": part, "arch": cfg.name,
+              "family": cfg.family, "mode": sv["mode"],
+              "mesh": list(TRAIN_MESH),
+              "reduced": "reduced config" if sv["reduced"] else cut,
               "global_batch": [sv["batch"], sv["seq"]],
               "steps": sv["steps"], "remat": cfg.remat,
               "compute": cfg.compute_dtype, "params": cfg.param_dtype,
@@ -4756,6 +4919,11 @@ def train_ranks_phase(torch, dev: str, name_power: str,
               "step_s_max_rank": [max(x["step_s"][i] for x in per)
                                   for i in range(sv["steps"])],
               "step_s_1x1": ref["step_s"],
+              "draw_s_max_rank": [max(x["draw_s"][i] for x in per)
+                                  for i in range(2)],
+              "f32_pass_s_max_rank": [max(x["f32_s"][i] for x in per)
+                                      for i in range(sv["steps"])],
+              "collectives_equal_dryrun": True,
               "collectives_per_step": {
                   "forward_gathers": [fwd["calls"].get("all-gather", 0),
                                       fwd["bytes"].get("all-gather", 0)],
@@ -4785,15 +4953,17 @@ def train_ranks_phase(torch, dev: str, name_power: str,
                 or any(u["max_abs"] > TRAIN_RANKS_UPDATE for u in update) \
                 or max(loss_err32) > TRAIN_RANKS_F32_LOSS \
                 or max(norm_rel32) > TRAIN_RANKS_F32_NORM:
-            failed.append(f"shard train {part} vs 1x1: first 1x1 loss "
+            failed.append(f"{phase} {part} vs 1x1: first 1x1 loss "
                           f"{ref['loss'][0]} (want {init_loss(cfg)} within "
                           f"{TRAIN_RANKS_INIT_LOSS}), losses {loss_err}, "
                           f"updates {update}, float32 losses {loss_err32} "
                           f"and norms {norm_rel32}")
     if failed:
         raise AssertionError("; ".join(failed))
-    emit({"phase": "shard_train_done",
+    emit({"phase": f"{phase}_done", **over,
           "seconds": time.perf_counter() - t_phase, "ranks_s": ranks_s,
+          "reference_1x1_process_s": refs_s,
+          "reference_1x1_s": {k: r["wall_s"] for k, r in refs.items()},
           "main_process_reserved_gb": main_gb,
           "launches": totals, "timing": label, "nvidia_smi": name_power})
     return totals
@@ -4809,10 +4979,14 @@ def train_ranks_phase(torch, dev: str, name_power: str,
 # ``tests/torch_sharded_families_cases.py`` against the reference's
 # answers on 8 devices (``tests/data/torch_sharded_families.json``) within
 # ``MESH_PIN_TOL``, each step's collectives equal to a ``CountingMesh``'s
-# count of it.  (b) whisper-medium (phase 8's shape, 4 decode steps),
-# mamba2-130m (8 x 2,048, 4 steps) and recurrentgemma-2b (8 x 512, 2
-# steps: a step is about 1.1 GB of FSDP gathers a rank) at full width and
-# depth, bf16, on 2x4, each rank drawing only its blocks, fed the greedy
+# count of it.  (b) whisper-medium (phase 8's shape: 8 x 384 over 1,500
+# frames; 12 of its 24 encoder and 12 of its 24 decoder layers, 2 decode
+# steps), mamba2-130m (full depth, 8 x 2,048, 2 steps) and
+# recurrentgemma-2b (full depth, 8 x 512, 2 steps: a step is about 1.1 GB
+# of FSDP gathers a rank) at full width, bf16, on 2x4 (whisper at full
+# depth and 4 steps, mamba2 at 4 steps, before phase 17 came: a whisper
+# step costs 337 collective calls through gloo, 5-7 ms each), each rank
+# drawing only its blocks, fed the greedy
 # tokens of the port's 1x1 run on the same weights and held to it within
 # ``SHARD_REL`` at the prefill and every decode step; each rank's
 # collectives equal to ``dryrun.count_collectives``' count of the cell
@@ -4820,15 +4994,15 @@ def train_ranks_phase(torch, dev: str, name_power: str,
 # attention kernels at (b)'s per-rank shapes (``FAMILY_RANK``).
 FAMILY_MESH = (2, 4)
 FAMILY_SERVE = (
-    dict(arch=WHISPER, layers=24, requests=8, prompt_len=384, decode=4,
-         seed=0, reduced=False),
-    dict(arch=SSM, layers=24, requests=8, prompt_len=2048, decode=4, seed=0,
+    dict(arch=WHISPER, layers=12, enc_layers=12, requests=8, prompt_len=384,
+         decode=2, seed=0, reduced=False),
+    dict(arch=SSM, layers=24, requests=8, prompt_len=2048, decode=2, seed=0,
          reduced=False),
     dict(arch=HYBRID, layers=26, requests=8, prompt_len=512, decode=2,
          seed=0, reduced=False))
 # each rank's attention at (b): 4 of 8 rows; whisper's 4 of 16 heads (its
 # KV heads too), recurrentgemma's span of 3 of 10 q heads on its KV head
-FAMILY_RANK = {WHISPER: dict(requests=4, prompt_len=384, decode=4, heads=4,
+FAMILY_RANK = {WHISPER: dict(requests=4, prompt_len=384, decode=2, heads=4,
                              kv_heads=4),
                HYBRID: dict(requests=4, prompt_len=512, decode=2, heads=3,
                             kv_heads=1)}
@@ -4844,12 +5018,14 @@ def family_rank(rank: int, svs: tuple, tokens: list, dev: str) -> dict:
     import torch_sharded_families_cases as cases
     from repro_torch.launch.mesh import rank_mesh_ctx
     card = dev != "cpu"
+    t_enter = time.time()
     t0 = time.perf_counter()
     out = {"pins": cases.rank_cases(rank, dev)}
     out["pins_s"] = time.perf_counter() - t0
     mctx = rank_mesh_ctx(FAMILY_MESH, device=dev)
     out["serve"] = []
     for sv, toks in zip(svs, tokens):
+        t0 = time.perf_counter()
         cfg = mesh_cfg(sv)
         params = sharded_params(torch, cfg, mctx, sv["seed"], dev)
         rec = {"param_bytes": tree_bytes(params),
@@ -4861,7 +5037,9 @@ def family_rank(rank: int, svs: tuple, tokens: list, dev: str) -> dict:
         gc.collect()
         if card:
             torch.cuda.empty_cache()
+        rec["wall_s"] = time.perf_counter() - t0
         out["serve"].append(rec)
+    out["t_enter"], out["t_exit"] = t_enter, time.time()
     return out
 
 
@@ -4892,11 +5070,13 @@ def family_phase(torch, dev: str, name_power: str,
         refs.append(ref)
     if card:
         reset_counts(torch)
+    t_spawn = time.time()
     t0 = time.perf_counter()
     ranks = run_ranks(family_rank, MESH_WORLD, svs,
                       [r["tokens"] for r in refs],
                       "cuda:0" if card else "cpu", timeout_s=900)
     ranks_s = time.perf_counter() - t0
+    over = rank_overheads(ranks, t_spawn, time.time())
 
     # (a) the pins, on every rank
     worst = hold_rank_pins(ranks, cases, "torch_sharded_families.json",
@@ -4980,15 +5160,102 @@ def family_phase(torch, dev: str, name_power: str,
               "reference_1x1_decode_ms_per_step":
                   ref["decode_ms_per_step"],
               "reference_1x1_peak_gb": ref.get("peak_gb"),
+              "rank_wall_s": max(x["wall_s"] for x in per),
               "nvidia_smi": name_power})
         if max(rel) >= SHARD_REL:
             raise AssertionError(f"family {cfg.name} vs 1x1: {rel}")
-    emit({"phase": "family_done", "seconds": time.perf_counter() - t_phase,
+    emit({"phase": "family_done", **over,
+          "seconds": time.perf_counter() - t_phase,
           "ranks_s": ranks_s, "launches": totals, "timing": label,
           "reference_1x1_s": {r_sv["arch"]: r["wall_s"]
                               for r_sv, r in zip(svs, refs)},
           "nvidia_smi": name_power})
     return totals
+
+
+# ------------------------------ phase 17: training across ranks, other families
+# The enc-dec, SSM and hybrid families' train step across ranks
+# (``make_train_step(..., mctx=)``: the loss, the backward pass through the
+# collectives' transposes, the AdamW update, each rank on its blocks), on 8
+# gloo ranks on the one card as phases 13-16.  (a) The pins: every case of
+# ``tests/torch_sharded_families_train_cases.py`` against the reference's
+# jitted 8-device train step
+# (``tests/data/torch_sharded_families_train.json``) within that module's
+# bounds on every rank, each step's collectives equal to a
+# ``CountingMesh``'s count.  (b) Each model at full width, float32
+# parameters and moments, bf16 compute, ``remat="full"``, 2 steps on 2x4,
+# each rank drawing only its blocks, every step from the weights of a 1x1
+# run of the same batches in a process of its own, as phase 15 (b)
+# (``train_across_ranks``): whisper-medium, 6 of its 24 encoder and 6 of
+# its 24 decoder layers, a global batch of 2 x 448 tokens (its published
+# decoder length) over 1,500 frames; mamba2-130m at full depth, 2 x 2,048;
+# recurrentgemma-2b, 2 x 2,048, 4 of its 26 layers (one full ``rec, rec,
+# attn`` group under ``remat`` and a tail ``rec`` layer outside it).  The
+# depths are cut for time: a step of a rank goes at the pace of its
+# collective calls through gloo, 5-10 ms each (whisper at full depth:
+# 1,619 calls, 12-13 s a step and 14-17 s a float32 pass; at 12 + 12
+# layers 8-10 s each).  Every model's norm scales at ones, each model's own
+# initialisation: under the reference's N(0, 0.02) draw of the stacked
+# scales, mamba2's and recurrentgemma's layers add next to nothing to the
+# tied embedding's row of the token, and the first loss is that of the
+# token itself (``first_loss_depth.py --arch``).  Gates as phase 15 (b), and each rank's collectives a step
+# equal to ``dryrun.count_collectives``' count of the cell; launches: 2
+# forward and 1 backward flash launch per attention a rank a step
+# (``train_attn_launches``; mamba2 none).  Phase 3 and phase 10 (a) hold
+# and time the flash forward and backward at (b)'s per-rank shapes
+# (``family_train_attn``).
+TRAIN_FAMILIES = {
+    "whisper": dict(arch=WHISPER, layers=6, enc_layers=6, batch=2,
+                    seq=448, steps=2, seed=0, reduced=False, mode=None,
+                    norms="ones"),
+    "mamba2": dict(arch=SSM, layers=24, batch=2, seq=2048, steps=2, seed=0,
+                   reduced=False, mode=None, norms="ones"),
+    "recurrentgemma": dict(arch=HYBRID, layers=4, batch=2, seq=2048,
+                           steps=2, seed=0, reduced=False, mode=None,
+                           norms="ones")}
+# each rank's attention at (b): 1 of 2 rows; whisper's 4 of 16 heads (its
+# KV heads too), recurrentgemma's span of 3 of 10 q heads on its KV head
+TRAIN_FAMILY_RANK = {WHISPER: dict(heads=4, kv_heads=4),
+                     HYBRID: dict(heads=3, kv_heads=1)}
+
+
+def family_train_attn(torch, dev):
+    """(key, arch, q, k, v, mask) as each rank of phase 17 (b) launches the
+    flash kernel and its backward: whisper-medium's encoder (1 row, 4 of
+    16 heads, 1,500 frames, D 64, not causal), its decoder's
+    self-attention (448 positions, causal) and cross-attention (448
+    against 1,500, not causal), and recurrentgemma-2b's span of 3 of 10 q
+    heads on its one KV head (2,048 positions under the 2,048 window, D
+    256); q, k and v views of [B, S, H, D] projections."""
+    g = torch.Generator(device="cpu").manual_seed(67)
+    rows = TRAIN_FAMILIES["whisper"]["batch"] // TRAIN_MESH[0]
+
+    def proj(cfg, n, heads):
+        return _randn(torch, g, (rows, n, heads, cfg.head_dim), dev,
+                      torch.bfloat16).transpose(1, 2)
+
+    cfg = shape_cfg(WHISPER, TRAIN_FAMILY_RANK[WHISPER])
+    f, s, h = cfg.enc_seq, TRAIN_FAMILIES["whisper"]["seq"], cfg.num_heads
+    for key, sq, skv, causal in (("rank_train_encoder_shape", f, f, False),
+                                 ("rank_train_self_shape", s, s, True),
+                                 ("rank_train_cross_shape", s, f, False)):
+        yield (key, WHISPER, proj(cfg, sq, h), proj(cfg, skv, h),
+               proj(cfg, skv, h), dict(causal=causal))
+    cfg = shape_cfg(HYBRID, TRAIN_FAMILY_RANK[HYBRID])
+    s = TRAIN_FAMILIES["recurrentgemma"]["seq"]
+    yield ("rank_train_hybrid_shape", HYBRID, proj(cfg, s, cfg.num_heads),
+           proj(cfg, s, 1), proj(cfg, s, 1),
+           dict(causal=True, window=cfg.window))
+
+
+def family_train_phase(torch, dev: str, name_power: str,
+                       parts: dict = TRAIN_FAMILIES, pin_names=None) -> dict:
+    """Phase 17.  Returns the flash kernels' launch totals of (b).  ``dev``
+    "cpu" with reduced ``parts`` (and a few ``pin_names``) rehearses it on
+    the CPU."""
+    return train_across_ranks(torch, dev, name_power, "family_train",
+                              "torch_sharded_families_train_cases", parts,
+                              pin_names)
 
 
 PROFILES = ("episode", "serve", "fleet", "decode", "train")
@@ -5158,6 +5425,13 @@ def main(argv=None) -> int:
     # hybrid families: the pins, then whisper-medium, mamba2-130m and
     # recurrentgemma-2b at full width, each against its 1x1 run
     for k, n in family_phase(torch, dev, name_power).items():
+        totals[k] += n
+    torch.cuda.empty_cache()
+
+    # 17. training across 8 ranks on the card for the enc-dec, SSM and
+    # hybrid families: the pins, then whisper-medium, mamba2-130m and
+    # recurrentgemma-2b at full width, each against its 1x1 run
+    for k, n in family_train_phase(torch, dev, name_power).items():
         totals[k] += n
     torch.cuda.empty_cache()
 

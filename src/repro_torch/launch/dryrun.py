@@ -49,8 +49,7 @@ questions the reference asks of ``compiled``:
   axes and the global norm's psums.  These are the port's collectives,
   not XLA's: the reference parses its numbers from the compiled HLO text,
   in which XLA chose its own collectives, so the two are not expected to
-  be equal.  The enc-dec, SSM and hybrid families' train cells (their
-  training runs on one device) record None with the reason.
+  be equal.
 
 The train step is the port's ``make_train_step``: autograd through the
 attention wrapper's meta branch, ``torch.utils.checkpoint`` per layer
@@ -257,13 +256,7 @@ def count_collectives(cfg: ArchConfig, shape: ShapeConfig,
     """The collectives one rank (coordinates 0) issues in the port's step
     of the cell on ``mctx``'s mesh: ``{"bytes": {kind: output bytes},
     "calls": {kind: n}, "by_axes": {"<kind> <axes>": [calls, bytes]}}``,
-    from a run on meta tensors on a ``CountingMesh``; or ``{"reason":
-    ...}`` where the port's step does not run across ranks (the enc-dec,
-    SSM and hybrid families' training)."""
-    if shape.kind == "train" and cfg.family not in tfm.DECODER_FAMILIES:
-        return {"reason": f"the {cfg.family} family's training runs on one "
-                          f"device: training across ranks is not ported "
-                          f"yet (its prefill and decode are)"}
+    from a run on meta tensors on a ``CountingMesh``."""
     mesh = CountingMesh(tuple(mctx.mesh.devices.shape),
                         mctx.mesh.axis_names)
     cm = MeshCtx(mesh)
@@ -346,11 +339,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             output_bytes=mem.output_size_in_bytes,
             temp_bytes=None, peak_bytes_per_device=None,
             not_stated=_NOT_STATED,
-            collective_bytes=coll.get("bytes"),
-            collective_bytes_total=(float(sum(coll["bytes"].values()))
-                                    if "bytes" in coll else None),
-            collective_calls=coll.get("calls"),
-            collectives=coll.get("by_axes", coll.get("reason")),
+            collective_bytes=coll["bytes"],
+            collective_bytes_total=float(sum(coll["bytes"].values())),
+            collective_calls=coll["calls"],
+            collectives=coll["by_axes"],
             n_devices=mesh.size,
         )
         if cfg.num_experts:
@@ -366,9 +358,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             print(f"     cost_analysis: flops={rec['flops']:.3e} (global; "
                   f"attention {rec['attention_flops']:.3e})")
             print(f"     collectives: {rec['collective_bytes']} "
-                  f"({rec['collective_calls']} calls, one rank)"
-                  if rec["collective_bytes"] is not None else
-                  f"     collectives: None ({rec['collectives']})",
+                  f"({rec['collective_calls']} calls, one rank)",
                   flush=True)
     except Exception as e:  # noqa: BLE001 — record and continue the sweep
         rec["error"] = f"{type(e).__name__}: {e}"

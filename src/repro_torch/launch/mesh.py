@@ -62,8 +62,12 @@ def rank_mesh_ctx(shape: tuple[int, ...],
 
 
 def _rank_entry(rank: int, world: int, port: int, backend: str,
-                timeout_s: float, fn, args: tuple, results) -> None:
+                timeout_s: float, call: str, results) -> None:
+    import pickle
+
     import torch.distributed as dist
+    with open(call, "rb") as f:
+        fn, args = pickle.load(f)
     dist.init_process_group(
         backend, init_method=f"tcp://localhost:{port}", world_size=world,
         rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
@@ -89,40 +93,54 @@ def run_ranks(fn, world: int, *args, backend: str = "gloo",
     results by rank.  ``fn`` and its arguments and results are pickled
     (``fn`` by import path).  A rank that fails, or a run past
     ``timeout_s`` (also each collective's timeout), raises here with the
-    failing rank's traceback, and every process is ended."""
+    failing rank's traceback, and every process is ended.  The call
+    reaches the ranks through a temporary file, not the spawn pipe: a
+    spawned process reads its pipe as it unpickles, importing ``fn``'s
+    modules first, so a call past the pipe's 64 KB buffer would start the
+    ranks one after another (7-8 s apart on the card's host at 190 KB of
+    arguments)."""
+    import pickle
+    import tempfile
+
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
     results = mp.get_context("spawn").SimpleQueue()
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    procs = mp.spawn(_rank_entry, nprocs=world, join=False,
-                     args=(world, port, backend, timeout_s, fn, args,
-                           results))
+    with tempfile.NamedTemporaryFile(prefix="run_ranks_", suffix=".pkl",
+                                     delete=False) as call:
+        pickle.dump((fn, args), call)
     got: dict = {}
-    deadline = time.monotonic() + timeout_s
     try:
-        # drained as they come: a rank blocks in put() on a full pipe
-        while True:
-            while not results.empty():
-                rank, val = results.get()
-                got[rank] = val
-            if procs.join(timeout=1.0):
-                break
-            if time.monotonic() > deadline:
-                raise RuntimeError(f"run_ranks({fn.__name__}): past "
-                                   f"{timeout_s} s")
-    except ProcessException as e:
-        codes = {i: p.exitcode for i, p in enumerate(procs.processes)}
-        raise RuntimeError(f"run_ranks({fn.__name__}): ranks "
-                           f"[{e.error_index}] failed (exit codes by rank "
-                           f"{codes}; a negative code is the signal that "
-                           f"ended it)\n{e}") from None
+        procs = mp.spawn(_rank_entry, nprocs=world, join=False,
+                         args=(world, port, backend, timeout_s, call.name,
+                               results))
+        deadline = time.monotonic() + timeout_s
+        try:
+            # drained as they come: a rank blocks in put() on a full pipe
+            while True:
+                while not results.empty():
+                    rank, val = results.get()
+                    got[rank] = val
+                if procs.join(timeout=1.0):
+                    break
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"run_ranks({fn.__name__}): past "
+                                       f"{timeout_s} s")
+        except ProcessException as e:
+            codes = {i: p.exitcode for i, p in enumerate(procs.processes)}
+            raise RuntimeError(f"run_ranks({fn.__name__}): ranks "
+                               f"[{e.error_index}] failed (exit codes by "
+                               f"rank {codes}; a negative code is the "
+                               f"signal that ended it)\n{e}") from None
+        finally:
+            for p in procs.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
     finally:
-        for p in procs.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
+        os.unlink(call.name)
     while not results.empty():
         rank, val = results.get()
         got[rank] = val

@@ -24,10 +24,11 @@ S, Dh] with every prompt position's slot (the reference's prefill returns
 them all, whatever the window).  Decode writes every layer's new state
 and its key and value into the caches in place and returns them.
 
-Across ranks (``_hybrid_ranked``) each rank holds its blocks under
-``hybrid_param_specs`` and ``hybrid_cache_specs``: a recurrent layer runs
-on this rank's channels of the RG-LRU width (``_rec_ranked``), an
-attention layer on its q heads (``transformer._attn_ranked``).
+Across ranks (``_hybrid_ranked``: the loss, prefill and decode) each rank
+holds its blocks under ``hybrid_param_specs`` and ``hybrid_cache_specs``:
+a recurrent layer runs on this rank's channels of the RG-LRU width
+(``_rec_ranked``), an attention layer on its q heads
+(``transformer._attn_ranked``).
 """
 from __future__ import annotations
 
@@ -306,9 +307,13 @@ def hybrid_loss(params, batch: dict, cfg: ArchConfig,
                 global_batch: int | None = None) -> torch.Tensor:
     """The training loss (float32 scalar) of ``batch["tokens"]`` [B, S]:
     the stack in "train" mode, then the next-token cross-entropy against
-    the tied embedding.  One device: a mesh of more than one raises."""
-    tfm.not_on_ranks(cfg, mctx)
+    the tied embedding.  On a mesh over ranks ``params`` and the tokens
+    are this rank's blocks, as for ``hybrid_prefill``, and every rank
+    returns the loss of the whole global batch (``_hybrid_ranked``)."""
     tokens = batch["tokens"]
+    if tfm.on_ranks(mctx):
+        return _hybrid_ranked(params, None, tokens, None, cfg, mctx,
+                              global_batch, None, train=True)
     x = tfm._embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
     x = _run_hybrid(params, x, cfg, "train", positions, None)
@@ -364,41 +369,48 @@ def hybrid_decode_step(params, caches: dict, tokens: torch.Tensor, t: int,
 
 def _hybrid_ranked(params, caches: dict | None, tokens: torch.Tensor,
                    t: int | None, cfg: ArchConfig, mctx: MeshCtx,
-                   global_batch, n_slots):
-    """``hybrid_prefill`` (``caches`` None) or ``hybrid_decode_step`` on
-    this rank: the vocab-parallel embedding, the groups and tail layers
-    in the one-device order (``_run_hybrid``), each layer's weights
-    gathered from their FSDP blocks, then this rank's block of the logits
-    against its rows of the tied embedding."""
+                   global_batch, n_slots, train: bool = False):
+    """``hybrid_prefill`` (``caches`` None), ``hybrid_decode_step`` or
+    (``train``) ``hybrid_loss`` on this rank: the vocab-parallel
+    embedding, the groups and tail layers in the one-device order
+    (``_run_hybrid``: in "train" each group index under ``remat``, the
+    tail layers not), each layer's weights gathered from their FSDP
+    blocks inside it, then this rank's block of the logits, or the
+    vocab-parallel cross-entropy, against its rows of the tied
+    embedding."""
     specs = hybrid_param_specs(cfg, mctx)
     stored = dict(specs["groups"]) | {k: v for k, v in specs.items()
                                       if k.startswith("tail")}
     s = tokens.shape[1]
-    prefill = caches is None
+    decode = caches is not None
     rk = tfm._Ranks(cfg, mctx, global_batch, tokens.shape[0],
-                    min(cfg.window, s) if prefill else n_slots, stored,
+                    n_slots if decode else min(cfg.window, s), stored,
                     _COMPUTED)
     x = tfm._embed_ranked(params, tokens, cfg, rk)
-    if prefill:
+    if decode:
+        mode, positions = "decode", torch.arange(t, t + 1, device=x.device)
+    else:
+        mode, positions = ("train" if train else "prefill",
+                           torch.arange(s, device=x.device))
+    if mode == "prefill":
         caches = tfm._cache_alloc(_cache_tree(cfg, global_batch, s),
                                   hybrid_cache_specs(cfg, mctx, s), rk, x)
-        positions = torch.arange(s, device=x.device)
-    else:
-        positions = torch.arange(t, t + 1, device=x.device)
 
     def apply(name, p, x, cfg, mode, positions, cache, t):
         p = rk.layer(name, p)
         if name.split("_")[1] == "rec":
             x, new = _rec_ranked(p, x, rk, mode=mode, cache=cache)
-            for k, c in cache.items():
+            for k, c in (cache or {}).items():
                 c.copy_(new[k])
         else:
             x = tfm._attn_ranked(p, x, cfg, rk, mode=mode,
                                  positions=positions, cache=cache, t=t)
         return tfm._ffn_ranked(p, x, rk)
 
-    x = _run_hybrid(params, x, cfg, "prefill" if prefill else "decode",
-                    positions, caches, t, apply)
+    x = _run_hybrid(params, x, cfg, mode, positions, caches, t, apply)
+    if train:
+        x = rms_norm(x, params["ln_f"])
+        return tfm.next_token_loss(x, tokens, params["embed"].T, cfg, rk)
     return _logits(params, rms_norm(x[:, -1], params["ln_f"])), caches
 
 
@@ -425,13 +437,14 @@ def _gates_ranked(p, xc: torch.Tensor, rk) -> tuple:
     return gates[0], gates[1]
 
 
-def _rec_ranked(p, x: torch.Tensor, rk, *, mode: str, cache: dict):
+def _rec_ranked(p, x: torch.Tensor, rk, *, mode: str, cache: dict | None):
     """``rec_block``'s recurrent mixer on this rank's channels of the
     RG-LRU width, ``p`` in the computed layout: ``wx`` and ``wy``
     column-parallel, the conv, ``lam`` and the state ``h`` per channel
     (its stored block), the gates from ``_gates_ranked``, ``wo``
     row-parallel (summed over ``model``).  Returns x plus the mixer's
-    output (the caller runs the FFN) and the layer's new cache."""
+    output (the caller runs the FFN) and the layer's new cache (None in
+    "train")."""
     return _rec_mixer(p, x, rk.mesh.pvary(rms_norm(x, p["ln1"]), "model"),
                       mode=mode, cache=cache,
                       gates=lambda p, xc: _gates_ranked(p, xc, rk),

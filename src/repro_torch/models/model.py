@@ -14,12 +14,10 @@ Each family also gives its parameter and cache layouts on a mesh
 and the abstract inputs below describe a step's inputs without allocating
 them (``ShapeDtypeStruct`` trees, sharded when a mesh is given), for the
 dry-run (``launch/dryrun.py``).  On a mesh over ranks every family's
-``prefill`` / ``decode`` and the decoder families' ``loss`` take and
-return this rank's blocks under those trees, the batch under
-``batch_specs`` (``drop_dp_axes`` where the data axes do not divide it;
-the caller names the global batch, ``global_batch=``, and a decode step
-the caches' ``n_slots=``); the enc-dec, SSM and hybrid losses raise there
-(``transformer.not_on_ranks``).
+``loss``, ``prefill`` and ``decode`` take and return this rank's blocks
+under those trees, the batch under ``batch_specs`` (``drop_dp_axes``
+where the data axes do not divide it; the caller names the global batch,
+``global_batch=``, and a decode step the caches' ``n_slots=``).
 """
 from __future__ import annotations
 

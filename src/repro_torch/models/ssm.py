@@ -17,11 +17,11 @@ compute dtype as the reference stores them: the conv state is the raw
 rounded to the compute dtype.  Prefill fills them; decode writes every
 layer's new state into them in place and returns them.
 
-Across ranks (``_ssm_ranked``) each rank holds its blocks under
-``ssm_param_specs`` and ``ssm_cache_specs``: the prefill runs the SSD on
-the heads whose channels cover its block of ``d_inner``, the decode step
-updates the SSM state in its stored layout, this rank's block of N of
-every head (``_mamba_ranked``).
+Across ranks (``_ssm_ranked``, ``_ssm_loss_ranked``) each rank holds its
+blocks under ``ssm_param_specs`` and ``ssm_cache_specs``: the prefill and
+the training loss run the SSD on the heads whose channels cover its block
+of ``d_inner``, the decode step updates the SSM state in its stored
+layout, this rank's block of N of every head (``_mamba_ranked``).
 
 Mixed dtypes: where the reference's ``jnp.einsum`` meets a bf16 and a
 float32 operand it promotes to float32; here the bf16 operands are cast
@@ -264,10 +264,12 @@ def ssm_loss(params, batch: dict, cfg: ArchConfig,
              global_batch: int | None = None) -> torch.Tensor:
     """The training loss (float32 scalar) of ``batch["tokens"]`` [B, S]:
     the SSD stack in "train" mode, then the next-token cross-entropy
-    against the (tied) embedding.  One device: a mesh of more than one
-    raises."""
-    tfm.not_on_ranks(cfg, mctx)
+    against the (tied) embedding.  On a mesh over ranks ``params`` and the
+    tokens are this rank's blocks, as for ``ssm_prefill``, and every rank
+    returns the loss of the whole global batch (``_ssm_loss_ranked``)."""
     tokens = batch["tokens"]
+    if tfm.on_ranks(mctx):
+        return _ssm_loss_ranked(params, tokens, cfg, mctx, global_batch)
     x = _stack(params, tfm._embed_tokens(params, tokens, cfg), cfg, "train",
                None)
     x = rms_norm(x, params["ln_f"])
@@ -342,6 +344,29 @@ def _ssm_ranked(params, caches: dict | None, tokens: torch.Tensor,
     return tfm._logits(params, x, cfg), caches
 
 
+def _ssm_loss_ranked(params, tokens: torch.Tensor, cfg: ArchConfig,
+                     mctx: MeshCtx, global_batch) -> torch.Tensor:
+    """``ssm_loss`` on this rank: the vocab-parallel embedding, then per
+    layer, under ``remat`` with its gathers, the weights in the computed
+    layout (``wxbc`` and the conv filters whole) and ``_mamba_ranked`` in
+    "train" mode; ``ln_f`` and the vocab-parallel cross-entropy against
+    the tied embedding's rows (its block transposed)."""
+    rk = tfm._Ranks(cfg, mctx, global_batch, tokens.shape[0], None,
+                    {"layers": ssm_param_specs(cfg, mctx)["layers"]},
+                    _COMPUTED)
+
+    def layer(x, p):
+        p = rk.layer("layers", p, ("wxbc", "conv_w", "conv_b"))
+        return _mamba_ranked(p, x, cfg, rk, mode="train", cache=None)[0]
+
+    x = tfm._embed_ranked(params, tokens, cfg, rk)
+    for p in tfm._layers(params["layers"]):
+        x = tfm.remat(cfg, layer, x, p)
+    x = rms_norm(x, params["ln_f"])
+    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return tfm.next_token_loss(x, tokens, unembed, cfg, rk)
+
+
 # The layout each mamba leaf takes where its product runs: column-parallel
 # ``wz`` and ``wxbc``, every head's ``wdt``, ``A_log``, ``D`` and
 # ``dt_bias``, the conv filters and ``ssm_ln`` per channel as stored over
@@ -385,19 +410,25 @@ def _states_to_store(fs: torch.Tensor, cfg: ArchConfig, rk) -> torch.Tensor:
 
 
 def _mamba_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk, *, mode: str,
-                  cache: dict):
+                  cache: dict | None):
     """``mamba_block`` on this rank, ``p`` in the computed layout.  The
     gate ``z``, the norm ``ssm_ln`` and ``out_proj``'s rows are this
     rank's block of ``d_inner`` (a row-parallel product, summed over
-    ``model``); ``ssm_ln``'s mean of squares is summed over ``model`` too.
-    ``dt`` is every head's (``wdt`` whole).
+    ``model``); ``ssm_ln``'s mean of squares is summed over ``model`` too,
+    and enters this rank's block through ``pvary``.  ``dt`` is every
+    head's (``wdt`` whole), taken from the normed input before its
+    ``pvary``: work every rank does alike.
 
-    Prefill ("prefill"; ``wxbc`` and the conv filters gathered whole): the
-    SSD runs on this rank's head span, from x's channels of those heads
-    and all of B and C (the column cut of ``wxbc`` does not follow the
-    x | B | C split); the cache takes the raw ``xbc`` of the last W-1
-    positions in its stored channel block and the final states relaid to
-    the stored layout (``_states_to_store``).
+    Prefill and "train" (``wxbc`` and the conv filters gathered whole):
+    the SSD runs on this rank's head span, from x's channels of those
+    heads and all of B and C (the column cut of ``wxbc`` does not follow
+    the x | B | C split).  The prefill's cache takes the raw ``xbc`` of
+    the last W-1 positions in its stored channel block and the final
+    states relaid to the stored layout (``_states_to_store``); "train"
+    keeps none, and its per-head ``dt``, decay and skip ``D``, the same
+    on every rank, enter the head span through one ``pvary``, so that
+    each is differentiated whole (the ranks' spans summed) and not by
+    this rank's span alone.
 
     Decode: the conv step runs in the stored layout (per channel, on this
     rank's block of ``wxbc``'s columns and of the conv state), its output
@@ -409,11 +440,14 @@ def _mamba_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk, *, mode: str,
         cfg.ssm_headdim
     tp, r = rk.tp, rk.r
     cols = d_in // tp
-    u = rk.mesh.pvary(rms_norm(x, p["ln"]), "model")
+    hn = rms_norm(x, p["ln"])
+    u = rk.mesh.pvary(hn, "model")
     z = u @ p["wz"].to(u.dtype)
-    dt = u @ p["wdt"].to(u.dtype)
+    dt = hn @ p["wdt"].to(hn.dtype)
     dt = F.softplus(dt.float() + p["dt_bias"].float())          # [B, S, H]
     a = -torch.exp(p["A_log"].float())                          # [H]
+    d_skip = p["D"].float()
+    new = None
     if mode == "decode":
         xbc_t, conv_state = conv1d_step((u @ p["wxbc"].to(u.dtype))[:, 0],
                                         cache["conv"], p["conv_w"],
@@ -433,11 +467,13 @@ def _mamba_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk, *, mode: str,
         y = torch.einsum("bhpn,bn->bhp", st, c_t)
         if ds % tp == 0:
             y = rk.mesh.psum(y, "model")
-        y = y + p["D"].float()[None, :, None] * xs
+        y = y + d_skip[None, :, None] * xs
         y = y.reshape(bsz, 1, d_in)[..., r * cols:(r + 1) * cols]
         y = y.to(x.dtype)
         new = {"conv": conv_state, "state": st.to(cache["state"].dtype)}
     else:
+        if mode == "train":
+            dt, a, d_skip = _pvary_all(rk, dt, a, d_skip)
         h0, h1, off = _head_span(cfg, tp, r)
         w = p["wxbc"]
         w_need = torch.cat([w[:, h0 * pd:h1 * pd], w[:, d_in:]], dim=1)
@@ -453,17 +489,29 @@ def _mamba_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk, *, mode: str,
         x_bar = (xs.float() * dt_h[..., None]).to(x.dtype)
         y, final_state = ssd_chunked(x_bar, dt_h * a[None, None, h0:h1],
                                      b_mat, c_mat, cfg.ssd_chunk)
-        y = y + p["D"][h0:h1].to(y.dtype)[None, None, :, None] \
+        y = y + d_skip[h0:h1].to(y.dtype)[None, None, :, None] \
             * xs.to(y.dtype)
         y = y.reshape(bsz, s, nx)[..., off:off + cols].to(x.dtype)
-        # the conv state: the raw xbc of the stored channel block
-        cc = w.shape[1] // tp
-        width = cw.shape[-1]
-        tail = u[:, max(0, s - (width - 1)):] \
-            @ w[:, r * cc:(r + 1) * cc].to(u.dtype)
-        new = {"conv": _conv_state(tail, width),
-               "state": _states_to_store(final_state.to(x.dtype), cfg, rk)}
+        if mode == "prefill":
+            # the conv state: the raw xbc of the stored channel block
+            cc = w.shape[1] // tp
+            width = cw.shape[-1]
+            tail = u[:, max(0, s - (width - 1)):] \
+                @ w[:, r * cc:(r + 1) * cc].to(u.dtype)
+            new = {"conv": _conv_state(tail, width),
+                   "state": _states_to_store(final_state.to(x.dtype), cfg,
+                                             rk)}
     g = (y * F.silu(z)).float()
     ss = rk.mesh.psum((g * g).sum(-1, keepdim=True), "model")
+    ss = rk.mesh.pvary(ss, "model")
     g = (g * torch.rsqrt(ss / d_in + 1e-6) * p["ssm_ln"].float()).to(x.dtype)
     return x + rk.mesh.psum(g @ p["out_proj"].to(x.dtype), "model"), new
+
+
+def _pvary_all(rk, *xs: torch.Tensor) -> list:
+    """``xs`` (float32, the same on every rank of ``model``) through one
+    ``pvary`` over ``model`` (their concatenation): one psum of their
+    cotangents in the backward pass."""
+    flat = rk.mesh.pvary(torch.cat([t.reshape(-1) for t in xs]), "model")
+    return [part.view_as(t) for part, t in
+            zip(flat.split([t.numel() for t in xs]), xs)]

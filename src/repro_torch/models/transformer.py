@@ -29,11 +29,12 @@ Under autograd the collectives run their transposes backward
 product enters through ``pvary``.  ``_constrain`` and
 ``_attn_constraints`` are the reference's layout hints; under the
 configs' ``attn_shard="auto"`` they are no-ops, and across ranks the
-other settings raise.  The enc-dec's prefill and decode run across ranks
-the same way (``_encdec_ranked``: the encoder on this rank's rows and
-heads, the cross caches laid out by ``kv_spec`` over ``enc_seq``), and
-so do the SSM's and the hybrid's (``ssm.py``, ``hybrid.py``), on the
-same ``_Ranks`` layout, which takes each family's stored spec tree.
+other settings raise.  The enc-dec's loss, prefill and decode run across
+ranks the same way (``_encdec_loss_ranked``, ``_encdec_ranked``: the
+encoder on this rank's rows and heads, the cross caches laid out by
+``kv_spec`` over ``enc_seq``), and so do the SSM's and the hybrid's
+(``ssm.py``, ``hybrid.py``), on the same ``_Ranks`` layout, which takes
+each family's stored spec tree.
 
 Weights may be held in the config's ``param_dtype`` (float32) and are cast
 to the compute dtype per use, as the reference does; ``cast_params``
@@ -716,17 +717,6 @@ def on_ranks(mctx: MeshCtx | None) -> bool:
     return True
 
 
-def not_on_ranks(cfg: ArchConfig, mctx: MeshCtx | None) -> None:
-    """Raise for a step that does not run across ranks yet: the training
-    loss of the enc-dec, SSM and hybrid families."""
-    if mctx is not None and mctx.mesh.size > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's training loss runs on "
-            f"one device; across ranks (on a {mctx.mesh} mesh) its prefill "
-            f"and decode run, its training is not ported yet (the decoder "
-            f"families dense, moe and vlm train across ranks)")
-
-
 def _need_slots(mctx: MeshCtx, n_slots: int | None) -> None:
     if n_slots is None:
         raise ValueError(f"a decode step on a {mctx.mesh} mesh over ranks "
@@ -1002,7 +992,8 @@ def _attn_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
 
 
 def _cross_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
-                  mode: str, cache: tuple, enc_out=None) -> torch.Tensor:
+                  mode: str, cache: tuple | None, enc_out=None
+                  ) -> torch.Tensor:
     """``attn_block``'s cross-attention on this rank's q heads (no rotary,
     not causal), ``p`` the ``x_*`` leaves in the computed layout.  The
     cross caches ``(cross_k, cross_v)`` by ``kv_spec(cfg, mctx,
@@ -1010,19 +1001,22 @@ def _cross_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
     encoder output ``enc_out`` (this rank's rows, whole over ``model``)
     into this rank's KV heads and stores its block; decode reads them,
     gathered over ``model`` first in the "slots" branch, at ``t =
-    enc_seq - 1`` as the reference does."""
+    enc_seq - 1`` as the reference does.  "train" projects ``enc_out`` as
+    the prefill does, inside the layer (so ``remat`` recomputes the keys
+    and values), and keeps no cache (``cache`` None)."""
     h = rk.mesh.pvary(rms_norm(x, p["ln1"]), "model")
     b, dh = x.shape[0], cfg.head_dim
     q = _q_ranked(p, h, cfg, rk).transpose(1, 2)
-    kc, vc = cache
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         kt, vt = ((enc_out @ p[w].to(enc_out.dtype)).reshape(
             b, -1, rk.k1 - rk.k0, dh).transpose(1, 2) for w in ("wk", "wv"))
-        _store_kv(kc, kt, rk.x_branch, rk)
-        _store_kv(vc, vt, rk.x_branch, rk)
+        if mode == "prefill":
+            _store_kv(cache[0], kt, rk.x_branch, rk)
+            _store_kv(cache[1], vt, rk.x_branch, rk)
         o = chunked_attention(q, rk.kv(kt), rk.kv(vt), causal=False,
                               window=cfg.window, chunk_attn=cfg.chunk_attn)
     else:
+        kc, vc = cache
         if rk.x_branch == "slots":
             kc = rk.mesh.all_gather(kc, "model", dim=2)
             vc = rk.mesh.all_gather(vc, "model", dim=2)
@@ -1229,10 +1223,13 @@ def encdec_loss(params, batch: dict, cfg: ArchConfig,
     enc_seq, 1024] and ``batch["tokens"]`` [B, S]: the encoder, then the
     decoder in "train" mode (causal self-attention with rotary,
     cross-attention over the encoder output), the next-token
-    cross-entropy against ``unembed``.  One device: a mesh of more than
-    one raises."""
+    cross-entropy against ``unembed``.  On a mesh over ranks ``params``
+    and the batch are this rank's blocks, as for ``encdec_prefill``, and
+    every rank returns the loss of the whole global batch
+    (``_encdec_loss_ranked``)."""
     _check_supported(cfg, ("encdec",))
-    not_on_ranks(cfg, mctx)
+    if on_ranks(mctx):
+        return _encdec_loss_ranked(params, batch, cfg, mctx, global_batch)
     enc_out = _encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
@@ -1353,12 +1350,50 @@ def _encode_ranked(params, frames: torch.Tensor, cfg: ArchConfig,
                    rk: _Ranks) -> torch.Tensor:
     """``_encode`` on this rank's rows: [B_rank, enc_seq, d], whole over
     ``model`` (the row-parallel products' psums), entering the
-    cross-attention's column-parallel products through ``pvary``."""
-    x = _encoder_input(params, frames, cfg)
-    for p in _layers(params["enc_layers"]):
+    cross-attention's column-parallel products through ``pvary`` (its
+    backward sums the decoder layers' cotangents over ``model``).  Each
+    layer, its gathers included, runs under ``remat`` when a gradient is
+    taken."""
+    def layer(x, p):
         p = rk.layer("enc", p)
         x = _attn_ranked(p, x, cfg, rk, mode="train", positions=None,
                          cache=None, causal=False, use_rotary=False)
-        x = _ffn_ranked(p, x, rk)
-        del p
+        return _ffn_ranked(p, x, rk)
+
+    x = _encoder_input(params, frames, cfg)
+    for p in _layers(params["enc_layers"]):
+        x = remat(cfg, layer, x, p)
     return rk.mesh.pvary(rms_norm(x, params["ln_enc"]), "model")
+
+
+def _encdec_loss_ranked(params, batch: dict, cfg: ArchConfig, mctx: MeshCtx,
+                        global_batch) -> torch.Tensor:
+    """``encdec_loss`` on this rank: the vocab-parallel embedding, the
+    encoder (``_encode_ranked``), then each decoder layer under ``remat``,
+    its weights gathered inside it: causal self-attention with rotary
+    (``_attn_ranked``), cross-attention over the encoder output
+    (``_cross_ranked``, the keys and values projected in the layer), the
+    tensor-parallel FFN; ``ln_f`` and the vocab-parallel cross-entropy
+    against ``unembed``'s ``P(None, "model")`` block."""
+    specs = encdec_param_specs(cfg, mctx)
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    rk = _Ranks(cfg, mctx, global_batch, tokens.shape[0], s,
+                {"enc": specs["enc_layers"], "dec": specs["dec_layers"]})
+    x = _embed_ranked(params, tokens, cfg, rk)
+    enc_out = _encode_ranked(params, batch["frames"], cfg, rk)
+    positions = torch.arange(s, device=x.device)
+
+    def layer(x, p, enc_out):
+        p = rk.layer("dec", p)
+        x = _attn_ranked(p, x, cfg, rk, mode="train", positions=positions,
+                         cache=None)
+        xp = {k[2:]: v for k, v in p.items() if k.startswith("x_")}
+        x = _cross_ranked(xp, x, cfg, rk, mode="train", cache=None,
+                          enc_out=enc_out)
+        return _ffn_ranked(p, x, rk)
+
+    for p in _layers(params["dec_layers"]):
+        x = remat(cfg, layer, x, p, enc_out)
+    x = rms_norm(x, params["ln_f"])
+    return next_token_loss(x, tokens, params["unembed"], cfg, rk)

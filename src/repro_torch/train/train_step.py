@@ -2,10 +2,9 @@
 reference's ``repro.train.train_step``).  Each runs on one device, and
 also across ranks (``mctx`` over the ranks of a process group: every
 argument and result is this rank's block under the spec trees,
-``models.transformer``): the prefill and serve steps of every family, the
-train step of the decoder families (dense, MoE, VLM).  There the steps
-take the global batch (``global_batch=``) and a decode step the caches'
-global slot count (``n_slots=``).
+``models.transformer``), for every family.  There the steps take the
+global batch (``global_batch=``) and a decode step the caches' global
+slot count (``n_slots=``).
 
 ``make_train_step`` returns train_step(params, opt_state, batch) ->
 (params, opt_state, metrics): the loss and its gradient by autograd,
@@ -18,9 +17,11 @@ Across ranks the loss is the global batch's on every rank, and autograd
 runs back through the collectives (``models.sharding``): each FSDP
 gather's backward reduce-scatters a weight's gradient into this rank's
 block.  A leaf that the data axes do not shard (the norm scales, the
-router, the embedding, a VLM's ``img_proj``) gets only this data rank's
-share of its gradient that way, so ``value_and_grad`` sums those over the
-data axes its spec leaves out, one psum per set of axes.  ``microbatch``
+router, the embedding, a VLM's ``img_proj``, whisper's ``frame_proj``,
+mamba2's ``A_log``, ``D``, ``dt_bias`` and conv filters, the RG-LRU's
+gates and decays) gets only this data rank's share of its gradient that
+way, so ``value_and_grad`` sums those over the data axes its spec leaves
+out, one psum per set of axes.  ``microbatch``
 > 1 splits this rank's rows (the reference splits the global batch; every
 part weighs as many tokens, so the mean is the same up to order).  The
 update runs on the blocks (``adamw_update(..., mctx=, specs=)``).
@@ -116,7 +117,7 @@ def make_train_step(cfg: ArchConfig, ocfg: AdamWConfig | None = None,
     opt_state, {"loss", "grad_norm"}); params and the moments are updated
     in place.  On a mesh over ranks the trees are this rank's blocks
     under ``param_specs`` / ``opt_state_specs`` and the batch its block
-    of ``global_batch=`` rows (the decoder families; the others raise)."""
+    of ``global_batch=`` rows, for every family."""
     ocfg = ocfg or AdamWConfig(opt_dtype=cfg.opt_dtype)
     loss_fn = make_loss_fn(cfg, mctx)
     ranked = on_ranks(mctx)

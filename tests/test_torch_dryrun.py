@@ -235,10 +235,14 @@ def test_run_cell_record_keys():
     assert rec["collective_bytes_total"] == sum(coll["bytes"].values()) > 0
     assert [rec["argument_bytes"], rec["output_bytes"]] == \
         PINS["mamba2-130m"]["bytes"]["16x16"]["long_500k"]
+    # and so does its training: the forward, recompute and backward's
     train = dryrun.run_cell("mamba2-130m", "train_4k", multi_pod=False,
                             verbose=False)
-    assert train["ok"] and train["collective_bytes"] is None
-    assert "not ported" in train["collectives"]
+    coll = dryrun.count_collectives(get_config("mamba2-130m"),
+                                    get_shape("train_4k"),
+                                    production_mesh_ctx())
+    assert train["ok"] and train["collective_bytes"] == coll["bytes"]
+    assert train["collectives"] == coll["by_axes"]
 
 
 def test_collective_bytes_of_a_decode_cell_written_out():
@@ -264,15 +268,15 @@ def test_collective_bytes_of_a_decode_cell_written_out():
 
 
 def test_every_decoder_serving_cell_counts_its_collectives():
-    """Non-null bytes for every decode and train cell of the decoder
-    families and every decode cell of the others on both production
-    meshes (a train step's backward adds the reduce-scatters; the
-    RG-LRU's gates add one a layer), and for the prefill cells of
-    llama3.2-3b and the three other families (the sweep, ``python -m
-    repro_torch.launch.dryrun --all --both-meshes``, counts every
-    prefill); the enc-dec, SSM and hybrid families' train cells say why
-    theirs are null."""
+    """Non-null bytes for every decode and train cell of every family on
+    both production meshes (a train step's backward adds the
+    reduce-scatters; the RG-LRU's gates add one a layer), and for the
+    prefill cells of llama3.2-3b and the three other families (the sweep,
+    ``python -m repro_torch.launch.dryrun --all --both-meshes``, counts
+    every prefill); the enc-dec, SSM and hybrid families' ``train_4k``
+    cells move all-gather, all-reduce and reduce-scatter bytes."""
     others = ("whisper-medium", "mamba2-130m", "recurrentgemma-2b")
+    trained = set()
     for arch, sh in dryrun.all_cells():
         cfg, shape = get_config(arch), get_shape(sh)
         if shape.kind == "prefill" and arch not in ("llama3.2-3b",
@@ -280,17 +284,14 @@ def test_every_decoder_serving_cell_counts_its_collectives():
             continue
         for name in ("16x16", "2x16x16"):
             got = dryrun.count_collectives(cfg, shape, _mesh(name))
-            if cfg.family in ("dense", "moe", "vlm") \
-                    or shape.kind != "train":
-                kinds = {"all-gather", "all-reduce"} | (
-                    {"reduce-scatter"} if shape.kind == "train"
-                    or cfg.family == "hybrid" else set())
-                assert set(got["bytes"]) == kinds
-                assert min(got["bytes"].values()) > 0
-            else:
-                assert "bytes" not in got
-                assert "training across ranks is not ported" in \
-                    got["reason"]
+            kinds = {"all-gather", "all-reduce"} | (
+                {"reduce-scatter"} if shape.kind == "train"
+                or cfg.family == "hybrid" else set())
+            assert set(got["bytes"]) == kinds
+            assert min(got["bytes"].values()) > 0
+            if arch in others and sh == "train_4k":
+                trained.add((arch, name))
+    assert trained == {(a, m) for a in others for m in ("16x16", "2x16x16")}
 
 
 FAMILY_CELLS = [(arch, sh) for arch in ("whisper-medium", "mamba2-130m",
@@ -347,17 +348,34 @@ def test_family_serving_cells_count_a_ranks_own_run(arch, sh):
 @pytest.mark.parametrize("arch", ["whisper-medium", "mamba2-130m",
                                   "recurrentgemma-2b"])
 def test_other_families_loss_across_ranks_raises(arch):
-    """Training across ranks is ported for the decoder families only: the
-    enc-dec, SSM and hybrid losses on a mesh over ranks raise, and say
-    that their serving runs there."""
+    """The enc-dec, SSM and hybrid losses run across ranks: on a mesh over
+    ranks a loss without its global batch raises, and with it returns a
+    float32 scalar on this rank's blocks (a ``CountingMesh``'s, whose
+    collectives communicate nothing)."""
     from repro_torch.models.sharding import CountingMesh
     cfg = get_config(arch).reduced()
     cm = MeshCtx(CountingMesh((2, 4), ("data", "model")))
     loss = port_model.get_model(cfg).loss
-    with pytest.raises(NotImplementedError,
-                       match="prefill and decode run, its training is not"):
+    with pytest.raises(ValueError, match="global_batch"):
         loss({}, {"tokens": torch.zeros((2, 8), dtype=torch.int32)}, cfg,
-             cm, global_batch=4)
+             cm)
+    g = torch.Generator().manual_seed(0)
+
+    def blocks(tree):
+        if isinstance(tree, dict):
+            return {k: blocks(v) for k, v in tree.items()}
+        block = tree.sharding.shard_shape(tree.shape)
+        if tree.dtype == torch.int32:
+            return torch.randint(0, cfg.vocab_size, block, generator=g,
+                                 dtype=torch.int32)
+        return (0.02 * torch.randn(block, generator=g)).to(tree.dtype)
+
+    shape = ShapeConfig("train", "train", 8, 4)
+    got = loss(blocks(port_model.abstract_params(cfg, cm)),
+               blocks(port_model.abstract_batch(cfg, shape, cm)), cfg, cm,
+               global_batch=4)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    assert torch.isfinite(got)
 
 
 @pytest.mark.parametrize("remat", ["none", "full"])
@@ -475,3 +493,47 @@ def test_sweep_in_worker_processes_keeps_the_order():
     for r in records:
         assert [r["argument_bytes"], r["output_bytes"]] == \
             PINS[r["arch"]]["bytes"][r["mesh"]][r["shape"]]
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "mamba2-130m",
+                                  "recurrentgemma-2b"])
+def test_family_train_cells_count_a_ranks_own_run(arch):
+    """The enc-dec, SSM and hybrid families' ``train_4k`` cell at the
+    reduced size on 2x4: the dry-run's count (its train step on meta
+    tensors) equals the collectives the rank at coordinates 0 issues
+    running the same train step (forward, recompute, backward, the
+    replicated leaves' sums and the norm) on CPU tensors of its blocks
+    on a ``CountingMesh``."""
+    from repro_torch.models.sharding import CountingMesh
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_config(arch).reduced().replace(compute_dtype="float32",
+                                             remat="full")
+    shape = get_shape("train_4k").reduced()
+    mesh = MeshCtx(Mesh(np.arange(8).reshape(2, 4), ("data", "model")))
+    want = dryrun.count_collectives(cfg, shape, mesh)
+    cm = MeshCtx(CountingMesh((2, 4), ("data", "model")))
+    g = torch.Generator().manual_seed(0)
+
+    def blocks(tree):
+        if isinstance(tree, dict):
+            return {k: blocks(v) for k, v in tree.items()}
+        block = tree.sharding.shard_shape(tree.shape)
+        if tree.dtype == torch.int32:
+            return torch.randint(0, cfg.vocab_size, block, generator=g,
+                                 dtype=torch.int32)
+        return (0.02 * torch.randn(block, generator=g)).to(tree.dtype)
+
+    params = blocks(port_model.abstract_params(cfg, cm))
+    batch = blocks(port_model.abstract_batch(cfg, shape, cm))
+    ocfg = AdamWConfig(opt_dtype=cfg.opt_dtype)
+    _, _, metrics = make_train_step(cfg, ocfg, mctx=cm)(
+        params, init_opt_state(params, ocfg), batch,
+        global_batch=shape.global_batch)
+    assert np.isfinite(float(metrics["loss"]))
+    by_axes = {f"{kind} {','.join(axes)}": [rec["calls"], rec["bytes"]]
+               for (kind, axes), rec in sorted(
+                   cm.mesh.collective_log.items())}
+    assert want["by_axes"] == by_axes
+    assert set(want["bytes"]) == {"all-gather", "all-reduce",
+                                  "reduce-scatter"}

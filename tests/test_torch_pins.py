@@ -57,6 +57,15 @@ holds the port on 8 gloo ranks to it and ``chip_smoke.py``'s phase 15 (a)
 on the card.  Written with ``--write-sharded-train``; the ``slow`` test
 regenerates it.
 
+``tests/data/torch_sharded_families_train.json`` holds the reference's
+answers to its jitted ``make_train_step`` on 8 devices for the enc-dec,
+SSM and hybrid families (``torch_sharded_families_train_cases``: reduced
+whisper, mamba2 and recurrentgemma on 2x4 and 2x2x2, float32, 2 AdamW
+steps), in ``torch_sharded_train.json``'s form, which
+``test_torch_sharded_families_train.py`` holds the port to on 8 gloo
+ranks and ``chip_smoke.py``'s phase 17 (a) on the card.  Written with
+``--write-sharded-families-train``; the ``slow`` test regenerates it.
+
 ``tests/data/torch_sharded_families.json`` holds the reference's answers
 to the enc-dec, SSM and hybrid families' sharded prefill and decode steps
 on 8 devices (``torch_sharded_families_cases``: reduced whisper, mamba2
@@ -79,6 +88,7 @@ import pytest
 import torch_mesh_cases as mesh_cases
 import torch_sharded_cases as sharded_cases
 import torch_sharded_families_cases as families_cases
+import torch_sharded_families_train_cases as families_train_cases
 import torch_sharded_train_cases as train_cases
 
 torch = pytest.importorskip("torch")
@@ -869,16 +879,18 @@ def test_family_phase_rehearses_on_the_cpu(monkeypatch):
         "flash_attention": 0, "decode_attention": 0}
 
 # The sharded training step across 8 devices: the reference's jitted
-# ``make_train_step`` on every case of ``torch_sharded_train_cases``, its
-# parameters and moments placed under ``param_specs`` /
-# ``opt_state_specs`` and the batch under ``P(dp, None)``, on meshes with
-# Auto axes; the first step's gradients from ``jax.grad`` of the loss the
-# step differentiates (a microbatched case's whole-batch gradient: its
-# parts weigh as many tokens each, so the mean is the same function).
+# ``make_train_step`` on every case of a cases module (its name the
+# script's argument: ``torch_sharded_train_cases`` or
+# ``torch_sharded_families_train_cases``), its parameters and moments
+# placed under ``param_specs`` / ``opt_state_specs`` and the batch under
+# ``P(dp, ...)``, on meshes with Auto axes; the first step's gradients
+# from ``jax.grad`` of the loss the step differentiates (a microbatched
+# case's whole-batch gradient: its parts weigh as many tokens each, so
+# the mean is the same function).
 _SHARDED_TRAIN_SCRIPT = r"""
 import os
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-import json, sys
+import importlib, json, sys
 sys.path.insert(0, "tests")
 import jax
 import jax.numpy as jnp
@@ -890,7 +902,7 @@ from repro.models.sharding import MeshCtx
 from repro.train.optimizer import AdamWConfig, init_opt_state, \
     opt_state_specs
 from repro.train.train_step import make_loss_fn, make_train_step
-import torch_sharded_train_cases as C
+C = importlib.import_module(sys.argv[1])
 
 
 def place(tree, specs, mesh):
@@ -915,9 +927,7 @@ for name, (arch, mode, m, batch, micro) in C.CASES.items():
     mctx = MeshCtx(mesh)
     cfg = get_config(arch).reduced().replace(**C.replace(name))
     model = get_model(cfg)
-    img = cfg.img_tokens if cfg.family == "vlm" else 0
-    inp = C.inputs(name, model.param_shapes(cfg), cfg.vocab_size,
-                   cfg.d_model, img)
+    inp = C.case_inputs(name, model.param_shapes(cfg), cfg)
     dp = mctx.dp if batch % mctx.dp_size == 0 else None
     specs = model.param_specs(cfg, mctx)
     params = place(inp["params"], specs, mesh)
@@ -926,9 +936,8 @@ for name, (arch, mode, m, batch, micro) in C.CASES.items():
                 opt_state_specs(specs), mesh)
     opt["step"] = jax.device_put(jnp.zeros((), jnp.int32),
                                  NamedSharding(mesh, P()))
-    feed = {"tokens": place(inp["tokens"], P(dp, None), mesh)}
-    if img:
-        feed["img_emb"] = place(inp["img_emb"], P(dp, None, None), mesh)
+    feed = {k: place(v, P(dp, *(None,) * (v.ndim - 1)), mesh)
+            for k, v in inp.items() if k != "params"}
     grads = jax.jit(jax.grad(make_loss_fn(cfg, mctx)))(params, feed)
     for key, val in C.summarise(name, host(grads)).items():
         out[f"{name}/grad/{key}"] = val
@@ -945,13 +954,15 @@ for name, (arch, mode, m, batch, micro) in C.CASES.items():
 print(json.dumps({k: C.encode(v) for k, v in out.items()}))
 """
 SHARDED_TRAIN_PINS = ROOT / "tests" / "data" / "torch_sharded_train.json"
+SHARDED_FAMILIES_TRAIN_PINS = ROOT / "tests" / "data" / \
+    "torch_sharded_families_train.json"
 
 
-def sharded_train_pins() -> dict:
-    """The reference's answers to every case of
-    ``torch_sharded_train_cases``, from one subprocess with 8 forced host
-    devices."""
-    out = subprocess.run([sys.executable, "-c", _SHARDED_TRAIN_SCRIPT],
+def sharded_train_pins(cases=train_cases) -> dict:
+    """The reference's answers to every case of the cases module
+    ``cases``, from one subprocess with 8 forced host devices."""
+    out = subprocess.run([sys.executable, "-c", _SHARDED_TRAIN_SCRIPT,
+                          cases.__name__],
                          capture_output=True, text=True, timeout=1800,
                          cwd=ROOT, env={**os.environ, "PYTHONPATH": "src",
                                         "JAX_PLATFORMS": "cpu"})
@@ -959,18 +970,27 @@ def sharded_train_pins() -> dict:
     return json.loads(out.stdout)
 
 
-def write_sharded_train_pins() -> None:
+def _write_train_pins(cases, path: pathlib.Path, flag: str) -> None:
     pins = {"_meta": {
-        "written_by": "PYTHONPATH=src python tests/test_torch_pins.py "
-                      "--write-sharded-train (the reference package, on the "
-                      "CPU, 8 forced host devices, Auto mesh axes)",
-        "cases": {k: list(v) for k, v in train_cases.CASES.items()},
-        "replace": {k: train_cases.replace(k) for k in train_cases.CASES},
-        "steps": train_cases.STEPS, "seq": train_cases.SEQ,
+        "written_by": f"PYTHONPATH=src python tests/test_torch_pins.py "
+                      f"{flag} (the reference package, on the CPU, 8 forced "
+                      f"host devices, Auto mesh axes)",
+        "cases": {k: list(v) for k, v in cases.CASES.items()},
+        "replace": {k: cases.replace(k) for k in cases.CASES},
+        "steps": cases.STEPS, "seq": cases.SEQ,
         "samples": train_cases.SAMPLES},
-        **sharded_train_pins()}
-    SHARDED_TRAIN_PINS.write_text(json.dumps(pins, separators=(",", ":"))
-                                  + "\n")
+        **sharded_train_pins(cases)}
+    path.write_text(json.dumps(pins, separators=(",", ":")) + "\n")
+
+
+def write_sharded_train_pins() -> None:
+    _write_train_pins(train_cases, SHARDED_TRAIN_PINS,
+                      "--write-sharded-train")
+
+
+def write_sharded_families_train_pins() -> None:
+    _write_train_pins(families_train_cases, SHARDED_FAMILIES_TRAIN_PINS,
+                      "--write-sharded-families-train")
 
 
 @pytest.mark.slow
@@ -1001,6 +1021,37 @@ def test_train_ranks_phase_rehearses_on_the_cpu(monkeypatch):
 
 
 @pytest.mark.slow
+def test_reference_reproduces_sharded_families_train_pins():
+    """Every training case of the enc-dec, SSM and hybrid families
+    regenerated from the reference equals the file, bit for bit."""
+    pins = json.loads(SHARDED_FAMILIES_TRAIN_PINS.read_text())
+    got = sharded_train_pins(families_train_cases)
+    assert sorted(got) == sorted(k for k in pins if k != "_meta")
+    for key in got:
+        np.testing.assert_array_equal(
+            families_train_cases.decode(got[key]),
+            families_train_cases.decode(pins[key]), key)
+
+
+def test_family_train_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s phase 17 on 8 gloo ranks on the CPU: one pinned
+    case with the counting mesh's counts, the reduced whisper, mamba2 and
+    recurrentgemma (one full group) trained on 2x4 against their 1x1
+    runs, each rank's collectives equal to the dry-run's count (the
+    card's run with the sizes cut; the plain versions launch no
+    kernel)."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    parts = {key: dict(sv, reduced=True, seq=32,
+                       layers=3 if key == "recurrentgemma" else 2)
+             for key, sv in chip_smoke.TRAIN_FAMILIES.items()}
+    assert chip_smoke.family_train_phase(
+        torch, "cpu", "cpu", parts=parts,
+        pin_names=["mamba2/2x4/cut-heads"]) == {
+        "flash_attention": 0, "flash_attention_bwd": 0}
+
+
+@pytest.mark.slow
 def test_reference_reproduces_mesh_pins():
     """Every mesh case regenerated from the reference equals the file, bit
     for bit."""
@@ -1019,10 +1070,13 @@ if __name__ == "__main__":
                "--write-mesh": write_mesh_pins,
                "--write-sharded": write_sharded_pins,
                "--write-sharded-train": write_sharded_train_pins,
-               "--write-sharded-families": write_sharded_families_pins}
+               "--write-sharded-families": write_sharded_families_pins,
+               "--write-sharded-families-train":
+                   write_sharded_families_train_pins}
     if len(sys.argv) != 2 or sys.argv[1] not in writers:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_pins.py "
                  "--write | --write-serve | --write-train | --write-specs "
                  "| --write-mesh | --write-sharded "
-                 "| --write-sharded-train | --write-sharded-families")
+                 "| --write-sharded-train | --write-sharded-families "
+                 "| --write-sharded-families-train")
     writers[sys.argv[1]]()

@@ -262,16 +262,16 @@ def test_relayout_gathers_and_cuts():
 
 
 def test_what_does_not_run_across_ranks_raises():
-    """The enc-dec, SSM and hybrid families' loss (their prefill and
-    decode run across ranks, ``test_torch_sharded_families.py``; through
-    the train step too), the "heads"/"seq" layout hints, a step without
-    its global batch or slot count, and an abstract mesh of more than one
-    device."""
+    """The "heads"/"seq" layout hints, a step without its global batch or
+    slot count (the enc-dec, SSM and hybrid families' loss, prefill and
+    decode too: they run across ranks, ``test_torch_sharded_families.py``
+    and ``test_torch_sharded_families_train.py``), and an abstract mesh
+    of more than one device."""
     from repro_torch.configs import get_config
     mctx = _mctx("2x4")
     for arch in ("whisper-medium", "mamba2-130m", "recurrentgemma-2b"):
         cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="across ranks"):
+        with pytest.raises(ValueError, match="global_batch"):
             get_model(cfg).loss({}, {"tokens": torch.zeros(
                 (2, 4), dtype=torch.int32)}, cfg, mctx)
         with pytest.raises(ValueError, match="global_batch"):
@@ -283,9 +283,9 @@ def test_what_does_not_run_across_ranks_raises():
                     (2, 1), dtype=torch.int32), 4, cfg, mctx,
                     global_batch=4)
     cfg = get_config("whisper-medium").reduced()
-    with pytest.raises(NotImplementedError, match="across ranks"):
+    with pytest.raises(ValueError, match="rows"):
         make_train_step(cfg, mctx=mctx)({}, {}, {"tokens": torch.zeros(
-            (2, 4), dtype=torch.int32)}, global_batch=4)
+            (2, 4), dtype=torch.int32)}, global_batch=2)
     cfg = C.port_config("llama/2x4/slots")
     make_train_step(cfg, mctx=mctx)
     make_train_step(cfg, mctx=cpu_mesh_ctx())

@@ -249,19 +249,17 @@ def test_moe_cases_route_clear_of_ties(name, monkeypatch):
 
 
 def test_what_does_not_train_across_ranks_raises():
-    """The enc-dec, SSM and hybrid losses across ranks; a train step
-    without its global batch."""
+    """A loss or a train step across ranks without its global batch, for
+    every family (each family's loss trains across ranks:
+    ``test_torch_sharded_families_train.py`` for the enc-dec, SSM and
+    hybrid ones)."""
     from repro_torch.configs import get_config
     mctx = MeshCtx(CountingMesh((2, 4), ("data", "model")))
     toks = torch.zeros((2, 4), dtype=torch.int32)
-    for arch in ("whisper-medium", "mamba2-130m", "recurrentgemma-2b"):
+    for arch in ("llama3.2-3b", "whisper-medium", "mamba2-130m",
+                 "recurrentgemma-2b"):
         cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="across ranks"):
-            get_model(cfg).loss({}, {"tokens": toks}, cfg, mctx,
-                                global_batch=4)
-        with pytest.raises(NotImplementedError, match="across ranks"):
-            make_train_step(cfg, mctx=mctx)({}, {}, {"tokens": toks},
-                                            global_batch=4)
-    cfg = C.port_config("llama/2x4")
-    with pytest.raises(ValueError, match="global_batch"):
-        get_model(cfg).loss({}, {"tokens": toks}, cfg, mctx)
+        with pytest.raises(ValueError, match="global_batch"):
+            get_model(cfg).loss({}, {"tokens": toks}, cfg, mctx)
+        with pytest.raises(ValueError, match="global_batch"):
+            make_train_step(cfg, mctx=mctx)({}, {}, {"tokens": toks})

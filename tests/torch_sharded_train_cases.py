@@ -30,12 +30,14 @@ the file's ~2 MB.
 """
 from __future__ import annotations
 
+import sys
 import zlib
 
 import numpy as np
 
 from torch_mesh_cases import MESHES, WORLD, decode, encode  # noqa: F401
 
+PIN_FILE = "torch_sharded_train.json"       # under tests/data
 STEPS, SEQ = 2, 16
 SAMPLES = 256
 VIT_STUB_DIM = 1024
@@ -126,6 +128,13 @@ def inputs(name: str, shapes: dict, vocab: int, d_model: int,
         out["img_emb"] = rng.standard_normal(
             (batch, img_tokens, VIT_STUB_DIM)).astype(np.float32)
     return out
+
+
+def case_inputs(name: str, shapes: dict, cfg) -> dict:
+    """``inputs`` of case ``name`` for its config ``cfg`` (either
+    package's): ``{"params", and the batch's arrays by key}``."""
+    return inputs(name, shapes, cfg.vocab_size, cfg.d_model,
+                  cfg.img_tokens if cfg.family == "vlm" else 0)
 
 
 def paths(tree, prefix: tuple = ()) -> list[tuple[str, ...]]:
@@ -228,8 +237,11 @@ def block_summary(name: str, tree, specs, shapes: dict, mctx) -> dict:
     return out
 
 
-def run_case(name: str, mctx, device: str, counting=None) -> dict:
-    """Case ``name`` on this rank of ``mctx`` (a mesh over the 8 ranks):
+def run_case(name: str, mctx, device: str, counting=None,
+             cases=None) -> dict:
+    """Case ``name`` of the cases module ``cases`` (this one by default:
+    any module with ``CASES``, ``port_config`` and ``case_inputs``) on
+    this rank of ``mctx`` (a mesh over the 8 ranks):
     ``{"loss": [...], "grad_norm": [...], "grad": block_summary of the
     first step's gradients, "param": of the last step's parameters,
     "log/<step>": the rank's collective log of each train step,
@@ -246,21 +258,19 @@ def run_case(name: str, mctx, device: str, counting=None) -> dict:
     from repro_torch.train.train_step import (make_loss_fn,
                                               make_train_step,
                                               value_and_grad)
-    cfg = port_config(name)
-    _, _, _, batch, micro = CASES[name]
+    cases = cases or sys.modules[__name__]
+    cfg = cases.port_config(name)
+    _, _, _, batch, micro = cases.CASES[name]
     model = get_model(cfg)
-    img = cfg.img_tokens if cfg.family == "vlm" else 0
     shapes = model.param_shapes(cfg)
-    inp = inputs(name, shapes, cfg.vocab_size, cfg.d_model, img)
+    inp = cases.case_inputs(name, shapes, cfg)
     mesh = mctx.mesh
     dp = mctx.dp if batch % mctx.dp_size == 0 else None
     specs = model.param_specs(cfg, mctx)
     params = params_from_numpy(blocks(inp["params"], specs, mctx), device)
-    feed = {"tokens": torch.from_numpy(blocks(inp["tokens"], P(dp, None),
-                                              mctx)).to(device)}
-    if img:
-        feed["img_emb"] = torch.from_numpy(blocks(
-            inp["img_emb"], P(dp, None, None), mctx)).to(device)
+    feed = {k: torch.from_numpy(blocks(v, P(dp, *(None,) * (v.ndim - 1)),
+                                       mctx)).to(device)
+            for k, v in inp.items() if k != "params"}
     ocfg = AdamWConfig(opt_dtype=cfg.opt_dtype)
     opt = init_opt_state(params, ocfg)
     _, grads = value_and_grad(make_loss_fn(cfg, mctx), params, feed, micro,
@@ -290,11 +300,12 @@ def run_case(name: str, mctx, device: str, counting=None) -> dict:
     return out
 
 
-def rank_cases(rank: int, device: str, names=None) -> dict:
-    """Every case (or those of ``names``) through the port on this rank of
-    an 8-rank process group (``repro_torch.launch.mesh.run_ranks``):
-    ``{case: run_case's record}``, each with its counting mesh's logs,
-    plus ``"_coords"`` and ``"_collective_grads"``
+def rank_cases(rank: int, device: str, names=None, cases=None) -> dict:
+    """Every case of the cases module ``cases`` (this one by default; or
+    those of ``names``) through the port on this rank of an 8-rank
+    process group (``repro_torch.launch.mesh.run_ranks``): ``{case:
+    run_case's record}``, each with its counting mesh's logs, plus
+    ``"_coords"`` and, for this module's cases, ``"_collective_grads"``
     (``collective_grads``)."""
     import torch
     from repro_torch.launch.mesh import rank_mesh_ctx
@@ -302,13 +313,15 @@ def rank_cases(rank: int, device: str, names=None) -> dict:
     torch.set_num_threads(1)
     meshes = {m: rank_mesh_ctx(shape, axes, device)
               for m, (shape, axes) in MESHES.items()}
-    out = {"_coords": {m: mctx.mesh.coords for m, mctx in meshes.items()},
-           "_collective_grads": collective_grads(meshes["2x2x2"], device)}
-    for name in names or CASES:
-        shape, axes = MESHES[CASES[name][2]]
-        counting = CountingMesh(shape, axes, meshes[CASES[name][2]].mesh
-                                .coords)
-        out[name] = run_case(name, meshes[CASES[name][2]], device, counting)
+    out = {"_coords": {m: mctx.mesh.coords for m, mctx in meshes.items()}}
+    if cases is None:
+        out["_collective_grads"] = collective_grads(meshes["2x2x2"], device)
+    all_cases = (cases or sys.modules[__name__]).CASES
+    for name in names or all_cases:
+        m = all_cases[name][2]
+        shape, axes = MESHES[m]
+        counting = CountingMesh(shape, axes, meshes[m].mesh.coords)
+        out[name] = run_case(name, meshes[m], device, counting, cases)
     return out
 
 
