@@ -8,7 +8,8 @@ Phases, each printing JSON lines:
 
 1. device — the card, and ``nvidia-smi``'s name and power limit;
 2. build  — compiles ``src/repro_torch/csrc/*.cu`` with nvcc and prints
-   what ``ptxas -v`` reports per kernel (registers, shared memory, spills);
+   what ``ptxas -v`` reports per kernel (registers, shared memory, spills),
+   failing if a kernel of the flash backward spills or ptxas warns;
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card over an edge-case sweep and at the main path's shapes (for
    the store kernels also at the median shapes of their call sites in a
@@ -278,6 +279,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -315,6 +317,24 @@ SHAPE_KEYS = ("window_shape", "moe_shape", "chunk_shape", "vlm_shape",
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# sources whose every kernel must build with no spill and no ptxas warning
+# (C7513: wgmma serialised): the flash backward's wgmma kernels hold dK
+# and dV, or dQ, in registers for a whole walk
+PTXAS_CLEAN = ("flash_attn_bwd.cu",)
+
+
+def ptxas_clean(report: dict, sources) -> None:
+    """Raise if ``_build.build_info["ptxas"]`` shows, for one of
+    ``sources``, a kernel that spills or any ptxas warning."""
+    for src in sources:
+        lines = report[src]
+        bad = [ln for ln in lines if "warning" in ln or (
+            "spill" in ln and not re.search(
+                r"\b0 bytes spill stores, 0 bytes spill loads", ln))]
+        if not lines or bad:
+            raise AssertionError(f"ptxas on {src}: {bad or 'no report'}")
 
 
 def smi() -> str:
@@ -2669,14 +2689,16 @@ def flash_bwd_cases(torch, dev):
     chunk with and without the causal mask and with a window, whisper's
     cross shape (D 64), recurrentgemma's D 256 with 10 q-heads on one KV
     head, D 160 and 48, a window of 1, groups 1 to 10, and the training
-    path's [B, S, H, D] views; bf16 and f32.  For the wgmma route (bf16, D
-    <= 128) also lengths ragged against its 64- and 128-row tiles (129,
-    191, 1,000), Sq above and below Skv, a chunk with a window and without
-    the causal mask, D 16, an MQA whose group ``bwd_plan`` cuts into
-    shares of one head, groups of 3 that it cuts into shares of 1 and 2
-    heads, run again walked whole by the ``shares`` argument (the last
-    item of a case: None for the plan's cut), groups of 2 that it walks
-    whole, and operands whose strides TMA cannot read (copied first)."""
+    path's [B, S, H, D] views; bf16 and f32.  For the wgmma route (bf16)
+    also lengths ragged against its 64- and 128-row tiles (129, 191,
+    1,000), Sq above and below Skv, a chunk with a window and without the
+    causal mask, D 16, an MQA whose group ``bwd_plan`` cuts into shares of
+    one head, groups of 3 that it cuts into shares of 1 and 2 heads, run
+    again walked whole by the ``shares`` argument (the last item of a
+    case: None for the plan's cut), groups of 2 that it walks whole, and
+    operands whose strides TMA cannot read (copied first); and the same
+    at D 256 against the wide kernels' 64- and 32-key tiles (recurrent-
+    gemma's group of 10 cut by the plan and walked whole), with D 192."""
     g = torch.Generator(device="cpu").manual_seed(60)
     for name, dt in (("float32", torch.float32),
                      ("bfloat16", torch.bfloat16)):
@@ -2717,17 +2739,44 @@ def flash_bwd_cases(torch, dev):
                 yield (f"{label} shares=1", name, q, k, v, causal, window,
                        chunk, 1)
     dt = torch.bfloat16
+    # D 256 on the wide wgmma kernels (64-key dK/dV blocks, 32-key dQ
+    # ring tiles): lengths ragged against them, Sq below and above Skv,
+    # recurrentgemma's group of 10 on one KV head as the plan cuts it and
+    # walked whole again, a window of 1, a chunk with and without the
+    # causal mask, and D 192
+    for b, sq, skv, hq, hk, d, causal, window, chunk in (
+            (1, 129, 129, 3, 1, 256, True, None, None),
+            (1, 191, 191, 2, 1, 256, True, 100, None),
+            (1, 191, 1000, 2, 1, 256, True, None, None),
+            (1, 1000, 191, 3, 1, 256, True, None, None),
+            (1, 1024, 1024, 10, 1, 256, True, 512, None),
+            (1, 300, 300, 2, 1, 256, True, 1, None),
+            (1, 1000, 1000, 3, 1, 256, True, None, 300),
+            (1, 513, 513, 2, 1, 256, False, None, 100),
+            (1, 300, 300, 2, 1, 192, True, None, None)):
+        q = _randn(torch, g, (b, hq, sq, d), dev, dt)
+        k = _randn(torch, g, (b, hk, skv, d), dev, dt)
+        v = _randn(torch, g, (b, hk, skv, d), dev, dt)
+        label = (f"bfloat16 Sq={sq} Skv={skv} D={d} {hq}:{hk} "
+                 f"causal={causal} window={window} chunk={chunk}")
+        yield label, "bfloat16", q, k, v, causal, window, chunk, None
+        if hq == 10:
+            yield (f"{label} shares=1", "bfloat16", q, k, v, causal, window,
+                   chunk, 1)
     for s, d, hq, hk in ((700, 128, 6, 2), (300, 256, 10, 1)):
         q = _randn(torch, g, (2, s, hq, d), dev, dt).transpose(1, 2)
         k = _randn(torch, g, (2, s, hk, d), dev, dt).transpose(1, 2)
         v = _randn(torch, g, (2, s, hk, d), dev, dt).transpose(1, 2)
         yield (f"bfloat16 [B,S,H,D] views Sq=Skv={s} D={d} {hq}:{hk} causal",
                "bfloat16", q, k, v, True, None, None, None)
-    # rows 136 bytes apart: no TMA map can read them (the wrapper copies)
-    q, k, v = (_randn(torch, g, (1, h, 300, 68), dev, dt)[..., :64]
-               for h in (4, 2, 2))
-    yield ("bfloat16 strided (not TMA-ready) Sq=Skv=300 D=64 4:2 causal",
-           "bfloat16", q, k, v, True, None, None, None)
+    # rows 136 (520) bytes apart: no TMA map can read them (the wrapper
+    # copies)
+    for d, hq, hk in ((64, 4, 2), (256, 3, 1)):
+        q, k, v = (_randn(torch, g, (1, h, 300, d + 4), dev, dt)[..., :d]
+                   for h in (hq, hk, hk))
+        yield (f"bfloat16 strided (not TMA-ready) Sq=Skv=300 D={d} "
+               f"{hq}:{hk} causal", "bfloat16", q, k, v, True, None, None,
+               None)
 
 
 def bwd_err(torch, got, want, dtype: str, label: str) -> float:
@@ -2914,7 +2963,6 @@ def bwd_split(torch, launch, reps: int = 10) -> dict:
     """Device ms a call of each of the backward's kernels (prep or delta,
     dK/dV, the group sum, dQ), from torch.profiler over ``reps`` bare
     launches back to back (warm L2)."""
-    import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     launch()
@@ -5305,6 +5353,7 @@ def main(argv=None) -> int:
     _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           **_build.build_info})
+    ptxas_clean(_build.build_info["ptxas"], PTXAS_CLEAN)
     # 3. kernels against their plain versions
     rows = [check_probe(torch, dev), check_agg(torch, dev),
             check_flash(torch, dev), check_decode(torch, dev)]

@@ -238,26 +238,27 @@ def decode_rows(torch, base, cur, dev) -> list:
 
 # the training shapes both backward builds run: (arch, batch, tokens,
 # seed), chip_smoke's phase 10 (a) rows
-TRAINED = ((cs.ARCH, cs.TRAIN["batch"], cs.TRAIN["seq"], 63),
-           (cs.HYBRID, 1, 4096, 64))
+TRAINED = ((cs.ARCH, cs.TRAIN["batch"], cs.TRAIN["seq"], 63, {}),
+           (cs.HYBRID, 1, 4096, 64, {}),
+           (cs.HYBRID, 1, 2048, 71, cs.TRAIN_FAMILY_RANK[cs.HYBRID]))
 
 
 def flash_bwd_rows(torch, base, cur, dev) -> list:
     """The backward at llama3.2-3b's and recurrentgemma-2b's training
-    shapes (``chip_smoke.train_attn_shape``'s [B, S, H, D] views, the
-    config's window): this checkout's forward gives the output and
+    shapes, and at recurrentgemma's on each rank of ``chip_smoke.py``
+    phase 17 (b) (``chip_smoke.train_attn_shape``'s [B, S, H, D] views,
+    the config's window): this checkout's forward gives the output and
     log-sum-exp both builds take; each build's gradients held against
     ``flash_attention_bwd_ref`` at ``BWD_TOL`` and a second call equal bit
     for bit (the builds sum in different orders, so their bits may
     differ: reported), then timed in turns."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn.kernel import (bwd_plan,
                                                        flash_attention)
     from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for arch, b, s, seed in TRAINED:
-        cfg = get_config(arch)
+    for arch, b, s, seed, rank in TRAINED:
+        cfg = cs.shape_cfg(arch, rank)
         q, k, v = cs.train_attn_shape(torch, dev, cfg, b, s, seed)
         kw = dict(causal=True, window=cfg.window, chunk_attn=None)
         out, lse = flash_attention(q, k, v, lse=True, **kw)
@@ -280,7 +281,8 @@ def flash_bwd_rows(torch, base, cur, dev) -> list:
                         cfg.head_dim, q.dtype, sms, window=cfg.window)
         rows.append(turns_row(
             variants, kernel="flash_attention_bwd",
-            shape=f"{arch} training", q=list(q.shape), kv=list(k.shape),
+            shape=f"{arch} training" + (" on a rank" if rank else ""),
+            q=list(q.shape), kv=list(k.shape),
             window=cfg.window, route=plan.route, shares=plan.shares,
             launches_per_call=plan.launches,
             bit_equal=all(torch.equal(x, y) for x, y in zip(
@@ -290,13 +292,20 @@ def flash_bwd_rows(torch, base, cur, dev) -> list:
     return rows
 
 
-# (b, hq, hk, s, d, causal) bf16 shapes: llama3.2-3b's heads at batch 1
-# (8 x 16 = 128 dK/dV blocks) with and without the causal mask and at its
-# training batch of 2, the sweep's MQA (8 blocks) and its groups of 3 over
-# 128 blocks, and an MQA over 4,096 keys
-SHARED = ((1, 24, 8, 2048, 128, True), (1, 24, 8, 2048, 128, False),
-          (2, 24, 8, 2048, 128, True), (1, 10, 1, 1024, 128, True),
-          (2, 24, 8, 1024, 128, True), (1, 10, 1, 4096, 128, True))
+# (b, hq, hk, s, d, causal, window) bf16 shapes: llama3.2-3b's heads at
+# batch 1 (8 x 16 = 128 dK/dV blocks) with and without the causal mask
+# and at its training batch of 2, the sweep's MQA (8 blocks) and its groups
+# of 3 over 128 blocks, an MQA over 4,096 keys, and at D 256 recurrent-
+# gemma-2b's training attention at full width and on each rank of phase
+# 17 (b) (64-key blocks: 64 and 32 of them)
+SHARED = ((1, 24, 8, 2048, 128, True, None),
+          (1, 24, 8, 2048, 128, False, None),
+          (2, 24, 8, 2048, 128, True, None),
+          (1, 10, 1, 1024, 128, True, None),
+          (2, 24, 8, 1024, 128, True, None),
+          (1, 10, 1, 4096, 128, True, None),
+          (1, 10, 1, 4096, 256, True, 2048),
+          (1, 3, 1, 2048, 256, True, 2048))
 
 
 def bwd_shares_rows(torch, cur, dev) -> list:
@@ -304,30 +313,35 @@ def bwd_shares_rows(torch, cur, dev) -> list:
     of a group into s shares (1, 2, the plan's, and the counts that make
     the shares of one size), each held against ``flash_attention_bwd_ref``
     at ``BWD_TOL`` and repeating bit for bit, timed cold in turns (five
-    rounds): the medians, quartile spreads, the plan's pick and the dK/dV
-    time its model gives each cut (``bwd_plan``)."""
+    rounds): the medians, quartile spreads, the plan's pick, and the span
+    in dK/dV steps and the time its model gives each cut (``bwd_plan``:
+    the dK/dV walks, above D 128 with the dQ walks of the same launch,
+    and the partials)."""
     from repro_torch.kernels.flash_attn import kernel as fk
     from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     g = torch.Generator(device="cpu").manual_seed(65)
-    for b, hq, hk, s, d, causal in SHARED:
+    for b, hq, hk, s, d, causal, window in SHARED:
+        mask = dict(causal=causal, window=window)
         q = cs._randn(torch, g, (b, hq, s, d), dev, torch.bfloat16)
         k, v = (cs._randn(torch, g, (b, hk, s, d), dev, torch.bfloat16)
                 for _ in range(2))
-        out, lse = fk.flash_attention(q, k, v, causal=causal, lse=True)
+        out, lse = fk.flash_attention(q, k, v, lse=True, **mask)
         do = cs._randn(torch, g, tuple(out.shape), dev, out.dtype)
         args = (q, k, v, out, do, lse)
         group = hq // hk
-        plan = fk.bwd_plan(b, hq, hk, s, s, d, q.dtype, sms, causal=causal)
+        plan = fk.bwd_plan(b, hq, hk, s, s, d, q.dtype, sms, **mask)
         cuts = sorted({1, min(2, group), plan.shares} | {
             n for n in range(2, group + 1) if group % n == 0})
-        variants = {f"shares {n}": (lambda n=n: cur(*args, causal=causal,
-                                                   shares=n))
+        variants = {f"shares {n}": (lambda n=n: cur(*args, shares=n,
+                                                   **mask))
                     for n in cuts}
-        want = flash_attention_bwd_ref(*args, causal=causal)
-        walks = fk.dkdv_walks(s, s, causal)
-        shape = (b, hq, hk, s, d, causal)
+        want = flash_attention_bwd_ref(*args, **mask)
+        walks, tail, step = fk.cut_model(b, hq, hk, s, s, d, causal, window)
+        spans = {n: fk.dkdv_span(b, hk, group, n, walks, sms, tail)
+                 for n in cuts}
+        shape = (b, hq, hk, s, d, causal, window)
         for name, fn in variants.items():
             got = fn()
             cs.bwd_err(torch, got, want, "bfloat16",
@@ -341,12 +355,12 @@ def bwd_shares_rows(torch, cur, dev) -> list:
         rows.append({
             "kernel": "flash_attention_bwd", "shape": "shares",
             "q": list(q.shape), "kv": list(k.shape), "causal": causal,
-            "sms": sms, "dkdv_blocks": b * hk * -(-s // 128),
+            "window": window, "sms": sms,
+            "dkdv_blocks": b * hk * -(-s // plan.key_tile),
+            "spans": {f"shares {n}": spans[n] for n in cuts},
             "plan_shares": plan.shares, "fastest": min(ms, key=ms.get),
-            "model_dkdv_us": {f"shares {n}": 1e6 * (
-                fk.dkdv_span(b, hk, group, n, walks, sms) * fk.BWD_STEP_S
-                * d / 128 + (16 * n * b * hk * s * d if n > 1 else 0)
-                / fk.BWD_PART_BYTES_PER_S) for n in cuts},
+            "model_us": {f"shares {n}": 1e6 * (
+                spans[n] * step + fk.part_s(n, b, hk, s, d)) for n in cuts},
             "cold": True, "ms": ms,
             "spread": {name: float(np.subtract(*np.percentile(
                 r, [75, 25]))) for name, r in runs.items()},

@@ -18,13 +18,17 @@ _BWD = {torch.bfloat16: "flash_attn_bwd_bf16",
         torch.float32: "flash_attn_bwd_f32"}
 MAX_D = 256
 TMA_ALIGN = 16         # bytes: TMA's base and stride alignment
-WGMMA_MAX_D = 128      # the bf16 wgmma backward's largest head dim
-# The wgmma dK/dV kernel's cost on an H100, fitted to kernel_ab.py's rows
-# that time each cut of a group into shares (PERF.md section 6): one step
-# of a block (64 query rows of one q-head against its 128 keys at D 128)
-# on one SM, and the rate at which the shares' float32 partials are
-# written and read back by the group sum
+NARROW_D = 128         # the wgmma backward's narrow kernels' largest D
+# The wgmma backward's cost on an H100, fitted to kernel_ab.py's rows that
+# time each cut of a group into shares (PERF.md section 6): one step of a
+# dK/dV block on one SM (64 query rows of one q-head against its 128 keys
+# at D 128, scaled by D below; above D 128, against its 64 keys at any D,
+# which runs as 256), above D 128 one 32-key tile of a 128-row dQ block
+# (the same launch runs them), and the rate at which the shares' float32
+# partials are written and read back by the group sum
 BWD_STEP_S = 1.7e-6
+BWD_STEP_WIDE_S = 2.25e-6
+BWD_DQ_STEP_WIDE_S = 1.45e-6
 BWD_PART_BYTES_PER_S = 2.5e12
 ROUTE_ID = {"mma_sync": 0, "wgmma": 1}   # the C entry point's route codes
 
@@ -122,7 +126,7 @@ class BwdPlan(NamedTuple):
     its dK/dV and dQ blocks, how many shares each group of q-heads is cut
     into (each writing float32 partials that one more launch adds in share
     order), its float32 scratch and its kernel launches."""
-    route: str          # "wgmma" (bf16, D <= 128) or "mma_sync"
+    route: str          # "wgmma" (bf16) or "mma_sync" (float32)
     key_tile: int       # keys of a dK/dV block
     row_tile: int       # query rows of a dQ block
     shares: int         # parts of each group summed by the group-sum launch
@@ -133,12 +137,13 @@ class BwdPlan(NamedTuple):
 
 
 def dkdv_walks(sq: int, skv: int, causal: bool = True,
-               window: int | None = None,
-               chunk: int | None = None) -> list[int]:
+               window: int | None = None, chunk: int | None = None,
+               keys: int = 128) -> list[int]:
     """The 64-row query tiles a wgmma dK/dV block walks for each q-head,
-    one count per 128-key tile: the rows whose masks can keep one of the
-    tile's keys, bounded as the kernel bounds them (flash_attn_bwd.cu:
-    pos_range; row i at position i + skv - sq)."""
+    one count per tile of ``keys`` keys (the block's: 128 up to D 128, 64
+    above): the rows whose masks can keep one of the tile's keys, bounded
+    as the kernel bounds them (flash_attn_bwd.cu: pos_range; row i at
+    position i + skv - sq)."""
     def rows(kp):           # query positions [lo, hi) that can keep key kp
         lo, hi = (kp if causal else -(1 << 62)), 1 << 62
         if window:
@@ -149,19 +154,49 @@ def dkdv_walks(sq: int, skv: int, causal: bool = True,
         return lo, hi
     shift = skv - sq
     walks = []
-    for k0 in range(0, skv, 128):
+    for k0 in range(0, skv, keys):
         r_lo = max(rows(k0)[0] - shift, 0)
-        r_hi = min(rows(min(k0 + 128, skv) - 1)[1] - shift, sq)
+        r_hi = min(rows(min(k0 + keys, skv) - 1)[1] - shift, sq)
         walks.append(-(-r_hi // 64) - r_lo // 64 if r_hi > r_lo else 0)
     return walks
 
 
+def dq_walks(sq: int, skv: int, causal: bool = True,
+             window: int | None = None, chunk: int | None = None,
+             keys: int = 32) -> list[int]:
+    """The tiles of ``keys`` keys a 128-row wgmma dQ block walks, one count
+    per query tile in dispatch order (the last tile first): from the
+    first tile a row of the block keeps to the last, bounded as the kernel
+    bounds them (attn_wgmma.cuh: tile_range; row i at position
+    i + skv - sq)."""
+    def keys_of(pos):           # the keys [lo, hi) position pos keeps
+        lo, hi = 0, skv
+        if causal:
+            hi = min(hi, pos + 1)
+        if window:
+            lo = max(lo, pos - window + 1)
+        if chunk:
+            c = pos // chunk * chunk
+            lo, hi = max(lo, c), min(hi, c + chunk)
+        return lo, hi
+    shift = skv - sq
+    walks = []
+    for q0 in reversed(range(0, sq, 128)):
+        first = keys_of(q0 + shift)
+        last = keys_of(min(q0 + 128, sq) - 1 + shift)
+        walks.append(-(-last[1] // keys) - first[0] // keys
+                     if last[1] > first[0] else 0)
+    return walks
+
+
 def dkdv_span(b: int, hk: int, group: int, shares: int, walks: list[int],
-              sms: int) -> int:
+              sms: int, tail=()) -> float:
     """Steps until the last wgmma dK/dV block ends when each group is cut
     into ``shares``: the blocks, each walking its share's q-heads over its
     key tile's ``walks``, dispatched in grid order (key tile slowest, then
-    (b, KV head), then share) each to the SM that frees first."""
+    (b, KV head), then share) each to the SM that frees first; then the
+    blocks whose costs in steps ``tail`` lists, which the same launch runs
+    after them (above D 128, the dQ blocks)."""
     heads = [(i + 1) * group // shares - i * group // shares
              for i in range(shares)]
     free = [0] * sms
@@ -169,25 +204,54 @@ def dkdv_span(b: int, hk: int, group: int, shares: int, walks: list[int],
         for _ in range(b * hk):
             for h in heads:
                 heapq.heapreplace(free, free[0] + h * w)
+    for c in tail:
+        heapq.heapreplace(free, free[0] + c)
     return max(free)
 
 
+def bwd_step_s(d: int) -> float:
+    """The modelled seconds of one step of a wgmma dK/dV block at D."""
+    return BWD_STEP_S * d / 128 if d <= NARROW_D else BWD_STEP_WIDE_S
+
+
+def cut_model(b: int, hq: int, hk: int, sq: int, skv: int, d: int,
+              causal: bool = True, window: int | None = None,
+              chunk: int | None = None) -> tuple:
+    """What the plan's model of a cut needs: the dK/dV blocks' walks (one
+    per key tile), the costs in dK/dV steps of the blocks the same launch
+    runs after them (above D 128 the dQ blocks, ``BWD_DQ_STEP_WIDE_S`` a
+    tile, b * hq for each query tile; none below), and the step's
+    seconds."""
+    if d <= NARROW_D:
+        return dkdv_walks(sq, skv, causal, window, chunk), [], bwd_step_s(d)
+    tail = [w * BWD_DQ_STEP_WIDE_S / BWD_STEP_WIDE_S
+            for w in dq_walks(sq, skv, causal, window, chunk)
+            for _ in range(b * hq)]
+    return (dkdv_walks(sq, skv, causal, window, chunk, 64), tail,
+            bwd_step_s(d))
+
+
+def part_s(shares: int, b: int, hk: int, skv: int, d: int) -> float:
+    """The modelled seconds of writing and summing ``shares``' float32
+    dK/dV partials (none for one share)."""
+    return 16 * shares * b * hk * skv * d / BWD_PART_BYTES_PER_S \
+        if shares > 1 else 0.0
+
+
 def _fastest_cut(b: int, hk: int, group: int, skv: int, d: int, sms: int,
-                 walks: list[int]) -> int:
-    """The cut of each group into shares with the least modelled dK/dV
-    time (``bwd_plan``), the fewest shares among equals.  A cut whose
+                 walks: list[int], tail: list, step: float) -> int:
+    """The cut of each group into shares with the least modelled time
+    (``bwd_plan``), the fewest shares among equals.  A cut whose
     partials alone, over the span no cut can beat (every step spread
     evenly over the SMs), already take longer than the best so far is not
     simulated, nor is any larger one (its partials are larger still)."""
-    step = BWD_STEP_S * d / 128
-    floor = b * hk * group * sum(walks) / sms * step
+    floor = (b * hk * group * sum(walks) + sum(tail)) / sms * step
     best, best_s = float("inf"), 1
     for s in range(1, group + 1):
-        part = 8 * s * 2 * b * hk * skv * d / BWD_PART_BYTES_PER_S \
-            if s > 1 else 0.0
+        part = part_s(s, b, hk, skv, d)
         if floor + part >= best:
             break
-        t = dkdv_span(b, hk, group, s, walks, sms) * step + part
+        t = dkdv_span(b, hk, group, s, walks, sms, tail) * step + part
         if t < best:
             best, best_s = t, s
     return best_s
@@ -201,38 +265,42 @@ def bwd_plan(b: int, hq: int, hk: int, sq: int, skv: int, d: int,
     """The backward's plan for q [b, hq, sq, d] and k/v [b, hk, skv, d]
     under the mask on a card of ``sms`` streaming multiprocessors.
 
-    bf16 up to D 128 takes the wgmma route: a dK/dV block (an SM holds
-    one) per (b, KV head, share of its group, 128 keys) walks its share's
-    q-heads in registers.  ``shares`` None picks the cut s whose dK/dV
-    time is least: the span of the blocks' walks on the card
-    (``dkdv_span``, ``BWD_STEP_S`` a step) plus, for s > 1, the float32
-    partials [s, 2, b, hk, skv, d] written and summed
-    (``BWD_PART_BYTES_PER_S``); the fewest shares among equals.  A grid
+    bf16 takes the wgmma route: a dK/dV block (an SM holds one) per (b,
+    KV head, share of its group, 128 keys up to D 128, 64 above) walks its
+    share's q-heads in registers.  ``shares`` None picks the cut s whose
+    modelled time is least: the span of the blocks' walks on the card
+    (``dkdv_span``, ``bwd_step_s`` a step; above D 128 with the dQ blocks
+    the same launch runs after them: ``cut_model``) plus, for s > 1, the
+    float32 partials [s, 2, b, hk, skv, d] written and summed
+    (``part_s``); the fewest shares among equals.  A grid
     that fills the card keeps each group whole (no scratch); an MQA, or a
     causal grid whose short walks leave SMs idle, is cut, and one more
     launch sums the partials in share order.  The prep launch writes lse
     * log2 e and Delta to [2, b * hq, sq_pad], sq_pad = sq rounded up to
-    128.  Launches: prep, dK/dV, dQ, and the sum where shares > 1.  bf16
-    above D 128 and float32 take the mma_sync route: a block per q-head
-    (64 keys or rows; 32 for float32 above D 128), each q-head's float32
-    share of a group to [group, 2, b, hk, skv, d], summed by a fourth
-    launch; ``shares`` must then be None."""
+    128.  Launches: prep, dK/dV, dQ (above D 128 one launch runs both
+    walks), and the sum where shares > 1.
+    float32 takes the mma_sync route: a block per q-head (64 keys or rows;
+    32 above D 128), each q-head's float32 share of a group to [group, 2,
+    b, hk, skv, d], summed by a fourth launch; ``shares`` must then be
+    None."""
     group = hq // hk
-    if dtype == torch.bfloat16 and d <= WGMMA_MAX_D:
+    if dtype == torch.bfloat16:
+        keys = 128 if d <= NARROW_D else 64
         if shares is None:
-            shares = _fastest_cut(b, hk, group, skv, d, sms, dkdv_walks(
-                sq, skv, causal, window, chunk))
+            shares = _fastest_cut(b, hk, group, skv, d, sms, *cut_model(
+                b, hq, hk, sq, skv, d, causal, window, chunk))
         elif not 1 <= shares <= group:
             raise ValueError(f"shares {shares}: a group of {group} q-heads "
                              f"is cut into 1 to {group}")
         delta = 2 * b * hq * (-(-sq // 128) * 128)
         part = shares * 2 * b * hk * skv * d if shares > 1 else 0
-        return BwdPlan("wgmma", 128, 128, shares, delta, part,
-                       4 * (delta + part), 3 + (shares > 1))
+        return BwdPlan("wgmma", keys, 128, shares, delta, part,
+                       4 * (delta + part),
+                       (3 if d <= NARROW_D else 2) + (shares > 1))
     if shares is not None:
-        raise ValueError("shares is the wgmma route's (bf16, D <= "
-                         f"{WGMMA_MAX_D}): {dtype} at D {d} is not")
-    tile = 32 if dtype == torch.float32 and d > 128 else 64
+        raise ValueError(f"shares is the wgmma route's (bf16): {dtype} "
+                         f"is not")
+    tile = 32 if d > 128 else 64
     delta = b * hq * sq
     part = 2 * b * hq * skv * d if group > 1 else 0
     return BwdPlan("mma_sync", tile, tile, group, delta, part,

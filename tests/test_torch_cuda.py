@@ -583,11 +583,13 @@ def test_cuda_reduced_training_matches_pins(hopper):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,hq,hk,s,d,window", [(2, 6, 2, 300, 128, None),
-                                                (1, 8, 2, 700, 80, 256)])
+                                                (1, 8, 2, 700, 80, 256),
+                                                (1, 10, 1, 500, 256, 128)])
 def test_cuda_wgmma_backward_through_autograd(hopper, b, hq, hk, s, d,
                                               window):
-    """bf16 at D 128 with GQA and at D 80 under a window (the wgmma route
-    of ``bwd_plan``): autograd through ``ops.attention`` gives the plain
+    """bf16 at D 128 with GQA, at D 80 under a window and at D 256 with
+    recurrentgemma's group of 10 on one KV head (the wgmma route of
+    ``bwd_plan``): autograd through ``ops.attention`` gives the plain
     version's gradients within ``BWD_TOL``, a second backward gives the
     same bits, and each backward is one counted call."""
     from repro_torch.kernels.flash_attn import ops as flash_ops
@@ -619,19 +621,56 @@ def test_cuda_wgmma_backward_through_autograd(hopper, b, hq, hk, s, d,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,hq,hk,window", [(256, 10, 1, 128),
+                                            (192, 4, 2, None)])
+def test_cuda_wide_backward_matches_plain_version(hopper, d, hq, hk, window):
+    """Above D 128 the bf16 backward runs the wide wgmma kernels (64-key
+    dK/dV blocks, ``bwd_plan``'s key tile): dq, dk and dv within
+    ``BWD_TOL`` of ``flash_attention_bwd_ref`` at lengths ragged against
+    the tiles, as the plan cuts the group and walked whole, and a second
+    call equal bit for bit."""
+    from repro_torch.kernels.flash_attn.kernel import (bwd_plan,
+                                                       flash_attention,
+                                                       flash_attention_bwd)
+    from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
+    sms = torch.cuda.get_device_properties(hopper).multi_processor_count
+    b, s = 1, 333
+    plan = bwd_plan(b, hq, hk, s, s, d, torch.bfloat16, sms, window=window)
+    assert (plan.route, plan.key_tile) == ("wgmma", 64)
+    g = torch.Generator(device="cpu").manual_seed(23)
+    q, k, v, do = (torch.randn(shape, generator=g).to(hopper, torch.bfloat16)
+                   for shape in ((b, hq, s, d), (b, hk, s, d), (b, hk, s, d),
+                                 (b, hq, s, d)))
+    out, lse = flash_attention(q, k, v, window=window, lse=True)
+    want = flash_attention_bwd_ref(q, k, v, out, do, lse, window=window)
+    tol = _smoke().BWD_TOL["bfloat16"]
+    for shares in (None, 1):
+        got = flash_attention_bwd(q, k, v, out, do, lse, window=window,
+                                  shares=shares)
+        again = flash_attention_bwd(q, k, v, out, do, lse, window=window,
+                                    shares=shares)
+        for x, y, w in zip(got, again, want):
+            assert torch.equal(x, y)
+            err = float((x.float() - w.float()).abs().max()
+                        / w.float().abs().max())
+            assert err <= tol
+
+
+@pytest.mark.gpu
 def test_cuda_backward_entry_refuses_a_plan_it_does_not_fit(hopper):
     """The C entry points run the route the plan names and check its
-    scratch: a Delta buffer one element short, a part buffer one short, a
-    route that does not take the dtype or D, and an unknown route each
+    scratch: a Delta buffer one element short, a part buffer one short (at
+    D 64 and on the wide kernels at D 256), a route that does not take the
+    dtype (bf16 on mma_sync, float32 on wgmma), and an unknown route each
     return an error before any launch; the plan's own sizes succeed."""
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn.kernel import ROUTE_ID, bwd_plan
-    b, hq, hk, s, d = 1, 4, 1, 200, 64
+    b, hq, hk, s = 1, 4, 1, 200
     sms = torch.cuda.get_device_properties(hopper).multi_processor_count
     g = torch.Generator(device="cpu").manual_seed(22)
 
-    def call(dtype, route, shares, delta_n, part_n):
+    def call(dtype, route, shares, delta_n, part_n, d=64):
         q, o, do = (torch.randn((b, hq, s, d), generator=g).to(hopper, dtype)
                     for _ in range(3))
         k, v = (torch.randn((b, hk, s, d), generator=g).to(hopper, dtype)
@@ -655,8 +694,8 @@ def test_cuda_backward_entry_refuses_a_plan_it_does_not_fit(hopper):
         torch.cuda.synchronize(hopper)
         return err
 
-    wg = bwd_plan(b, hq, hk, s, s, d, torch.bfloat16, sms, shares=2)
-    ms = bwd_plan(b, hq, hk, s, s, d, torch.float32, sms)
+    wg = bwd_plan(b, hq, hk, s, s, 64, torch.bfloat16, sms, shares=2)
+    ms = bwd_plan(b, hq, hk, s, s, 64, torch.float32, sms)
     bf16, f32 = torch.bfloat16, torch.float32
     wgmma, mma_sync = ROUTE_ID["wgmma"], ROUTE_ID["mma_sync"]
     assert call(bf16, wgmma, 2, wg.delta_elems, wg.part_elems) == 0
@@ -668,6 +707,13 @@ def test_cuda_backward_entry_refuses_a_plan_it_does_not_fit(hopper):
     assert call(bf16, mma_sync, hq, ms.delta_elems, ms.part_elems) != 0
     assert call(f32, wgmma, 2, wg.delta_elems, wg.part_elems) != 0
     assert call(bf16, 2, 2, wg.delta_elems, wg.part_elems) != 0
+    wide = bwd_plan(b, hq, hk, s, s, 256, torch.bfloat16, sms, shares=2)
+    assert call(bf16, wgmma, 2, wide.delta_elems, wide.part_elems, 256) == 0
+    assert call(bf16, wgmma, 2, wide.delta_elems - 1, wide.part_elems,
+                256) != 0
+    assert call(bf16, wgmma, 2, wide.delta_elems, wide.part_elems - 1,
+                256) != 0
+    assert call(bf16, mma_sync, hq, ms.delta_elems, ms.part_elems, 256) != 0
 
 
 @pytest.mark.gpu

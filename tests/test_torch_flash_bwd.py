@@ -26,8 +26,8 @@ from repro.models.layers import chunked_attention  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.kernels.flash_attn import ops  # noqa: E402
 from repro_torch.kernels.flash_attn.kernel import (  # noqa: E402
-    BWD_PART_BYTES_PER_S, BWD_STEP_S, BwdPlan, bwd_plan, dkdv_span,
-    dkdv_walks)
+    BWD_DQ_STEP_WIDE_S, BWD_PART_BYTES_PER_S, BWD_STEP_WIDE_S, BwdPlan,
+    bwd_plan, bwd_step_s, dkdv_span, dkdv_walks, dq_walks)
 
 SMS = 132       # streaming multiprocessors of an H100 SXM
 from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
@@ -231,35 +231,47 @@ SWEEP_SHAPES = [(2, 4, 2, 64, 64, 16), (1, 8, 2, 300, 300, 128),
                 (1, 2, 1, 300, 300, 48), (1, 3, 1, 129, 129, 128),
                 (1, 5, 5, 191, 1000, 64), (1, 6, 1, 1000, 191, 80),
                 (1, 10, 1, 1024, 1024, 128), (2, 24, 8, 1024, 1024, 128),
-                (4, 8, 4, 1100, 1100, 64)]
+                (4, 8, 4, 1100, 1100, 64), (1, 10, 1, 500, 500, 256),
+                (1, 2, 2, 300, 300, 160), (2, 10, 1, 300, 300, 256),
+                (1, 3, 1, 129, 129, 256), (1, 2, 1, 191, 191, 256),
+                (1, 2, 1, 191, 1000, 256), (1, 3, 1, 1000, 191, 256),
+                (1, 10, 1, 1024, 1024, 256), (1, 2, 1, 300, 300, 256),
+                (1, 3, 1, 1000, 1000, 256), (1, 2, 1, 513, 513, 256),
+                (1, 2, 1, 300, 300, 192)]
+# recurrentgemma-2b's training attention (window 2,048) at full width and
+# on each rank of chip_smoke's phase 17 (b): (b, hq, hk, s, d)
+HYBRID_FULL = (1, 10, 1, 4096, 256)
+HYBRID_RANK = (1, 3, 1, 2048, 256)
 
 
 def _check_plan(plan, b, hq, hk, sq, skv, d):
     """What holds for every plan: shares cut a group, partials exactly
     where there is more than one share, the scratch is their bytes, and
-    one launch more sums them."""
+    one launch more sums them (above D 128 the wgmma route runs its dK/dV
+    and dQ walks in one launch)."""
     group = hq // hk
     assert 1 <= plan.shares <= group
     has_part = plan.shares > 1 if plan.route == "wgmma" else group > 1
     assert (plan.part_elems > 0) == has_part
     assert plan.scratch_bytes == 4 * (plan.delta_elems + plan.part_elems)
-    assert plan.launches == 3 + has_part
+    fused = plan.route == "wgmma" and d > 128
+    assert plan.launches == 3 - fused + has_part
 
 
 @pytest.mark.parametrize("arch", sorted(TRAIN_SHAPES))
 def test_bwd_plan_routes_every_training_shape_by_dtype_and_head_dim(arch):
-    """bf16 up to D 128 takes the wgmma route, bf16 above it (recurrent-
-    gemma's D 256) and float32 at any D the mma_sync route; a wgmma dK/dV
-    grid of at least 132 blocks keeps each group whole (one share, no
-    partials, three launches)."""
+    """bf16 at every D (recurrentgemma's 256 too) takes the wgmma route,
+    with 128-key dK/dV blocks up to D 128 and 64-key ones above, float32
+    at any D the mma_sync route; a wgmma dK/dV grid of at least 132 blocks
+    keeps each group whole (one share, no partials, three launches)."""
     b, hq, hk, sq, skv, d = TRAIN_SHAPES[arch]
     plan = bwd_plan(b, hq, hk, sq, skv, d, torch.bfloat16, SMS)
     _check_plan(plan, b, hq, hk, sq, skv, d)
-    assert plan.route == ("wgmma" if d <= 128 else "mma_sync")
-    if plan.route == "wgmma":
-        assert plan.delta_elems == 2 * b * hq * 2048
-        if b * hk * 16 >= 132:
-            assert (plan.shares, plan.part_elems, plan.launches) == (1, 0, 3)
+    assert plan.route == "wgmma"
+    assert (plan.key_tile, plan.row_tile) == ((128 if d <= 128 else 64), 128)
+    assert plan.delta_elems == 2 * b * hq * 2048
+    if b * hk * 2048 // plan.key_tile >= 132:
+        assert (plan.shares, plan.part_elems, plan.launches) == (1, 0, 3)
     f32 = bwd_plan(b, hq, hk, sq, skv, d, torch.float32, SMS)
     _check_plan(f32, b, hq, hk, sq, skv, d)
     assert (f32.route, f32.shares) == ("mma_sync", hq // hk)
@@ -298,11 +310,16 @@ def test_bwd_plan_splits_an_mqa_that_leaves_the_card_idle():
 
 
 def _modelled_us(b, hq, hk, sq, skv, d, s, sms, **mask):
-    """The plan's model of the dK/dV time of cut s, without its pruning."""
-    walks = dkdv_walks(sq, skv, **mask)
+    """The plan's model of the time of cut s, without its pruning: the
+    dK/dV blocks' span (above D 128 with the dQ blocks of the same launch
+    after them) and the partials."""
+    walks = dkdv_walks(sq, skv, **mask, keys=128 if d <= 128 else 64)
+    tail = [] if d <= 128 else [
+        w * BWD_DQ_STEP_WIDE_S / BWD_STEP_WIDE_S
+        for w in dq_walks(sq, skv, **mask) for _ in range(b * hq)]
     part = 16 * s * b * hk * skv * d if s > 1 else 0
-    return 1e6 * (dkdv_span(b, hk, hq // hk, s, walks, sms) * BWD_STEP_S
-                  * d / 128 + part / BWD_PART_BYTES_PER_S)
+    return 1e6 * (dkdv_span(b, hk, hq // hk, s, walks, sms, tail)
+                  * bwd_step_s(d) + part / BWD_PART_BYTES_PER_S)
 
 
 @pytest.mark.parametrize("shape,sms,mask,shares", [
@@ -352,6 +369,71 @@ def test_dkdv_walks_count_the_query_tiles_the_mask_keeps(sq, skv, causal,
         assert want == [sq // 64 - 2 * t for t in range(skv // 128)]
 
 
+@pytest.mark.parametrize("sq,skv,causal,window,chunk", [
+    (2048, 2048, True, 2048, None), (4096, 4096, True, 2048, None),
+    (191, 1000, True, None, None), (1000, 191, True, None, None),
+    (513, 513, False, None, 100), (300, 300, True, 1, None),
+    (1000, 1000, True, None, 300)])
+def test_dkdv_walks_count_64_key_tiles(sq, skv, causal, window, chunk):
+    """Above D 128 a dK/dV block holds 64 keys: each 64-key tile's walk is
+    the number of 64-row query tiles with a row that keeps one of its keys
+    under the plain mask."""
+    mask = attention_mask(sq, skv, "cpu", causal=causal, window=window,
+                          chunk_attn=chunk)
+    want = [sum(bool(mask[r:r + 64, k0:k0 + 64].any())
+                for r in range(0, sq, 64)) for k0 in range(0, skv, 64)]
+    assert dkdv_walks(sq, skv, causal, window, chunk, keys=64) == want
+
+
+@pytest.mark.parametrize("shape,shares", [(HYBRID_FULL, 2),
+                                          (HYBRID_RANK, 3)],
+                         ids=["full", "rank"])
+def test_bwd_plan_at_recurrentgemma_training_shapes(shape, shares):
+    """recurrentgemma-2b's training attention (D 256, window 2,048, one KV
+    head) at full width (10 q-heads over 4,096 tokens: 64 dK/dV blocks of
+    64 keys) and on each rank of phase 17 (b) (3 q-heads over 2,048: 32
+    blocks) takes the wgmma route: 64-key dK/dV and 128-row dQ blocks in
+    one launch after prep, the group cut into the shares of least
+    modelled time (2 of five heads, whose 128 dK/dV blocks leave 4 SMs
+    and the late key tiles' short walks to the 320 dQ blocks; 3 of one),
+    their float32 partials [s, 2, 1, 1, S, 256] summed by a third launch.
+    float32 takes the mma_sync route, one share a q-head."""
+    b, hq, hk, s, d = shape
+    plan = bwd_plan(b, hq, hk, s, s, d, torch.bfloat16, SMS, window=2048)
+    delta = 2 * b * hq * s
+    part = shares * 2 * b * hk * s * d
+    assert plan == BwdPlan("wgmma", 64, 128, shares, delta, part,
+                           4 * (delta + part), 3)
+    times = [_modelled_us(b, hq, hk, s, s, d, n, SMS, window=2048)
+             for n in range(1, hq // hk + 1)]
+    assert times[shares - 1] == min(times)
+    f32 = bwd_plan(b, hq, hk, s, s, d, torch.float32, SMS, window=2048)
+    assert (f32.route, f32.key_tile, f32.shares, f32.launches) == (
+        "mma_sync", 32, hq // hk, 4)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window,chunk", [
+    (2048, 2048, True, 2048, None), (4096, 4096, True, 2048, None),
+    (191, 1000, True, None, None), (1000, 191, True, None, None),
+    (513, 513, False, None, 100), (300, 300, True, 1, None),
+    (1000, 1000, True, 64, 128)])
+def test_dq_walks_count_the_key_tiles_each_block_sees(sq, skv, causal,
+                                                      window, chunk):
+    """Each 128-row dQ block walks the 32-key tiles from the first to the
+    last that a row of it keeps (the rows' keys, a range whose ends grow
+    with the position, cover them all); blocks in dispatch order, the last
+    query tile first."""
+    mask = attention_mask(sq, skv, "cpu", causal=causal, window=window,
+                          chunk_attn=chunk)
+    want = []
+    for r in reversed(range(0, sq, 128)):
+        seen = [bool(mask[r:r + 128, k0:k0 + 32].any())
+                for k0 in range(0, skv, 32)]
+        want.append(len(seen) - seen.index(True) - seen[::-1].index(True)
+                    if any(seen) else 0)
+    assert dq_walks(sq, skv, causal, window, chunk) == want
+
+
 def test_dkdv_span_dispatches_blocks_in_grid_order():
     """Blocks go in grid order, key tile slowest, each to the SM that
     frees first: a group of 4 on two SMs over walks of 5 and 3 tiles ends
@@ -362,12 +444,17 @@ def test_dkdv_span_dispatches_blocks_in_grid_order():
     assert dkdv_span(1, 1, 4, 2, [5, 3], 2) == 16
     assert dkdv_span(1, 1, 3, 2, [4], 2) == 8
     assert dkdv_span(2, 1, 3, 3, [4], 2) == 12
+    # the blocks after them (above D 128 the same launch's dQ blocks) go
+    # to the SM that frees first: after 20 and 12, 3 and 5 on the second
+    # (to 20), then 4 and 6 one on each: 26
+    assert dkdv_span(1, 1, 4, 1, [5, 3], 2, [3, 5, 4, 6]) == 26
 
 
 def test_bwd_plan_takes_a_cut_it_is_given():
     """``shares`` overrides the cut on the wgmma route (1 to the group,
-    with partials above 1) and is refused out of that range and on the
-    mma_sync route, whose groups are always cut per q-head."""
+    with partials above 1; at D 256 too) and is refused out of that range
+    and on the mma_sync route (float32), whose groups are always cut per
+    q-head."""
     plan = bwd_plan(2, 24, 8, 1024, 1024, 128, torch.bfloat16, SMS,
                     shares=2)
     assert (plan.shares, plan.part_elems, plan.launches) == (
@@ -380,9 +467,12 @@ def test_bwd_plan_takes_a_cut_it_is_given():
         with pytest.raises(ValueError, match="shares"):
             bwd_plan(2, 24, 8, 1024, 1024, 128, torch.bfloat16, SMS,
                      shares=shares)
-    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 256)):
+    assert bwd_plan(1, 10, 1, 1024, 1024, 256, torch.bfloat16, SMS,
+                    shares=1) == BwdPlan("wgmma", 64, 128, 1, 2 * 10 * 1024,
+                                         0, 4 * 2 * 10 * 1024, 2)
+    for d in (128, 256):
         with pytest.raises(ValueError, match="wgmma route"):
-            bwd_plan(1, 10, 1, 1024, 1024, d, dtype, SMS, shares=1)
+            bwd_plan(1, 10, 1, 1024, 1024, d, torch.float32, SMS, shares=1)
 
 
 @pytest.mark.parametrize("shape", SWEEP_SHAPES,
