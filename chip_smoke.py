@@ -142,8 +142,9 @@ Phases, each printing JSON lines:
    float32) against the reference's 8-device answers
    (``tests/data/torch_sharded.json``) within 2e-5, logits and caches, on
    every rank, each step's collectives equal to a ``CountingMesh``'s
-   count; (b) llama3.2-3b at full width and depth, bf16, on 2x4, each
-   rank drawing only its blocks (FSDP over ``data``, TP over ``model``):
+   count; (b) llama3.2-3b at full width, 14 of its 28 layers, bf16, on
+   2x4, each rank drawing only its blocks (FSDP over ``data``, TP over
+   ``model``):
    8 prompts of 512 tokens and 4 decode steps fed the greedy tokens of
    the port's 1x1 run on the same weights in this process, the gathered
    logits within 0.03 of it, each rank's parameter bytes equal to the
@@ -166,22 +167,24 @@ Phases, each printing JSON lines:
    blocks, each leaf's sum of squares), on every rank, each step's
    collectives equal to a ``CountingMesh``'s count; (b) llama3.2-3b at
    full width, 4 of its 28 layers, bf16 compute, float32 parameters and
-   moments, ``remat="full"``, on 2x4, 2 steps of a global batch of 2 x 2,048,
-   each rank drawing only its blocks, every step from the weights of a
-   1x1 run of the same batches in a process of its own (run first and
-   ended before the ranks start; it writes the weights each step starts
-   from): every step's loss within 1e-2 of 1x1's, each rank's updated
+   moments, ``remat="full"``, on 2x4, 3 steps of a global batch of 2 x
+   2,048, each rank drawing only its blocks, every step from the weights of a
+   1x1 run of the same batches in the main process (run first, its
+   memory freed before the ranks start; it writes the weights each step
+   starts from): every step's loss within 1e-2 of 1x1's, each rank's updated
    blocks within 2 x 1.001 x lr of 1x1's next weights (the elements
    beyond 1e-6 counted), and every step's loss and gradient norm taken
    again in float32 compute on the same weights within 1e-4 of 1x1's
-   (the bf16 norms reported beside them), 56 forward and 28 backward flash launches a rank a step, step s,
+   (the bf16 norms reported beside them), 8 forward and 4 backward
+   flash launches a rank a step, step s,
    each rank's peak, the collectives a step by kind (forward and
    recompute gathers, reduce-scatters, psums); (c) mixtral-8x7b in "2d"
    at full width, 1 of 32 layers, 2 steps, against 1x1 the same way
-   ((b) cut from 28 layers and 3 steps when phase 16 came: at 4 layers a
-   third step's bf16 loss lay 0.0138 from 1x1's, past the 1e-2 gate, the
-   shallow random model's logits being ~4 times larger, while its float32
-   loss was exact);
+   ((b) cut from 28 layers when phase 16 came; under the reference's
+   N(0, 0.02) draw of the norm scales a third step's bf16 loss lay 0.0138
+   from 1x1's, past the 1e-2 gate, the shallow random model's logits
+   being ~4 times larger while its float32 loss was exact, so (b) trains
+   with the scales at ones);
 16. serving across ranks for the enc-dec, SSM and hybrid families — 8
    ranks on the one card again, on 2x4: (a) every case of
    ``tests/torch_sharded_families_cases.py`` (reduced whisper, mamba2 and
@@ -189,15 +192,16 @@ Phases, each printing JSON lines:
    a batch of 1) against the reference's jitted 8-device steps
    (``tests/data/torch_sharded_families.json``) within 2e-5 on every
    rank, each step's collectives equal to a ``CountingMesh``'s count; (b)
-   whisper-medium (12 of its 24 encoder and of its 24 decoder layers, 8 x
+   whisper-medium (6 of its 24 encoder and of its 24 decoder layers, 8 x
    384 tokens over 1,500 frames, 2 decode steps), mamba2-130m (full
-   depth, 8 x 2,048, 2 steps) and recurrentgemma-2b (full width and
-   depth, 8 x 512, 2 steps), each rank
-   drawing only its blocks, against a 1x1 run on the same weights: the
-   prefill's and every decode step's logits within 0.03 (max|Δ| /
-   max|ref|), each rank's collectives equal to the dry-run's count of the
-   cell, one flash launch per attention a rank a prefill and one decode
-   launch per attention a rank a step; prefill s, decode ms a step,
+   depth, 8 x 2,048, 2 steps) and recurrentgemma-2b (full width, 12 of
+   its 26 layers, 8 x 512, 2 steps; depths cut so that the whole run
+   stays inside its time limit), each rank drawing only its blocks,
+   against a 1x1 run on the same weights: the prefill's and every decode
+   step's logits within 0.03 (max|Δ| / max|ref|), each rank's
+   collectives equal to the dry-run's count of the cell, one flash launch
+   per attention a rank a prefill and one decode launch per attention a
+   rank a step; prefill s, decode ms a step,
    collectives by kind, each rank's peak;
 17. training across ranks for the enc-dec, SSM and hybrid families — 8
    ranks on the one card again, on 2x4 (``make_train_step(..., mctx=)``
@@ -210,21 +214,47 @@ Phases, each printing JSON lines:
    against the reference's jitted 8-device train step
    (``tests/data/torch_sharded_families_train.json``) within phase 15
    (a)'s bounds on every rank, each step's collectives equal to a
-   ``CountingMesh``'s count; (b) whisper-medium (6 of its 24 encoder and
+   ``CountingMesh``'s count; (b) whisper-medium (4 of its 24 encoder and
    of its 24 decoder layers, a global batch of 2 x 448 tokens over 1,500
-   frames), mamba2-130m (full depth, 2 x 2,048) and recurrentgemma-2b (4
-   of 26 layers: a full group and a tail layer, 2 x 2,048) at full
-   width, float32 parameters and moments, bf16 compute, ``remat="full"``,
-   norm scales at ones, 2 steps, each rank drawing only its blocks, every
-   step from the weights of a 1x1 run of the same batches in a process of
-   their own (the depths cut for time: a rank's step goes at the pace of
-   its collective calls through gloo): the gates of phase 15 (b) (the first
+   frames), mamba2-130m (6 of its 24 layers, 2 x 2,048) and
+   recurrentgemma-2b (4 of 26 layers: a full group and a tail layer, 2 x
+   2,048) at full width, float32 parameters and moments, bf16 compute,
+   ``remat="full"``, norm scales at ones, 2 steps, each rank drawing only
+   its blocks, every step from the weights of a 1x1 run of the same
+   batches in the main process (the depths cut for time: a rank's step
+   goes at the pace of its collective calls through gloo): the gates of
+   phase 15 (b) (the first
    1x1 loss within 0.5 of ln V + 0.02^2 d / 2, bf16 losses within 1e-2,
    updated blocks within 2 x 1.001 x lr, float32 losses and norms within
    1e-4), each rank's collectives a step equal to
    ``dryrun.count_collectives``' count of the cell, 2 forward and 1
    backward flash launches per attention a rank a step (mamba2 none);
-   step s, each rank's peak, the collectives by kind.
+   step s, each rank's peak, the collectives by kind;
+18. the reference's attention and remat knobs (``ArchConfig``'s
+   ``remat="dots"``, ``attn_shard`` "seq" and "heads", ``pad_heads_to``,
+   as ``benchmarks/perf_hillclimb.py`` sets them): (a) llama3.2-3b at
+   full width and depth, 2 x 2,048 tokens, under "full" and then "dots"
+   from the same seed, 3 AdamW steps each: the first step's products
+   counted (``aten.mm``: under "dots" the backward runs two a forward
+   product and the loss chunks' own, no layer product again), losses,
+   gradient norms and the parameters after the last step equal (bit for
+   bit expected, else within 1e-6 relative), step s and peak GB of
+   both; (b) llama3.2-3b at full width, 4 of 28 layers,
+   norm scales at ones, on 2x4 under ``attn_shard="seq"`` (each rank its
+   block of query positions with every head, keys and values to the
+   block's end) and under "auto": 8 x 512 prompts and 2 decode steps fed
+   the greedy tokens of its 1x1 run, each within 0.03 of 1x1 and "seq"
+   within 0.03 of "auto", each rank's collectives equal to the dry-run's
+   count, one flash launch per layer a prefill and one decode launch per
+   layer a step; then one pinned "seq" case of
+   ``tests/torch_sharded_knobs_train_cases.py`` on every rank (the
+   reference's 8-device train step, ``tests/data/torch_sharded_knobs
+   .json``) and 2 training steps of 2 x 2,048 under "seq" from 1x1's
+   weights every step under phase 15 (b)'s gates; (c) the same model
+   with ``pad_heads_to=32`` and ``attn_shard="heads"`` on 2x4 (8 whole
+   padded heads a rank), served as (b) against the unpadded model on 1x1
+   carried from the padded tree's real-head columns
+   (``convert.unpad_heads``), within 0.03.
 
 Phase 3 also checks the decode kernel's first slot ``lo`` (sliding-window
 spans: lo 0, inside the first tile, on a tile edge, valid_len - 1, ragged)
@@ -260,10 +290,17 @@ and recurrentgemma-2b's training shapes on each rank of phase 17 (b)
 causal; ``rank_train_self_shape``: 448 positions, causal;
 ``rank_train_cross_shape``: 448 against 1,500, not causal;
 ``rank_train_hybrid_shape``: the span of 3 of 10 q heads on the one KV
-head, 2,048 positions under the 2,048 window, D 256); its sweeps include
-phase 14 (a)'s reduced heads (one q head on a KV head at head dim 16).
-Phase 10 (a) times the backward at those training shapes too
-(``train_rank_shape`` and the four ``rank_train_*_shape`` rows).
+head, 2,048 positions under the 2,048 window, D 256), and llama3.2-3b's
+on the last rank of phase 18 (b)'s "seq" layout (``seq_rank_shape``: 4
+rows, 24 q heads on 8 KV heads, 128 query positions against 512 keys,
+causal at the block's place); its sweeps include phase 14 (a)'s reduced
+heads (one q head on a KV head at head dim 16).  Its main flash row
+also holds the kernel at llama's shape against the plain version's two
+readings of ``attn_f32_scores`` (``bf16_p``: P into the P V product in
+float32, and rounded to bf16).  Phase 10 (a) times the backward at
+those training shapes too (``train_rank_shape``, the four
+``rank_train_*_shape`` rows and ``seq_train_rank_shape``: 1 row, 512
+query positions against 2,048 keys).
 
 Any mismatch or exception exits non-zero; only after every phase passed
 are the kernel table, the ``nvidia-smi`` line and the final
@@ -273,6 +310,8 @@ JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import gc
 import itertools
 import json
@@ -292,7 +331,7 @@ OUT = ROOT / "chiprun_out"
 sys.path.insert(0, str(ROOT / "src"))
 # the H100 SXM's data-sheet rates, one source for the port
 from repro_torch.launch.mesh import (  # noqa: E402
-    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOP_PER_S)
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOP_PER_S, RankPool)
 F32_TOL = dict(rtol=1e-5, atol=1e-4)   # atomic f32 sums, order varies
 # attention, checked per output vector (one (b, head, query) row over D):
 # max|got - want| <= rel * max|want| + atol.  f32 sums differ from the
@@ -312,7 +351,8 @@ SHAPE_KEYS = ("window_shape", "moe_shape", "chunk_shape", "vlm_shape",
               "train_rank_shape", "rank_encoder_shape", "rank_cross_shape",
               "rank_hybrid_shape", "rank_train_encoder_shape",
               "rank_train_self_shape", "rank_train_cross_shape",
-              "rank_train_hybrid_shape")
+              "rank_train_hybrid_shape", "seq_rank_shape",
+              "seq_train_rank_shape")
 
 
 def emit(obj: dict) -> None:
@@ -1241,6 +1281,54 @@ def flash_row(torch, q, k, v, label: str, *, causal: bool = True,
     return add_rates(res, flops, "TFLOP/s")
 
 
+def seq_rank_attn(torch, dev, seed: int, train: bool):
+    """q, k, v as the last rank of phase 18 (b)'s "seq" layout launches
+    the flash kernel for llama3.2-3b (``KNOB_RANK``): its block of query
+    positions with all 24 q heads, the keys and values of every position
+    up to the block's end on all 8 KV heads; the serve prefill's 4 rows,
+    128 of 512 positions, or the training pass's one row, 512 of 2,048;
+    q, k and v views of [B, S, H, D] projections."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    sh = KNOB_RANK
+    b = 1 if train else sh["requests"]
+    sq, skv = ((sh["train_rows"], sh["train_keys"]) if train
+               else (sh["rows"], sh["keys"]))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = _randn(torch, g, (b, sq, cfg.num_heads, cfg.head_dim), dev,
+               torch.bfloat16).transpose(1, 2)
+    k, v = (_randn(torch, g, (b, skv, cfg.num_kv_heads, cfg.head_dim), dev,
+                   torch.bfloat16).transpose(1, 2) for _ in range(2))
+    return q, k, v
+
+
+def bf16_p_errors(torch, q, k, v, window) -> dict:
+    """The flash kernel's output at a prefill shape against the plain
+    version's two readings of ``attn_f32_scores``: P in float32 into the
+    P V product (``f32_stats`` True, the reference's default) and P
+    rounded to bf16 (False, the tuning plan's A3/A5/A7); the kernel packs
+    P to bf16 for the tensor cores under both.  Per request: max|diff|,
+    and max|diff| / max|ref|."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    out = flash_attention(q, k, v, causal=True, window=window)
+    res = {}
+    for f32 in (True, False):
+        err = rel = 0.0
+        for (qp, kp, vp), (op, _, _) in zip(_parts(q, k, v, "request"),
+                                            _parts(out, k, v, "request")):
+            want = flash_attention_ref(qp, kp, vp, causal=True,
+                                       window=window, f32_stats=f32)
+            d = float((op.float() - want.float()).abs().max())
+            err = max(err, d)
+            rel = max(rel, d / float(want.float().abs().max()))
+            del want
+        res["f32_stats" if f32 else "bf16_stats"] = {
+            "max_abs_err": err, "max_rel_err": rel}
+    res["served_gate"] = ATTN_TOL["bfloat16"]
+    return res
+
+
 def family_rank_flash(torch, dev):
     """(key, arch, q, k, v, mask) as each rank of phase 16 (b) launches
     the flash kernel: whisper-medium's encoder on the rank's 4 rows and 4
@@ -1343,10 +1431,20 @@ def check_flash(torch, dev) -> dict:
                            per="whole" if key is None else "request")}
         if key is None:
             res.update(row)
+            res["bf16_p"] = bf16_p_errors(torch, q, k, v, window)
         else:
             res[key] = row
         del q, k, v
         torch.cuda.empty_cache()
+    q, k, v = seq_rank_attn(torch, dev, 58, train=False)
+    res["seq_rank_shape"] = {
+        "shape": f"{ARCH} prefill on each rank of phase 18 (b) under "
+                 f"attn_shard=\"seq\" (the last block of query positions): "
+                 f"q {list(q.shape)}, k/v {list(k.shape)} bf16 ([B, S, H, "
+                 f"D] views), causal, query row i at i + Skv - Sq",
+        **flash_row(torch, q, k, v, f"flash {ARCH} seq_rank_shape")}
+    del q, k, v
+    torch.cuda.empty_cache()
     q, k, v = train_rank_attn(torch, dev, 57)
     res["train_rank_shape"] = {
         "shape": f"{ARCH} training on each rank of phase 15 (b): q "
@@ -2927,9 +3025,9 @@ def flash_bwd_row(torch, q, k, v, label: str, *, causal: bool = True,
     ql = q.detach().requires_grad_(True)
     kl, vl = (t.repeat_interleave(hq // hk, dim=1).detach()
               .requires_grad_(True) for t in (k, v))
-    if window is None or window >= skv:
+    if (window is None or window >= skv) and (not causal or sq == skv):
         ol = sdpa(ql, kl, vl, is_causal=causal)
-    else:                          # the window as a boolean mask
+    else:            # the window, or suffix-aligned causal, as a mask
         ol = sdpa(ql, kl, vl, attn_mask=attention_mask(
             sq, skv, q.device, causal=causal, window=window))
     pairs = attended_keys(sq, skv, window, causal)
@@ -3035,6 +3133,15 @@ def check_flash_bwd(torch, dev) -> dict:
                                     **mask)}
         del q, k, v
         torch.cuda.empty_cache()
+    q, k, v = seq_rank_attn(torch, dev, 67, train=True)
+    res["seq_train_rank_shape"] = {
+        "shape": f"{ARCH} training on each rank of phase 18 (b) under "
+                 f"attn_shard=\"seq\" (the last block of query positions): "
+                 f"q {list(q.shape)}, k/v {list(k.shape)} bf16 ([B, S, H, "
+                 f"D] views), causal, query row i at i + Skv - Sq",
+        **flash_bwd_row(torch, q, k, v, f"flash bwd {ARCH} seq rank")}
+    del q, k, v
+    torch.cuda.empty_cache()
     emit({"phase": "kernel", **res})
     return res
 
@@ -3650,8 +3757,9 @@ MESH_MODES = ("expert", "ffn", "2d")
 def mesh_cfg(sv: dict, mode: str | None = None):
     """(b)'s configuration: ``sv["arch"]`` cut to ``sv["layers"]`` layers
     (and an enc-dec's encoder to ``sv["enc_layers"]`` where given; its
-    reduced form when ``sv["reduced"]``: the CPU rehearsal), in ``mode``
-    when given."""
+    reduced form when ``sv["reduced"]``: the CPU rehearsal), under
+    ``sv["knobs"]`` (config settings) where given, in ``mode`` when
+    given."""
     from repro_torch.configs import get_config
     cfg = get_config(sv["arch"])
     if sv["reduced"]:
@@ -3659,6 +3767,7 @@ def mesh_cfg(sv: dict, mode: str | None = None):
     cfg = cfg.replace(num_layers=sv["layers"])
     if "enc_layers" in sv:
         cfg = cfg.replace(enc_layers=sv["enc_layers"])
+    cfg = cfg.replace(**sv.get("knobs", {}))
     return cfg if mode is None else cfg.replace(moe_shard=mode)
 
 
@@ -3700,10 +3809,12 @@ def capture_routes(moe, store: list):
     return orig
 
 
-def mesh_reference(torch, sv: dict, dev: str) -> dict:
+def mesh_reference(torch, sv: dict, dev: str, prepare=None) -> dict:
     """A sharded serve's reference path: ``sv``'s layers served 1x1 in
     this process, the weights drawn as every rank draws them
-    (``init_params``, the seed; the ranks keep only their blocks).
+    (``init_params``, the seed; the ranks keep only their blocks), and
+    ``prepare(params, cfg)`` giving the tree and config served where it
+    is given.
     Prefill, ``sv["decode"]`` greedy steps (the tokens fed are the argmax
     of the step before); for a MoE model also the experts each prefill
     layer routes to and the first MoE layer on ``mesh_layer_input`` with
@@ -3713,8 +3824,10 @@ def mesh_reference(torch, sv: dict, dev: str) -> dict:
     from repro_torch.launch.serve import init_params, make_batch, pad_kv
     from repro_torch.models import get_model, moe
     cfg = mesh_cfg(sv)
-    model = get_model(cfg)
     params = init_params(cfg, torch.device(dev), sv["seed"])
+    if prepare is not None:
+        params, cfg = prepare(params, cfg)
+    model = get_model(cfg)
     toks = torch.as_tensor(np.random.default_rng(sv["seed"]).integers(
         0, cfg.vocab_size, (sv["requests"], sv["prompt_len"])), device=dev)
     res, routes = {}, []
@@ -3759,7 +3872,8 @@ def mesh_reference(torch, sv: dict, dev: str) -> dict:
     res = {k: v.cpu().numpy() if v.dtype != torch.bfloat16
            else v.float().cpu().numpy() for k, v in res.items()}
     del params, caches
-    return res | {"dropped": dropped, "prefill_routes": routes, **times}
+    return res | {"dropped": dropped, "prefill_routes": routes,
+                  "padded_heads": cfg.padded_heads, **times}
 
 
 def rank_overheads(ranks: list, t_spawn: float, t_join: float) -> dict:
@@ -4098,8 +4212,9 @@ def mesh_phase(torch, dev: str, name_power: str,
 # case of ``tests/torch_sharded_cases.py`` against the reference's answers
 # on 8 devices (``tests/data/torch_sharded.json``) within
 # ``MESH_PIN_TOL``, each step's collectives equal to a ``CountingMesh``'s
-# count of it.  (b) llama3.2-3b at full width and depth, bf16, on 2x4: 8
-# prompts of 512 tokens, 4 decode steps fed the greedy tokens of the
+# count of it.  (b) llama3.2-3b at full width, 14 of its 28 layers, bf16,
+# on 2x4: 8 prompts of 512 tokens, 4 decode steps fed the greedy tokens of
+# the
 # port's 1x1 run on the same weights (held to it within ``SHARD_REL``).
 # (c) mixtral-8x7b at full width with 2 of its 32 layers (4 before phase
 # 17 came), 8 x 512, 1 decode step, in "2d" (the
@@ -4109,9 +4224,9 @@ def mesh_phase(torch, dev: str, name_power: str,
 # Phase 3 holds both attention kernels at (b)'s per-rank shapes
 # (``rank_shape``) and the reduced cases' heads (its sweeps).
 SHARD_MESH = (2, 4)
-# decode cut to 4 and 1 steps (from 8 and 2; a step is 2 s / 4 s of gloo
-# gathers) when phase 15 came: the whole run stays well inside its limit
-SHARD_SERVE = dict(arch="llama3.2-3b", layers=28, requests=8,
+# 4 and 1 decode steps (a step is 2 s / 4 s of gloo gathers) and (b) at 14
+# of the 28 layers: the whole run stays inside its limit
+SHARD_SERVE = dict(arch="llama3.2-3b", layers=14, requests=8,
                    prompt_len=512, decode=4, seed=0, reduced=False)
 SHARD_MOE = dict(MESH_SERVE, decode=1)
 SHARD_MODES = ("2d", "ffn")
@@ -4425,9 +4540,9 @@ def sharded_phase(torch, dev: str, name_power: str,
 # parameters and moments, ``remat="full"``,
 # on 2x4: ``TRAIN_RANKS["steps"]`` steps of a global batch of 2 x 2,048
 # (phase 10 (b)'s), each rank drawing only its blocks, held to a 1x1 run
-# of the same batches in its own process (run first and ended before the
-# ranks start: at 28 layers its float32 tree, gradients and moments took
-# 51.4 GB) on
+# of the same batches in the main process (run first, its memory freed
+# before the ranks start: at 28 layers its float32 tree, gradients and
+# moments took 51.4 GB) on
 # the same weights at every step: the 1x1 run writes the weights each of
 # its steps starts from, and before every step but the first each rank
 # measures its updated blocks against them and then takes them.  So every
@@ -4521,12 +4636,11 @@ def train_ranks_weights(weights_dir: str, i: int) -> pathlib.Path:
     return pathlib.Path(weights_dir) / f"step{i}.pt"
 
 
-def train_ranks_references(rank: int, parts: dict, dev: str,
-                           weights: dict) -> dict:
-    """The 1x1 runs of phase 15's or 17's models (``parts`` by key), one
-    after another in a process of its own (``train_ranks_reference``),
-    each writing its weights under ``weights[key]``: ``{key: its record
-    and its wall s}``."""
+def train_ranks_references(parts: dict, dev: str, weights: dict) -> dict:
+    """The 1x1 runs of phase 15's, 17's or 18's models (``parts`` by key),
+    one after another in this process (``train_ranks_reference``), each
+    writing its weights under ``weights[key]``: ``{key: its record and its
+    wall s}``."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
@@ -4800,8 +4914,8 @@ def train_ranks_phase(torch, dev: str, name_power: str,
 
 def train_across_ranks(torch, dev: str, name_power: str, phase: str,
                        cases_name: str, parts: dict, pin_names=None) -> dict:
-    """Phases 15 and 17: the models of ``parts`` (by key) trained 1x1 in a
-    process of their own, writing the weights each step starts from; then
+    """Phases 15, 17 and 18: the models of ``parts`` (by key) trained 1x1
+    in this process, writing the weights each step starts from; then
     the 8 ranks (``train_ranks_rank``): the pins of the cases module
     ``cases_name`` and each model against its 1x1 run.  Lines
     ``<phase>_pins``, ``<phase>`` (one a model) and ``<phase>_done``.
@@ -4822,12 +4936,6 @@ def train_across_ranks(torch, dev: str, name_power: str, phase: str,
     main_gb = None
     if card:
         reset_counts(torch)
-        main_gb = torch.cuda.memory_reserved() / 1e9
-    # the spawned processes' allocators grow their segments in place: 8
-    # ranks sharing the card would each keep ~0.9 GB reserved and unused
-    # between fixed segments
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     # the 1x1 runs' weights (llama3.2-3b's 12.85 GB a step at 28 layers) on
     # the disk of the checkout, removed with the directory
     (ROOT / "build").mkdir(exist_ok=True)
@@ -4839,9 +4947,10 @@ def train_across_ranks(torch, dev: str, name_power: str, phase: str,
             weights[key] = os.path.join(tmp.name, key)
             os.mkdir(weights[key])
         t0 = time.perf_counter()
-        refs = run_ranks(train_ranks_references, 1, parts, dev, weights,
-                         timeout_s=900)[0]
+        refs = train_ranks_references(parts, dev, weights)
         refs_s = time.perf_counter() - t0
+        if card:
+            main_gb = torch.cuda.memory_reserved() / 1e9
         t_spawn = time.time()
         t0 = time.perf_counter()
         ranks = run_ranks(train_ranks_rank, MESH_WORLD, cases_name, parts,
@@ -4851,10 +4960,6 @@ def train_across_ranks(torch, dev: str, name_power: str, phase: str,
         over = rank_overheads(ranks, t_spawn, time.time())
     finally:
         tmp.cleanup()
-        if alloc is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
 
     # (a) the pins, on every rank
     pins = json.loads((ROOT / "tests" / "data" / cases.PIN_FILE).read_text())
@@ -5010,7 +5115,7 @@ def train_across_ranks(torch, dev: str, name_power: str, phase: str,
         raise AssertionError("; ".join(failed))
     emit({"phase": f"{phase}_done", **over,
           "seconds": time.perf_counter() - t_phase, "ranks_s": ranks_s,
-          "reference_1x1_process_s": refs_s,
+          "reference_1x1_all_s": refs_s,
           "reference_1x1_s": {k: r["wall_s"] for k, r in refs.items()},
           "main_process_reserved_gb": main_gb,
           "launches": totals, "timing": label, "nvidia_smi": name_power})
@@ -5028,10 +5133,11 @@ def train_across_ranks(torch, dev: str, name_power: str, phase: str,
 # answers on 8 devices (``tests/data/torch_sharded_families.json``) within
 # ``MESH_PIN_TOL``, each step's collectives equal to a ``CountingMesh``'s
 # count of it.  (b) whisper-medium (phase 8's shape: 8 x 384 over 1,500
-# frames; 12 of its 24 encoder and 12 of its 24 decoder layers, 2 decode
+# frames; 6 of its 24 encoder and 6 of its 24 decoder layers, 2 decode
 # steps), mamba2-130m (full depth, 8 x 2,048, 2 steps) and
-# recurrentgemma-2b (full depth, 8 x 512, 2 steps: a step is about 1.1 GB
-# of FSDP gathers a rank) at full width, bf16, on 2x4 (whisper at full
+# recurrentgemma-2b (12 of 26 layers, 8 x 512, 2 steps: a step at full
+# depth is about 1.1 GB of FSDP gathers a rank) at full width, bf16, on
+# 2x4 (whisper at full
 # depth and 4 steps, mamba2 at 4 steps, before phase 17 came: a whisper
 # step costs 337 collective calls through gloo, 5-7 ms each), each rank
 # drawing only its blocks, fed the greedy
@@ -5041,12 +5147,14 @@ def train_across_ranks(torch, dev: str, name_power: str, phase: str,
 # (the rank at coordinates 0 on meta tensors).  Phase 3 holds both
 # attention kernels at (b)'s per-rank shapes (``FAMILY_RANK``).
 FAMILY_MESH = (2, 4)
+# whisper at 6 + 6 layers and recurrentgemma at 12 of 26 (4 full groups):
+# the whole run stays inside its limit
 FAMILY_SERVE = (
-    dict(arch=WHISPER, layers=12, enc_layers=12, requests=8, prompt_len=384,
+    dict(arch=WHISPER, layers=6, enc_layers=6, requests=8, prompt_len=384,
          decode=2, seed=0, reduced=False),
     dict(arch=SSM, layers=24, requests=8, prompt_len=2048, decode=2, seed=0,
          reduced=False),
-    dict(arch=HYBRID, layers=26, requests=8, prompt_len=512, decode=2,
+    dict(arch=HYBRID, layers=12, requests=8, prompt_len=512, decode=2,
          seed=0, reduced=False))
 # each rank's attention at (b): 4 of 8 rows; whisper's 4 of 16 heads (its
 # KV heads too), recurrentgemma's span of 3 of 10 q heads on its KV head
@@ -5233,10 +5341,11 @@ def family_phase(torch, dev: str, name_power: str,
 # ``CountingMesh``'s count.  (b) Each model at full width, float32
 # parameters and moments, bf16 compute, ``remat="full"``, 2 steps on 2x4,
 # each rank drawing only its blocks, every step from the weights of a 1x1
-# run of the same batches in a process of its own, as phase 15 (b)
-# (``train_across_ranks``): whisper-medium, 6 of its 24 encoder and 6 of
+# run of the same batches in the main process, as phase 15 (b)
+# (``train_across_ranks``): whisper-medium, 4 of its 24 encoder and 4 of
 # its 24 decoder layers, a global batch of 2 x 448 tokens (its published
-# decoder length) over 1,500 frames; mamba2-130m at full depth, 2 x 2,048;
+# decoder length) over 1,500 frames; mamba2-130m, 6 of its 24 layers, 2 x
+# 2,048;
 # recurrentgemma-2b, 2 x 2,048, 4 of its 26 layers (one full ``rec, rec,
 # attn`` group under ``remat`` and a tail ``rec`` layer outside it).  The
 # depths are cut for time: a step of a rank goes at the pace of its
@@ -5253,10 +5362,12 @@ def family_phase(torch, dev: str, name_power: str,
 # and time the flash forward and backward at (b)'s per-rank shapes
 # (``family_train_attn``).
 TRAIN_FAMILIES = {
-    "whisper": dict(arch=WHISPER, layers=6, enc_layers=6, batch=2,
+    "whisper": dict(arch=WHISPER, layers=4, enc_layers=4, batch=2,
                     seq=448, steps=2, seed=0, reduced=False, mode=None,
                     norms="ones"),
-    "mamba2": dict(arch=SSM, layers=24, batch=2, seq=2048, steps=2, seed=0,
+    # 6 of its 24 layers (12 layers: a step 659 gloo calls): the run's
+    # time limit
+    "mamba2": dict(arch=SSM, layers=6, batch=2, seq=2048, steps=2, seed=0,
                    reduced=False, mode=None, norms="ones"),
     "recurrentgemma": dict(arch=HYBRID, layers=4, batch=2, seq=2048,
                            steps=2, seed=0, reduced=False, mode=None,
@@ -5304,6 +5415,368 @@ def family_train_phase(torch, dev: str, name_power: str,
     return train_across_ranks(torch, dev, name_power, "family_train",
                               "torch_sharded_families_train_cases", parts,
                               pin_names)
+
+
+# ------------------ phase 18: the reference's attention and remat knobs
+# The settings of ``ArchConfig`` that the reference's tuning plan
+# (``benchmarks/perf_hillclimb.py``) turns: ``remat="dots"``, ``attn_shard``
+# "seq" and "heads", ``pad_heads_to`` (and ``attn_f32_scores``, whose card
+# error phase 3's flash row reports). (a) llama3.2-3b at full width and depth,
+# 2 x 2,048 tokens, float32 parameters and moments, bf16 compute, under "full"
+# and then "dots" from the same seed, ``KNOB_REMAT["steps"]`` AdamW steps each:
+# the first step's products counted (``aten.mm`` under ``count_mm``: under
+# "dots" the backward runs each product's two gradients and the loss chunks'
+# own recomputation, and no layer product again), the losses, gradient norms
+# and the parameters after the last step equal (bit for bit expected; else
+# within ``KNOB_REMAT_REL``), step s and peak GB of both.  (b) llama3.2-3b at
+# full width, 4 of its 28 layers, norm scales at ones (phase 15 (b)'s model),
+# bf16, on 2x4 under ``attn_shard="seq"`` (each rank's queries its block of 128
+# of 512 positions with every head, keys and values to its block's end) and
+# under "auto": 8 x 512 prompts and 2 decode steps fed the greedy tokens of the
+# 1x1 run on the same weights, both within ``SHARD_REL`` of 1x1 and of each
+# other, each rank's collectives equal to the dry-run's count of the cell, one
+# flash launch per layer a prefill and one decode launch per layer a step; then
+# 2 training steps of 2 x 2,048 under "seq" from 1x1's weights every step under
+# phase 15 (b)'s gates (``train_across_ranks``, with
+# ``tests/torch_sharded_knobs_train_cases.py``'s pinned "seq" case on every
+# rank first).  (c) The same model with ``pad_heads_to=32`` and
+# ``attn_shard="heads"`` on 2x4 (8 whole padded heads a rank), served as (b)
+# against the unpadded model on 1x1 carried from the padded tree's real-head
+# columns (``convert.unpad_heads``).  Phase 3 holds the flash forward and
+# backward at (b)'s largest rank shapes (``seq_rank_shape``,
+# ``seq_train_rank_shape``).
+KNOB_REMAT = dict(arch="llama3.2-3b", batch=2, seq=2048, steps=3, seed=0,
+                  reduced=False)
+KNOB_REMAT_REL = 1e-6
+KNOB_SERVE = dict(arch="llama3.2-3b", layers=4, requests=8, prompt_len=512,
+                  decode=2, seed=0, reduced=False, norms="ones")
+KNOB_PARTS = {"seq": {"attn_shard": "seq"}, "auto": {},
+              "pad": {"pad_heads_to": 32, "attn_shard": "heads"}}
+KNOB_TRAIN = dict(TRAIN_RANKS, steps=2, knobs={"attn_shard": "seq"})
+KNOB_TRAIN_PINS = ["llama/2x4/seq"]
+# each rank's attention at (b): 4 of 8 rows and the last block of 128 of
+# 512 query positions over every key (serve); 1 of 2 rows and 512 of
+# 2,048 over every key (train); 24 q heads on 8 KV heads
+KNOB_RANK = dict(requests=4, rows=128, keys=512, train_rows=512,
+                 train_keys=2048)
+
+
+def count_mm(torch):
+    """A dispatch mode that counts ``aten.mm`` / ``aten.addmm`` calls, the
+    products without a batch dimension: ``.fwd`` outside a backward pass,
+    ``.bwd`` inside one (the products it recomputes included)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMM(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.fwd = self.bwd = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default):
+                if torch._C._current_graph_task_id() == -1:
+                    self.fwd += 1
+                else:
+                    self.bwd += 1
+            return func(*args, **(kwargs or {}))
+    return CountMM()
+
+
+def remat_steps(torch, cfg, sv: dict, dev: str, against=None) -> dict:
+    """(a)'s AdamW steps under ``cfg.remat`` from the seed's tree: losses,
+    gradient norms, the products of the first step's forward and backward
+    passes (``count_mm``, ``"mm"``), step s (the mean of the steps after
+    the first), the peak GB, the flash launches, and the parameters after
+    the last step (on the host, by path); or, given ``against`` (another
+    run's), the leaves that differ from them and the largest relative
+    gap."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.tree import leaves
+    if dev != "cpu":
+        reset_counts(torch)
+    before = (flash_ops.launches, flash_ops.bwd_launches)
+    params = get_model(cfg).init(cfg, torch.Generator(dev).manual_seed(
+        sv["seed"]))
+    ocfg = AdamWConfig(opt_dtype=cfg.opt_dtype)
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    mm = count_mm(torch)
+    res = {"loss": [], "grad_norm": [], "step_s": []}
+    for i in range(sv["steps"]):
+        data = synth_batch(cfg, sv["batch"], sv["seq"], torch.Generator()
+                           .manual_seed(sv["seed"] + 1000 + i), dev)
+        mesh_sync(torch, dev)
+        t0 = time.perf_counter()
+        with mm if i == 0 else contextlib.nullcontext():
+            params, opt, m = step(params, opt, data)
+        res["loss"].append(float(m["loss"]))
+        res["grad_norm"].append(float(m["grad_norm"]))
+        res["step_s"].append(time.perf_counter() - t0)
+    res["mm"] = [mm.fwd, mm.bwd]
+    if dev != "cpu":
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["mean_step_s"] = statistics.mean(res["step_s"][1:])
+    res["launches"] = {"flash_attention": flash_ops.launches - before[0],
+                       "flash_attention_bwd":
+                           flash_ops.bwd_launches - before[1]}
+    del opt, step
+    if against is None:
+        res["params"] = {p: t.cpu() for p, t in leaves(params)}
+    else:
+        mine = dict(leaves(params))
+        gaps = {}
+        for p, t in against.items():
+            t = t.to(mine[p].device)
+            if not torch.equal(t, mine[p]):
+                gaps[p] = float((t - mine[p]).abs().max()
+                                / t.abs().max().clamp_min(1e-30))
+        res["params_unequal"] = sorted(gaps)
+        res["params_max_rel_gap"] = max(gaps.values(), default=0.0)
+    del params
+    return res
+
+
+def remat_phase(torch, dev: str, name_power: str,
+                sv: dict = KNOB_REMAT) -> dict:
+    """Phase 18 (a).  Returns the flash launch totals.  ``dev`` "cpu" with
+    a reduced ``sv`` rehearses it on the CPU."""
+    from repro_torch.configs import get_config
+    card = dev != "cpu"
+    base = get_config(sv["arch"])
+    if sv["reduced"]:
+        base = base.reduced()
+    chunks = -(-sv["batch"] * sv["seq"] // base.loss_chunk)
+    full = remat_steps(torch, base.replace(remat="full"), sv, dev)
+    dots = remat_steps(torch, base.replace(remat="dots"), sv, dev,
+                       against=full.pop("params"))
+    steps = {"full": full, "dots": dots}
+    want = {"flash_attention": 2 * base.num_layers * sv["steps"],
+            "flash_attention_bwd": base.num_layers * sv["steps"]}
+    for remat, rec in steps.items():
+        if rec["launches"] != (want if card else dict.fromkeys(want, 0)):
+            raise AssertionError(f"knob (a) {remat}: {rec['launches']} "
+                                 f"flash launches, want {want}")
+    gaps = [abs(a - b) / abs(a) for key in ("loss", "grad_norm")
+            for a, b in zip(full[key], dots[key])]
+    (fwd, bwd), want_bwd = dots["mm"], 2 * dots["mm"][0] + chunks
+    emit({"phase": "knob_remat", "part": "a", "arch": base.name,
+          "layers": base.num_layers, "global_batch": [sv["batch"],
+                                                      sv["seq"]],
+          "steps": sv["steps"], "compute": base.compute_dtype,
+          "params": base.param_dtype, "dots_bwd_mm_want": want_bwd,
+          "full": full, "dots": dots,
+          "loss_norm_max_rel_gap": max(gaps), "limit": KNOB_REMAT_REL,
+          "nvidia_smi": name_power})
+    if bwd != want_bwd or full["mm"][0] != fwd or full["mm"][1] <= bwd:
+        raise AssertionError(f"knob (a): the first step's products "
+                             f"{dots['mm']} under dots ({full['mm']} under "
+                             f"full), want a backward of {want_bwd}")
+    if max(gaps) > KNOB_REMAT_REL \
+            or dots["params_max_rel_gap"] > KNOB_REMAT_REL:
+        raise AssertionError(f"knob (a): dots against full: losses and "
+                             f"norms {max(gaps)}, parameters "
+                             f"{dots['params_max_rel_gap']}")
+    if not all(math.isfinite(x) for r in steps.values()
+               for x in r["loss"] + r["grad_norm"]):
+        raise AssertionError("knob (a): losses not finite")
+    return {k: full["launches"][k] + dots["launches"][k] for k in want}
+
+
+def knob_norms(params: dict, sv: dict) -> dict:
+    """(b)'s or (c)'s serving tree with its norm scales at ones where
+    ``sv["norms"]`` says so."""
+    return set_norm_scales(params, 1.0) if sv.get("norms") == "ones" \
+        else params
+
+
+def knob_prepare(params: dict, cfg, sv: dict):
+    """The 1x1 run of (b) or (c) (``mesh_reference``'s ``prepare``): the
+    tree every rank draws its blocks of (``knob_norms``); a padded tree
+    served as the unpadded model carried from its real-head columns
+    (``convert.unpad_heads``)."""
+    from repro_torch.models.convert import unpad_heads
+    return unpad_heads(knob_norms(params, sv), cfg)
+
+
+def knob_rank(rank: int, parts: dict, tokens: dict, dev: str) -> dict:
+    """Phase 18 (b) and (c) serving on one rank of the 8 (on the card, all
+    on cuda:0): each part of ``parts`` (``KNOB_SERVE`` with its
+    ``knobs``) served from this rank's blocks, fed ``tokens[part]``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import rank_mesh_ctx
+    card = dev != "cpu"
+    t_enter = time.time()
+    mctx = rank_mesh_ctx(SHARD_MESH, device=dev)
+    out = {}
+    for key, sv in parts.items():
+        t0 = time.perf_counter()
+        cfg = mesh_cfg(sv)
+        params = knob_norms(sharded_params(torch, cfg, mctx, sv["seed"],
+                                           dev), sv)
+        rec = {"param_bytes": tree_bytes(params),
+               "param_bytes_dryrun": held_param_bytes(cfg, mctx,
+                                                      torch.bfloat16)}
+        rec |= rank_serve(torch, mctx, cfg, params, tokens[key],
+                          sv["prompt_len"], sv["decode"], dev)
+        del params
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        rec["wall_s"] = time.perf_counter() - t0
+        out[key] = rec
+    out["t_enter"], out["t_exit"] = t_enter, time.time()
+    return out
+
+
+def knob_serve(torch, dev: str, name_power: str, sv: dict = KNOB_SERVE,
+               parts: dict = KNOB_PARTS) -> dict:
+    """Phase 18 (b) and (c) serving.  Returns the attention kernels'
+    launch totals."""
+    import numpy as np
+    from repro_torch.launch.dryrun import count_collectives
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.sharding import Mesh, MeshCtx
+    card = dev != "cpu"
+    label = "gloo through host memory, 8 ranks on one card"
+    svs = {k: dict(sv, knobs=kn) for k, kn in parts.items()}
+    refs = {}
+    for key in ("auto", "pad"):
+        if card:
+            reset_counts(torch)
+        t0 = time.perf_counter()
+        refs[key] = mesh_reference(torch, svs[key], dev, functools.partial(
+            knob_prepare, sv=svs[key]))
+        refs[key]["wall_s"] = time.perf_counter() - t0
+    refs["seq"] = refs["auto"]            # one model, two layouts
+    if card:
+        reset_counts(torch)
+    t_spawn = time.time()
+    t0 = time.perf_counter()
+    ranks = run_ranks(knob_rank, MESH_WORLD, svs,
+                      {k: refs[k]["tokens"] for k in svs},
+                      "cuda:0" if card else "cpu", timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    over = rank_overheads(ranks, t_spawn, time.time())
+    grid = MeshCtx(Mesh(np.arange(MESH_WORLD).reshape(SHARD_MESH),
+                        ("data", "model")))
+    totals = {"flash_attention": 0, "decode_attention": 0}
+    rels = {}
+    for key, ksv in svs.items():
+        cfg = mesh_cfg(ksv)
+        per = [r[key] for r in ranks]
+        ref = refs[key]
+        b, p_len, steps = ksv["requests"], ksv["prompt_len"], ksv["decode"]
+        want = {"flash_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * steps}
+        counted = {
+            "prefill": count_collectives(cfg, ShapeConfig(
+                "prefill", "prefill", p_len, b), grid),
+            "decode": count_collectives(cfg, ShapeConfig(
+                "decode", "decode", p_len + steps, b), grid)}
+        for m in per:
+            if m["launches"] != (want if card else dict.fromkeys(want, 0)):
+                raise AssertionError(f"knob {key}: a rank launched "
+                                     f"{m['launches']}, want {want}")
+            if m["logits_sum"] != per[0]["logits_sum"]:
+                raise AssertionError(f"knob {key}: the ranks' logits differ")
+            if m["param_bytes"] != m["param_bytes_dryrun"]:
+                raise AssertionError(f"knob {key}: a rank holds "
+                                     f"{m['param_bytes']} bytes, the "
+                                     f"dry-run's {m['param_bytes_dryrun']}")
+            for part, k in (("prefill", "prefill_collectives"),
+                            ("decode", "decode_collectives_per_step")):
+                if m[k] != {x: counted[part][x] for x in ("calls",
+                                                          "bytes")}:
+                    raise AssertionError(f"knob {key} {part}: a rank's "
+                                         f"collectives {m[k]}, the "
+                                         f"dry-run's {counted[part]}")
+        for k in totals:
+            totals[k] += sum(m["launches"][k] for m in per)
+        m = per[0]
+        if not np.isfinite(m["logits"]).all():
+            raise AssertionError(f"knob {key}: logits not finite")
+        rel = {"prefill": mesh_rel(m["logits"][0], ref["logits"][0]),
+               "decode": mesh_rel(m["logits"][1:], ref["logits"][1:])}
+        rels[key] = rel
+        emit({"phase": "knob_serve", "part": "c" if key == "pad" else "b",
+              "layout": key, "knobs": ksv["knobs"], "arch": cfg.name,
+              "mesh": list(SHARD_MESH),
+              "reduced": {"num_layers": [ksv["layers"], 28]},
+              "norm_scales": ksv["norms"], "requests": b,
+              "prompt_len": p_len, "decode": steps, "timing": label,
+              "reference_1x1": {"padded_heads": ref["padded_heads"],
+                                "prefill_s": ref["prefill_s"]},
+              "rel_err_vs_1x1": rel,
+              "argmax_equal": float((m["logits"].argmax(-1)
+                                     == ref["logits"].argmax(-1)).mean()),
+              "prefill_s": m["prefill_s"],
+              "prefill_s_max_rank": max(x["prefill_s"] for x in per),
+              "decode_ms_per_step": m["decode_ms_per_step"],
+              "prefill_collectives": m["prefill_collectives"],
+              "decode_collectives_per_step":
+                  m["decode_collectives_per_step"],
+              "collectives_equal_dryrun": True,
+              "launches_per_rank": m["launches"],
+              "param_bytes_per_rank": m["param_bytes"],
+              "peak_gb_per_rank": max(x.get("peak_gb", 0) for x in per),
+              "rank_wall_s": max(x["wall_s"] for x in per),
+              "limit": SHARD_REL, "nvidia_smi": name_power})
+        if max(rel.values()) >= SHARD_REL:
+            raise AssertionError(f"knob {key} vs 1x1: {rel}")
+    seq, auto = ranks[0]["seq"]["logits"], ranks[0]["auto"]["logits"]
+    rel = {"prefill": mesh_rel(seq[0], auto[0]),
+           "decode": mesh_rel(seq[1:], auto[1:])}
+    emit({"phase": "knob_serve", "part": "b", "layout": "seq_vs_auto",
+          "rel_err": rel, "limit": SHARD_REL, **over,
+          "ranks_s": ranks_s,
+          "reference_1x1_s": {k: refs[k]["wall_s"] for k in ("auto", "pad")},
+          "nvidia_smi": name_power})
+    if max(rel.values()) >= SHARD_REL:
+        raise AssertionError(f"knob seq vs auto on 2x4: {rel}")
+    return totals
+
+
+def knob_phase(torch, dev: str, name_power: str, sv_a: dict = KNOB_REMAT,
+               sv_serve: dict = KNOB_SERVE, parts: dict = KNOB_PARTS,
+               sv_train: dict = KNOB_TRAIN,
+               pin_names: list = KNOB_TRAIN_PINS) -> dict:
+    """Phase 18.  Returns the attention kernels' launch totals.  ``dev``
+    "cpu" with reduced settings rehearses it on the CPU."""
+    t_phase = time.perf_counter()
+    card = dev != "cpu"
+    totals = {"flash_attention": 0, "flash_attention_bwd": 0,
+              "decode_attention": 0}
+    t0 = time.perf_counter()
+    for k, n in remat_phase(torch, dev, name_power, sv_a).items():
+        totals[k] += n
+    a_s = time.perf_counter() - t0
+    if card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for k, n in knob_serve(torch, dev, name_power, sv_serve, parts).items():
+        totals[k] += n
+    serve_s = time.perf_counter() - t0
+    if card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for k, n in train_across_ranks(
+            torch, dev, name_power, "knob_train",
+            "torch_sharded_knobs_train_cases", {"seq": sv_train},
+            pin_names).items():
+        totals[k] += n
+    emit({"phase": "knob_done", "seconds": time.perf_counter() - t_phase,
+          "remat_s": a_s, "serve_s": serve_s,
+          "train_s": time.perf_counter() - t0, "launches": totals,
+          "nvidia_smi": name_power})
+    return totals
 
 
 PROFILES = ("episode", "serve", "fleet", "decode", "train")
@@ -5452,37 +5925,56 @@ def main(argv=None) -> int:
         totals[k] += n
     torch.cuda.empty_cache()
 
-    # 13. the MoE block across 8 ranks on the card: the pins, then
-    # mixtral at full width in each mode
-    for k, n in mesh_phase(torch, dev, name_power).items():
-        totals[k] += n
-    torch.cuda.empty_cache()
+    # 13-18 run their ranks on one pool of 8 processes, started once: a
+    # fresh rank pays its start, its CUDA context and its first meta-device
+    # trace again.  The ranks' allocators grow their segments in place: 8
+    # ranks sharing the card would each keep ~0.9 GB reserved and unused
+    # between fixed segments
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    with RankPool(MESH_WORLD):
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        # 13. the MoE block across 8 ranks on the card: the pins, then
+        # mixtral at full width in each mode
+        for k, n in mesh_phase(torch, dev, name_power).items():
+            totals[k] += n
+        torch.cuda.empty_cache()
 
-    # 14. the decoder's sharded steps across 8 ranks on the card: the pins,
-    # llama3.2-3b at full size, mixtral's MoE layers in "2d" and "ffn"
-    for k, n in sharded_phase(torch, dev, name_power).items():
-        totals[k] += n
-    torch.cuda.empty_cache()
+        # 14. the decoder's sharded steps across 8 ranks on the card: the
+        # pins, llama3.2-3b at full size, mixtral's MoE layers in "2d" and
+        # "ffn"
+        for k, n in sharded_phase(torch, dev, name_power).items():
+            totals[k] += n
+        torch.cuda.empty_cache()
 
-    # 15. training across 8 ranks on the card: the pins, llama3.2-3b at
-    # full size and mixtral's "2d" layer, each against its 1x1 run
-    for k, n in train_ranks_phase(torch, dev, name_power).items():
-        totals[k] += n
-    torch.cuda.empty_cache()
+        # 15. training across 8 ranks on the card: the pins, llama3.2-3b at
+        # full size and mixtral's "2d" layer, each against its 1x1 run
+        for k, n in train_ranks_phase(torch, dev, name_power).items():
+            totals[k] += n
+        torch.cuda.empty_cache()
 
-    # 16. serving across 8 ranks on the card for the enc-dec, SSM and
-    # hybrid families: the pins, then whisper-medium, mamba2-130m and
-    # recurrentgemma-2b at full width, each against its 1x1 run
-    for k, n in family_phase(torch, dev, name_power).items():
-        totals[k] += n
-    torch.cuda.empty_cache()
+        # 16. serving across 8 ranks on the card for the enc-dec, SSM and
+        # hybrid families: the pins, then whisper-medium, mamba2-130m and
+        # recurrentgemma-2b at full width, each against its 1x1 run
+        for k, n in family_phase(torch, dev, name_power).items():
+            totals[k] += n
+        torch.cuda.empty_cache()
 
-    # 17. training across 8 ranks on the card for the enc-dec, SSM and
-    # hybrid families: the pins, then whisper-medium, mamba2-130m and
-    # recurrentgemma-2b at full width, each against its 1x1 run
-    for k, n in family_train_phase(torch, dev, name_power).items():
-        totals[k] += n
-    torch.cuda.empty_cache()
+        # 17. training across 8 ranks on the card for the enc-dec, SSM and
+        # hybrid families: the pins, then whisper-medium, mamba2-130m and
+        # recurrentgemma-2b at full width, each against its 1x1 run
+        for k, n in family_train_phase(torch, dev, name_power).items():
+            totals[k] += n
+        torch.cuda.empty_cache()
+
+        # 18. the reference's attention and remat knobs: "dots" against
+        # "full" at full size, "seq" and "auto" across 8 ranks, padded heads
+        for k, n in knob_phase(torch, dev, name_power).items():
+            totals[k] += n
+        torch.cuda.empty_cache()
 
     for row in rows:
         row["launches"] = totals[row["name"]]

@@ -111,14 +111,20 @@ def _attention_grad_flops(q_shape, k_shape, v_shape, causal, window,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None,
-              chunk_attn: int | None = None) -> torch.Tensor:
+              chunk_attn: int | None = None,
+              f32_stats: bool = True) -> torch.Tensor:
     """q [B, Hq, Sq, D]; k, v [B, Hk, Skv, D], GQA when Hk < Hq (KV heads
     indexed, never repeated on the card); query row i at position
     i + Skv - Sq, masked as ``flash_attention_ref`` says (causal, sliding
     ``window``, local chunk of ``chunk_attn`` positions).  Returns
     [B, Hq, Sq, D] in q's dtype, differentiable in q, k and v on either
-    device.  Degenerate shapes short-circuit: no query gives an empty
-    result, no key gives zeros."""
+    device.  ``f32_stats`` (the reference's ``attn_f32_scores``) says
+    whether the probabilities enter the P V product in float32 (True) or
+    in q's dtype (False); the plain version follows it, the kernels take
+    P in q's dtype either way (bf16 operands: P packed to bf16 for the
+    tensor cores; float32 operands: float32, where the two agree).
+    Degenerate shapes short-circuit: no query gives an empty result, no
+    key gives zeros."""
     global launches
     if chunk_attn is not None and chunk_attn <= 0:
         raise ValueError(f"chunk_attn must be positive, got {chunk_attn}")
@@ -138,4 +144,4 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return torch.ops.repro_torch.attention_meta(q, k, v, causal,
                                                    window, chunk_attn)
     return flash_attention_ref(q, k, v, causal=causal, window=window,
-                               chunk_attn=chunk_attn)
+                               chunk_attn=chunk_attn, f32_stats=f32_stats)

@@ -57,7 +57,7 @@ def _repeat_kv(t: torch.Tensor, hq: int) -> torch.Tensor:
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int | None = None,
                         chunk_attn: int | None = None,
-                        return_lse: bool = False):
+                        return_lse: bool = False, f32_stats: bool = True):
     """q [B, Hq, Sq, D]; k, v [B, Hk, Skv, D] with Hq % Hk == 0 (KV heads
     are repeated here).  Scores in float32 scaled by D**-0.5; query row i
     sits at position i + Skv - Sq.  Key k is kept for position p where
@@ -66,9 +66,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``chunked_attention`` mask), each where set.  A row that the mask
     leaves no key (causal with Sq > Skv) gives zeros, as the CUDA kernel
     does; the Pallas kernel does so only where it skips the row's whole
-    query block.  Returns [B, Hq, Sq, D] in q's dtype, and with
-    ``return_lse`` also the float32 log-sum-exp of each row's scaled
-    scores [B, Hq, Sq] (``LSE_EMPTY`` for a row with no key)."""
+    query block.  With ``f32_stats`` False the probabilities enter the
+    P V product in q's dtype, as the reference's ``chunked_attention(...,
+    f32_stats=False)`` takes them: each row's exp(s - rowmax), unscaled,
+    rounded to q's dtype and multiplied by V in q's dtype, the sum in
+    float32 and divided by the row's float32 sum of the unrounded values
+    (the reference's online softmax over one key chunk).  Returns [B, Hq,
+    Sq, D] in q's dtype, and with ``return_lse`` also the float32
+    log-sum-exp of each row's scaled scores [B, Hq, Sq] (``LSE_EMPTY``
+    for a row with no key)."""
     hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
     skv = k.shape[2]
     k, v = _repeat_kv(k, hq), _repeat_kv(v, hq)
@@ -77,8 +83,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = attention_mask(sq, skv, q.device, causal=causal, window=window,
                           chunk_attn=chunk_attn)
     scores = scores.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(scores, dim=-1) * mask.any(-1, keepdim=True)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    if f32_stats:
+        p = torch.softmax(scores, dim=-1) * mask.any(-1, keepdim=True)
+        out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    else:
+        e = torch.exp(scores - scores.amax(-1, keepdim=True))
+        e = e * mask.any(-1, keepdim=True)
+        out = torch.einsum("bhqk,bhkd->bhqd", e.to(q.dtype).float(),
+                           v.to(q.dtype).float())
+        out = (out / e.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
     if not return_lse:
         return out
     lse = torch.logsumexp(scores, dim=-1)

@@ -10,7 +10,9 @@ mesh is ``launch.elastic.derive_mesh`` over its devices.
 ``torch.distributed`` process group (one process per mesh cell), which
 ``run_ranks`` starts: ``world`` spawned processes on one host, each
 joining a group over ``tcp://localhost`` on the backend the caller
-names, each running one function and handing its result back.
+names, each running one function and handing its result back.  Inside
+``with RankPool(world):`` the calls of ``run_ranks`` run on one set of
+such processes, started once.
 """
 from __future__ import annotations
 
@@ -86,6 +88,134 @@ def _rank_entry(rank: int, world: int, port: int, backend: str,
         dist.destroy_process_group()
 
 
+def _pool_entry(rank: int, world: int, port: int, backend: str,
+                timeout_s: float, tasks: list, results) -> None:
+    import gc
+    import pickle
+
+    import torch.distributed as dist
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{port}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    dist.barrier()
+    try:
+        while (call := tasks[rank].get()) is not None:
+            with open(call, "rb") as f:
+                sys.path[:] = pickle.load(f)
+                fn, args = pickle.load(f)
+            try:
+                results.put((rank, True, fn(rank, *args)))
+            except BaseException:
+                tb = traceback.format_exc()
+                print(f"run_ranks: rank {rank} of {world} failed\n{tb}",
+                      file=sys.stderr, flush=True)
+                results.put((rank, False, tb))
+            del fn, args
+            gc.collect()
+            if torch.cuda.is_initialized():
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+_POOL = None
+
+
+class RankPool:
+    """``world`` spawned processes in one ``torch.distributed`` process
+    group on ``backend``, kept for many calls: while the pool is open
+    (``with RankPool(world):``) every ``run_ranks`` call of that world and
+    backend runs on its ranks instead of spawning its own, so they start,
+    import and first reach the device once (each fresh process pays its
+    first meta-device trace and its CUDA context again).  A call reaches
+    the ranks through a temporary file, as ``run_ranks``' does, with the
+    caller's ``sys.path`` (which a spawned process takes at its start);
+    after it each rank frees what the call left (``gc.collect``,
+    ``torch.cuda.empty_cache``).  A call that fails on a rank or runs past
+    its time ends every rank and closes the pool.  ``timeout_s`` is each
+    collective's."""
+
+    def __init__(self, world: int, backend: str = "gloo",
+                 timeout_s: float = 1200.0):
+        self.world, self.backend, self.timeout_s = world, backend, timeout_s
+        self.procs = None
+
+    def __enter__(self) -> "RankPool":
+        global _POOL
+        import torch.multiprocessing as mp
+        if _POOL is not None:
+            raise RuntimeError("a RankPool is already open")
+        ctx = mp.get_context("spawn")
+        self.tasks = [ctx.SimpleQueue() for _ in range(self.world)]
+        self.results = ctx.SimpleQueue()
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        self.procs = mp.spawn(_pool_entry, nprocs=self.world, join=False,
+                              args=(self.world, port, self.backend,
+                                    self.timeout_s, self.tasks,
+                                    self.results))
+        _POOL = self
+        return self
+
+    def __exit__(self, kind, *_) -> None:
+        global _POOL
+        _POOL = None
+        if self.procs is None:
+            return
+        if kind is None:
+            for q in self.tasks:
+                q.put(None)
+            deadline = time.monotonic() + 60
+            while not self.procs.join(timeout=1.0) \
+                    and time.monotonic() < deadline:
+                pass
+        for p in self.procs.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        self.procs = None
+
+    def run(self, fn, args: tuple, timeout_s: float) -> list:
+        """``fn(rank, *args)`` on every rank; the results by rank."""
+        import pickle
+        import tempfile
+
+        from torch.multiprocessing.spawn import ProcessException
+        if self.procs is None:
+            raise RuntimeError("the RankPool is closed")
+        with tempfile.NamedTemporaryFile(prefix="run_ranks_", suffix=".pkl",
+                                         delete=False) as call:
+            pickle.dump(sys.path, call)
+            pickle.dump((fn, args), call)
+        got: dict = {}
+        try:
+            for q in self.tasks:
+                q.put(call.name)
+            deadline = time.monotonic() + timeout_s
+            while len(got) < self.world:
+                while not self.results.empty():
+                    rank, ok, val = self.results.get()
+                    if not ok:
+                        raise RuntimeError(f"run_ranks({fn.__name__}): rank "
+                                           f"{rank} failed\n{val}")
+                    got[rank] = val
+                if len(got) == self.world:
+                    break
+                if self.procs.join(timeout=0.2):
+                    raise RuntimeError(f"run_ranks({fn.__name__}): the "
+                                       f"pool's ranks ended")
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"run_ranks({fn.__name__}): past "
+                                       f"{timeout_s} s")
+        except (RuntimeError, ProcessException) as e:
+            self.__exit__(type(e))
+            raise RuntimeError(str(e)) from None
+        finally:
+            os.unlink(call.name)
+        return [got[r] for r in range(self.world)]
+
+
 def run_ranks(fn, world: int, *args, backend: str = "gloo",
               timeout_s: float = 600.0) -> list:
     """Run ``fn(rank, *args)`` in ``world`` spawned processes that form one
@@ -98,9 +228,14 @@ def run_ranks(fn, world: int, *args, backend: str = "gloo",
     spawned process reads its pipe as it unpickles, importing ``fn``'s
     modules first, so a call past the pipe's 64 KB buffer would start the
     ranks one after another (7-8 s apart on the card's host at 190 KB of
-    arguments)."""
+    arguments).  Inside an open ``RankPool`` of ``world`` ranks on
+    ``backend`` the call runs on the pool's ranks."""
     import pickle
     import tempfile
+
+    if _POOL is not None and (_POOL.world, _POOL.backend) == (world,
+                                                              backend):
+        return _POOL.run(fn, args, timeout_s)
 
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException

@@ -17,7 +17,11 @@ hybrid's trees cut as the decoder's); ``shardings`` gives the same cut by
 path for every family's ``init(..., blocks=)``, which draws only the
 blocks.
 ``moe_blocks`` cuts the MoE leaves alone to the MoE block's ``in_specs``
-(the layout ``moe.moe_ffn`` takes).
+(the layout ``moe.moe_ffn`` takes).  A tree of a config with head padding
+(``pad_heads_to``: the reference's padded ``wq`` carries over as it is)
+becomes the unpadded config's by ``unpad_heads``, which keeps ``wq``'s
+real-head columns: the same function, the pad heads' outputs being
+dropped before ``wo``.
 """
 from __future__ import annotations
 
@@ -142,3 +146,32 @@ def moe_in_blocks(layer: dict, cfg: ArchConfig, mctx: MeshCtx, batch: int
     want = moe_in_specs(cfg, mctx, batch)
     return {k: relayout(v, P(*stored[k][1:]), want[k], mctx)
             for k, v in layer.items()}
+
+
+def unpad_heads(tree, cfg: ArchConfig):
+    """``(tree, cfg)`` of a config with head padding (``pad_heads_to``)
+    as the unpadded config's: every ``wq`` / ``x_wq`` leaf [..., d,
+    padded_heads * Dh] cut to its real heads' columns (group-major
+    padding: each KV group's first ``num_heads // Hk`` heads), a copy;
+    every other leaf as it is.  Without padding, both as they are."""
+    if cfg.padded_heads == cfg.num_heads:
+        return tree, cfg
+    kvh = max(cfg.num_kv_heads, 1)
+    gp, gr = cfg.padded_heads // kvh, cfg.num_heads // kvh
+    dh = cfg.head_dim
+    cols = [g * gp * dh + j for g in range(kvh) for j in range(gr * dh)]
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (walk(v) if isinstance(v, dict) else
+                        _cut_cols(v, cols) if k in ("wq", "x_wq") else v)
+                    for k, v in node.items()}
+        return node
+
+    return walk(tree), cfg.replace(pad_heads_to=0)
+
+
+def _cut_cols(leaf, cols: list):
+    if isinstance(leaf, np.ndarray):
+        return leaf[..., cols].copy()
+    return leaf.index_select(-1, torch.tensor(cols, device=leaf.device))

@@ -385,7 +385,7 @@ def _hybrid_ranked(params, caches: dict | None, tokens: torch.Tensor,
     decode = caches is not None
     rk = tfm._Ranks(cfg, mctx, global_batch, tokens.shape[0],
                     n_slots if decode else min(cfg.window, s), stored,
-                    _COMPUTED)
+                    _COMPUTED, seq=not decode)
     x = tfm._embed_ranked(params, tokens, cfg, rk)
     if decode:
         mode, positions = "decode", torch.arange(t, t + 1, device=x.device)

@@ -78,14 +78,17 @@ def sinusoid_positions(seq: int, dim: int, device=None) -> torch.Tensor:
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int | None = None,
-                      chunk_attn: int | None = None) -> torch.Tensor:
+                      chunk_attn: int | None = None,
+                      f32_stats: bool = True) -> torch.Tensor:
     """q: [B, Hq, Sq, Dh]; k, v: [B, Hk, Skv, Dh] with Hq % Hk == 0.  Query
     row i sits at position i + Skv - Sq (suffix alignment); with
     ``chunk_attn`` a query attends only keys of its own chunk of that many
-    positions (``k // c == q // c``).  Returns [B, Hq, Sq, Dh] in q's dtype
-    (with q's layout on the card)."""
+    positions (``k // c == q // c``).  ``f32_stats`` False (the config's
+    ``attn_f32_scores``) takes the probabilities into the P V product in
+    the compute dtype, as the reference does (``ops.attention``).  Returns
+    [B, Hq, Sq, Dh] in q's dtype (with q's layout on the card)."""
     return flash_ops.attention(q, k, v, causal=causal, window=window,
-                               chunk_attn=chunk_attn)
+                               chunk_attn=chunk_attn, f32_stats=f32_stats)
 
 
 def ring_positions(t: int, n_slots: int, device=None) -> torch.Tensor:

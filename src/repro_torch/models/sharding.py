@@ -47,6 +47,10 @@ differs by rank is that rank's own.  So
   callers feed to work that differs by rank: an FSDP weight against this
   rank's rows) has ``reduce_scatter`` as its backward, and
   ``reduce_scatter`` ``all_gather``;
+* ``all_gather_invariant`` (the same gather, its result used the same on
+  every rank: the context-parallel attention's rows made the whole
+  sequence again) has this rank's block of the cotangent as its backward,
+  with no collective (JAX's ``all_gather_invariant``);
 * ``relayout``'s local cut (``narrow``) pads its cotangent with zeros.
 
 Every mesh counts the collectives it issued, the backward's too:
@@ -245,6 +249,18 @@ class Mesh:
         dim %= x.dim()
         return _Gather.apply(x, self, axes, dim)
 
+    def all_gather_invariant(self, x: torch.Tensor, axes, dim: int = 0
+                             ) -> torch.Tensor:
+        """``all_gather`` whose result is used the same on every rank along
+        ``axes``, so its cotangent is the whole one on each of them.
+        Backward: this rank's block of the cotangent (a local slice, no
+        collective)."""
+        axes = self._axes(axes)
+        if not axes:
+            return x
+        dim %= x.dim()
+        return _GatherInvariant.apply(x, self, axes, dim)
+
     def reduce_scatter(self, x: torch.Tensor, axes, dim: int = 0
                        ) -> torch.Tensor:
         """The sum of ``x`` over the ranks along ``axes``, cut on ``dim``
@@ -352,6 +368,18 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         return (ctx.mesh._issue_scatter(g, ctx.axes, ctx.dim), None, None,
                 None)
+
+
+class _GatherInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.start = mesh.axis_index(axes) * x.shape[dim]
+        ctx.n, ctx.dim = x.shape[dim], dim
+        return mesh._issue_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.n), None, None, None
 
 
 class _Scatter(torch.autograd.Function):

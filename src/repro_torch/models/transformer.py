@@ -26,15 +26,22 @@ rank's block of the logits ``P(dp, "model")`` (the loss: a vocab-parallel
 cross-entropy, its sums psummed over ``model`` and over the data axes).
 Under autograd the collectives run their transposes backward
 (``models/sharding.py``); the normed input of every column-parallel
-product enters through ``pvary``.  ``_constrain`` and
-``_attn_constraints`` are the reference's layout hints; under the
-configs' ``attn_shard="auto"`` they are no-ops, and across ranks the
-other settings raise.  The enc-dec's loss, prefill and decode run across
-ranks the same way (``_encdec_loss_ranked``, ``_encdec_ranked``: the
-encoder on this rank's rows and heads, the cross caches laid out by
-``kv_spec`` over ``enc_seq``), and so do the SSM's and the hybrid's
-(``ssm.py``, ``hybrid.py``), on the same ``_Ranks`` layout, which takes
-each family's stored spec tree.
+product enters through ``pvary``.  Where the reference pins GSPMD's
+layout of q, k and v (``_attn_constraints``), the port lays its blocks
+out itself, by ``cfg.attn_shard`` (``_Ranks``): "auto" as above; "heads"
+whole q heads on each rank, the ceiling of their count over ``model``
+(the reference's GSPMD padding of an uneven count), ``wo`` gathered
+whole; "seq" (prefill and training; decode runs as "auto")
+context-parallel attention: ``wq``/``wk``/``wv``/``wo`` gathered whole,
+each rank the queries of its block of positions over ``model`` with
+every head, keys and values from position 0 to its block's end, its rows
+of ``o @ wo`` gathered over ``model`` along the sequence
+(``Mesh.all_gather_invariant``).  The enc-dec's loss, prefill and decode
+run across ranks the same way (``_encdec_loss_ranked``,
+``_encdec_ranked``: the encoder on this rank's rows and heads, the cross
+caches laid out by ``kv_spec`` over ``enc_seq``), and so do the SSM's
+and the hybrid's (``ssm.py``, ``hybrid.py``), on the same ``_Ranks``
+layout, which takes each family's stored spec tree.
 
 Weights may be held in the config's ``param_dtype`` (float32) and are cast
 to the compute dtype per use, as the reference does; ``cast_params``
@@ -66,8 +73,13 @@ SwiGLU FFN.  Caches are ``{"self": {"k", "v"}, "cross_k", "cross_v"}``,
 the cross caches ``[L, B, Hk, enc_seq, Dh]`` filled by the prefill and
 attended whole at every decode step.  The SSM and hybrid families have
 their own modules (``ssm.py``, ``hybrid.py``), built from this one's
-blocks, initialisation and helpers; head padding (an XLA layout knob)
-raises.
+blocks, initialisation and helpers.
+
+Head padding (``cfg.pad_heads_to``): ``wq`` has ``padded_heads`` heads,
+group-major (each KV group's pad heads last, so the GQA mapping of q to
+KV heads is unchanged), attention runs over all of them, and the pad
+heads' outputs are dropped before ``wo`` (``_real_heads``), as in the
+reference; across ranks each rank takes whole padded heads.
 
 Training (``decoder_loss``, ``encdec_loss``): the reference's losses,
 next-token cross-entropy over the text positions through
@@ -75,16 +87,25 @@ next-token cross-entropy over the text positions through
 autograd differentiates; every matrix is cast to the compute dtype where
 it is used, inside the layer, so under ``cfg.remat`` (each layer run
 under ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``) the
-bf16 copies are recomputed in the backward pass, not kept.  A stacked
+bf16 copies are recomputed in the backward pass, not kept; under
+``remat="dots"`` the decoder stack keeps the outputs of the products
+without a batch dimension (``aten.mm``: the projections, the FFN, the
+router and ``o @ wo``) and recomputes the rest (the attention, the
+expert products), the reference's ``dots_with_no_batch_dims_saveable``;
+the other families' stacks recompute everything under "dots", as the
+reference's do.  A stacked
 leaf is split into its layers once per forward (``_layers``:
 ``torch.unbind``), so its gradient is stacked once, not summed into a
 zero tensor of the whole leaf at every layer.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (chunked_attention,
@@ -126,10 +147,13 @@ def _check_supported(cfg: ArchConfig,
             f"{cfg.name}: family {cfg.family!r} does not run on these entry "
             f"points (they take {', '.join(families)}; models.get_model "
             f"picks a family's own)")
-    if cfg.padded_heads != cfg.num_heads:
-        raise NotImplementedError(
-            f"{cfg.name}: head padding is an XLA layout knob the port does "
-            f"not take")
+    if cfg.padded_heads < cfg.num_heads or cfg.num_kv_heads and (
+            cfg.padded_heads % cfg.num_kv_heads
+            or cfg.num_heads % cfg.num_kv_heads):
+        raise ValueError(
+            f"{cfg.name}: {cfg.padded_heads} padded q heads for "
+            f"{cfg.num_heads} q heads on {cfg.num_kv_heads} KV heads: the "
+            f"padding is group-major")
 
 
 # ---------------------------------------------------------------------------
@@ -139,10 +163,30 @@ def _check_supported(cfg: ArchConfig,
 def _qkv(p, h: torch.Tensor, cfg: ArchConfig):
     b, s, _ = h.shape
     dt = h.dtype
-    q = (h @ p["wq"].to(dt)).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = (h @ p["wq"].to(dt)).reshape(b, s, cfg.padded_heads, cfg.head_dim)
     k = (h @ p["wk"].to(dt)).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = (h @ p["wv"].to(dt)).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
+
+
+def _real_index(cfg: ArchConfig, j: int) -> int | None:
+    """The head of ``num_heads`` that padded q head ``j`` is (None for a
+    pad head): padding is group-major, ``padded_heads // Hk`` heads a KV
+    group, the group's first ``num_heads // Hk`` real."""
+    kvh = max(cfg.num_kv_heads, 1)
+    gp, gr = cfg.padded_heads // kvh, cfg.num_heads // kvh
+    return None if j % gp >= gr else j // gp * gr + j % gp
+
+
+def _real_heads(o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """o [B, padded_heads, S, Dh] without its pad heads: [B, num_heads, S,
+    Dh] (itself without padding)."""
+    if cfg.padded_heads == cfg.num_heads:
+        return o
+    kvh = max(cfg.num_kv_heads, 1)
+    b, _, s, dh = o.shape
+    return o.reshape(b, kvh, cfg.padded_heads // kvh, s, dh)[
+        :, :, :cfg.num_heads // kvh].reshape(b, cfg.num_heads, s, dh)
 
 
 def attn_block(p, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
@@ -160,11 +204,14 @@ def attn_block(p, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     Cross-attention (``kv_override``, the encoder's keys and values
     [B, Hk, enc_seq, Dh]): q from ``h @ wq`` without rotary, not causal;
     decode attends every encoder slot, at ``t = enc_seq - 1`` as the
-    reference does."""
+    reference does.  The probabilities enter the P V product in float32
+    or, with ``cfg.attn_f32_scores`` False, in the compute dtype; the pad
+    heads of ``cfg.pad_heads_to`` are dropped before ``wo``."""
     h = rms_norm(x, p["ln1"])
     b, s, _ = x.shape
+    f32 = cfg.attn_f32_scores
     if kv_override is not None:
-        q = (h @ p["wq"].to(h.dtype)).reshape(b, s, cfg.num_heads,
+        q = (h @ p["wq"].to(h.dtype)).reshape(b, s, cfg.padded_heads,
                                              cfg.head_dim)
         k, v = kv_override
         if mode == "decode":
@@ -173,7 +220,7 @@ def attn_block(p, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
         else:
             o = chunked_attention(q.transpose(1, 2), k, v, causal=False,
                                   window=cfg.window,
-                                  chunk_attn=cfg.chunk_attn)
+                                  chunk_attn=cfg.chunk_attn, f32_stats=f32)
     else:
         q, k, v = _qkv(p, h, cfg)
         if use_rotary:
@@ -194,16 +241,17 @@ def attn_block(p, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
             o = chunked_attention(q.transpose(1, 2), cache["k"][:, :, :s],
                                   cache["v"][:, :, :s], causal=causal,
                                   window=cfg.window,
-                                  chunk_attn=cfg.chunk_attn)
+                                  chunk_attn=cfg.chunk_attn, f32_stats=f32)
         elif mode == "train":
             o = chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
                                   window=cfg.window,
-                                  chunk_attn=cfg.chunk_attn)
+                                  chunk_attn=cfg.chunk_attn, f32_stats=f32)
         else:
             raise ValueError(f"mode must be 'prefill', 'decode' or "
                              f"'train', got {mode!r}")
-    o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    o = _real_heads(o, cfg).transpose(1, 2).reshape(
+        b, s, cfg.num_heads * cfg.head_dim)
     return x + o @ p["wo"].to(x.dtype), cache
 
 
@@ -227,7 +275,7 @@ def _attn_shapes(cfg: ArchConfig, n: int) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     return {
         "ln1": (n, d),
-        "wq": (n, d, cfg.num_heads * hd),
+        "wq": (n, d, cfg.padded_heads * hd),
         "wk": (n, d, cfg.num_kv_heads * hd),
         "wv": (n, d, cfg.num_kv_heads * hd),
         "wo": (n, cfg.num_heads * hd, d),
@@ -538,15 +586,33 @@ def scan_or_unroll(cfg: ArchConfig, fn, x, xs):
     return x, None
 
 
-def remat(cfg: ArchConfig, fn, *args):
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Keep the products without a batch dimension (``aten.mm`` /
+    ``aten.addmm``: every ``x @ W`` of a layer), recompute everything
+    else: JAX's ``dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
+                               _dots_policy)
+
+
+def remat(cfg: ArchConfig, fn, *args, dots: bool = False):
     """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
     the config asks for rematerialisation (``cfg.remat`` not "none": the
-    reference's ``jax.checkpoint``; "dots" recomputes everything too) and
-    a gradient is being taken; its activations are then recomputed in the
-    backward pass."""
+    reference's ``jax.checkpoint``) and a gradient is being taken; its
+    activations are then recomputed in the backward pass.  Under
+    ``cfg.remat == "dots"`` a caller that passes ``dots`` (the decoder
+    stack, where the reference applies its policy) keeps the outputs of
+    ``_dots_policy``'s products instead of recomputing them; elsewhere
+    "dots" recomputes everything, as "full" does."""
     if cfg.remat != "none" and torch.is_grad_enabled():
+        extra = {"context_fn": _SAVE_DOTS} \
+            if dots and cfg.remat == "dots" else {}
         return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
+                          preserve_rng_state=False, **extra)
     return fn(*args)
 
 
@@ -578,7 +644,7 @@ def _run_stack(params, x, cfg: ArchConfig, mctx: MeshCtx | None, mode: str,
     for i in range(len(next(iter(groups.values())))):
         gp = {name: g[i] for name, g in groups.items()}
         if caches is None:
-            x = remat(cfg, body, x, gp, None)
+            x = remat(cfg, body, x, gp, None, dots=True)
         else:
             x = body(x, gp, {name: {"k": c["k"][i], "v": c["v"][i]}
                              for name, c in caches.items()})
@@ -723,37 +789,6 @@ def _need_slots(mctx: MeshCtx, n_slots: int | None) -> None:
                          f"takes the caches' global slot count (n_slots=)")
 
 
-def _constrain(x: torch.Tensor, mctx: MeshCtx | None, spec: P
-               ) -> torch.Tensor:
-    """The reference's activation sharding constraint, a GSPMD layout hint
-    that leaves the values as they are: a no-op off a mesh or on one
-    device.  Across ranks the port lays every block out itself and takes
-    no hint."""
-    if mctx is None or mctx.mesh.size == 1:
-        return x
-    raise NotImplementedError(f"a layout hint {spec} on a {mctx.mesh} mesh: "
-                              f"the port lays its blocks out itself")
-
-
-def _attn_constraints(q, k, v, cfg: ArchConfig, mctx: MeshCtx | None,
-                      mode: str):
-    """The reference's attention layout hints (``cfg.attn_shard``): none
-    under "auto" (every config's); "heads" and "seq" pin GSPMD's layout of
-    q, k and v and raise across ranks (``_constrain``)."""
-    if mctx is None or cfg.attn_shard == "auto":
-        return q, k, v
-    b = q.shape[0]
-    dp = mctx.dp if b % mctx.dp_size == 0 else None
-    if cfg.attn_shard == "heads":
-        spec = P(dp, "model", None, None)
-        return tuple(_constrain(a, mctx, spec) for a in (q, k, v))
-    if cfg.attn_shard == "seq" and mode != "decode":
-        return (_constrain(q, mctx, P(dp, None, "model", None)),
-                _constrain(k, mctx, P(dp, None, None, None)),
-                _constrain(v, mctx, P(dp, None, None, None)))
-    return q, k, v
-
-
 def kv_branch(cfg: ArchConfig, mctx: MeshCtx, n_slots: int) -> str:
     """``kv_spec``'s branch for a cache of ``n_slots`` slots: "heads",
     "slots" or "replicated"."""
@@ -773,11 +808,21 @@ class _Ranks:
     decoder's ``layers`` by default; the computed layout is chosen leaf
     by leaf: the attention and FFN leaves' from ``_computed_specs``, the
     family's own leaves' from ``computed`` (a leaf named in both
-    raises)."""
+    raises).
+
+    The q heads (of ``padded_heads``): under "auto" this rank's block
+    where ``model`` divides them, else the heads covering its block of
+    ``wo``'s rows (``o_off``, ``cols``); with padding, or under "heads"
+    where ``model`` does not divide them, whole heads, the ceiling of
+    their count over ``model`` a rank (``whole``: ``wo`` gathered whole,
+    the rank's real heads ``r0``..``r1`` at ``real`` among its own); with
+    ``seq`` (a prefill or training step under ``attn_shard="seq"``) every
+    head, and every KV head computed (``k0``..``k1``; the cache keeps its
+    block ``c0``..``c1`` as under "auto")."""
 
     def __init__(self, cfg: ArchConfig, mctx: MeshCtx, global_batch,
                  rows: int, n_slots: int | None, stored: dict | None = None,
-                 computed: dict | None = None):
+                 computed: dict | None = None, *, seq: bool = False):
         if global_batch is None:
             raise ValueError(f"a step on a {mctx.mesh} mesh over ranks takes "
                              f"the global batch (global_batch=): its "
@@ -792,24 +837,45 @@ class _Ranks:
                              f"{want}")
         tp, r = mctx.tp_size, self.mesh.axis_index("model")
         hq, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        hp = cfg.padded_heads
         self.tp, self.r = tp, r
         self.n_slots = n_slots
+        self.seq = seq and cfg.attn_shard == "seq" and n_slots is not None
+        self.whole = n_slots is not None and (
+            self.seq or hp != hq or (cfg.attn_shard == "heads"
+                                     and hq % tp != 0))
         if n_slots is not None:
-            # wo's rows on this rank are o's columns [r * cols, (r + 1) *
-            # cols): the q heads that cover them are this rank's
-            self.cols = hq * dh // tp
-            if hq % tp == 0:
-                self.q0, self.q1 = r * hq // tp, (r + 1) * hq // tp
+            if self.seq:
+                self.q0, self.q1 = 0, hp
+            elif self.whole:
+                c = -(-hp // tp)
+                self.q0, self.q1 = min(r * c, hp), min((r + 1) * c, hp)
             else:
-                self.q0 = r * self.cols // dh
-                self.q1 = -(-(r + 1) * self.cols // dh)
-            self.o_off = r * self.cols - self.q0 * dh
-            # the KV heads this rank computes: its block where ``model``
-            # divides them, else all (the cache holds every head in both
-            # other branches)
-            self.k0, self.k1 = ((r * hk // tp, (r + 1) * hk // tp)
+                # wo's rows on this rank are o's columns [r * cols,
+                # (r + 1) * cols): the q heads that cover them are this
+                # rank's
+                self.cols = hq * dh // tp
+                if hq % tp == 0:
+                    self.q0, self.q1 = r * hq // tp, (r + 1) * hq // tp
+                else:
+                    self.q0 = r * self.cols // dh
+                    self.q1 = -(-(r + 1) * self.cols // dh)
+                self.o_off = r * self.cols - self.q0 * dh
+            if self.whole:
+                real = [(j - self.q0, _real_index(cfg, j))
+                        for j in range(self.q0, self.q1)]
+                real = [(i, h) for i, h in real if h is not None]
+                self.real = [i for i, _ in real]
+                self.r0 = real[0][1] if real else 0
+                self.r1 = real[-1][1] + 1 if real else 0
+            # the KV heads the cache keeps on this rank: its block where
+            # ``model`` divides them, else all (the cache holds every head
+            # in both other branches); this rank computes those, or every
+            # head under ``seq``
+            self.c0, self.c1 = ((r * hk // tp, (r + 1) * hk // tp)
                                 if hk % tp == 0 else (0, hk))
-            g = hq // hk
+            self.k0, self.k1 = (0, hk) if self.seq else (self.c0, self.c1)
+            g = hp // hk
             self.kv_idx = [qh // g - self.k0
                            for qh in range(self.q0, self.q1)]
             self.branch = kv_branch(cfg, mctx, n_slots)
@@ -819,7 +885,8 @@ class _Ranks:
             stored = decoder_param_specs(cfg, mctx)["layers"]
         self.stored = {name: _drop_lead(sp) for name, sp in stored.items()}
         own = computed or {}
-        computed = _computed_specs(cfg, mctx, global_batch)
+        computed = _computed_specs(cfg, mctx, global_batch,
+                                   whole=self.whole, seq=self.seq)
         if computed.keys() & own.keys():
             raise ValueError(f"{sorted(computed.keys() & own.keys())}: a "
                              f"family's leaf named as an attention or FFN "
@@ -845,27 +912,34 @@ class _Ranks:
         rank's q heads attend, in the grouped layout (a slice) where the
         q heads share them evenly, else one per q head."""
         idx = self.kv_idx
+        if not idx:
+            return kt[:, :0]
         lo, n, nq = idx[0], idx[-1] - idx[0] + 1, len(idx)
         if nq % n == 0 and idx == [lo + i // (nq // n) for i in range(nq)]:
             return kt[:, lo:lo + n]
         return kt.index_select(1, torch.tensor(idx, device=kt.device))
 
 
-def _computed_specs(cfg: ArchConfig, mctx: MeshCtx, global_batch) -> dict:
+def _computed_specs(cfg: ArchConfig, mctx: MeshCtx, global_batch, *,
+                    whole: bool = False, seq: bool = False) -> dict:
     """The layout each attention and FFN leaf takes where its product
     runs, by key (a cross-attention leaf ``x_*`` as its self-attention
     one): the norms whole; column-parallel ``wq``/``wk``/``wv`` (whole
-    where ``model`` does not divide the heads) and ``wg``/``wu``;
-    row-parallel ``wo``/``wd``; the MoE block's ``moe_in_specs``.  Each
-    drops the stored FSDP cut over the data axes.  The SSM's and the
-    RG-LRU's leaves come from their modules (``_Ranks``' ``computed``)."""
+    where ``model`` does not divide the padded q heads or the KV heads)
+    and ``wg``/``wu``; row-parallel ``wo`` (whole for ``_Ranks``' whole
+    heads) and ``wd``; the MoE block's ``moe_in_specs``.  Under ``seq``
+    the four attention matrices are whole.  Each drops the stored FSDP
+    cut over the data axes.  The SSM's and the RG-LRU's leaves come from
+    their modules (``_Ranks``' ``computed``)."""
     tp = mctx.tp_size
     cols, rows = P(None, "model"), P("model", None)
-    q_cols = cols if cfg.num_heads and cfg.num_heads % tp == 0 else P()
+    q_cols = cols if cfg.padded_heads and cfg.padded_heads % tp == 0 \
+        and not seq else P()
     kv_cols = cols if cfg.num_kv_heads and cfg.num_kv_heads % tp == 0 \
-        else P()
+        and not seq else P()
     out = {"ln1": P(), "ln2": P(),
-           "wq": q_cols, "wk": kv_cols, "wv": kv_cols, "wo": rows,
+           "wq": q_cols, "wk": kv_cols, "wv": kv_cols,
+           "wo": P() if whole else rows,
            "wg": cols, "wu": cols, "wd": rows}
     if cfg.num_experts:
         out["moe"] = moe_in_specs(cfg, mctx, global_batch)
@@ -904,24 +978,77 @@ def _embed_ranked(params, tokens: torch.Tensor, cfg: ArchConfig,
 def _q_ranked(p, h: torch.Tensor, cfg: ArchConfig, rk: _Ranks
               ) -> torch.Tensor:
     """This rank's q heads [B, S, q1 - q0, Dh] of the normed input ``h``:
-    its columns of ``wq``, or its span of them where ``model`` does not
-    divide the heads (``wq`` gathered whole)."""
+    its columns of ``wq``, or its span of them where ``wq`` is gathered
+    whole (``model`` does not divide the padded heads)."""
     b, s, _ = h.shape
     dh = cfg.head_dim
     wq = p["wq"]
-    if cfg.num_heads % rk.tp:                        # every head gathered
+    if wq.shape[1] != (rk.q1 - rk.q0) * dh:          # every head gathered
         wq = wq[:, rk.q0 * dh:rk.q1 * dh]
     return (h @ wq.to(h.dtype)).reshape(b, s, rk.q1 - rk.q0, dh)
 
 
 def _out_ranked(p, x: torch.Tensor, o: torch.Tensor, rk: _Ranks
                 ) -> torch.Tensor:
-    """x plus the row-parallel output projection of this rank's heads'
-    output ``o`` [B, heads, S, Dh]: its columns times its rows of ``wo``,
-    summed over ``model``."""
+    """x plus the output projection of this rank's heads' output ``o``
+    [B, heads, S, Dh], summed over ``model``: row-parallel, its columns
+    times its rows of ``wo``; with whole heads (``rk.whole``) its real
+    heads times their rows of the whole ``wo``."""
     b, s, _ = x.shape
+    if rk.whole:
+        o = _own_real(o, rk).transpose(1, 2).reshape(b, s, -1)
+        dh = rk.cfg.head_dim
+        wo = p["wo"][rk.r0 * dh:rk.r1 * dh]
+        return x + rk.mesh.psum(o @ wo.to(x.dtype), "model")
     o = o.transpose(1, 2).reshape(b, s, -1)[..., rk.o_off:rk.o_off + rk.cols]
     return x + rk.mesh.psum(o @ p["wo"].to(x.dtype), "model")
+
+
+def _own_real(o: torch.Tensor, rk: _Ranks) -> torch.Tensor:
+    """The real heads of this rank's heads' output ``o`` [B, heads, S,
+    Dh] (``rk.real``): itself where it holds no pad head."""
+    if len(rk.real) == o.shape[1]:
+        return o
+    return o.index_select(1, torch.tensor(rk.real, device=o.device))
+
+
+def _seq_span(rk: _Ranks, s: int) -> tuple[int, int, int]:
+    """This rank's block of ``s`` positions under "seq": [a, e) and the
+    block length every rank pads to (the ceiling of ``s`` over
+    ``model``)."""
+    c = -(-s // rk.tp)
+    return min(rk.r * c, s), min((rk.r + 1) * c, s), c
+
+
+def _seq_out(p, x: torch.Tensor, o: torch.Tensor, rk: _Ranks
+             ) -> torch.Tensor:
+    """x plus ``o @ wo`` of this rank's query rows under "seq" (``o`` [B,
+    heads, rows, Dh], every head; ``wo`` whole), the rows gathered over
+    ``model`` along the sequence: the same on every rank, so the
+    gather's backward is this rank's block of the cotangent."""
+    b, s, _ = x.shape
+    a, e, c = _seq_span(rk, s)
+    width = rk.cfg.num_heads * rk.cfg.head_dim         # rows may be none
+    o = _real_heads(o, rk.cfg).transpose(1, 2).reshape(b, e - a, width)
+    y = torch.nn.functional.pad(o @ p["wo"].to(x.dtype),
+                                (0, 0, 0, c - (e - a)))
+    return x + rk.mesh.all_gather_invariant(y, "model", dim=1)[:, :s]
+
+
+def _attend(rk: _Ranks, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            **mask) -> torch.Tensor:
+    """``chunked_attention`` of this rank's q heads [B, heads, Sq, Dh] over
+    the KV heads they attend (``rk.kv``).  A rank with no q head (whole
+    heads, the ceiling of their count over ``model`` a rank: the last
+    ranks may hold none) or no query row ("seq", the ceiling of the
+    positions over ``model`` a rank: the same) returns its empty output
+    as a function of q, k and v, so that its backward, zeros, reaches the
+    gathers of ``wq``, ``wk`` and ``wv`` as on every other rank of
+    ``model`` (each gather's reduce-scatter is a collective all of them
+    issue)."""
+    if not rk.kv_idx or q.shape[2] == 0:
+        return q + (k.sum() + v.sum()) * 0
+    return chunked_attention(q, rk.kv(k), rk.kv(v), **mask)
 
 
 def _store_kv(cache: torch.Tensor, kt: torch.Tensor, branch: str,
@@ -949,23 +1076,33 @@ def _attn_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
     row-parallel (``_out_ranked``).  The normed input enters this rank's
     heads through ``pvary``: its cotangents, this rank's heads' alone
     (every KV head's where each rank computes all and keeps some), are
-    summed over ``model``."""
+    summed over ``model``.  Under ``rk.seq`` (prefill and "train") this
+    rank takes its block of query positions [a, e) with every head, and
+    keys and values from position 0 to e (every position in a prefill,
+    whose cache keeps them all): the kernel's suffix alignment puts query
+    row i at a + i, so the causal, window and chunk masks hold at
+    absolute positions (``_seq_out`` gathers the rows)."""
     h = rk.mesh.pvary(rms_norm(x, p["ln1"]), "model")
     b, s, _ = x.shape
     dt, dh = h.dtype, cfg.head_dim
-    q = _q_ranked(p, h, cfg, rk)
-    k = (h @ p["wk"].to(dt)).reshape(b, s, rk.k1 - rk.k0, dh)
-    v = (h @ p["wv"].to(dt)).reshape(b, s, rk.k1 - rk.k0, dh)
+    f32 = cfg.attn_f32_scores
+    seq = rk.seq and mode != "decode"
+    a, e = _seq_span(rk, s)[:2] if seq else (0, s)
+    hkv = h[:, :e] if seq and mode == "train" and causal else h
+    q = _q_ranked(p, h[:, a:e], cfg, rk)
+    k = (hkv @ p["wk"].to(dt)).reshape(b, -1, rk.k1 - rk.k0, dh)
+    v = (hkv @ p["wv"].to(dt)).reshape(b, -1, rk.k1 - rk.k0, dh)
     if use_rotary:
-        q = rotary(q, positions, cfg.rope_theta)
-        k = rotary(k, positions, cfg.rope_theta)
+        q = rotary(q, positions[a:e], cfg.rope_theta)
+        k = rotary(k, positions[:k.shape[1]], cfg.rope_theta)
     if mode == "prefill":
-        qt, kt, vt = _attn_constraints(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2), cfg, rk.mctx, mode)
-        _store_kv(cache["k"], kt, rk.branch, rk)
-        _store_kv(cache["v"], vt, rk.branch, rk)
-        o = chunked_attention(qt, rk.kv(kt), rk.kv(vt), causal=True,
-                              window=cfg.window, chunk_attn=cfg.chunk_attn)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        heads = slice(rk.c0 - rk.k0, rk.c1 - rk.k0)
+        _store_kv(cache["k"], kt[:, heads], rk.branch, rk)
+        _store_kv(cache["v"], vt[:, heads], rk.branch, rk)
+        kt, vt = kt[:, :, :e], vt[:, :, :e]
+        o = _attend(rk, qt, kt, vt, causal=True, window=cfg.window,
+                    chunk_attn=cfg.chunk_attn, f32_stats=f32)
     elif mode == "decode":
         slot = t % rk.n_slots
         kc, vc = cache["k"], cache["v"]
@@ -980,14 +1117,17 @@ def _attn_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
             kc[:, :, slot] = k[:, 0]
             vc[:, :, slot] = v[:, 0]
         o = decode_attention(q.transpose(1, 2), rk.kv(kc), rk.kv(vc), None,
-                             t, window=cfg.window, chunk_attn=cfg.chunk_attn)
+                             t, window=cfg.window, chunk_attn=cfg.chunk_attn
+                             ) if rk.kv_idx else q.transpose(1, 2)
     elif mode == "train":
-        o = chunked_attention(q.transpose(1, 2), rk.kv(k.transpose(1, 2)),
-                              rk.kv(v.transpose(1, 2)), causal=causal,
-                              window=cfg.window, chunk_attn=cfg.chunk_attn)
+        o = _attend(rk, q.transpose(1, 2), k.transpose(1, 2),
+                    v.transpose(1, 2), causal=causal, window=cfg.window,
+                    chunk_attn=cfg.chunk_attn, f32_stats=f32)
     else:
         raise ValueError(f"mode must be 'prefill', 'decode' or 'train', "
                          f"got {mode!r}")
+    if seq:
+        return _seq_out(p, x, o, rk)
     return _out_ranked(p, x, o, rk)
 
 
@@ -1013,14 +1153,15 @@ def _cross_ranked(p, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks, *,
         if mode == "prefill":
             _store_kv(cache[0], kt, rk.x_branch, rk)
             _store_kv(cache[1], vt, rk.x_branch, rk)
-        o = chunked_attention(q, rk.kv(kt), rk.kv(vt), causal=False,
-                              window=cfg.window, chunk_attn=cfg.chunk_attn)
+        o = _attend(rk, q, kt, vt, causal=False, window=cfg.window,
+                    chunk_attn=cfg.chunk_attn, f32_stats=cfg.attn_f32_scores)
     else:
         kc, vc = cache
         if rk.x_branch == "slots":
             kc = rk.mesh.all_gather(kc, "model", dim=2)
             vc = rk.mesh.all_gather(vc, "model", dim=2)
-        o = decode_attention(q, rk.kv(kc), rk.kv(vc), None, kc.shape[2] - 1)
+        o = decode_attention(q, rk.kv(kc), rk.kv(vc), None, kc.shape[2] - 1
+                             ) if rk.kv_idx else q
     return _out_ranked(p, x, o, rk)
 
 
@@ -1061,7 +1202,7 @@ def _stack_ranked(params, x: torch.Tensor, cfg: ArchConfig, rk: _Ranks,
     for i in range(len(next(iter(groups.values())))):
         gp = {name: g[i] for name, g in groups.items()}
         if caches is None:
-            x = remat(cfg, body, x, gp, None)
+            x = remat(cfg, body, x, gp, None, dots=True)
         else:
             x = body(x, gp, {name: {"k": c["k"][i], "v": c["v"][i]}
                              for name, c in caches.items()})
@@ -1093,7 +1234,7 @@ def _prefill_ranked(params, batch: dict, cfg: ArchConfig, mctx: MeshCtx,
     tokens = batch["tokens"]
     s = tokens.shape[1] + (cfg.img_tokens if cfg.family == "vlm" else 0)
     rk = _Ranks(cfg, mctx, global_batch, tokens.shape[0],
-                kv_cache_len(cfg, s))
+                kv_cache_len(cfg, s), seq=True)
     x = _prepend_images(params, _embed_ranked(params, tokens, cfg, rk),
                         batch, cfg)
     caches = _cache_alloc(kv_shapes(cfg, global_batch, s),
@@ -1113,7 +1254,7 @@ def _loss_ranked(params, batch: dict, cfg: ArchConfig, mctx: MeshCtx,
     ``P("model", None)`` block transposed)."""
     tokens = batch["tokens"]
     s = tokens.shape[1] + (cfg.img_tokens if cfg.family == "vlm" else 0)
-    rk = _Ranks(cfg, mctx, global_batch, tokens.shape[0], s)
+    rk = _Ranks(cfg, mctx, global_batch, tokens.shape[0], s, seq=True)
     x = _prepend_images(params, _embed_ranked(params, tokens, cfg, rk),
                         batch, cfg)
     n_img = x.shape[1] - tokens.shape[1]

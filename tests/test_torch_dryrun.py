@@ -12,7 +12,12 @@
   by hand; every reduced family's step runs on the meta device and
   returns the abstract outputs;
 * ``elastic_restart_plan`` and ``derive_mesh`` equal the reference's;
-  ``scan_or_unroll`` equals a plain loop.
+  ``scan_or_unroll`` equals a plain loop;
+* every configuration of the reference's tuning plan
+  (``benchmarks/perf_hillclimb.py``, copied as data in
+  ``torch_hillclimb_cases``) lowers and counts its collectives on the
+  production mesh, the padded and TP-only cells' bytes equal to the
+  reference's (pinned under ``"_hillclimb"``).
 """
 import json
 import pathlib
@@ -42,6 +47,7 @@ from repro_torch.models.sharding import (Mesh, MeshCtx,  # noqa: E402
                                          ShapeDtypeStruct,
                                          cpu_mesh_ctx)
 from repro_torch.models.transformer import scan_or_unroll  # noqa: E402
+import torch_hillclimb_cases as HC  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PINS = json.loads((ROOT / "tests" / "data" / "torch_specs.json").read_text())
@@ -537,3 +543,67 @@ def test_family_train_cells_count_a_ranks_own_run(arch):
     assert want["by_axes"] == by_axes
     assert set(want["bytes"]) == {"all-gather", "all-reduce",
                                   "reduce-scatter"}
+
+
+# ------------------------------------------------------------- the tuning plan
+def test_the_tuning_plan_copy_is_the_plans():
+    assert HC.same_as_the_plan(ROOT)
+    assert set(PINS["_hillclimb"]) == set(HC.BYTE_PINNED)
+    for name, arch, sh, ov in HC.ITERATIONS:
+        if name in HC.BYTE_PINNED:
+            pin = PINS["_hillclimb"][name]
+            assert (pin["arch"], pin["shape"], pin["overrides"]) == (
+                arch, sh, ov)
+
+
+@pytest.mark.parametrize("name,arch,sh,overrides", HC.ITERATIONS,
+                         ids=[it[0] for it in HC.ITERATIONS])
+def test_every_tuning_plan_configuration_lowers(name, arch, sh, overrides):
+    """Each iteration's cell (``cfg.replace(**overrides)``) lowers on the
+    16x16 mesh and its step runs on meta tensors on a ``CountingMesh``
+    (``count_collectives``) without a raise.  Its per-device argument and
+    output bytes equal the reference's: the base cell's pins where the
+    overrides leave the trees as they are (layout and numerics knobs),
+    the iteration's own on every mesh where they change them (``wq``
+    padded to ``padded_heads``, TP-only weights)."""
+    cfg = get_config(arch).replace(**overrides)
+    shape = get_shape(sh)
+    meshes = ("1x1", "16x16", "2x16x16") if name in HC.BYTE_PINNED \
+        else ("16x16",)
+    for mesh in meshes:
+        lowered, _ = dryrun.lower_cell(cfg, shape, _mesh(mesh))
+        mem = lowered.memory_analysis()
+        want = (PINS["_hillclimb"][name]["bytes"][mesh]
+                if name in HC.BYTE_PINNED else PINS[arch]["bytes"][mesh][sh])
+        assert [mem.argument_size_in_bytes, mem.output_size_in_bytes] == \
+            want, mesh
+    got = dryrun.count_collectives(cfg, shape, _mesh("16x16"))
+    assert {"all-gather", "all-reduce"} <= set(got["calls"])
+    assert min(got["bytes"].values()) > 0
+
+
+def test_tuning_plan_collectives_follow_the_layouts():
+    """On 16x16, per layer of llama3.2-3b's ``prefill_32k``: "seq" gathers
+    ``wo`` over ``model`` too (``wq``, ``wk`` and ``wv`` are gathered whole
+    under "auto" as well: 24 q and 8 KV heads over 16) and its rows of
+    ``o @ wo`` once, and issues no attention psum; "heads" (24 heads over
+    16: whole heads, two a rank) gathers ``wo`` whole; the padding to 32
+    gathers ``wo`` whole and ``wq`` no more (its columns divide); "dots"
+    issues what "full" does (the policy keeps products, the recompute
+    gathers again)."""
+    counts = {name: dryrun.count_collectives(
+        get_config(arch).replace(**ov), get_shape(sh), _mesh("16x16"))
+        for name, arch, sh, ov in HC.ITERATIONS
+        if name[:2] in ("A0", "A1", "A2", "A6", "C1", "C2")}
+    n = get_config("llama3.2-3b").num_layers
+
+    def calls(name, key):
+        return counts[name]["by_axes"].get(key, [0, 0])[0]
+    base = calls("A0-baseline", "all-gather model")
+    assert calls("A2-attn-seq", "all-gather model") - base == 2 * n
+    assert calls("A0-baseline", "all-reduce model") - calls(
+        "A2-attn-seq", "all-reduce model") == n
+    assert calls("A1-attn-heads", "all-gather model") - base == n
+    assert calls("A6-pad-heads", "all-gather model") - base == 0
+    assert counts["C2-remat-dots"]["by_axes"] == \
+        counts["C1-attn-heads"]["by_axes"]

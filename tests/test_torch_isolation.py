@@ -1,10 +1,11 @@
 """The port stands alone: no module of ``src/repro_torch`` and neither
 ``chip_smoke.py``, ``kernel_ab.py``, ``store_census.py``,
-``first_loss_depth.py`` nor the mesh
-cases ``chip_smoke.py`` runs on the card (``tests/torch_mesh_cases.py``)
-imports JAX or the JAX package ``repro``, the entry points refuse to run
-on the CPU unless asked to, and ``kernel_ab.py`` binds another tree's
-kernel wrappers to that tree's own build."""
+``first_loss_depth.py`` nor the mesh and knob cases ``chip_smoke.py``
+runs on the card (``tests/torch_mesh_cases.py``,
+``tests/torch_sharded_knobs_train_cases.py`` and the training cases it
+builds on) imports JAX or the JAX package ``repro``, the entry points
+refuse to run on the CPU unless asked to, and ``kernel_ab.py`` binds
+another tree's kernel wrappers to that tree's own build."""
 import ast
 import pathlib
 
@@ -16,7 +17,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
        ROOT / "store_census.py", ROOT / "first_loss_depth.py",
-       ROOT / "tests" / "torch_mesh_cases.py"]
+       ROOT / "tests" / "torch_mesh_cases.py",
+       ROOT / "tests" / "torch_sharded_train_cases.py",
+       ROOT / "tests" / "torch_sharded_knobs_train_cases.py"]
 FORBIDDEN = ("jax", "repro", "jaxlib", "ml_dtypes")
 
 

@@ -28,8 +28,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_mesh_cases as C  # noqa: E402
-from repro_torch.launch.mesh import (production_mesh_ctx,  # noqa: E402
-                                     rank_mesh_ctx, run_ranks)
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
+from repro_torch.launch.mesh import (RankPool,  # noqa: E402
+                                     production_mesh_ctx, rank_mesh_ctx,
+                                     run_ranks)
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.moe import moe_ffn  # noqa: E402
@@ -181,3 +183,42 @@ def test_run_ranks_raises_with_the_failing_ranks_traceback():
     with pytest.raises(RuntimeError, match="on purpose") as err:
         run_ranks(C.raise_on_rank, 2, 1, timeout_s=120)
     assert "ranks [1] failed" in str(err.value)
+
+
+def test_rank_pool_runs_every_call_on_one_set_of_ranks():
+    """Inside a ``RankPool`` the calls of ``run_ranks`` of its world run on
+    its ranks, one process group throughout; another world spawns its
+    own; once closed, ``run_ranks`` spawns again."""
+    with RankPool(2, timeout_s=120) as pool:
+        first = run_ranks(C.rank_process, 2, timeout_s=120)
+        second = run_ranks(C.rank_process, 2, timeout_s=120)
+        alone = run_ranks(C.rank_process, 1, timeout_s=120)
+        pids = [p.pid for p in pool.procs.processes]
+        assert [r[1] for r in first] == [r[1] for r in second] == pids
+        assert first == second == [(0, first[0][1], 2, 1.0),
+                                   (1, first[1][1], 2, 1.0)]
+        assert alone[0][1] not in pids and alone[0][2:] == (1, 0.0)
+    assert launch_mesh._POOL is None and pool.procs is None
+    after = run_ranks(C.rank_process, 2, timeout_s=120)
+    assert not {r[1] for r in after} & {r[1] for r in first}
+
+
+def test_rank_pool_calls_see_the_callers_import_path(tmp_path,
+                                                    monkeypatch):
+    """A call imports its function from a directory put on ``sys.path``
+    after the pool's ranks started, as a freshly spawned rank would."""
+    with RankPool(2, timeout_s=120):
+        (tmp_path / "late_rank_module.py").write_text(
+            "def rank_id(rank):\n    return rank * 10\n")
+        monkeypatch.syspath_prepend(str(tmp_path))
+        import late_rank_module
+        assert run_ranks(late_rank_module.rank_id, 2, timeout_s=120) == [0,
+                                                                         10]
+
+
+def test_rank_pool_raises_with_the_failing_ranks_traceback_and_closes():
+    with pytest.raises(RuntimeError, match="on purpose") as err:
+        with RankPool(2, timeout_s=120) as pool:
+            run_ranks(C.raise_on_rank, 2, 1, timeout_s=120)
+    assert "rank 1 failed" in str(err.value)
+    assert launch_mesh._POOL is None and pool.procs is None

@@ -74,6 +74,21 @@ the data axes do not divide), which ``test_torch_sharded_families.py``
 holds the port to on 8 gloo ranks and ``chip_smoke.py``'s phase 16 (a) on
 the card.  Written with ``--write-sharded-families``; the ``slow`` test
 regenerates it.
+
+``tests/data/torch_sharded_knobs.json`` holds the reference's answers
+under its attention and remat knobs on 8 devices: under ``serve/`` the
+decoder's sharded prefill and decode steps of ``torch_sharded_knobs_cases``
+(``attn_shard`` "heads" and "seq", ``pad_heads_to``, a window and a
+chunk under "seq"), in ``torch_sharded.json``'s form, and under
+``train/`` its jitted ``make_train_step`` on ``torch_sharded_knobs_train_
+cases`` (the same knobs and ``remat="dots"``), in
+``torch_sharded_train.json``'s form; ``test_torch_sharded_knobs.py``
+holds the port to it on 8 gloo ranks and ``chip_smoke.py``'s phase 18
+(b) to one of its training cases on the card.  Written with
+``--write-sharded-knobs`` (about 2 min); the ``slow`` test regenerates
+it.  ``--write-specs`` also pins, under ``"_hillclimb"``, the cell bytes
+of the tuning plan's iterations whose trees differ from their base cell's
+(``torch_hillclimb_cases``: the padded and TP-only ones).
 """
 import importlib.util
 import json
@@ -88,6 +103,9 @@ import pytest
 import torch_mesh_cases as mesh_cases
 import torch_sharded_cases as sharded_cases
 import torch_sharded_families_cases as families_cases
+import torch_sharded_knobs_cases as knobs_cases
+import torch_sharded_knobs_train_cases as knobs_train_cases
+import torch_hillclimb_cases as hillclimb_cases
 import torch_sharded_families_train_cases as families_train_cases
 import torch_sharded_train_cases as train_cases
 
@@ -444,7 +462,26 @@ def arch_pins(arch):
     return out
 
 
-print(json.dumps({arch: arch_pins(arch) for arch in sys.argv[1:]}))
+def iteration_pins(arg):
+    # one tuning-plan iteration's cell bytes on every mesh:
+    # name=arch=shape=<overrides as JSON>
+    name, arch, sh, overrides = arg.split("=", 3)
+    cfg = get_config(arch).replace(**json.loads(overrides))
+    shape = get_shape(sh)
+    trees = cell_trees(cfg, shape)
+    return {"arch": arch, "shape": sh, "overrides": json.loads(overrides),
+            "bytes": {name: cell_bytes(cfg, shape, trees, mctx)
+                      for name, mctx in MESHES.items()}}
+
+
+out = {}
+for arg in sys.argv[1:]:
+    if "=" in arg:
+        out.setdefault("_hillclimb", {})[arg.split("=")[0]] = \
+            iteration_pins(arg)
+    else:
+        out[arg] = arch_pins(arg)
+print(json.dumps(out))
 """
 
 
@@ -466,7 +503,7 @@ def write_spec_pins() -> None:
                       "--write-specs (the reference package, on the CPU, "
                       "512 forced host devices)",
         "meshes": list(SPEC_MESHES), "byte_meshes": list(BYTE_MESHES)},
-        **spec_pins(list_archs())}
+        **spec_pins(list_archs() + hillclimb_cases.spec_args())}
     SPEC_PINS.write_text(json.dumps(pins, separators=(",", ":")) + "\n")
 
 
@@ -602,7 +639,7 @@ def test_mesh_phase_rehearses_on_the_cpu(monkeypatch):
 _SHARDED_SCRIPT = r"""
 import os
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-import json, sys
+import importlib, json, sys
 sys.path.insert(0, "tests")
 import jax
 import jax.numpy as jnp
@@ -612,7 +649,7 @@ from repro.configs import get_config
 from repro.models import get_model
 from repro.models.model import drop_dp_axes
 from repro.models.sharding import MeshCtx
-import torch_sharded_cases as C
+C = importlib.import_module(sys.argv[1])
 
 
 def place(tree, specs, mesh):
@@ -642,10 +679,10 @@ for m, (shape, names) in C.MESHES.items():
     assert [d.id for d in mesh.devices.flat] == list(range(C.WORLD))
     meshes[m] = mesh
 out = {}
-for name, (arch, mode, m, batch, slots) in C.CASES.items():
+for name, (arch, _, m, batch, slots) in C.CASES.items():
     mesh = meshes[m]
     mctx = MeshCtx(mesh)
-    cfg = get_config(arch).reduced().replace(**C.replace(mode))
+    cfg = get_config(arch).reduced().replace(**C.case_replace(name))
     model = get_model(cfg)
     img = cfg.img_tokens if cfg.family == "vlm" else 0
     inp = C.inputs(name, model.param_shapes(cfg), cfg.vocab_size,
@@ -653,7 +690,8 @@ for name, (arch, mode, m, batch, slots) in C.CASES.items():
     dp = mctx.dp if batch % mctx.dp_size == 0 else None
     params = place(inp["params"], model.param_specs(cfg, mctx), mesh)
     toks = inp["tokens"]
-    feed = {"tokens": place(toks[:, :C.PROMPT], P(dp, None), mesh)}
+    prompt = toks.shape[1] - C.STEPS
+    feed = {"tokens": place(toks[:, :prompt], P(dp, None), mesh)}
     if img:
         feed["img_emb"] = place(inp["img_emb"], P(dp, None, None), mesh)
 
@@ -666,10 +704,10 @@ for name, (arch, mode, m, batch, slots) in C.CASES.items():
                                                       mctx))
     logits, caches = prefill(params, feed)
     out[f"{name}/prefill"] = logits
-    s0 = C.PROMPT + img
+    s0 = prompt + img
     caches = carry(caches, slots - s0)
     for i in range(C.STEPS):
-        tok = place(toks[:, C.PROMPT + i:C.PROMPT + i + 1], P(dp, None),
+        tok = place(toks[:, prompt + i:prompt + i + 1], P(dp, None),
                     mesh)
         logits, caches = decode(params, place(caches, cache_specs(slots),
                                               mesh), tok, jnp.int32(s0 + i))
@@ -682,10 +720,12 @@ print(json.dumps({k: C.encode(v) for k, v in out.items()}))
 SHARDED_PINS = ROOT / "tests" / "data" / "torch_sharded.json"
 
 
-def sharded_pins() -> dict:
-    """The reference's answers to every case of ``torch_sharded_cases``,
-    from one subprocess with 8 forced host devices."""
-    out = subprocess.run([sys.executable, "-c", _SHARDED_SCRIPT],
+def sharded_pins(cases=sharded_cases) -> dict:
+    """The reference's answers to every case of the cases module ``cases``
+    (``torch_sharded_cases`` by default), from one subprocess with 8
+    forced host devices."""
+    out = subprocess.run([sys.executable, "-c", _SHARDED_SCRIPT,
+                          cases.__name__],
                          capture_output=True, text=True, timeout=1200,
                          cwd=ROOT, env={**os.environ, "PYTHONPATH": "src",
                                         "JAX_PLATFORMS": "cpu"})
@@ -1051,6 +1091,76 @@ def test_family_train_phase_rehearses_on_the_cpu(monkeypatch):
         "flash_attention": 0, "flash_attention_bwd": 0}
 
 
+SHARDED_KNOBS_PINS = ROOT / "tests" / "data" / "torch_sharded_knobs.json"
+
+
+def sharded_knobs_pins() -> dict:
+    """The reference's answers to the knob cases: the serving cases of
+    ``torch_sharded_knobs_cases`` under ``serve/`` and the training cases
+    of ``torch_sharded_knobs_train_cases`` under ``train/`` (one
+    subprocess each, 8 forced host devices, Auto axes)."""
+    serve = sharded_pins(knobs_cases)
+    train = sharded_train_pins(knobs_train_cases)
+    return {**{f"serve/{k}": v for k, v in serve.items()},
+            **{f"train/{k}": v for k, v in train.items()}}
+
+
+def write_sharded_knobs_pins() -> None:
+    pins = {"_meta": {
+        "written_by": "PYTHONPATH=src python tests/test_torch_pins.py "
+                      "--write-sharded-knobs (the reference package, on "
+                      "the CPU, 8 forced host devices, Auto mesh axes)",
+        "serve": {k: list(v) for k, v in knobs_cases.CASES.items()},
+        "serve_replace": {k: knobs_cases.case_replace(k)
+                          for k in knobs_cases.CASES},
+        "train": {k: list(v) for k, v in knobs_train_cases.CASES.items()},
+        "train_replace": {k: knobs_train_cases.replace(k)
+                          for k in knobs_train_cases.CASES},
+        "prompt": knobs_cases.PROMPT, "prompts": knobs_cases.PROMPTS,
+        "steps": knobs_cases.STEPS,
+        "train_steps": knobs_train_cases.STEPS,
+        "seq": knobs_train_cases.SEQ, "seqs": knobs_train_cases.SEQS,
+        "samples": train_cases.SAMPLES},
+        **sharded_knobs_pins()}
+    SHARDED_KNOBS_PINS.write_text(json.dumps(pins, separators=(",", ":"))
+                                  + "\n")
+
+
+@pytest.mark.slow
+def test_reference_reproduces_sharded_knobs_pins():
+    """Every knob case regenerated from the reference equals the file, bit
+    for bit."""
+    pins = json.loads(SHARDED_KNOBS_PINS.read_text())
+    got = sharded_knobs_pins()
+    assert sorted(got) == sorted(k for k in pins if k != "_meta")
+    for key in got:
+        np.testing.assert_array_equal(knobs_cases.decode(got[key]),
+                                      knobs_cases.decode(pins[key]), key)
+
+
+def test_knob_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s phase 18 on the CPU: (a) "dots" against "full"
+    (the reduced llama: the first step's products counted, the losses,
+    norms and last parameters equal), (b) and (c) on 8 gloo ranks: the
+    reduced llama served under "seq", "auto" and padded with "heads"
+    against its 1x1 runs, and trained under "seq" against its 1x1 run
+    after one pinned knob case (the card's run with the sizes cut; the
+    plain versions launch no kernel)."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    sv_a = dict(chip_smoke.KNOB_REMAT, reduced=True, seq=64, steps=2)
+    sv_serve = dict(chip_smoke.KNOB_SERVE, reduced=True, layers=2,
+                    prompt_len=16)
+    parts = dict(chip_smoke.KNOB_PARTS, pad={
+        "num_heads": 6, "pad_heads_to": 8, "attn_shard": "heads"})
+    sv_train = dict(chip_smoke.KNOB_TRAIN, reduced=True, layers=2, seq=64)
+    assert chip_smoke.knob_phase(
+        torch, "cpu", "cpu", sv_a, sv_serve, parts, sv_train,
+        ["llama/2x4/seq"]) == {"flash_attention": 0,
+                               "flash_attention_bwd": 0,
+                               "decode_attention": 0}
+
+
 @pytest.mark.slow
 def test_reference_reproduces_mesh_pins():
     """Every mesh case regenerated from the reference equals the file, bit
@@ -1072,11 +1182,12 @@ if __name__ == "__main__":
                "--write-sharded-train": write_sharded_train_pins,
                "--write-sharded-families": write_sharded_families_pins,
                "--write-sharded-families-train":
-                   write_sharded_families_train_pins}
+                   write_sharded_families_train_pins,
+               "--write-sharded-knobs": write_sharded_knobs_pins}
     if len(sys.argv) != 2 or sys.argv[1] not in writers:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_pins.py "
                  "--write | --write-serve | --write-train | --write-specs "
                  "| --write-mesh | --write-sharded "
                  "| --write-sharded-train | --write-sharded-families "
-                 "| --write-sharded-families-train")
+                 "| --write-sharded-families-train | --write-sharded-knobs")
     writers[sys.argv[1]]()

@@ -261,8 +261,27 @@ def test_relayout_gathers_and_cuts():
         relayout(torch.ones(3, 1), P(), P("model"), mctx)
 
 
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _unflat(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
 def test_what_does_not_run_across_ranks_raises():
-    """The "heads"/"seq" layout hints, a step without its global batch or
+    """The "heads"/"seq" layouts run (their values against the reference's:
+    ``test_torch_sharded_knobs.py``), a step without its global batch or
     slot count (the enc-dec, SSM and hybrid families' loss, prefill and
     decode too: they run across ranks, ``test_torch_sharded_families.py``
     and ``test_torch_sharded_families_train.py``), and an abstract mesh
@@ -298,13 +317,17 @@ def test_what_does_not_run_across_ranks_raises():
         model.prefill(params, {"tokens": toks}, cfg, mctx, global_batch=2)
     with pytest.raises(ValueError, match="n_slots"):
         model.decode(params, {}, toks[:, :1], 4, cfg, mctx, global_batch=4)
-    q = torch.zeros((4, 4, 8, 16))
     for hint in ("heads", "seq"):
-        with pytest.raises(NotImplementedError, match="lays its blocks"):
-            tfm._attn_constraints(q, q, q, cfg.replace(attn_shard=hint),
-                                  mctx, "prefill")
-        assert tfm._attn_constraints(q, q, q, cfg.replace(attn_shard=hint),
-                                     cpu_mesh_ctx(), "prefill")[0] is q
+        # the steps run across ranks (on a counting mesh, meta)
+        hinted = cfg.replace(attn_shard=hint)
+        counting = MeshCtx(CountingMesh((2, 4), ("data", "model")))
+        blocks = {k: torch.empty(v.sharding.shard_shape(v.shape),
+                                 dtype=v.dtype, device="meta")
+                  for k, v in _flat(abstract_params(hinted, counting))}
+        logits, _ = model.prefill(_unflat(blocks), {"tokens": torch.zeros(
+            (2, 16), dtype=torch.int32, device="meta")}, hinted, counting,
+            global_batch=4)
+        assert tuple(logits.shape) == (2, 64)
     from repro_torch.launch.mesh import production_mesh_ctx
     with pytest.raises(RuntimeError, match="process group"):
         model.prefill(params, {"tokens": toks}, cfg, production_mesh_ctx(),

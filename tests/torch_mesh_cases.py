@@ -251,3 +251,16 @@ def raise_on_rank(rank: int, bad: int) -> int:
     if rank == bad:
         raise ValueError(f"rank {rank} fails on purpose")
     return rank
+
+
+def rank_process(rank: int) -> tuple:
+    """A rank function for the launcher's test: the rank, its process id,
+    the process group's size and a collective's answer (the ranks'
+    sum)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    x = torch.tensor([float(rank)])
+    dist.all_reduce(x)
+    return rank, os.getpid(), dist.get_world_size(), float(x)

@@ -20,6 +20,8 @@ logits are of order 1.
 """
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 
 from torch_mesh_cases import MESHES, WORLD, decode, encode  # noqa: F401
@@ -103,10 +105,15 @@ def cache_paths(caches: dict) -> dict:
             for kv in ("k", "v")}
 
 
+def case_replace(name: str) -> dict:
+    """Case ``name``'s config replacements (its reduced config's)."""
+    return replace(CASES[name][1])
+
+
 def port_config(name: str):
     from repro_torch.configs import get_config
-    arch, mode = CASES[name][:2]
-    return get_config(arch).reduced().replace(**replace(mode))
+    return get_config(CASES[name][0]).reduced().replace(
+        **case_replace(name))
 
 
 def _meta(tree):
@@ -122,8 +129,13 @@ def _log(mesh) -> dict:
             for (kind, axes), rec in sorted(mesh.collective_log.items())}
 
 
-def run_case(name: str, mctx, device: str, counting=None) -> dict:
-    """Case ``name`` on this rank of ``mctx`` (a mesh over the 8 ranks):
+def run_case(name: str, mctx, device: str, counting=None,
+             cases=None) -> dict:
+    """Case ``name`` of the cases module ``cases`` (this one by default:
+    any module with ``CASES`` of ``(arch, _, mesh, batch, slots)``,
+    ``port_config`` and ``inputs``, whose tokens are the prompt and then
+    ``STEPS`` decoded ones) on this rank of ``mctx`` (a mesh over the 8
+    ranks):
     ``{"<step>": global logits, "cache/...": global caches after the
     last step, "log/<step>": the rank's collective log of the step,
     "count/<step>": a ``CountingMesh``'s log of the same step on meta
@@ -136,18 +148,21 @@ def run_case(name: str, mctx, device: str, counting=None) -> dict:
     from repro_torch.models.convert import blocks, gathered, params_from_numpy
     from repro_torch.models.model import drop_dp_axes
     from repro_torch.models.sharding import MeshCtx, P
-    cfg = port_config(name)
-    batch, slots = CASES[name][3:]
+    cases = cases or sys.modules[__name__]
+    cfg = cases.port_config(name)
+    batch, slots = cases.CASES[name][3:]
     model = get_model(cfg)
-    inp = inputs(name, model.param_shapes(cfg), cfg.vocab_size, cfg.d_model,
-                 cfg.img_tokens if cfg.family == "vlm" else 0)
+    inp = cases.inputs(name, model.param_shapes(cfg), cfg.vocab_size,
+                       cfg.d_model,
+                       cfg.img_tokens if cfg.family == "vlm" else 0)
     mesh = mctx.mesh
     dp = mctx.dp if batch % mctx.dp_size == 0 else None
     params = params_from_numpy(blocks(inp["params"], model.param_specs(
         cfg, mctx), mctx), device)
     toks = torch.from_numpy(blocks(inp["tokens"], P(dp, None), mctx)).to(
         device)
-    feed = {"tokens": toks[:, :PROMPT]}
+    prompt = toks.shape[1] - STEPS
+    feed = {"tokens": toks[:, :prompt]}
     if "img_emb" in inp:
         feed["img_emb"] = torch.from_numpy(blocks(
             inp["img_emb"], P(dp, None, None), mctx)).to(device)
@@ -172,14 +187,14 @@ def run_case(name: str, mctx, device: str, counting=None) -> dict:
             counting.reset_collectives()
         return caches
 
-    s0 = PROMPT + (cfg.img_tokens if cfg.family == "vlm" else 0)
+    s0 = prompt + (cfg.img_tokens if cfg.family == "vlm" else 0)
     with torch.no_grad():
         caches = step("prefill", model.prefill, params, feed)
         whole = pad_kv(gathered(caches, cache_specs(s0), mctx), slots - s0)
         caches = blocks(whole, cache_specs(slots), mctx)
         for i in range(STEPS):
             t = s0 + i
-            tok = toks[:, PROMPT + i:PROMPT + i + 1]
+            tok = toks[:, prompt + i:prompt + i + 1]
             caches = step(f"decode{i}", model.decode, params, caches, tok, t,
                           n_slots=slots)
     final = gathered(caches, cache_specs(slots), mctx)
@@ -195,9 +210,10 @@ def _leaves(tree):
             yield v
 
 
-def rank_cases(rank: int, device: str) -> dict:
-    """Every case through the port on this rank of an 8-rank process
-    group (``repro_torch.launch.mesh.run_ranks``): ``{case: run_case's
+def rank_cases(rank: int, device: str, cases=None) -> dict:
+    """Every case of the cases module ``cases`` (this one by default)
+    through the port on this rank of an 8-rank process group
+    (``repro_torch.launch.mesh.run_ranks``): ``{case: run_case's
     record}``, each with its counting mesh's logs, plus ``"_coords"``."""
     import torch
     from repro_torch.launch.mesh import rank_mesh_ctx
@@ -206,8 +222,9 @@ def rank_cases(rank: int, device: str) -> dict:
     meshes = {m: rank_mesh_ctx(shape, names, device)
               for m, (shape, names) in MESHES.items()}
     out = {"_coords": {m: mctx.mesh.coords for m, mctx in meshes.items()}}
-    for name, (_, _, m, _, _) in CASES.items():
+    for name, (_, _, m, _, _) in (cases or sys.modules[__name__]
+                                  ).CASES.items():
         shape, names = MESHES[m]
         counting = CountingMesh(shape, names, meshes[m].mesh.coords)
-        out[name] = run_case(name, meshes[m], device, counting)
+        out[name] = run_case(name, meshes[m], device, counting, cases)
     return out
