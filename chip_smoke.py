@@ -361,8 +361,9 @@ def emit(obj: dict) -> None:
 
 # sources whose every kernel must build with no spill and no ptxas warning
 # (C7513: wgmma serialised): the flash backward's wgmma kernels hold dK
-# and dV, or dQ, in registers for a whole walk
-PTXAS_CLEAN = ("flash_attn_bwd.cu",)
+# and dV, or dQ, in registers for a whole walk, the decode kernels their
+# accumulators (bf16: 16 x D / 32 floats a thread)
+PTXAS_CLEAN = ("flash_attn_bwd.cu", "decode_attn.cu")
 
 
 def ptxas_clean(report: dict, sources) -> None:
@@ -954,6 +955,14 @@ def attn_err(torch, got, want, dtype: str, label: str) -> tuple[float, float]:
         raise AssertionError(
             f"{label}: {int(bad.sum())} of {bad.numel()} output vectors "
             f"off, worst max|diff| {float(diff.max())}")
+    return vector_err(got, want)
+
+
+def vector_err(got, want) -> tuple[float, float]:
+    """(max|got - want|, the largest share of its vector's max|want| that
+    a vector's max|got - want| takes), checking nothing."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
     return float(diff.max()), float((diff / scale.clamp_min(1e-30)).max())
 
 
@@ -1554,30 +1563,65 @@ def decode_layout_cases(torch, dev):
 
 
 def decode_group_cases(torch, dev):
-    """Groups the kernel serves in sub-groups and head dim 256: G 1, 5, 10
-    and 16 q-heads per KV head at D 128 (up to 8 heads a block: 10 and 16
-    take two) and D 256 (up to 4: 5 takes two, 10 three of 4, 4 and 2, 16
-    four), S 300 and 2,048, valid_len ragged with and without a first slot
-    lo (recurrentgemma's window: lo = valid_len - 2,048), a valid_len of
-    0; bf16 and f32."""
+    """Groups and head dims: G 1, 5, 6, 10, 16 and 17 q-heads per KV head
+    at D 128 and 256 (the float32 route's sub-groups of at most 8 and 4
+    heads; bf16's whole group of up to 16 a block, 17 in two), S 300 and
+    2,048, valid_len ragged with and without a first slot lo
+    (recurrentgemma's window: lo = valid_len - 2,048), a valid_len of 0;
+    bf16 and f32.  Then bf16 alone: G 5 to 17 at D 64 and 80; a batch of
+    one at D 80, 128 and 256 over a 4,096-slot span, a span that is no
+    multiple of the 64-slot tile from a lo inside one, an empty span at
+    slot 1,000, and valid_len 0; caches as a [B, S, Hk, D] buffer's view
+    and with a slot stride of D + 4 (not a multiple of 16 bytes: copied)."""
     g = torch.Generator(device="cpu").manual_seed(51)
+
+    def ranged(b, hq, hk, s, d, dt):
+        return (_randn(torch, g, (b, hq, d), dev, dt),
+                _randn(torch, g, (b, hk, s, d), dev, dt),
+                _randn(torch, g, (b, hk, s, d), dev, dt))
+
+    def spans(name, what, q, k, v, lens, los):
+        s = k.shape[2]
+        vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        lo = None if los is None else torch.tensor(los, dtype=torch.int32,
+                                                    device=dev)
+        return (f"{name} {what} S={s} D={q.shape[2]} {q.shape[1]}:"
+                f"{k.shape[1]} valid_len={lens} lo={los}", name, q, k, v,
+                vl, lo)
+
     for name, dt in (("float32", torch.float32),
                      ("bfloat16", torch.bfloat16)):
         for d in (128, 256):
-            for hq, hk in ((2, 2), (5, 1), (20, 2), (16, 1)):
+            for hq, hk in ((2, 2), (5, 1), (6, 1), (20, 2), (16, 1),
+                           (34, 2)):
                 for s in (300, 2048):
-                    q = _randn(torch, g, (3, hq, d), dev, dt)
-                    k = _randn(torch, g, (3, hk, s, d), dev, dt)
-                    v = _randn(torch, g, (3, hk, s, d), dev, dt)
-                    lens = [s, s // 2 + 7, 0]
+                    q, k, v = ranged(3, hq, hk, s, d, dt)
                     for los in (None, [max(0, s - 2048 + 1), 33, 0]):
-                        vl = torch.tensor(lens, dtype=torch.int32,
-                                          device=dev)
-                        lo = None if los is None else torch.tensor(
-                            los, dtype=torch.int32, device=dev)
-                        yield (f"{name} S={s} D={d} {hq}:{hk} "
-                               f"valid_len={lens} lo={los}", name, q, k, v,
-                               vl, lo)
+                        yield spans(name, "group", q, k, v,
+                                    [s, s // 2 + 7, 0], los)
+    name, dt = "bfloat16", torch.bfloat16
+    for d in (64, 80):
+        for hq, hk in ((5, 1), (6, 1), (10, 1), (16, 1), (34, 2)):
+            q, k, v = ranged(3, hq, hk, 300, d, dt)
+            for los in (None, [1, 33, 0]):
+                yield spans(name, "group", q, k, v, [300, 157, 0], los)
+    for d, hq, hk in ((80, 32, 8), (128, 6, 1), (256, 10, 1)):
+        q, k, v = ranged(1, hq, hk, 4200, d, dt)
+        for what, end, first in (("4,096-slot span", 4096, 0),
+                                 ("span off the tile", 4150, 37),
+                                 ("empty span", 1000, 1000),
+                                 ("valid_len 0", 0, 0)):
+            yield spans(name, what, q, k, v, [end], [first])
+    for d, hq, hk in ((128, 12, 2), (256, 20, 2)):
+        q = _randn(torch, g, (3, hq, d), dev, dt)
+        k, v = (_randn(torch, g, (3, 513, hk, d), dev, dt).transpose(1, 2)
+                for _ in range(2))
+        yield spans(name, "[B,S,Hk,D] view", q, k, v, [513, 300, 65],
+                    [0, 7, 64])
+        k, v = (_randn(torch, g, (3, hk, 513, d + 4), dev, dt)[..., :d]
+                for _ in range(2))
+        yield spans(name, "slot stride D + 4 (copied)", q, k, v,
+                    [513, 300, 65], [0, 7, 64])
 
 
 def decode_shape(torch, dev, cfg, sv: dict, seed: int, cross: bool = False):
@@ -1632,14 +1676,21 @@ def decode_sweep(torch, dev) -> tuple[dict, int]:
     its plain version, again on the same inputs (bit-identical: the
     splits' ticket counters were left zeroed), again with garbage outside
     [lo, valid_len) and, where lo is 0, without lo (bit-identical):
-    (worst max|diff| per dtype, cases run); raises on a mismatch."""
-    from repro_torch.kernels.decode_attn.kernel import decode_attention
+    (worst max|diff| per dtype, cases run); raises on a mismatch, or if a
+    case's plan takes another route than its dtype's (bf16: the tensor
+    cores, "mma"; float32: "cuda_core")."""
+    from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    decode_attention = dk.decode_attention
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n_cases = 0
     for label, name, q, k, v, vl, lo in itertools.chain(
             decode_cases(torch, dev), decode_layout_cases(torch, dev),
             decode_group_cases(torch, dev), decode_rank_cases(torch, dev)):
+        route = "mma" if name == "bfloat16" else "cuda_core"
+        if decode_case_plan(dk, q, k).route != route:
+            raise AssertionError(f"decode_attention plans another route "
+                                 f"than {route}: {label}")
         got = decode_attention(q, k, v, vl, lo)
         want = decode_attention_ref(q, k, v, vl, 0 if lo is None else lo)
         worst[name] = max(worst[name],
@@ -1666,31 +1717,38 @@ def decode_sweep(torch, dev) -> tuple[dict, int]:
     return worst, n_cases
 
 
-def decode_launch(torch, q, k, v, bounds, span: int, out):
-    """The bare launch of the decode kernel into ``out`` at the wrapper's
-    plan for ``span``: ``bounds`` int32 [2, B], each row's first slot and
-    end."""
-    import ctypes
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attn.kernel import (_sm_count,
-                                                        split_plan,
-                                                        sub_groups, tickets)
+def decode_case_plan(dk, q, k):
+    """The plan ``decode_attention`` launches q against cache k with when
+    it is given no span: cut over the cache's S."""
     b, hq, d = q.shape
-    _, hk, s, _ = k.shape
-    dev = q.device
-    n_sub = sub_groups(hq // hk, d)
-    chunk, n_splits = split_plan(b, hk, span, _sm_count(dev.index), n_sub)
-    part_ml = torch.empty((2, b, hq, n_splits), device=dev)
-    part_acc = torch.empty((b, hq, n_splits, d), device=dev)
-    strides = (ctypes.c_int64 * 10)(*q.stride()[:2], *k.stride()[:3],
-                                    *v.stride()[:3], *out.stride()[:2])
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bounds[1].data_ptr(),
-            bounds[0].data_ptr(), out.data_ptr(), part_ml[0].data_ptr(),
-            part_ml[1].data_ptr(), part_acc.data_ptr(),
-            tickets(dev, b * hk * n_sub).data_ptr(), b, hq, hk, s, d, strides,
-            chunk, n_splits, n_sub, torch.cuda.current_stream().cuda_stream)
+    return dk.decode_plan(q.dtype, b, hq, k.shape[1], d, k.shape[2],
+                          dk._sm_count(q.device.index))
+
+
+def decode_launch(torch, q, k, v, bounds, span: int, out,
+                  n_splits: int | None = None):
+    """The bare launch of the bf16 decode kernel through its C entry point
+    into ``out`` at the wrapper's plan for ``span`` (or with the span cut
+    into ``n_splits`` chunks of whole tiles): ``bounds`` int32 [2, B],
+    each row's first slot and end.  Returns (launch, plan)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attn.kernel import (TILE, _sm_count,
+                                                        decode_plan,
+                                                        launch_args)
+    b, hq, d = q.shape
+    plan = decode_plan(q.dtype, b, hq, k.shape[1], d, span,
+                       _sm_count(q.device.index))
+    if n_splits is not None:
+        per = -(-span // n_splits)
+        chunk = -(-per // TILE) * TILE
+        plan = plan._replace(chunk=chunk, n_splits=-(-span // chunk))
+    args, scratch = launch_args(q, k, v, bounds[1], bounds[0], out, plan)
     fn = _build.library().decode_attn_bf16
-    return (lambda: fn(*args)), chunk, n_splits
+
+    def launch():
+        _build.check(fn(*args), "decode_attn_bf16")
+        return scratch
+    return launch, plan
 
 
 def decode_row(torch, q, k, v, lo: int, hi: int, label: str) -> dict:
@@ -1699,7 +1757,8 @@ def decode_row(torch, q, k, v, lo: int, hi: int, label: str) -> dict:
     the plan cut over hi - lo.  The wrapper held against the plain
     version, then the bare launch, the wrapper, the plain version and the
     library call (``scaled_dot_product_attention`` over the sliced slots)
-    timed, and the byte bound of the slots the span holds."""
+    timed, and the byte bound of the slots the span holds; the plan's
+    route, heads a block, blocks an SM and splits."""
     from repro_torch.kernels.decode_attn.kernel import decode_attention
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     from repro_torch.models.layers import slot_bounds
@@ -1714,8 +1773,7 @@ def decode_row(torch, q, k, v, lo: int, hi: int, label: str) -> dict:
     want = decode_attention_ref(q, k, v, hi, lo)
     err, rel = attn_err(torch, out, want, "bfloat16", label)
     typical = float(want.float().abs().median())
-    launch, chunk, n_splits = decode_launch(torch, q, k, v, bounds, span,
-                                            out)
+    launch, plan = decode_launch(torch, q, k, v, bounds, span, out)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q4 = q[:, :, None]
     total = b * span
@@ -1725,7 +1783,9 @@ def decode_row(torch, q, k, v, lo: int, hi: int, label: str) -> dict:
     flop_ms = flops / BF16_FLOP_PER_S * 1e3
     res = {
         "max_abs_err": err, "max_rel_err": rel, "median_abs_ref": typical,
-        "splits": n_splits, "chunk": chunk,
+        "decode_route": plan.route, "heads_a_block": plan.heads,
+        "blocks_per_sm": plan.blocks_per_sm, "splits": plan.n_splits,
+        "chunk": plan.chunk,
         "ms": device_ms(launch, cold=True),
         "warm_ms": device_ms(launch, cold=False),
         "wrapper_ms": call_ms(wrapper),
@@ -1741,6 +1801,25 @@ def decode_row(torch, q, k, v, lo: int, hi: int, label: str) -> dict:
     return add_rates(res, nbytes, "TB/s")
 
 
+def decode_shapes() -> tuple:
+    """(row key, arch, serve sizes, seed) of phase 3's decode rows at the
+    served models' shapes (key None: the main row, llama3.2-3b as phase 5
+    serves it)."""
+    return ((None, ARCH, SERVE, 42),
+            ("window_shape", "h2o-danube-1.8b", SERVE_7["h2o-danube-1.8b"],
+             44),
+            ("moe_shape", "mixtral-8x7b", SERVE_7["mixtral-8x7b"], 45),
+            ("chunk_shape", LLAMA4, SERVE_8[LLAMA4], 46),
+            ("vlm_shape", "internvl2-26b", SERVE_8["internvl2-26b"], 47),
+            ("encdec_self_shape", WHISPER, SERVE_8[WHISPER], 48),
+            ("cross_shape", WHISPER, SERVE_8[WHISPER], 49),
+            ("hybrid_shape", HYBRID, SERVE_9[HYBRID], 53),
+            ("mesh_shape", "mixtral-8x7b", MESH_SERVE, 55),
+            ("rank_shape", ARCH, SHARD_RANK, 57),
+            ("rank_cross_shape", WHISPER, FAMILY_RANK[WHISPER], 60),
+            ("rank_hybrid_shape", HYBRID, FAMILY_RANK[HYBRID], 61))
+
+
 def check_decode(torch, dev) -> dict:
     """The sweep, then one row per served model at its decode shape:
     llama3.2-3b (phase 5), h2o-danube-1.8b with its window binding and
@@ -1754,28 +1833,22 @@ def check_decode(torch, dev) -> dict:
     (``rank_shape``: group 3 over 516 slots), and whisper-medium's cross
     decode and recurrentgemma-2b's decode on each rank of phase 16 (b)
     (``rank_cross_shape``, ``rank_hybrid_shape``)."""
-    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn.kernel import (MMA_BLOCKS_PER_SM,
+                                                        blocks_per_sm)
+    # the plan's blocks an SM are what the card gives each instantiation
+    held = {md: blocks_per_sm(md) for md in MMA_BLOCKS_PER_SM}
+    if held != MMA_BLOCKS_PER_SM:
+        raise AssertionError(f"decode kernel blocks an SM {held}, planned "
+                             f"{MMA_BLOCKS_PER_SM}")
     worst, n_cases = decode_sweep(torch, dev)
     res = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attn.cu",
         "replaces": "src/repro/kernels/decode_attn/kernel.py:81",
         "sweep_cases": n_cases, "sweep_max_abs_err": worst,
+        "mma_blocks_per_sm": held,
     }
-    for key, arch, sv, seed in (
-            (None, ARCH, SERVE, 42),
-            ("window_shape", "h2o-danube-1.8b", SERVE_7["h2o-danube-1.8b"],
-             44),
-            ("moe_shape", "mixtral-8x7b", SERVE_7["mixtral-8x7b"], 45),
-            ("chunk_shape", LLAMA4, SERVE_8[LLAMA4], 46),
-            ("vlm_shape", "internvl2-26b", SERVE_8["internvl2-26b"], 47),
-            ("encdec_self_shape", WHISPER, SERVE_8[WHISPER], 48),
-            ("cross_shape", WHISPER, SERVE_8[WHISPER], 49),
-            ("hybrid_shape", HYBRID, SERVE_9[HYBRID], 53),
-            ("mesh_shape", "mixtral-8x7b", MESH_SERVE, 55),
-            ("rank_shape", ARCH, SHARD_RANK, 57),
-            ("rank_cross_shape", WHISPER, FAMILY_RANK[WHISPER], 60),
-            ("rank_hybrid_shape", HYBRID, FAMILY_RANK[HYBRID], 61)):
+    for key, arch, sv, seed in decode_shapes():
         cfg = shape_cfg(arch, sv)
         cross = key in ("cross_shape", "rank_cross_shape")
         q, k, v, lo, hi = decode_shape(torch, dev, cfg, sv, seed,
@@ -3475,16 +3548,13 @@ EXECUTED = (("h2o-danube-1.8b", "decode_32k"),
             ("mamba2-130m", "decode_32k"), ("mamba2-130m", "long_500k"))
 
 
-def cell_decode_row(torch, cfg, shape, seed: int) -> dict | None:
-    """The decode kernel at a decode cell's own shape: one layer's q
-    [B, Hq, D] bf16 against a [B, Hk, S, D] bf16 cache of the cell's ring
-    slots (the shape of its abstract cache), every row over the slot range
-    the position mask leaves at ``t = seq_len - 1``
-    (``layers.decode_slot_range``), held against its plain version at the
-    bf16 tolerance and timed (``decode_row``), then run again and held
-    bit-equal.  None for a cell with no attention cache."""
-    from repro_torch.kernels.decode_attn.kernel import decode_attention
-    from repro_torch.models.layers import decode_slot_range, slot_bounds
+def cell_decode_shape(torch, cfg, shape, seed: int):
+    """A decode cell's attention on the card: one layer's q [B, Hq, D]
+    bf16 against a [B, Hk, S, D] bf16 cache of the cell's ring slots (the
+    shape of its abstract cache), and the slot range [lo, hi) the position
+    mask leaves at ``t = seq_len - 1`` (``layers.decode_slot_range``): (q,
+    k, v, lo, hi), or None for a cell with no attention cache."""
+    from repro_torch.models.layers import decode_slot_range
     from repro_torch.models.model import abstract_cache
     from repro_torch.models.sharding import cpu_mesh_ctx
     from repro_torch.train.tree import leaves
@@ -3498,8 +3568,27 @@ def cell_decode_row(torch, cfg, shape, seed: int) -> dict | None:
                            dtype=torch.bfloat16)
                for sh in ((b, cfg.num_heads, d), (b, hk, s, d),
                           (b, hk, s, d)))
+    lo, hi = decode_slot_range(shape.seq_len - 1, s, cfg.window,
+                               cfg.chunk_attn)
+    return q, k, v, lo, hi
+
+
+def cell_decode_row(torch, cfg, shape, seed: int) -> dict | None:
+    """The decode kernel at a decode cell's own shape: one layer's q
+    [B, Hq, D] bf16 against a [B, Hk, S, D] bf16 cache of the cell's ring
+    slots (the shape of its abstract cache), every row over the slot range
+    the position mask leaves at ``t = seq_len - 1``
+    (``layers.decode_slot_range``), held against its plain version at the
+    bf16 tolerance and timed (``decode_row``), then run again and held
+    bit-equal.  None for a cell with no attention cache."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attention
+    from repro_torch.models.layers import slot_bounds
+    found = cell_decode_shape(torch, cfg, shape, seed)
+    if found is None:
+        return None
+    q, k, v, lo, hi = found
+    b, hk, s, d = k.shape
     t = shape.seq_len - 1
-    lo, hi = decode_slot_range(t, s, cfg.window, cfg.chunk_attn)
     label = f"decode {cfg.name} {shape.name} shape"
     row = {"shape": f"{cfg.name} {shape.name} decode, window {cfg.window}, "
                     f"at t={t}: q [{b}, {cfg.num_heads}, {d}] bf16, caches "
@@ -5982,10 +6071,13 @@ def main(argv=None) -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_share", "achieved", "achieved_unit", "warm_ms",
             "wrapper_ms")
+    route = ("decode_route",)          # a decode row's: "mma" (bf16)
     emit({"kernels": [{
         **{k: r[k] for k in ("name", "route", "source", "replaces",
-                             "launches", "max_abs_err", *keys)},
-        **{x: {k: r[x][k] for k in ("shape", "max_abs_err", *keys)}
+                             "launches", "max_abs_err", *keys,
+                             *(route if route[0] in r else ()))},
+        **{x: {k: r[x][k] for k in ("shape", "max_abs_err", *keys,
+                                    *(route if route[0] in r[x] else ()))}
            for x in SHAPE_KEYS if x in r}}
         for r in rows]})
     print(name_power, flush=True)

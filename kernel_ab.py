@@ -10,15 +10,19 @@ v_cache, valid_len, lo, span)`` of this checkout and of a baseline tree (the
 its own tree's kernel build, and times them in turns (baseline, current,
 current, baseline) on one card, cold and warm, at ``chip_smoke.py``'s
 main shapes and the store's call-site shapes, and (attention, cold) at
-the prefill and decode shapes of llama3.2-3b, h2o-danube-1.8b and
-mixtral-8x7b, where both prefill builds must give the same bits and both
-decode builds must agree with the plain version (their bits are
+the prefill shapes of llama3.2-3b, h2o-danube-1.8b and mixtral-8x7b,
+where both builds must give the same bits, at every decode shape of
+``chip_smoke.py`` phase 3 and its decode cells (``decode_inputs``), where
+both builds must agree with the plain version (their bits are
 reported), and (the flash backward, cold) at the training shapes of
 llama3.2-3b and recurrentgemma-2b, where each build must agree with the
-plain version and repeat bit for bit.  Without ``--base`` (and with it,
-last) this checkout's backward alone is timed in turns at the shapes
-where ``bwd_plan`` may cut a group into shares, once for each cut (the
-wrapper's ``shares``), each held against the plain version.  A
+plain version and repeat bit for bit.  Without ``--base`` (and with
+it, last) this checkout's backward alone is timed in turns at
+the shapes where ``bwd_plan`` may cut a group into shares, once for each
+cut (the wrapper's ``shares``), each held against the plain version.
+``--breakdown`` runs only the decode breakdown at the batch-of-one
+shapes (``decode_breakdown``; of both builds with ``--base``) and this
+checkout's split sweep at every decode shape (``decode_splits``).  A
 wrapper's time is all the device work of one call: for a segment sum
 that zeroes its outputs and casts its ids apart from the kernel, those
 launches too.  The current probe's two routes are also timed by their
@@ -29,6 +33,7 @@ first held exactly against this checkout's plain PyTorch versions.
     git archive <commit> src/repro_torch | tar -x -C build/ab/base
     python kernel_ab.py --base build/ab/base
     python kernel_ab.py                 # the backward's cuts alone
+    python kernel_ab.py --breakdown     # the decode breakdown and splits
 
 Prints one JSON line per measurement and writes them all to
 ``chiprun_out/kernel_ab.json``.  Needs a CUDA card; imports nothing of
@@ -158,11 +163,11 @@ def agg_rows(torch, base, cur, dev) -> list:
     return rows
 
 
-# the served models whose attention shapes both builds run: (arch, serve
-# sizes, flash seed, decode seed), the seeds of chip_smoke's phase 3 rows
-SERVED = ((cs.ARCH, cs.SERVE, 32, 42),
-          ("h2o-danube-1.8b", cs.SERVE_7["h2o-danube-1.8b"], 35, 44),
-          ("mixtral-8x7b", cs.SERVE_7["mixtral-8x7b"], 36, 45))
+# the served models whose prefill shapes both builds run: (arch, serve
+# sizes, seed), the seeds of chip_smoke's phase 3 rows
+SERVED = ((cs.ARCH, cs.SERVE, 32),
+          ("h2o-danube-1.8b", cs.SERVE_7["h2o-danube-1.8b"], 35),
+          ("mixtral-8x7b", cs.SERVE_7["mixtral-8x7b"], 36))
 
 
 def turns_row(variants: dict, **row) -> dict:
@@ -186,7 +191,7 @@ def flash_rows(torch, base, cur, dev) -> list:
     both builds' outputs bit for bit equal, then timed in turns."""
     from repro_torch.configs import get_config
     rows = []
-    for arch, sv, seed, _ in SERVED:
+    for arch, sv, seed in SERVED:
         q, k, v, window = cs.flash_shape(torch, dev, get_config(arch), sv,
                                          seed)
         variants = {"base": lambda a=(q, k, v), w=window: base(
@@ -204,19 +209,38 @@ def flash_rows(torch, base, cur, dev) -> list:
     return rows
 
 
+def decode_inputs(torch, dev):
+    """(label, q, k, v, lo, hi) of every decode row of ``chip_smoke.py``
+    phase 3: the served models' shapes and the ranks' (``decode_shapes``),
+    then the decode cells that run in phase 11 (c) (``cell_decode_shape``,
+    the seeds of ``executed_cells``).  A generator: one shape's tensors at
+    a time."""
+    from repro_torch.configs import get_config, get_shape
+    for key, arch, sv, seed in cs.decode_shapes():
+        cfg = cs.shape_cfg(arch, sv)
+        yield ((f"{arch} decode" + (f" ({key})" if key else ""),
+                *cs.decode_shape(torch, dev, cfg, sv, seed,
+                                 cross=key in ("cross_shape",
+                                               "rank_cross_shape"))))
+    for i, (arch, sh) in enumerate(cs.EXECUTED):
+        found = cs.cell_decode_shape(torch, get_config(arch), get_shape(sh),
+                                     seed=61 + i)
+        if found is not None:
+            yield (f"{arch} {sh} decode", *found)
+
+
 def decode_rows(torch, base, cur, dev) -> list:
-    """The decode kernel at the served models' decode shapes, launched as
-    the serve path launches it (one slot range on every row, bounds from
+    """The decode kernel at every ``decode_inputs`` shape, launched as the
+    serve path launches it (one slot range on every row, bounds from
     ``layers.slot_bounds``, the plan cut over the span): each build held
     against the plain version, whether their bits agree reported, then
-    timed in turns."""
-    from repro_torch.configs import get_config
+    timed in turns, with this checkout's plan (``decode_plan``: route,
+    heads a block, splits)."""
+    from repro_torch.kernels.decode_attn.kernel import _sm_count, decode_plan
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     from repro_torch.models.layers import slot_bounds
     rows = []
-    for arch, sv, _, seed in SERVED:
-        q, k, v, lo, hi = cs.decode_shape(torch, dev, get_config(arch), sv,
-                                          seed)
+    for label, q, k, v, lo, hi in decode_inputs(torch, dev):
         bounds = slot_bounds(q.device, q.shape[0], lo, hi)
         args = (q, k, v, bounds[1], bounds[0], hi - lo)
         variants = {"base": lambda: base(*args),
@@ -225,13 +249,102 @@ def decode_rows(torch, base, cur, dev) -> list:
         outs = {name: fn() for name, fn in variants.items()}
         for name, out in outs.items():
             cs.attn_err(torch, out, want, "bfloat16",
-                        f"{name} decode_attention at {arch}'s shape")
+                        f"{name} decode_attention at {label}")
+        b, hq, d = q.shape
+        plan = decode_plan(q.dtype, b, hq, k.shape[1], d, hi - lo,
+                           _sm_count(q.device.index))
         rows.append(turns_row(variants, kernel="decode_attention",
-                              shape=f"{arch} decode", q=list(q.shape),
+                              shape=label, q=list(q.shape),
                               kv=list(k.shape), slots=[lo, hi],
+                              plan=plan._asdict(),
                               bit_equal=torch.equal(outs["base"],
                                                     outs["current"])))
-        del q, k, v, variants, outs
+        del q, k, v, variants, outs, want, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the decode rows whose time is mostly not the bytes (a batch of one):
+# labels of ``decode_inputs``
+BREAKDOWN = ("h2o-danube-1.8b long_500k decode",
+             "recurrentgemma-2b long_500k decode",
+             "recurrentgemma-2b decode (hybrid_shape)")
+
+
+def decode_splits(torch, dev) -> list:
+    """This checkout's bf16 kernel at every ``decode_inputs`` shape by its
+    bare launch (``chip_smoke.decode_launch``) with the span cut into 1,
+    2, 4, ... 16 splits (no more than one a tile), and at the plan's cut,
+    each held against the plain version, timed cold in turns: the cost of
+    the splits' merge against their parallel walk, which ``decode_plan``'s
+    MMA_MIN_CHUNK, MMA_FILL and MMA_MAX_WALK rest on."""
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.models.layers import slot_bounds
+    rows = []
+    for label, q, k, v, lo, hi in decode_inputs(torch, dev):
+        bounds = slot_bounds(q.device, q.shape[0], lo, hi)
+        want = decode_attention_ref(q, k, v, hi, lo)
+        variants, splits = {}, {}
+        counts = [1 << i for i in range(5) if (1 << i) * 64 < 2 * (hi - lo)]
+        for n in (None, *counts):
+            out = torch.empty_like(q)
+            launch, plan = cs.decode_launch(torch, q, k, v, bounds, hi - lo,
+                                            out, n_splits=n)
+            launch()
+            cs.attn_err(torch, out, want, "bfloat16",
+                        f"{label} in {plan.n_splits} splits")
+            name = "plan" if n is None else f"splits {plan.n_splits}"
+            variants[name] = launch
+            splits[name] = plan.n_splits
+        runs = in_turns(variants, cold=True, rounds=2)
+        rows.append({"kernel": "decode_attention", "shape": label,
+                     "split_sweep": True, "q": list(q.shape),
+                     "kv": list(k.shape), "slots": [lo, hi],
+                     "splits": splits, "cold": True, "ms": medians(runs),
+                     "runs": runs})
+        cs.emit(rows[-1])
+        del q, k, v, variants, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def decode_breakdown(torch, builds: dict, dev) -> list:
+    """Where a decode launch's time goes at the ``BREAKDOWN`` shapes, for
+    each build's wrapper in ``builds``: timed cold and warm in turns, the
+    call as the serve path makes it ("plan"), the same grid over an empty
+    span (every row's valid_len at its lo: each block sets up, writes its
+    empty partials and takes its ticket, the last one merges: "empty"),
+    one split a (b, KV head) block walking the whole span ("one split":
+    the plan cut for a span of 1 slot), and a kernel that does nothing
+    (``torch.cuda._sleep(0)``: "floor", the launch alone).  plan - empty
+    is the streaming of the span, empty - floor the set-up and the merge
+    of the splits."""
+    from repro_torch.models.layers import slot_bounds
+    rows = []
+    for label, q, k, v, lo, hi in decode_inputs(torch, dev):
+        if label not in BREAKDOWN:
+            del q, k, v
+            continue
+        b = q.shape[0]
+        bounds = slot_bounds(q.device, b, lo, hi)
+        empty = torch.full((b,), lo, dtype=torch.int32, device=dev)
+        variants = {"floor": lambda: torch.cuda._sleep(0)}
+        for name, fn in builds.items():
+            variants.update({
+                f"{name} plan": lambda f=fn: f(q, k, v, bounds[1],
+                                               bounds[0], hi - lo),
+                f"{name} empty": lambda f=fn: f(q, k, v, empty, bounds[0],
+                                                hi - lo),
+                f"{name} one split": lambda f=fn: f(q, k, v, bounds[1],
+                                                    bounds[0], 1)})
+        for cold in (True, False):
+            runs = in_turns(variants, cold=cold, rounds=3)
+            rows.append({"kernel": "decode_attention", "shape": label,
+                         "breakdown": True, "q": list(q.shape),
+                         "kv": list(k.shape), "slots": [lo, hi],
+                         "cold": cold, "ms": medians(runs), "runs": runs})
+            cs.emit(rows[-1])
+        del q, k, v, variants
         torch.cuda.empty_cache()
     return rows
 
@@ -376,6 +489,9 @@ def main(argv=None) -> int:
     ap.add_argument("--base", type=pathlib.Path,
                     help="a tree holding another commit's src/repro_torch "
                     "(without it only the backward's cuts are timed)")
+    ap.add_argument("--breakdown", action="store_true",
+                    help="only the decode breakdown at the batch-of-one "
+                    "shapes (of both builds with --base)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -387,7 +503,14 @@ def main(argv=None) -> int:
     cs.emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
              "nvidia_smi": cs.smi()})
     rows = []
-    if args.base is not None:
+    if args.breakdown:
+        builds = {"current": cur["decode_attention"]}
+        if args.base is not None:
+            builds = {"base": load_wrappers(args.base.resolve() / "src")[
+                "decode_attention"], **builds}
+        rows += decode_breakdown(torch, builds, dev)
+        rows += decode_splits(torch, dev)
+    elif args.base is not None:
         base = load_wrappers(args.base.resolve() / "src")
         rows += probe_rows(torch, base["sorted_probe"], cur["sorted_probe"],
                            dev)
@@ -398,7 +521,8 @@ def main(argv=None) -> int:
                             cur["decode_attention"], dev)
         rows += flash_bwd_rows(torch, base["flash_attention_bwd"],
                                cur["flash_attention_bwd"], dev)
-    rows += bwd_shares_rows(torch, cur["flash_attention_bwd"], dev)
+    if not args.breakdown:
+        rows += bwd_shares_rows(torch, cur["flash_attention_bwd"], dev)
     cs.OUT.mkdir(exist_ok=True)
     (cs.OUT / "kernel_ab.json").write_text(json.dumps(rows, indent=1))
     return 0

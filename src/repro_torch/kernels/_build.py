@@ -58,6 +58,8 @@ _SIGNATURES = {
     # hq, hk, s, d, strides[10], chunk, n_splits, n_sub, stream
     "decode_attn_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
                           _L, _L, _S, _L, _L, _L, _P], _I),
+    # d, int32 out: the bf16 kernel's blocks an SM
+    "decode_attn_bf16_blocks_per_sm": ([_L, _P], _I),
     "decode_attn_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
                          _L, _L, _S, _L, _L, _L, _P], _I),
 }

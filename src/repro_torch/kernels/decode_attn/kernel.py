@@ -3,49 +3,129 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attn.kernel import tma_ready
 
 _FN = {torch.bfloat16: "decode_attn_bf16", torch.float32: "decode_attn_f32"}
 MAX_D = 256
 TILE = 64              # cache slots per tile (a split is a multiple)
-# resident blocks per SM: a block holds a 3-stage ring of 32 KB K/V tiles
-# (96 KB of the SM's 227 KB of shared memory) and 288 threads (up to 4
-# q-heads at D <= 128, 2 at D 256; a block of more heads takes the
-# registers of two)
+# bf16, the tensor cores: the q-heads a block serves (the 16 rows of
+# mma.m16n8k16), and the blocks of 160 threads an SM holds of the
+# instantiation for D <= 64, 128 and 256 (48, 96 and 192 KB rings)
+MMA_HEADS = 16
+MMA_BLOCKS_PER_SM = {64: 4, 128: 2, 256: 1}
+# the most splits of each instantiation: the last block stages a head's
+# partials and the splits' (m, l) in its ring
+MMA_MAX_SPLITS = {64: 64, 128: 128, 256: 128}
+# the fewest slots a split of the tensor cores' route walks while the span
+# has them: below 4 tiles a block's set-up, its partial and the merge cost
+# more than the walk it saves (kernel_ab.py --breakdown's split sweep)
+MMA_MIN_CHUNK = 4 * TILE
+# where the (b, KV head, sub-group) blocks fill a quarter of the SMs or
+# more, the span is cut only so that no block walks more than
+# MMA_MAX_WALK bytes of K and V: at the served batches of 8 one split was
+# the fastest up to llama's 1.08 MB a block, two at h2o-danube's 1.31 MB
+# (kernel_ab.py --breakdown's split sweep on an H100, PERF.md §6)
+MMA_FILL = 4
+MMA_MAX_WALK = 1_200_000
+# float32, the CUDA cores: resident blocks per SM; a block holds a 3-stage
+# ring of 32 KB K/V tiles (96 KB of the SM's 227 KB of shared memory) and
+# 288 threads (up to 4 q-heads at D <= 128, 2 at D 256; a block of more
+# heads takes the registers of two)
 BLOCKS_PER_SM = 2
 
 
+class DecodePlan(NamedTuple):
+    """How ``decode_attention`` launches: ``route`` "mma" (bf16: the tensor
+    cores, a whole group of up to 16 q-heads a block) or "cuda_core"
+    (float32); ``heads`` q-heads a block, ``n_sub`` blocks (sub-groups) a
+    KV head's group takes, ``row_tiles`` 16-row mma tiles a block's heads
+    fill (0 on the CUDA cores), ``tile`` slots a tile, ``blocks_per_sm``
+    that the instantiation gets, and the span cut into ``n_splits`` chunks
+    of ``chunk`` slots."""
+    route: str
+    heads: int
+    n_sub: int
+    row_tiles: int
+    tile: int
+    blocks_per_sm: int
+    chunk: int
+    n_splits: int
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(dtype: torch.dtype, batch: int, hq: int, hk: int, d: int,
+                span: int, sms: int) -> DecodePlan:
+    """The launch of q [batch, hq, d] against caches of ``hk`` KV heads
+    whose longest attended span is ``span`` slots, on ``sms`` SMs.
+
+    bf16: one block per (b, KV head, split) serves the whole group (a
+    group above 16 in ceil(G / 16) sub-groups), and the span is cut so
+    that the blocks fill the card once at ``MMA_BLOCKS_PER_SM`` each
+    (``cut``), into splits of at least ``MMA_MIN_CHUNK`` slots and at most
+    ``MMA_MAX_SPLITS`` of them; where the blocks alone fill a
+    ``1 / MMA_FILL`` share of the SMs, into as few as keep a block's walk
+    within ``MMA_MAX_WALK`` bytes.  float32: ``sub_groups`` and
+    ``split_plan``."""
+    group = hq // hk
+    if dtype == torch.bfloat16:
+        n_sub = _cdiv(group, MMA_HEADS)
+        width = min(w for w in MMA_BLOCKS_PER_SM if d <= w)
+        bps = MMA_BLOCKS_PER_SM[width]
+        blocks = batch * hk * n_sub
+        most = min(MMA_MAX_SPLITS[width], _cdiv(max(span, 1), MMA_MIN_CHUNK))
+        if blocks * MMA_FILL >= sms:
+            most = min(most, _cdiv(max(span, 1) * d * 4, MMA_MAX_WALK))
+        chunk, n_splits = cut(blocks, span, bps * sms, most)
+        return DecodePlan("mma", _cdiv(group, n_sub), n_sub, 1, TILE, bps,
+                          chunk, n_splits)
+    n_sub = sub_groups(group, d)
+    chunk, n_splits = split_plan(batch, hk, span, sms, n_sub)
+    return DecodePlan("cuda_core", _cdiv(group, n_sub), n_sub, 0,
+                      32 * 128 // (128 if d <= 128 else 256), BLOCKS_PER_SM,
+                      chunk, n_splits)
+
+
+def cut(blocks: int, slots: int, resident: int,
+        most: int | None = None) -> tuple[int, int]:
+    """(chunk, n_splits): ``slots`` slots (at least 1) cut into n_splits
+    chunks of ``chunk`` slots (a multiple of TILE), at most ``most`` of
+    them, so that ``blocks`` blocks a split fit in the card's ``resident``
+    blocks at once, unless the blocks alone do not: a second wave would
+    stream its bytes after the first one's tail."""
+    slots = max(slots, 1)
+    want = min(max(1, resident // blocks), _cdiv(slots, TILE),
+               most or slots)
+    chunk = _cdiv(_cdiv(slots, want), TILE) * TILE
+    return chunk, _cdiv(slots, chunk)
+
+
 def max_heads(d: int) -> int:
-    """The most q-heads one block serves at head dim ``d``: its per-head
-    registers grow with d."""
+    """The most q-heads one block of the float32 route serves at head dim
+    ``d``: its per-head registers grow with d."""
     return 8 if d <= 128 else 4
 
 
 def sub_groups(group: int, d: int) -> int:
-    """The blocks each KV head's group of ``group`` q-heads is cut into at
-    head dim ``d``: ceil(group / n) heads each, at most ``max_heads(d)``
-    (recurrentgemma's group of 10 at D 256: 3, of 4, 4 and 2 heads)."""
+    """The blocks the float32 route cuts each KV head's group of ``group``
+    q-heads into at head dim ``d``: ceil(group / n) heads each, at most
+    ``max_heads(d)`` (a group of 10 at D 256: 3, of 4, 4 and 2 heads)."""
     return _cdiv(group, max_heads(d))
 
 
 def split_plan(batch: int, kv_heads: int, slots: int, sms: int,
                n_sub: int = 1) -> tuple[int, int]:
-    """(chunk, n_splits): the attended span of ``slots`` slots (``valid_len
-    - lo``, at least 1) is cut into n_splits chunks of ``chunk`` slots (a
-    multiple of TILE) so that the batch * kv_heads * n_sub * n_splits
-    blocks (``n_sub``: the sub-groups of each KV head's q-heads,
-    ``sub_groups``) fit on the card at once, BLOCKS_PER_SM on each SM: a
-    second wave of blocks would stream its bytes after the first one's
-    tail, and the last block of each (b, KV head, sub-group) merges the
-    splits."""
-    slots = max(slots, 1)
-    want = min(max(1, BLOCKS_PER_SM * sms // (batch * kv_heads * n_sub)),
-               _cdiv(slots, TILE))
-    chunk = _cdiv(_cdiv(slots, want), TILE) * TILE
-    return chunk, _cdiv(slots, chunk)
+    """The float32 route's (chunk, n_splits): the attended span of
+    ``slots`` slots (``valid_len - lo``, at least 1) cut so that the batch
+    * kv_heads * n_sub * n_splits blocks (``n_sub``: the sub-groups of
+    each KV head's q-heads, ``sub_groups``) fit on the card at once,
+    BLOCKS_PER_SM on each SM (``cut``); the last block of each (b, KV
+    head, sub-group) merges the splits."""
+    return cut(batch * kv_heads * n_sub, slots, BLOCKS_PER_SM * sms)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -58,17 +138,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      span: int | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors q [B, Hq, D] and caches
     [B, Hk, S, D] (Hq % Hk == 0, any group: KV heads are indexed, never
-    repeated; a group larger than ``max_heads(D)`` is served by
-    ``sub_groups`` blocks).  Row b attends to the slots [lo[b],
-    valid_len[b]), each an int32 [B] tensor on q's device (``lo`` None:
-    0).  ``span``, the longest ``valid_len - lo`` of any row as the
-    caller knows it (the serve path from its ints), is what
-    ``split_plan`` cuts, so the plan needs nothing from the card; None
-    plans over S.  A span shorter than a row's only makes that row's last
-    split longer.  Any strides with a contiguous last dimension; the
-    kernel copies cache rows 16 bytes at a time, so a cache whose base or
-    strides are not 16-byte aligned is first copied to a contiguous
-    tensor (the serve path's caches never are).  Returns [B, Hq, D].
+    repeated).  Row b attends to the slots [lo[b], valid_len[b]), each an
+    int32 [B] tensor on q's device (``lo`` None: 0).  ``span``, the
+    longest ``valid_len - lo`` of any row as the caller knows it (the
+    serve path from its ints), is what ``decode_plan`` cuts, so the plan
+    needs nothing from the card; None plans over S.  A span shorter than
+    a row's only makes that row's last split longer.  Any strides with a
+    contiguous last dimension; a cache the kernel's copies cannot read in
+    place (bf16: ``tma_ready``; float32: ``rows_aligned``) is first copied
+    to a contiguous tensor (the serve path's caches never are).  Returns
+    [B, Hq, D].
 
     One launch: the splits' last block merges them, found by an atomic
     ticket per (b, KV head, sub-group) in a per-device int32 buffer that
@@ -105,33 +184,65 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         if x.dtype != torch.int32 or tuple(x.shape) != (b,):
             raise ValueError(f"{name} must be int32 [{b}], got {x.dtype} "
                              f"{tuple(x.shape)}")
-    valid_len, lo = valid_len.contiguous(), lo.contiguous()
     if any(t.stride(-1) != 1 for t in (q, k_cache, v_cache)):
         raise ValueError("decode_attention needs a contiguous last dimension")
-    k_cache, v_cache = (c if rows_aligned(c) else c.clone(
-        memory_format=torch.contiguous_format) for c in (k_cache, v_cache))
-    dev = q.device
-    n_sub = sub_groups(hq // hk, d)
-    chunk, n_splits = split_plan(b, hk, s if span is None else min(span, s),
-                                 _sm_count(dev.index), n_sub)
-    out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
-    part_ml = torch.empty((2, b, hq, n_splits), dtype=torch.float32,
-                          device=dev)
-    part_acc = torch.empty((b, hq, n_splits, d), dtype=torch.float32,
-                           device=dev)
-    strides = (ctypes.c_int64 * 10)(*q.stride()[:2], *k_cache.stride()[:3],
-                                    *v_cache.stride()[:3], *out.stride()[:2])
+    if q.dtype == torch.bfloat16:
+        # the tensor maps read the caches, 16-byte loads q's rows
+        k_cache, v_cache = (c if tma_ready(c) else c.clone(
+            memory_format=torch.contiguous_format) for c in (k_cache,
+                                                             v_cache))
+        if q.data_ptr() % 16 or q.stride(0) % 8 or q.stride(1) % 8:
+            q = q.clone(memory_format=torch.contiguous_format)
+    else:
+        k_cache, v_cache = (c if rows_aligned(c) else c.clone(
+            memory_format=torch.contiguous_format) for c in (k_cache,
+                                                             v_cache))
+    plan = decode_plan(q.dtype, b, hq, hk, d,
+                       s if span is None else min(span, s),
+                       _sm_count(q.device.index))
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     name = _FN[q.dtype]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_build.library(), name)(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            valid_len.data_ptr(), lo.data_ptr(), out.data_ptr(),
-            part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-            part_acc.data_ptr(), tickets(dev, b * hk * n_sub).data_ptr(), b,
-            hq, hk, s, d, strides, chunk, n_splits, n_sub, stream)
+    with torch.cuda.device(q.device):
+        args, _scratch = launch_args(q, k_cache, v_cache,
+                                     valid_len.contiguous(), lo.contiguous(),
+                                     out, plan)
+        err = getattr(_build.library(), name)(*args)
     _build.check(err, name)
     return out
+
+
+def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                valid_len: torch.Tensor, lo: torch.Tensor, out: torch.Tensor,
+                plan: DecodePlan) -> tuple[tuple, torch.Tensor]:
+    """(the C entry point's arguments for checked operands, the splits'
+    float32 scratch they point into, which the caller keeps alive while
+    it launches): part_acc [B, Hq, n_splits, D], then part_m and part_l
+    [B, Hq, n_splits], in one allocation; the device's tickets, the
+    current stream."""
+    b, hq, d = q.shape
+    _, hk, s, _ = k.shape
+    rows = b * hq * plan.n_splits
+    scratch = torch.empty(rows * (d + 2), dtype=torch.float32,
+                          device=q.device)
+    acc = scratch.data_ptr()
+    strides = (ctypes.c_int64 * 10)(*q.stride()[:2], *k.stride()[:3],
+                                    *v.stride()[:3], *out.stride()[:2])
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
+            lo.data_ptr(), out.data_ptr(), acc + 4 * rows * d,
+            acc + 4 * rows * (d + 1), acc,
+            tickets(q.device, b * hk * plan.n_sub).data_ptr(), b, hq, hk, s,
+            d, strides, plan.chunk, plan.n_splits, plan.n_sub,
+            torch._C._cuda_getCurrentRawStream(q.device.index)), scratch
+
+
+def blocks_per_sm(d: int) -> int:
+    """The blocks of the bf16 kernel for head dim ``d`` that an SM of the
+    current card holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
+    what ``MMA_BLOCKS_PER_SM`` must say."""
+    n = ctypes.c_int(0)
+    _build.check(_build.library().decode_attn_bf16_blocks_per_sm(
+        d, ctypes.byref(n)), "decode_attn_bf16_blocks_per_sm")
+    return n.value
 
 
 def rows_aligned(cache: torch.Tensor) -> bool:

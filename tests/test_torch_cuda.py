@@ -220,15 +220,16 @@ def test_cuda_decode_attention_matches_plain_version(hopper):
 @pytest.mark.gpu
 def test_cuda_decode_attention_one_split_and_repeatable(hopper):
     """Enough (b, KV head) pairs to fill the card give one split, whose
-    block is also the last one; back-to-back calls are bit-identical, so
-    each call left the ticket counter zeroed for the next."""
+    block writes the output itself; back-to-back calls are bit-identical,
+    so no call left a ticket counter set for the next."""
     from repro_torch.kernels.decode_attn.kernel import (_sm_count,
                                                         decode_attention,
-                                                        split_plan)
+                                                        decode_plan)
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     g = torch.Generator(device="cpu").manual_seed(6)
     b, hk, s, d = 2 * _sm_count(hopper.index), 1, 700, 128
-    assert split_plan(b, hk, s, _sm_count(hopper.index))[1] == 1
+    assert decode_plan(torch.bfloat16, b, 3, hk, d, s,
+                       _sm_count(hopper.index)).n_splits == 1
     q = torch.randn((b, 3, d), generator=g).to(hopper, torch.bfloat16)
     k, v = (torch.randn((b, hk, s, d), generator=g).to(hopper, torch.bfloat16)
             for _ in range(2))
@@ -461,22 +462,41 @@ def test_cuda_flash_head_dim_256_matches_plain_version(hopper):
 
 @pytest.mark.gpu
 def test_cuda_decode_groups_and_head_dim_256_match_plain_version(hopper):
-    """Groups of 1, 5, 10 and 16 q-heads per KV head at head dim 128 and
-    256 (sub-groups of at most 8 and 4 heads), with and without a first
-    slot; back-to-back calls are bit-identical (every sub-group's ticket
-    was left zeroed)."""
-    from repro_torch.kernels.decode_attn.kernel import decode_attention
+    """Groups of 1, 5, 6, 10, 16 and 17 q-heads per KV head at head dim
+    128 and 256 (float32: sub-groups of at most 8 and 4 heads; bf16: the
+    whole group of up to 16 a block on the tensor cores), with and without
+    a first slot; bf16 also at D 64 and 80, a batch of one over a
+    4,096-slot span, a span off the tile, an empty span, valid_len 0, a
+    [B, S, Hk, D] view and a cache that must be copied.  Every bf16 call
+    is planned on the "mma" route, every float32 one on "cuda_core" (the
+    bf16 entry point holds only the tensor cores' kernel); back-to-back
+    calls are bit-identical (every ticket was left zeroed)."""
+    from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     n = 0
     for label, name, q, k, v, vl, lo in \
             _smoke().decode_group_cases(torch, hopper):
-        got = decode_attention(q, k, v, vl, lo)
+        route = "mma" if name == "bfloat16" else "cuda_core"
+        assert _smoke().decode_case_plan(dk, q, k).route == route, label
+        got = dk.decode_attention(q, k, v, vl, lo)
         want = decode_attention_ref(q, k, v, vl, 0 if lo is None else lo)
         _smoke().attn_err(torch, got, want, name, label)
-        assert torch.equal(decode_attention(q, k, v, vl, lo), got), label
+        assert torch.equal(dk.decode_attention(q, k, v, vl, lo), got), label
         n += 1
     assert n > 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_decode_blocks_per_sm_as_planned(hopper):
+    """The bf16 plan's blocks an SM are what the card gives each
+    instantiation (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), so
+    no plan makes a wave it did not count."""
+    from repro_torch.kernels.decode_attn.kernel import (MMA_BLOCKS_PER_SM,
+                                                        blocks_per_sm)
+    for md, planned in MMA_BLOCKS_PER_SM.items():
+        for d in (md // 2 + 16, md):
+            assert blocks_per_sm(d) == planned, d
 
 
 @pytest.mark.gpu

@@ -13,7 +13,9 @@ from hypothesis import strategies as st  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn.kernel import (  # noqa: E402
-    BLOCKS_PER_SM, TILE, max_heads, rows_aligned, split_plan, sub_groups)
+    BLOCKS_PER_SM, MMA_BLOCKS_PER_SM, MMA_FILL, MMA_HEADS, MMA_MAX_SPLITS,
+    MMA_MAX_WALK, MMA_MIN_CHUNK, TILE, decode_plan, max_heads, rows_aligned,
+    split_plan, sub_groups)
 from repro_torch.kernels.flash_attn.kernel import tma_ready  # noqa: E402
 from repro_torch.kernels.sorted_probe.kernel import (  # noqa: E402
     INDEXED_QUERIES, THREADS, probe_blocks, probe_plan)
@@ -106,6 +108,112 @@ def test_sub_groups_cover_the_group(group, d):
     assert served == list(range(group))
     assert (sub_groups(10, 256), sub_groups(10, 128), sub_groups(8, 128),
             sub_groups(16, 256), sub_groups(1, 256)) == (3, 2, 1, 4, 1)
+
+
+# (label, batch, q-heads, KV heads, head dim, slots attended): each served
+# model's decode step as chip_smoke.py phases 5, 7, 8 and 9 serve it, the
+# decode cells of phase 11 (c), and the ranks' shapes of phases 13 (b),
+# 14 (b) and 16 (b)
+DECODE_SHAPES = (
+    ("llama3.2-3b", 8, 24, 8, 128, 2113),
+    ("h2o-danube-1.8b, window 4,096", 8, 32, 8, 80, 4096),
+    ("mixtral-8x7b", 8, 32, 8, 128, 2113),
+    ("llama4-maverick, chunk 8,192", 2, 40, 8, 128, 2112),
+    ("internvl2-26b", 8, 48, 8, 128, 2112),
+    ("whisper-medium self", 8, 16, 16, 64, 448),
+    ("whisper-medium cross", 8, 16, 16, 64, 1500),
+    ("recurrentgemma-2b, window 2,048", 8, 10, 1, 256, 2048),
+    ("h2o-danube-1.8b decode_32k", 128, 32, 8, 80, 4096),
+    ("h2o-danube-1.8b long_500k", 1, 32, 8, 80, 4096),
+    ("recurrentgemma-2b decode_32k", 128, 10, 1, 256, 2048),
+    ("recurrentgemma-2b long_500k", 1, 10, 1, 256, 2048),
+    ("mixtral-8x7b on a rank", 8, 32, 8, 128, 514),
+    ("llama3.2-3b on a rank", 4, 6, 2, 128, 516),
+    ("whisper-medium cross on a rank", 4, 4, 4, 64, 1500),
+    ("recurrentgemma-2b on a rank", 4, 3, 1, 256, 514),
+)
+
+
+@pytest.mark.parametrize("label,batch,hq,hk,d,span", DECODE_SHAPES,
+                         ids=[c[0] for c in DECODE_SHAPES])
+def test_decode_plan_at_the_served_shapes(label, batch, hq, hk, d, span):
+    """bf16 takes the tensor cores with one block per (b, KV head, split)
+    serving the whole group, at the blocks an SM that its instantiation
+    gets (``test_torch_cuda`` holds them to the card's occupancy), and no
+    shape plans a second wave of blocks."""
+    sms = 132
+    plan = decode_plan(torch.bfloat16, batch, hq, hk, d, span, sms)
+    width = 64 if d <= 64 else 128 if d <= 128 else 256
+    assert plan.route == "mma" and plan.row_tiles == 1
+    assert (plan.heads, plan.n_sub) == (hq // hk, 1)
+    assert plan.blocks_per_sm == MMA_BLOCKS_PER_SM[width]
+    assert plan.chunk % TILE == 0 and plan.n_splits * plan.chunk >= span
+    assert plan.n_splits <= MMA_MAX_SPLITS[width]
+    blocks = batch * hk * plan.n_sub
+    assert blocks * plan.n_splits <= max(plan.blocks_per_sm * sms, blocks)
+
+
+def test_decode_plan_cuts_at_the_serve_and_cell_shapes():
+    # llama's 64 (b, KV head) pairs fill half the card: one split, each
+    # block walking 1.08 MB; h2o-danube's 1.31 MB a block: two splits
+    assert decode_plan(torch.bfloat16, 8, 24, 8, 128, 2113,
+                       132)[-2:] == (2176, 1)
+    assert decode_plan(torch.bfloat16, 8, 32, 8, 80, 4096,
+                       132)[-2:] == (2048, 2)
+    # a rank's 8 pairs of llama over 516 slots: splits of 4 tiles
+    assert decode_plan(torch.bfloat16, 4, 6, 2, 128, 516,
+                       132)[-2:] == (192, 3)
+    # recurrentgemma's whole group of 10 at D 256, one block an SM: a
+    # batch of 8 in splits of 4 tiles, a batch of one likewise, a batch of
+    # 128 in one split (the old route cut it into 3 sub-groups)
+    assert decode_plan(torch.bfloat16, 8, 10, 1, 256, 2048,
+                       132)[-2:] == (256, 8)
+    assert decode_plan(torch.bfloat16, 1, 10, 1, 256, 2048,
+                       132)[-2:] == (256, 8)
+    assert decode_plan(torch.bfloat16, 128, 10, 1, 256, 2048,
+                       132)[-2:] == (2048, 1)
+    # h2o-danube's batch of one: 8 KV heads x 16 splits of 256 slots
+    assert decode_plan(torch.bfloat16, 1, 32, 8, 80, 4096,
+                       132)[-2:] == (256, 16)
+
+
+@settings(max_examples=300, deadline=None)
+@given(batch=st.integers(1, 64), hk=st.integers(1, 16),
+       group=st.integers(1, 40), d=st.sampled_from([16, 64, 80, 128, 256]),
+       span=st.integers(1, 40_000), sms=st.integers(1, 200))
+def test_decode_plan_cuts_the_span_once(batch, hk, group, d, span, sms):
+    """Any bf16 shape: a group of up to 16 a block, above that ceil(G /
+    16) sub-groups of at most 16, none empty; splits of whole tiles that
+    cover the span, of at least MMA_MIN_CHUNK slots where the span has
+    them, at most MMA_MAX_SPLITS, one wave unless the (b, KV head,
+    sub-group) blocks alone are more."""
+    plan = decode_plan(torch.bfloat16, batch, hk * group, hk, d, span, sms)
+    width = 64 if d <= 64 else 128 if d <= 128 else 256
+    assert plan.n_sub == -(-group // MMA_HEADS)
+    assert plan.heads <= MMA_HEADS and (plan.n_sub - 1) * plan.heads < group
+    assert plan.chunk % TILE == 0 and plan.n_splits * plan.chunk >= span
+    assert (plan.n_splits - 1) * plan.chunk < span
+    assert plan.n_splits == 1 or plan.chunk >= MMA_MIN_CHUNK
+    if batch * hk * plan.n_sub * MMA_FILL >= sms and plan.n_splits > 1:
+        # a card the blocks fill: no split shorter than a walk needs
+        assert (plan.n_splits - 1) * MMA_MAX_WALK < span * d * 4
+    assert 1 <= plan.n_splits <= MMA_MAX_SPLITS[width]
+    blocks = batch * hk * plan.n_sub
+    assert blocks * plan.n_splits <= max(plan.blocks_per_sm * sms, blocks)
+
+
+@pytest.mark.parametrize("group", [1, 3, 5, 10, 16, 17, 40])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_decode_plan_float32_keeps_its_sub_groups(group, d):
+    """float32 stays on the CUDA cores, cut into ``sub_groups`` and
+    ``split_plan`` as before."""
+    plan = decode_plan(torch.float32, 8, 2 * group, 2, d, 2113, 132)
+    n_sub = sub_groups(group, d)
+    assert (plan.route, plan.n_sub, plan.row_tiles) == ("cuda_core", n_sub,
+                                                         0)
+    assert (plan.chunk, plan.n_splits) == split_plan(8, 2, 2113, 132, n_sub)
+    assert plan.heads == -(-group // n_sub) <= max_heads(d)
+    assert plan.blocks_per_sm == BLOCKS_PER_SM
 
 
 def _bf16(*shape):
